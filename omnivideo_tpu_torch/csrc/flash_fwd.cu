@@ -1,0 +1,297 @@
+// Inference flash-attention forward, CUDA C++ for sm_90a (bf16 in, bf16 out).
+//
+// Replaces the TPU kernel omnivideo_tpu/ops/pallas/flash_attention.py::
+// _fa_kernel as driven by _flash_fwd_unpadded (pallas_call at :328, reached
+// through flash_attention_infer :582): online softmax in the exp2 domain with
+// scale·log2(e) folded into q (q rounded to bf16 after the scaling, as at
+// :100); kv_lens masking with the out-of-range V rows zeroed and wholly dead
+// KV tiles skipped; fully masked rows give 0; and the bounded softmax: when
+// the device flag `safe` is set, p = exp2(s − mb[b, h]) with the per-(b, h)
+// Cauchy–Schwarz bound mb and no running max or rescale; otherwise the usual
+// max-tracked form. The flag and the bound are computed on the device by the
+// wrapper, so choosing the mode costs no host sync.
+//
+// Layout: q/k/v/o are read and written in place as packed [B, L, N·D] — the
+// layout the projection GEMMs produce — with D = 128.
+//
+// Bound on the H100: operations, 4·B·N·Lq·Lk·D FLOPs on the bf16 tensor
+// cores (989 TFLOP/s): self-attention at B=2, N=12, L=32,760 is 13.2 TFLOP,
+// 13.3 ms. Design (simple first, FA2-style): grid (Lq/64, N, B), 4 warps per
+// block, each warp owns 16 q rows whose bf16 fragments stay in registers;
+// K/V tiles of 64 rows are staged in shared memory (XOR-swizzled rows so
+// ldmatrix is conflict-free), double-buffered with cp.async so the next
+// tile's load overlaps this tile's math; mma.sync.m16n8k16 bf16 with f32
+// accumulation for both S = q·kᵀ and O += bf16(p)·v. wgmma/TMA and warp
+// specialisation are left for a later change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 128;
+constexpr int BQ = 64;  // q rows per block (4 warps x 16)
+constexpr int BK = 64;  // kv rows per tile
+constexpr int kThreads = 128;
+constexpr int kChunks = D / 8;  // 16-byte chunks per row
+constexpr float kNegInf = -1e30f;
+constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * (BQ + 4 * BK) * D;
+
+// element offset of 16-byte chunk `chunk` of tile row `row`, XOR-swizzled
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;  // 0 bytes read -> the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a·b, m16n8k16, bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Stage rows [row0, row0+64) of one head of a packed [L, ld] tensor into a
+// swizzled [64, D] tile; rows >= nvalid are zero-filled and never read.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
+                                          int row0, int nvalid, int ld) {
+  for (int i = threadIdx.x; i < BK * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < nvalid;
+    const __nv_bfloat16* src = ok ? g + static_cast<size_t>(row0 + r) * ld + c * 8 : g;
+    cp_async16(s + swz(r, c), src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 const int* __restrict__ kv_lens, const int* __restrict__ mbound,
+                 const int* __restrict__ safe, int Lq, int Lk, int N, float qscale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + BQ * D;      // 2 stages
+  __nv_bfloat16* sV = sK + 2 * BK * D;  // 2 stages
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ld = N * D;
+  int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
+  kv_len = min(max(kv_len, 0), Lk);
+  const bool bounded = safe != nullptr && *safe != 0;
+  const float mb = bounded ? static_cast<float>(mbound[b * N + h]) : 0.f;
+
+  const size_t head_off = static_cast<size_t>(h) * D;
+  const __nv_bfloat16* qg = q + static_cast<size_t>(b) * Lq * ld + head_off;
+  const __nv_bfloat16* kg = k + static_cast<size_t>(b) * Lk * ld + head_off;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(b) * Lk * ld + head_off;
+  const int q0 = blockIdx.x * BQ;
+  const int n_tiles = (kv_len + BK - 1) / BK;
+
+  load_tile(sQ, qg + static_cast<size_t>(q0) * ld, 0, Lq - q0, ld);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile(sK, kg, 0, kv_len, ld);
+    load_tile(sV, vg, 0, kv_len, ld);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // the q tile has landed
+  __syncthreads();
+
+  // q fragments (A operand, 16 rows x 128) in registers, pre-scaled by
+  // scale·log2(e) in f32 and rounded back to bf16
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    ldmatrix_x4(qf[kk], sQ + swz(warp * 16 + (lane % 16), kk * 2 + lane / 16));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 t = *reinterpret_cast<__nv_bfloat162*>(&qf[kk][i]);
+      float2 f = __bfloat1622float2(t);
+      qf[kk][i] = pack_bf16(__fmul_rn(f.x, qscale), __fmul_rn(f.y, qscale));
+    }
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};  // running max of rows lane/4 and lane/4+8
+  float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile(sK + (st ^ 1) * BK * D, kg, (j + 1) * BK, kv_len, ld);
+      load_tile(sV + (st ^ 1) * BK * D, vg, (j + 1) * BK, kv_len, ld);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed; tile j+1 may be in flight
+    __syncthreads();
+    const __nv_bfloat16* cK = sK + st * BK * D;
+    const __nv_bfloat16* cV = sV + st * BK * D;
+
+    // S = q·kᵀ for this warp's 16 rows x 64 kv columns
+    float s[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, cK + swz(np * 16 + (lane / 16) * 8 + (lane % 8),
+                                 kk * 2 + ((lane / 8) & 1)));
+        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    const int kv0 = j * BK;
+    if (kv0 + BK > kv_len) {  // boundary tile: mask columns >= kv_len
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kv0 + nb * 8 + (lane % 4) * 2 + (e & 1) >= kv_len) s[nb][e] = kNegInf;
+    }
+
+    if (bounded) {
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[nb][e] - mb);
+          l_r[e >> 1] += p;
+          s[nb][e] = p;
+        }
+    } else {
+      float mc[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], s[nb][e]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
+        mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
+        const float m_new = fmaxf(m_r[r], mc[r]);
+        alpha[r] = exp2f(m_r[r] - m_new);
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[nb][e] - m_r[e >> 1]);
+          l_r[e >> 1] += p;
+          s[nb][e] = p;
+        }
+    }
+
+    // O += bf16(p)·v; the S accumulator layout is the A operand layout
+#pragma unroll
+    for (int kj = 0; kj < BK / 16; ++kj) {
+      uint32_t a[4] = {pack_bf16(s[2 * kj][0], s[2 * kj][1]),
+                       pack_bf16(s[2 * kj][2], s[2 * kj][3]),
+                       pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
+                       pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, cV + swz(kj * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                       dp * 2 + (lane >> 4)));
+        mma_bf16(acc[2 * dp], a, vb[0], vb[1]);
+        mma_bf16(acc[2 * dp + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    denom[r] = l == 0.f ? 1.f : l;  // fully masked rows -> 0
+  }
+  const int r0 = q0 + warp * 16 + lane / 4;
+  __nv_bfloat16* og = o + static_cast<size_t>(b) * Lq * ld + head_off + (lane % 4) * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r * 8;
+    if (row >= Lq) continue;
+    __nv_bfloat16* orow = og + static_cast<size_t>(row) * ld;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) = __floats2bfloat162_rn(
+          __fdiv_rn(acc[i][2 * r], denom[r]), __fdiv_rn(acc[i][2 * r + 1], denom[r]));
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                                const void* kv_lens, const void* mbound, const void* safe,
+                                int B, int Lq, int Lk, int N, float qscale, void* stream) {
+  // set on every call: the attribute is per device, and the call is cheap
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Lq + BQ - 1) / BQ, N, B);
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(mbound),
+      static_cast<const int*>(safe), Lq, Lk, N, qscale);
+  return static_cast<int>(cudaGetLastError());
+}

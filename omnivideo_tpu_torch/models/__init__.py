@@ -1,0 +1,6 @@
+from .unified import build_mixed_context, init_unified_companions, null_ar_vision
+from .vae2_1 import Wan21VAE, init_vae, vae_decode
+from .wan_dit import WanDiT
+
+__all__ = ["build_mixed_context", "init_unified_companions", "null_ar_vision",
+           "Wan21VAE", "init_vae", "vae_decode", "WanDiT"]

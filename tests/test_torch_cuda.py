@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels have
+no CPU mode). The file imports neither jax nor omnivideo_tpu, so on a GPU
+machine without JAX it runs on its own, skipping the JAX-bound conftest:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances: flash outputs within 4 bf16 ulps of the plain output's largest
+magnitude (p is rounded to bf16 before p·v at points that differ with the
+mode; each output is a mean over Lk keys, so |o| shrinks like sqrt(e/Lk) and
+the limit scales with it rather than being absolute). qk_prep outputs
+≤ 4 bf16 ulps of each RoPE pair's magnitude and < 0.1% of elements differing
+at all (the f32 rs differs in its last bits with the summation order, which
+can flip the bf16 roundings before the rotation); its row-norm bound 1e-4
+relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from omnivideo_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    softmax_bound,
+)
+from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain
+from omnivideo_tpu_torch.ops.rope import rope_3d_tables
+
+pytestmark = pytest.mark.cuda
+
+FLASH_ULPS = 4.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-126))) - 7)
+
+
+def _assert_flash_close(out, ref):
+    ref_max = ref.float().abs().max()
+    err = float((out.float() - ref.float()).abs().max())
+    limit = FLASH_ULPS * float(_bf16_ulp(ref_max))
+    assert err <= limit, f"max |out − ref| {err} > {limit} (max |ref| {float(ref_max)})"
+
+
+def _pair_ulps(y, ref):
+    """|y − ref| in bf16 ulps of each RoPE pair's magnitude."""
+    r = ref.float().unflatten(-1, (-1, 2)).square().sum(-1).sqrt().repeat_interleave(2, -1)
+    return (y.float() - ref.float()).abs() / _bf16_ulp(r)
+
+
+@pytest.mark.parametrize("L,rope", [(4096, True), (1000, False), (5000, True)])
+def test_qk_prep_kernel_matches_plain(cuda, L, rope):
+    """L=5000 runs past the 4320-row RoPE table: the tail is unrotated."""
+    B, N, hd = 2, 12, 128
+    gen = torch.Generator(device=cuda).manual_seed(L)
+    x = (torch.randn(B, L, N * hd, generator=gen, device=cuda) * 3).bfloat16()
+    g = 1.0 + 0.1 * torch.randn(N * hd, generator=gen, device=cuda)
+    cos, sin = (torch.tensor(t, device=cuda) for t in rope_3d_tables((4, 30, 36), hd))
+    c, s = (cos, sin) if rope else (None, None)
+    n0 = qk_prep.launches
+    y, rn = qk_prep(x, g, c, s, N, 1e-6)
+    assert qk_prep.launches == n0 + 1
+    assert y.shape == (B, L, N, hd) and y.dtype == torch.bfloat16
+    yp, rnp = qk_prep_plain(x, g, c, s, N, 1e-6)
+    assert float(_pair_ulps(y, yp).max()) <= 4.0
+    assert float((y != yp).float().mean()) < 1e-3
+    torch.testing.assert_close(rn, rnp, rtol=1e-4, atol=0)
+
+
+def test_qk_prep_kernel_rejects_f32(cuda):
+    x = torch.zeros(1, 8, 256, device=cuda)
+    with pytest.raises(ValueError):
+        qk_prep(x, torch.ones(256, device=cuda), None, None, 2)
+
+
+def _qkv(B, Lq, Lk, N, D, seed, scale, device):
+    rng = np.random.default_rng(seed)
+
+    def normed(L):
+        t = rng.standard_normal((B, L, N, D)).astype(np.float32)
+        return t / np.sqrt((t**2).mean(-1, keepdims=True)) * scale
+
+    v = rng.standard_normal((B, Lk, N, D)).astype(np.float32)
+    return (torch.tensor(a, device=device).bfloat16() for a in (normed(Lq), normed(Lk), v))
+
+
+@pytest.mark.parametrize("Lq,Lk,scale,lens", [
+    (1000, 1000, 1.0, None),       # bounded self-attention, ragged tiles
+    (1000, 512, 1.0, None),        # bounded cross-attention
+    (512, 700, 4.0, None),         # guard fails: max-tracked
+    (300, 700, 1.0, [433, 0]),     # kv_lens, one fully masked row
+])
+def test_flash_kernel_matches_plain(cuda, Lq, Lk, scale, lens):
+    B, N, D = 2, 12, 128
+    q, k, v = _qkv(B, Lq, Lk, N, D, Lq + Lk, scale, cuda)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mb, safe = softmax_bound(q, k, D**-0.5)
+    assert bool(safe) == (scale == 1.0)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, kv_lens=kv, assume_normalized=True)
+    tracked = flash_attention(q, k, v, kv_lens=kv, assume_normalized=False)
+    assert flash_attention.launches == n0 + 2
+    ref = flash_attention_plain(q, k, v, kv, None, mb, safe)
+    _assert_flash_close(out, ref)
+    _assert_flash_close(tracked, ref)
+    _assert_flash_close(tracked, out)
+    if lens is not None:
+        assert (out[1] == 0).all() and (tracked[1] == 0).all()
+
+
+def test_flash_kernel_rejects_other_head_dims(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)

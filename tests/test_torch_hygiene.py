@@ -1,0 +1,86 @@
+"""Import and device hygiene of the port (omnivideo_tpu_torch).
+
+- importing it and running a tiny CPU forward loads neither jax nor
+  omnivideo_tpu;
+- no module of it imports them, calls a library attention or
+  torch.compile (AST scan);
+- its entry points default to CUDA and raise without a CUDA device unless
+  the caller asks for the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+PKG = Path(__file__).resolve().parents[1] / "omnivideo_tpu_torch"
+FORBIDDEN_MODULES = ("jax", "jaxlib", "omnivideo_tpu")
+FORBIDDEN_CALLS = ("scaled_dot_product_attention", "compile", "flash_attn",
+                   "cudnn_attention", "_scaled_dot_product_flash_attention",
+                   "_scaled_dot_product_cudnn_attention", "load_inline")
+
+
+def test_import_and_forward_load_no_jax():
+    code = (
+        "import sys, torch\n"
+        "from omnivideo_tpu_torch.configs.base import WanDiTConfig\n"
+        "from omnivideo_tpu_torch.models.wan_dit import WanDiT\n"
+        "cfg = WanDiTConfig(in_dim=4, dim=256, ffn_dim=256, freq_dim=32, text_dim=32,"
+        " out_dim=4, num_heads=2, num_layers=1)\n"
+        "m = WanDiT(cfg, dtype=torch.float32, device='cpu')\n"
+        "with torch.inference_mode():\n"
+        "    y = m(torch.zeros(1, 4, 1, 4, 4), torch.tensor([5.0]), torch.zeros(1, 3, 32))\n"
+        "assert y.shape == (1, 4, 1, 4, 4)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'omnivideo_tpu')]\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+
+
+def _py_files():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    return files
+
+
+@pytest.mark.parametrize("path", _py_files(), ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_import_or_library_attention(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                assert alias.name.split(".")[0] not in FORBIDDEN_MODULES, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert (node.module or "").split(".")[0] not in FORBIDDEN_MODULES, node.module
+        elif isinstance(node, ast.Attribute):
+            assert node.attr not in FORBIDDEN_CALLS, f"{path}: .{node.attr}"
+        elif isinstance(node, ast.Name):
+            assert node.id not in FORBIDDEN_CALLS, f"{path}: {node.id}"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.device import resolve_device
+    from omnivideo_tpu_torch.models.vae2_1 import init_vae
+    from omnivideo_tpu_torch.models.wan_dit import WanDiT
+    from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dit = WanDiTConfig(in_dim=4, dim=256, ffn_dim=256, freq_dim=32, text_dim=32,
+                       out_dim=4, num_heads=2, num_layers=1)
+    cfg = PipelineConfig(dit=dit, vae=VAEConfig(dim=8, z_dim=4), vlm_in_dim=8,
+                         max_context_len=8)
+    for build in (lambda: WanDiT(dit), lambda: init_vae(cfg.vae),
+                  lambda: OmniVideoX2XUnified.random_init(cfg),
+                  lambda: resolve_device(None), lambda: resolve_device("cuda:0")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert resolve_device("cpu") == torch.device("cpu")
+    pipe = OmniVideoX2XUnified.random_init(cfg, device="cpu")
+    assert pipe.device == torch.device("cpu")
