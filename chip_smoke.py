@@ -6,35 +6,71 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py profile    # device time by kernel class, one DiT forward
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
-  device   card name and power limit, torch/CUDA versions, precision
-           switches, kernel build time and nvcc's register/spill report;
-  qk_prep  the qk_prep CUDA kernel against qk_prep_plain on the card at the
-           T2V-1.3B shapes (RoPE self-attention q/k, norm-only context k, a
-           sequence longer than the RoPE table);
-  flash    the flash CUDA kernel against the q-chunked flash_attention_plain
-           (bounded self- and cross-attention, a forced max-tracked case, a
-           ragged kv_lens case with one fully masked batch row), with
-           scaled_dot_product_attention timed beside it as a yardstick only;
-  tiny     a small generate() on the card (kernels) against the same
-           weights and noise on the CPU (plain versions);
-  e2e      OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
-           832x480, 81 frames, 2 UniPC steps, CFG 5.0, VAE decode to uint8,
-           with the kernels' launch counts asserted.
+  device    card name and power limit, torch/CUDA versions, precision
+            switches, kernel build time and nvcc's register/spill report;
+  qk_prep   the qk_prep CUDA kernel against qk_prep_plain on the card at the
+            T2V-1.3B shapes (RoPE self-attention q/k, norm-only context k, a
+            sequence longer than the RoPE table);
+  flash     the flash CUDA kernel against the q-chunked flash_attention_plain
+            at the DiT's shapes (bounded self- and cross-attention, a forced
+            max-tracked case, a ragged kv_lens case with one fully masked
+            batch row), the Qwen3 prefill's (causal, head dim 128, with and
+            without kv_lens) and the vision tower's (head dim 72: bounded,
+            forced max-tracked, kv_lens), each output row held to its own
+            scale, with scaled_dot_product_attention timed beside it as a
+            yardstick only;
+  tiny      a small generate() on the card (kernels) against the same
+            weights and noise on the CPU (plain versions);
+  tiny_vlm  a small Qwen3-VL (vision head dim 72, text head dim 128) on the
+            card against the same weights on the CPU: features and greedy
+            tokens with every token routed to all experts, and features at
+            top-2 of 8 experts with the CPU's routing replayed on the card;
+  vlm       Qwen3-VL-30B-A3B at full width and depth from seeded random
+            weights (~62 GB bf16, on the card): 6 seeded 832x480 frames →
+            frames_to_patches (grid 3x30x52, 1,170 visual tokens), synthetic
+            ids (L ~ 1.5k), the feature forward, a 16-token greedy decode,
+            launch counts asserted, the top-8-of-128 grouped MoE of layer 0
+            against its all-experts oracle, and a profile of one feature
+            forward; the model is freed before the e2e phase;
+  e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
+            832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
+            vlm phase's features (ar_vision_input), VAE decode to uint8, with
+            the kernels' launch counts asserted.
 The line before the last is the kernel summary; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from omnivideo_tpu_torch.configs.base import T2V_1_3B, PipelineConfig, VAEConfig, WanDiTConfig
+from omnivideo_tpu_torch.configs.qwen3vl import (
+    QWEN3_VL_30B_A3B,
+    Qwen3TextConfig,
+    Qwen3VLConfig,
+    Qwen3VLVisionConfig,
+)
+from omnivideo_tpu_torch.models.qwen3vl import full_model as vlm_full
+from omnivideo_tpu_torch.models.qwen3vl import text_model as vlm_text
+from omnivideo_tpu_torch.models.qwen3vl.engine import extract_features
+from omnivideo_tpu_torch.models.qwen3vl.full_model import (
+    Qwen3VLModel,
+    qwen3vl_forward,
+    qwen3vl_greedy_decode,
+)
+from omnivideo_tpu_torch.models.qwen3vl.media import smart_resize
+from omnivideo_tpu_torch.models.qwen3vl.preprocess import frames_to_patches, video_prompt_ids
 from omnivideo_tpu_torch.ops import _kernels
+from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 from omnivideo_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -47,9 +83,13 @@ from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 F32_FLOPS = 67e12  # f32 outside the tensor cores
-FLASH_ULPS = 4.0  # |o − o_plain| in bf16 ulps of max|o_plain|: p is rounded to
-# bf16 before p·v at points that differ with the mode; the outputs are means
-# over Lk keys (|o| ~ sqrt(e/Lk)), so the limit scales with them
+FLASH_ULPS = 4.0  # |o − o_plain| in bf16 ulps of its row's max|o_plain|: p is
+# rounded to bf16 before p·v at points that differ with the mode; an output
+# row is a mean over the keys it sees (|o| ~ sqrt(e/keys)), so the limit
+# scales with each row: under the causal mask row 0 is a raw v row and row r
+# is ~sqrt(e/(r+1)), so a limit from the global max would miss later rows
+MOE_TOL = 2e-2  # grouped vs all-experts MoE, of scale: bf16 products, and the
+# grouped form sums each token's k weighted expert outputs in bf16
 RN_TOL = 1e-4  # rel, row-norm bound: f32 sums in another order
 QK_PAIR_ULPS = 4.0  # two bf16 roundings before the rotation, one after (pair_ulps)
 QK_MISMATCH = 1e-3  # share of y elements allowed to differ at all
@@ -58,6 +98,11 @@ FRAMES = 81
 SIZE = (832, 480)
 GRID = (21, 30, 52)  # latent grid of 832x480x81 after the (1, 2, 2) patch
 SEQ = 21 * 30 * 52  # 32,760
+VLM_FRAMES = 6  # the reference's video_nframes for the VLM stage
+VLM_GRID = (3, 30, 52)  # 6 frames at 832x480 after the (2, 16, 16) patch
+VLM_NEW_TOKENS = 16  # the reference decodes up to 512; only the loop is cut
+SYSTEM_PREFIX = 31  # synthetic system-prompt prefix, dropped from the features
+D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
 
 
 def emit(obj) -> None:
@@ -82,6 +127,11 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |v| (8 significant bits)."""
     e = torch.floor(torch.log2(v.abs().clamp_min(2.0**-126)))
     return torch.exp2(e - 7)
+
+
+def row_ulps(o: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|o − ref| in bf16 ulps of each [.., D] row's max |ref|."""
+    return (o.float() - ref.float()).abs() / bf16_ulp(ref.float().abs().amax(-1, keepdim=True))
 
 
 def pair_ulps(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -162,65 +212,101 @@ def _normed(B, L, N, D, gen, scale=1.0):
     return (t * scale).to(torch.bfloat16)
 
 
+def _flash_case(name, q, k, v, kv, normalized, causal, forced, reps):
+    """One flash case: kernel vs plain (and, for the bounded cases, the
+    max-tracked kernel), SDPA timed as a yardstick; returns the record."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    scale = D**-0.5
+    mb = safe = None
+    bounded = False
+    if normalized:
+        mb, safe = softmax_bound(q, k, scale)
+        bounded = bool(safe.item())
+    o = flash_attention(q, k, v, kv_lens=kv, assume_normalized=normalized, causal=causal)
+    op = flash_attention_plain(q, k, v, kv, scale, mb, safe, causal)
+    o_max = flash_attention(q, k, v, kv_lens=kv, causal=causal) if normalized else o
+    torch.cuda.synchronize()
+    err = float((o.float() - op.float()).abs().max())
+    ulps = float(row_ulps(o, op).max())
+    ulps_modes = float(row_ulps(o_max, op).max())
+    ref_max = float(op.float().abs().max())
+    lens = kv.tolist() if kv is not None else None
+    zero_ok = True
+    if lens and 0 in lens:
+        zero_ok = bool((o[lens.index(0)] == 0).all() and (o_max[lens.index(0)] == 0).all())
+    if normalized and forced == bounded:
+        raise AssertionError(f"flash {name}: guard chose bounded={bounded}, expected {not forced}")
+    if ulps > FLASH_ULPS or ulps_modes > FLASH_ULPS or not zero_ok:
+        raise AssertionError(f"flash {name}: {ulps} row ulps, max-tracked {ulps_modes} "
+                             f"(limit {FLASH_ULPS}), zero rows ok {zero_ok}")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, kv_lens=kv, assume_normalized=normalized,
+                                         causal=causal), reps)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, kv, scale, mb, safe, causal), 1, 0)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = None
+    if kv is not None:
+        mask = (torch.arange(Lk, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(Lq, Lk, dtype=torch.bool, device="cuda").tril()
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None), reps)
+    # what this run's data needs: live (row, col) pairs under kv_lens and
+    # causality; q rows read only where a batch row has live keys, K/V rows
+    # up to kv_len, every output row written once
+    live = nbytes = 0
+    row_bytes = N * D * 2
+    for b in range(B):
+        kl = min(lens[b], Lk) if lens else Lk
+        if causal:
+            live += int(np.minimum(np.arange(Lq) + 1, kl).sum())
+        else:
+            live += Lq * kl
+        nbytes += (Lq * (2 if kl > 0 else 1) + 2 * kl) * row_bytes
+    flops = 4 * N * live * D
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"phase": "flash", "case": name, "kernel": flash_mod.KERNELS[(D, causal)],
+           "q": [B, Lq, N, D], "Lk": Lk, "kv_lens": lens, "causal": causal,
+           "bounded": bounded, "max_abs_err": err, "max_row_ulps": ulps,
+           "max_row_ulps_max_tracked": ulps_modes, "tolerance_row_ulps": FLASH_ULPS,
+           "max_abs_plain": ref_max, "zero_rows_ok": zero_ok,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "tflops": flops / ms / 1e9}
+    emit(rec)
+    return rec
+
+
 def phase_flash(gen: torch.Generator) -> dict:
-    N, D = 12, 128
-    cases = [
-        ("self_bounded", 2, SEQ, SEQ, 1.0, None),
-        ("cross_bounded", 2, SEQ, 6272, 1.0, None),
-        ("max_tracked_forced", 2, 8192, 8192, 4.0, None),
-        ("kv_lens_ragged", 2, 4096, 8190, 1.0, [5001, 0]),
-    ]
-    main = None
-    for name, B, Lq, Lk, sc, lens in cases:
+    """Cases per kernel instantiation; returns {kernel: its main-path case}."""
+    main = {}
+
+    def run(name, B, Lq, Lk, N, D, sc, lens, normalized, causal):
         q = _normed(B, Lq, N, D, gen, sc)
         k = _normed(B, Lk, N, D, gen, sc)
         v = torch.randn(B, Lk, N, D, generator=gen, device="cuda").to(torch.bfloat16)
         kv = torch.tensor(lens, dtype=torch.int32, device="cuda") if lens else None
-        scale = D**-0.5
-        mb, safe = softmax_bound(q, k, scale)
-        bounded = bool(safe.item())
-        o = flash_attention(q, k, v, kv_lens=kv, assume_normalized=True)
-        o_max = flash_attention(q, k, v, kv_lens=kv, assume_normalized=False)
-        op = flash_attention_plain(q, k, v, kv, scale, mb, safe)
-        torch.cuda.synchronize()
-        err = float((o.float() - op.float()).abs().max())
-        err_modes = float((o.float() - o_max.float()).abs().max())
-        ref_max = float(op.float().abs().max())
-        limit = FLASH_ULPS * float(bf16_ulp(torch.tensor(ref_max)))
-        zero_ok = True
-        if lens and 0 in lens:
-            zero_ok = bool((o[lens.index(0)] == 0).all() and (o_max[lens.index(0)] == 0).all())
-        if name == "max_tracked_forced" and bounded:
-            raise AssertionError("guard did not fail for the scaled q/k")
-        if name != "max_tracked_forced" and not bounded:
-            raise AssertionError(f"flash {name}: bounded softmax unexpectedly unsafe")
-        if err > limit or err_modes > limit or not zero_ok:
-            raise AssertionError(f"flash {name}: err {err}, modes {err_modes} (limit {limit} "
-                                 f"at max|o_plain| {ref_max}), zero rows ok {zero_ok}")
         reps = 5 if Lq * Lk > 1e8 else 20
-        ms = cuda_ms(lambda: flash_attention(q, k, v, kv_lens=kv, assume_normalized=True), reps)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, kv, scale, mb, safe), 1, 0)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        mask = None
-        if kv is not None:
-            mask = (torch.arange(Lk, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), reps)
-        live = sum(min(l, Lk) for l in lens) if lens else B * Lk
-        flops = 4 * N * Lq * live * D
-        t_ops = flops / BF16_FLOPS * 1e3
-        t_bytes = (2 * B * Lq * N * D * 2 + 2 * B * Lk * N * D * 2) / HBM_BYTES_PER_S * 1e3
-        rec = {"phase": "flash", "case": name, "q": [B, Lq, N, D], "Lk": Lk,
-               "kv_lens": lens, "bounded": bounded, "max_abs_err": err,
-               "max_abs_err_bounded_vs_max_tracked": err_modes, "max_abs_plain": ref_max,
-               "tolerance_abs": limit, "zero_rows_ok": zero_ok,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "tflops": flops / ms / 1e9}
-        emit(rec)
-        main = main or rec
-        del q, k, v, o, o_max, op, qt, kt, vt
+        rec = _flash_case(name, q, k, v, kv, normalized, causal, sc != 1.0, reps)
+        main.setdefault(rec["kernel"], rec)
+        del q, k, v
+
+    # the Wan DiT (head dim 128, bounded softmax on qk-normed q/k)
+    run("self_bounded", 2, SEQ, SEQ, 12, 128, 1.0, None, True, False)
+    run("cross_bounded", 2, SEQ, 6272, 12, 128, 1.0, None, True, False)
+    run("max_tracked_forced", 2, 8192, 8192, 12, 128, 4.0, None, True, False)
+    run("kv_lens_ragged", 2, 4096, 8190, 12, 128, 1.0, [5001, 0], True, False)
+    # the Qwen3 text prefill (causal, max-tracked, K/V repeated to 32 heads)
+    L = vlm_prompt_len()
+    run("causal_prefill", 1, L, L, 32, 128, 1.0, None, False, True)
+    run("causal_kv_lens", 2, L, L, 32, 128, 1.0, [L * 3 // 4, 0], False, True)
+    # the vision tower (head dim 72, one segment per temporal group)
+    t = VLM_GRID[0]
+    run("d72_bounded", t, D72_SEQ, D72_SEQ, 16, 72, 1.0, None, True, False)
+    run("d72_max_tracked_forced", t, D72_SEQ, D72_SEQ, 16, 72, 4.0, None, True, False)
+    run("d72_kv_lens", t, D72_SEQ, D72_SEQ, 16, 72, 1.0, [D72_SEQ, 999, 0], True, False)
     return main
 
 
@@ -270,7 +356,333 @@ def _copy_tree(src, dst):
             dst[key].copy_(val)
 
 
-def phase_e2e() -> dict:
+def vlm_prompt_ids(cfg: Qwen3VLConfig, grid) -> np.ndarray:
+    """Synthetic chat-template ids of the caption and feature prompts: a
+    system prefix, per temporal group a 6-token timestamp then the video
+    span, 256 tokens of user text and the assistant header."""
+    rng = np.random.default_rng(7)
+    text = lambda n: rng.integers(0, 151643, n).tolist()  # noqa: E731 (below the specials)
+    return video_prompt_ids(text(SYSTEM_PREFIX), text(256), grid, cfg,
+                            frame_prefixes=[text(6) for _ in range(grid[0])])
+
+
+def vlm_prompt_len() -> int:
+    return vlm_prompt_ids(QWEN3_VL_30B_A3B, VLM_GRID).shape[1]
+
+
+def _reset_launches() -> None:
+    qk_prep.launches = 0
+    for name in flash_attention.launches:
+        flash_attention.launches[name] = 0
+
+
+def _launches() -> dict:
+    return {"qk_prep": qk_prep.launches, **flash_attention.launches}
+
+
+def _tiny_vlm_config() -> Qwen3VLConfig:
+    """Every kernel mode of the VLM path: vision head dim 72, text head dim
+    128, MoE text layers with deepstack. A 16-token vocabulary keeps the
+    greedy choices well separated, and every token is routed to all four
+    experts: with top-k < E a router near-tie in bf16 flips the chosen
+    experts between the devices and swaps whole expert outputs, which says
+    nothing about the kernels."""
+    return Qwen3VLConfig(
+        text=Qwen3TextConfig(vocab_size=16, hidden_size=256, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                             num_experts=4, num_experts_per_tok=4, moe_intermediate_size=64),
+        vision=Qwen3VLVisionConfig(hidden_size=144, intermediate_size=288, depth=2, num_heads=2,
+                                   out_hidden_size=256, num_position_embeddings=64,
+                                   deepstack_visual_indexes=(0, 1), rope_dtype="bfloat16"),
+        video_token_id=15, image_token_id=14, vision_start_token_id=13)
+
+
+def phase_tiny_vlm() -> dict:
+    """The VLM port on the card (kernels) vs the same weights on the CPU
+    (plain versions), bf16 both: the feature forward within 5e-2 of scale,
+    and the same greedy tokens. Weights ~ N(0, 1/fan_in) so activations are
+    O(1). bf16 rounds at other points on the two devices, so a greedy choice
+    whose top logit leads its runner-up by less than NEAR_TIE of the largest
+    |logit| (in the CPU decode) may legitimately flip: the tokens must agree
+    up to the first such near-tie, and any divergence must start at one."""
+    near_tie = 0.05
+    cfg = _tiny_vlm_config()
+    cpu, gpu = _tiny_vlm_pair(cfg, seed=51)
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (4, 64, 96, 3), dtype=np.uint8)
+    vc = cfg.vision
+    patches, grid = frames_to_patches(frames, vc.patch_size, vc.temporal_patch_size,
+                                      vc.spatial_merge_size)
+    ids = video_prompt_ids([1, 2, 3], [4, 5, 6, 7, 8], grid, cfg, vision_end_token_id=12)
+    h_cpu = qwen3vl_forward(cpu, ids, patches, grid).float()
+    _reset_launches()
+    h_gpu = qwen3vl_forward(gpu, ids, patches, grid).float().cpu()
+    launches = _launches()
+    margins = []  # the CPU decode's top-1 lead over the runner-up, per step
+    sample = vlm_full.sample_token
+
+    def spy(logits, *args):
+        top2 = logits.float().topk(2).values
+        margins.append(float((top2[0] - top2[1]) / logits.float().abs().max()))
+        return sample(logits, *args)
+
+    vlm_full.sample_token = spy
+    try:
+        tok_cpu = qwen3vl_greedy_decode(cpu, ids, patches, grid, max_new_tokens=8)
+    finally:
+        vlm_full.sample_token = sample
+    tok_gpu = qwen3vl_greedy_decode(gpu, ids, patches, grid, max_new_tokens=8)
+    differ = np.nonzero(tok_cpu != tok_gpu)[0]
+    first = int(differ[0]) if len(differ) else None
+    rel = float((h_cpu - h_gpu).abs().max() / h_cpu.abs().max())
+    text = np.random.default_rng(4).integers(0, 12, 200).tolist()  # below the specials
+    top2 = _tiny_vlm_top2(cfg, video_prompt_ids([1, 2, 3], text, grid, cfg,
+                                                vision_end_token_id=12), patches, grid)
+    rec = {"phase": "tiny_vlm", "grid": list(grid), "seq_len": int(ids.shape[1]),
+           "hidden_rel_err": rel, "tolerance_rel": 5e-2, "tokens_cpu": tok_cpu.tolist(),
+           "tokens_gpu": tok_gpu.tolist(), "first_divergence": first,
+           "cpu_rel_logit_margins": margins, "near_tie": near_tie, "launches": launches,
+           "top2": top2}
+    emit(rec)
+    if (not torch.isfinite(h_gpu).all() or rel > 5e-2
+            or (first is not None and margins[first] >= near_tie)
+            or top2["hidden_rel_err_replayed"] > 5e-2
+            or launches["flash_d72"] != vc.depth
+            or launches["flash_causal"] != cfg.text.num_hidden_layers):
+        raise AssertionError(f"tiny_vlm: {rec}")
+    return rec
+
+
+def _tiny_vlm_pair(cfg: Qwen3VLConfig, seed: int):
+    """(CPU model, card model) with the same bf16 weights ~ N(0, 1/fan_in)."""
+    gen = torch.Generator().manual_seed(seed)
+    cpu = Qwen3VLModel(cfg, torch.bfloat16, device="cpu")
+    with torch.no_grad():
+        for name, prm in cpu.named_parameters():
+            if prm.ndim >= 2:
+                fan_in = prm.shape[1] if "experts_" in name else prm.shape[-1]
+                prm.normal_(0.0, fan_in**-0.5, generator=gen)
+    gpu = Qwen3VLModel(cfg, torch.bfloat16, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def _tiny_vlm_top2(cfg: Qwen3VLConfig, ids, patches, grid) -> dict:
+    """The tiny VLM with top-2 of 8 experts over a 219-token prompt: the
+    card's feature forward with its own routing, and with the CPU's routing
+    decisions replayed (the CPU's chosen experts, weighted by the card's own
+    router probabilities). With the choices replayed, what is left is
+    rounding, held to 5e-2 of scale by the caller. The tokens whose chosen
+    experts differ between the devices, with the CPU's margin between the
+    2nd and 3rd router probability, say whether the free run's gap comes
+    from near-ties."""
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text, num_experts=8, num_experts_per_tok=2))
+    cpu, gpu = _tiny_vlm_pair(cfg, seed=52)
+    route = vlm_text.router
+    cpu_calls, gpu_calls = [], []
+
+    def record(calls):
+        def spy(mlp, xt):
+            topv, topi, probs = route(mlp, xt)
+            calls.append((topi.cpu(), probs.cpu()))
+            return topv, topi, probs
+        return spy
+
+    def replay(mlp, xt):
+        _, _, probs = route(mlp, xt)
+        topi = cpu_calls[len(gpu_calls)][0].to(probs.device)
+        gpu_calls.append(None)
+        topv = probs.gather(1, topi)
+        if mlp.cfg.norm_topk_prob:
+            topv = topv / topv.sum(-1, keepdim=True)
+        return topv, topi, probs
+
+    try:
+        vlm_text.router = record(cpu_calls)
+        h_cpu = qwen3vl_forward(cpu, ids, patches, grid).float()
+        vlm_text.router = record(gpu_calls)
+        h_free = qwen3vl_forward(gpu, ids, patches, grid).float().cpu()
+        free_calls, gpu_calls = gpu_calls, []
+        vlm_text.router = replay
+        h_replay = qwen3vl_forward(gpu, ids, patches, grid).float().cpu()
+    finally:
+        vlm_text.router = route
+    flipped, flip_margins, all_margins = 0, [], []
+    for (ti_c, p_c), (ti_g, _) in zip(cpu_calls, free_calls):
+        top3 = p_c.topk(3, dim=-1).values
+        margin = (top3[:, 1] - top3[:, 2]).numpy()
+        differ = (ti_c.sort(-1).values != ti_g.sort(-1).values).any(-1).numpy()
+        flipped += int(differ.sum())
+        flip_margins += margin[differ].tolist()
+        all_margins += margin.tolist()
+    scale = h_cpu.abs().max()
+    return {"experts_per_token": 2, "experts": cfg.text.num_experts, "seq_len": int(ids.shape[1]),
+            "hidden_rel_err_own_routing": float((h_cpu - h_free).abs().max() / scale),
+            "hidden_rel_err_replayed": float((h_cpu - h_replay).abs().max() / scale),
+            "router_calls": len(cpu_calls), "tokens_routed_otherwise": flipped,
+            "their_cpu_margins": flip_margins,
+            "median_cpu_margin": float(np.median(all_margins))}
+
+
+def _vlm_profile(model, ids, patches, grid) -> dict:
+    """One feature forward under torch.profiler. Kernel time of the vision
+    tower and of the MoE blocks from their profiler ranges ("qwen3vl.vision",
+    "qwen3vl.moe"); attention is the causal flash kernel; "other" is the rest
+    of the kernel time (projections, norms, RoPE, router). The ranges' spans
+    on the device timeline (first kernel to last, idle gaps included) say how
+    long each stage holds the card; busy/idle counts kernels only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ranges = ("qwen3vl.vision", "qwen3vl.moe")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        qwen3vl_forward(model, ids, patches, grid)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = {r: 0.0 for r in ranges}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in ranges:
+            kernel_ms[ev.name] += ev.device_time_total / 1e3
+    busy = attn = 0.0
+    span_ms, by_name = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if ev.key in ranges:  # the range's span on the device timeline, not a kernel
+            span_ms[ev.key] = ms
+            continue
+        busy += ms
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + ms
+        if "flash_fwd_kernel<128, true>" in ev.key:
+            attn += ms
+    vision, moe = kernel_ms["qwen3vl.vision"], kernel_ms["qwen3vl.moe"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"what": "one feature forward, Qwen3-VL-30B-A3B, grid 3x30x52, L=%d" % ids.shape[1],
+            "wall_ms_traced": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "vision_kernel_ms": vision, "moe_kernel_ms": moe,
+            "attention_causal_flash_ms": attn, "other_kernel_ms": busy - vision - moe - attn,
+            "vision_span_ms": span_ms.get("qwen3vl.vision"),
+            "moe_span_ms": span_ms.get("qwen3vl.moe"),
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def _vlm_moe_check(model: Qwen3VLModel, L: int) -> dict:
+    """Layer 0's grouped MoE (top-8 of 128: expert sort, per-expert
+    segments, scatter-add) on L seeded RMS-1 tokens against the all-experts
+    oracle `moe_dense` on the same card; both take the router's decisions
+    from the same inputs on the same device."""
+    mlp = model.language_model.layers[0].mlp
+    tcfg = model.cfg.text
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(1, L, tcfg.hidden_size, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        y, ref = vlm_text.moe(mlp, x).float(), vlm_text.moe_dense(mlp, x).float()
+        _, topi, _ = vlm_text.router(mlp, x.reshape(L, -1))
+    rel = float((y - ref).abs().max() / ref.abs().max())
+    rec = {"layer": 0, "tokens": L, "experts_per_token": tcfg.num_experts_per_tok,
+           "experts": tcfg.num_experts, "experts_used": int(topi.unique().numel()),
+           "rel_err_vs_all_experts": rel, "tolerance_rel": MOE_TOL}
+    if not torch.isfinite(y).all() or rel > MOE_TOL:
+        raise AssertionError(f"vlm moe: {rec}")
+    del x, y, ref
+    return rec
+
+
+def phase_vlm() -> dict:
+    """Qwen3-VL-30B-A3B at full width and depth: feature forward and a
+    16-token greedy caption on 6 frames of 832x480. Returns the record with
+    the features ([L − system prefix, 2048] f32 on the card) under
+    "features"; the model is freed before returning."""
+    cfg = QWEN3_VL_30B_A3B
+    vc = cfg.vision
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Qwen3VLModel.random_init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    # the captioning pixel budget (480²…4·480²) keeps 832x480
+    size = smart_resize(SIZE[1], SIZE[0], vc.patch_size * vc.spatial_merge_size,
+                        480 * 480, 4 * 480 * 480)
+    frames = np.random.default_rng(0).integers(0, 256, (VLM_FRAMES, *size, 3), dtype=np.uint8)
+    patches, grid = frames_to_patches(frames, vc.patch_size, vc.temporal_patch_size,
+                                      vc.spatial_merge_size)
+    if size != (SIZE[1], SIZE[0]) or grid != VLM_GRID:
+        raise AssertionError(f"vlm: resize {size}, grid {grid}")
+    ids = vlm_prompt_ids(cfg, grid)
+    patches = torch.from_numpy(patches).cuda()
+
+    guard = []  # the vision tower's softmax guard, one device flag per block
+    bound_fn = flash_mod.softmax_bound
+
+    def spy(*args, **kw):
+        mb, safe = bound_fn(*args, **kw)
+        guard.append(safe)
+        return mb, safe
+
+    per_pass = {"flash_d72": vc.depth, "flash_causal": cfg.text.num_hidden_layers,
+                "flash_fwd": 0, "qk_prep": 0}
+    total = {k: 0 for k in per_pass}
+    flash_mod.softmax_bound = spy
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract_features(model, ids, patches, grid, drop_idx=SYSTEM_PREFIX)
+        torch.cuda.synchronize()
+        features_s = time.perf_counter() - t0
+        got_f = _launches()
+        _reset_launches()
+        timings = {}
+        toks = qwen3vl_greedy_decode(model, ids, patches, grid, max_new_tokens=VLM_NEW_TOKENS,
+                                     timings=timings)
+        got_d = _launches()
+    finally:
+        flash_mod.softmax_bound = bound_fn
+    for got in (got_f, got_d):
+        if got != per_pass:
+            raise AssertionError(f"vlm: launches {got} per pass, expected {per_pass}")
+        for k in total:
+            total[k] += got[k]
+    h = feats["vlm_last_hidden_states"]
+    L = ids.shape[1]
+    expect = (L - SYSTEM_PREFIX, cfg.text.hidden_size)
+    if (tuple(h.shape) != expect or not torch.isfinite(h).all() or len(toks) != VLM_NEW_TOKENS
+            or not ((toks >= 0) & (toks < cfg.text.vocab_size)).all()):
+        raise AssertionError(f"vlm: features {tuple(h.shape)} (expected {expect}), "
+                             f"finite {bool(torch.isfinite(h).all())}, tokens {toks}")
+    safe = torch.cat(guard).cpu()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moe_check = _vlm_moe_check(model, L)
+    profile = _vlm_profile(model, ids, patches, grid)
+    steps = timings["decode_steps"]
+    rec = {"phase": "vlm", "config": "QWEN3_VL_30B_A3B", "text_layers": cfg.text.num_hidden_layers,
+           "experts": cfg.text.num_experts, "vision_depth": vc.depth, "grid": list(grid),
+           "visual_tokens": int(np.prod(grid)) // vc.spatial_merge_size**2, "seq_len": L,
+           "weights_gb": weights_gb, "init_s": init_s, "features_s": features_s,
+           "vision_s": timings["vision_s"], "prefill_s": timings["prefill_s"],
+           "decode_s": timings["decode_s"], "decode_steps": steps,
+           "decode_ms_per_token": timings["decode_s"] / steps * 1e3,
+           "max_memory_allocated_gb": peak_gb, "features_shape": list(h.shape),
+           "features_rms": float(h.square().mean().sqrt()), "tokens": toks.tolist(),
+           "d72_guard": {"bounded_blocks": int(safe.sum()),
+                         "max_tracked_blocks": int((safe == 0).sum())},
+           "launches_per_pass": per_pass, "launches": total, "moe_check": moe_check,
+           "profile": profile}
+    emit(rec)
+    rec["features"] = h
+    del model, feats, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_e2e(ar_vision: torch.Tensor) -> dict:
+    """The x2x generate at full width and depth, conditioned on the VLM
+    features (`ar_vision_input`, [L, 2048] f32 on the card)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe = OmniVideoX2XUnified.random_init(T2V_1_3B, seed=0, device="cuda",
@@ -282,20 +694,20 @@ def phase_e2e() -> dict:
     ctx = torch.randn(77, T2V_1_3B.dit.text_dim, generator=gen, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    qk_prep.launches = 0
-    flash_attention.launches = 0
+    _reset_launches()
     frames = pipe.generate(
         precomputed_context=ctx, precomputed_context_null=torch.zeros_like(ctx),
-        size=SIZE, frame_num=FRAMES, sampling_steps=STEPS, guide_scale=5.0,
-        output_uint8=True, generator=gen)
-    launches = {"qk_prep": qk_prep.launches, "flash_fwd": flash_attention.launches}
-    expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS}
+        ar_vision_input=ar_vision, size=SIZE, frame_num=FRAMES, sampling_steps=STEPS,
+        guide_scale=5.0, output_uint8=True, generator=gen)
+    launches = _launches()
+    expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS, "flash_causal": 0, "flash_d72": 0}
     shape = tuple(frames.shape)
     if launches != expect or shape != (FRAMES, SIZE[1], SIZE[0], 3):
         raise AssertionError(f"e2e: launches {launches} (expected {expect}), frames {shape}")
     rec = {"phase": "e2e", "config": "T2V_1_3B", "layers": T2V_1_3B.dit.num_layers,
            "dim": T2V_1_3B.dit.dim, "seq_len": SEQ, "size": list(SIZE), "frames": FRAMES,
            "steps": STEPS, "residual_dtype": "bfloat16", "init_s": t_init,
+           "ar_vision_input": list(ar_vision.shape),
            **{k: v for k, v in pipe.timings.items()}, "launches": launches,
            "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -381,19 +793,29 @@ def main(argv) -> int:
     qk = phase_qk_prep(gen)
     fl = phase_flash(gen)
     phase_tiny()
-    launches = phase_e2e()["launches"]
+    phase_tiny_vlm()
+    vlm = phase_vlm()
+    e2e = phase_e2e(vlm.pop("features"))["launches"]
+    launches = {"qk_prep": e2e["qk_prep"], "flash_fwd": e2e["flash_fwd"],
+                "flash_causal": vlm["launches"]["flash_causal"],
+                "flash_d72": vlm["launches"]["flash_d72"]}
     kernels = [
         {"name": "qk_prep", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/qk_prep.cu",
          "replaces": "omnivideo_tpu/ops/pallas/qk_prep.py:41",
          "launches": launches["qk_prep"], "max_abs_err": qk["max_abs_err"],
          "ms": qk["ms"], "plain_ms": qk["plain_ms"], "bound_ms": qk["bound_ms"],
          "bound_by": qk["bound_by"], "library_ms": None},
-        {"name": "flash_fwd", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "omnivideo_tpu/ops/pallas/flash_attention.py:42",
-         "launches": launches["flash_fwd"], "max_abs_err": fl["max_abs_err"],
-         "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
-         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
     ]
+    for name in ("flash_fwd", "flash_causal", "flash_d72"):
+        rec = fl[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "omnivideo_tpu_torch/csrc/flash_fwd.cu",
+             "replaces": "omnivideo_tpu/ops/pallas/flash_attention.py:42",
+             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -11,18 +11,35 @@
 // max-tracked form. The flag and the bound are computed on the device by the
 // wrapper, so choosing the mode costs no host sync.
 //
+// One template, three instantiations:
+// - D = 128, non-causal: the Wan DiT's self- and cross-attention (kernel
+//   row 1 of the port's table);
+// - D = 128, CAUSAL: the Qwen3 text prefill, _fa_kernel(causal=True)
+//   (row 2): col ≤ row (:111-114), KV tiles that start past the q tile's
+//   last row are skipped, only the tile straddling the diagonal is masked;
+//   kv_lens still applies;
+// - D = 72, non-causal: the Qwen3-VL vision tower (row 3a). The TPU needed a
+//   head-major transpose for D % 128 ≠ 0 (:308-318, 128-lane tiles); here a
+//   72-wide head is nine 16-byte chunks read in place, and the shared-memory
+//   tile pads it to 80 with zeros so q·kᵀ is five k16 steps and p·v ten n8
+//   tiles (the tenth is dropped).
+//
 // Layout: q/k/v/o are read and written in place as packed [B, L, N·D] — the
-// layout the projection GEMMs produce — with D = 128.
+// layout the projection GEMMs produce (a row is N·D elements, a head's slice
+// starts at n·D: 16-byte aligned for D = 72 and 128).
 //
 // Bound on the H100: operations, 4·B·N·Lq·Lk·D FLOPs on the bf16 tensor
-// cores (989 TFLOP/s): self-attention at B=2, N=12, L=32,760 is 13.2 TFLOP,
-// 13.3 ms. Design (simple first, FA2-style): grid (Lq/64, N, B), 4 warps per
-// block, each warp owns 16 q rows whose bf16 fragments stay in registers;
-// K/V tiles of 64 rows are staged in shared memory (XOR-swizzled rows so
-// ldmatrix is conflict-free), double-buffered with cp.async so the next
-// tile's load overlaps this tile's math; mma.sync.m16n8k16 bf16 with f32
-// accumulation for both S = q·kᵀ and O += bf16(p)·v. wgmma/TMA and warp
-// specialisation are left for a later change.
+// cores (989 TFLOP/s), half the logits when causal: self-attention at B=2,
+// N=12, L=32,760 is 13.2 TFLOP, 13.3 ms. Design (simple first, FA2-style):
+// grid (Lq/64, N, B), 4 warps per block, each warp owns 16 q rows whose bf16
+// fragments stay in registers; K/V tiles of 64 rows are staged in shared
+// memory, double-buffered with cp.async so the next tile's load overlaps this
+// tile's math; mma.sync.m16n8k16 bf16 with f32 accumulation for both
+// S = q·kᵀ and O += bf16(p)·v. Bank conflicts: a 128-wide row (256 B) is
+// XOR-swizzled by 16-byte chunk; the 72-wide row sits at a padded stride of
+// 88 elements (176 B, an odd multiple of 16 B), so the eight rows an
+// ldmatrix reads fall in eight distinct 16-byte bank groups. wgmma/TMA and
+// warp specialisation are left for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,18 +47,26 @@
 
 namespace {
 
-constexpr int D = 128;
 constexpr int BQ = 64;  // q rows per block (4 warps x 16)
 constexpr int BK = 64;  // kv rows per tile
 constexpr int kThreads = 128;
-constexpr int kChunks = D / 8;  // 16-byte chunks per row
 constexpr float kNegInf = -1e30f;
-constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * (BQ + 4 * BK) * D;
 
-// element offset of 16-byte chunk `chunk` of tile row `row`, XOR-swizzled
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
+template <int D>
+struct Tile {
+  static_assert(D % 8 == 0, "a head row is a whole number of 16-byte chunks");
+  static constexpr int kChunks = D / 8;             // 16-byte chunks read per row
+  static constexpr int DP = (D + 15) / 16 * 16;     // padded to the mma k-depth
+  static constexpr bool kSwizzle = D % 64 == 0;     // >= 8 chunks: XOR swizzle
+  static constexpr int LDS = kSwizzle ? D : DP + 8;  // smem row stride, elements
+  static constexpr int kRows = BQ + 4 * BK;         // q + 2 stages of K and of V
+  static constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * kRows * LDS;
+
+  // element offset of 16-byte chunk `chunk` of tile row `row`
+  __device__ static __forceinline__ int off(int row, int chunk) {
+    return kSwizzle ? row * LDS + ((chunk ^ (row & 7)) << 3) : row * LDS + (chunk << 3);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -89,27 +114,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [row0, row0+64) of one head of a packed [L, ld] tensor into a
-// swizzled [64, D] tile; rows >= nvalid are zero-filled and never read.
+// Stage rows [row0, row0+64) of one head (row stride ld elements) into a
+// [64, D] tile; rows >= nvalid are zero-filled and never read. The pad
+// columns D..DP are not touched here (zeroed once per block).
+template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
                                           int row0, int nvalid, int ld) {
-  for (int i = threadIdx.x; i < BK * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
+  constexpr int C = Tile<D>::kChunks;
+  for (int i = threadIdx.x; i < BK * C; i += kThreads) {
+    const int r = i / C, c = i % C;
     const bool ok = row0 + r < nvalid;
     const __nv_bfloat16* src = ok ? g + static_cast<size_t>(row0 + r) * ld + c * 8 : g;
-    cp_async16(s + swz(r, c), src, ok);
+    cp_async16(s + Tile<D>::off(r, c), src, ok);
   }
 }
 
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                  const int* __restrict__ kv_lens, const int* __restrict__ mbound,
                  const int* __restrict__ safe, int Lq, int Lk, int N, float qscale) {
+  using T = Tile<D>;
+  constexpr int DP = T::DP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * D;      // 2 stages
-  __nv_bfloat16* sV = sK + 2 * BK * D;  // 2 stages
+  __nv_bfloat16* sK = sQ + BQ * T::LDS;      // 2 stages
+  __nv_bfloat16* sV = sK + 2 * BK * T::LDS;  // 2 stages
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -124,24 +155,31 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* kg = k + static_cast<size_t>(b) * Lk * ld + head_off;
   const __nv_bfloat16* vg = v + static_cast<size_t>(b) * Lk * ld + head_off;
   const int q0 = blockIdx.x * BQ;
-  const int n_tiles = (kv_len + BK - 1) / BK;
+  int n_tiles = (kv_len + BK - 1) / BK;
+  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // tiles with col <= last row
 
-  load_tile(sQ, qg + static_cast<size_t>(q0) * ld, 0, Lq - q0, ld);
+  if constexpr (DP != D) {  // zero the pad columns of every tile row once
+    for (int r = threadIdx.x; r < T::kRows; r += kThreads)
+#pragma unroll
+      for (int c = D; c < DP; c += 8)
+        *reinterpret_cast<uint4*>(sQ + r * T::LDS + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  load_tile<D>(sQ, qg + static_cast<size_t>(q0) * ld, 0, Lq - q0, ld);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_tile(sK, kg, 0, kv_len, ld);
-    load_tile(sV, vg, 0, kv_len, ld);
+    load_tile<D>(sK, kg, 0, kv_len, ld);
+    load_tile<D>(sV, vg, 0, kv_len, ld);
   }
   cp_async_commit();
   cp_async_wait<1>();  // the q tile has landed
   __syncthreads();
 
-  // q fragments (A operand, 16 rows x 128) in registers, pre-scaled by
+  // q fragments (A operand, 16 rows x DP) in registers, pre-scaled by
   // scale·log2(e) in f32 and rounded back to bf16
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DP / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qf[kk], sQ + swz(warp * 16 + (lane % 16), kk * 2 + lane / 16));
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    ldmatrix_x4(qf[kk], sQ + T::off(warp * 16 + (lane % 16), kk * 2 + lane / 16));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       __nv_bfloat162 t = *reinterpret_cast<__nv_bfloat162*>(&qf[kk][i]);
@@ -150,47 +188,52 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     }
   }
 
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m_r[2] = {kNegInf, kNegInf};  // running max of rows lane/4 and lane/4+8
   float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
+  const int row_a = q0 + warp * 16 + lane / 4;  // this thread's first row
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile(sK + (st ^ 1) * BK * D, kg, (j + 1) * BK, kv_len, ld);
-      load_tile(sV + (st ^ 1) * BK * D, vg, (j + 1) * BK, kv_len, ld);
+      load_tile<D>(sK + (st ^ 1) * BK * T::LDS, kg, (j + 1) * BK, kv_len, ld);
+      load_tile<D>(sV + (st ^ 1) * BK * T::LDS, vg, (j + 1) * BK, kv_len, ld);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j has landed; tile j+1 may be in flight
     __syncthreads();
-    const __nv_bfloat16* cK = sK + st * BK * D;
-    const __nv_bfloat16* cV = sV + st * BK * D;
+    const __nv_bfloat16* cK = sK + st * BK * T::LDS;
+    const __nv_bfloat16* cV = sV + st * BK * T::LDS;
 
     // S = q·kᵀ for this warp's 16 rows x 64 kv columns
     float s[BK / 8][4];
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
 #pragma unroll
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, cK + swz(np * 16 + (lane / 16) * 8 + (lane % 8),
-                                 kk * 2 + ((lane / 8) & 1)));
+        ldmatrix_x4(kb, cK + T::off(np * 16 + (lane / 16) * 8 + (lane % 8),
+                                    kk * 2 + ((lane / 8) & 1)));
         mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
         mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
       }
     }
 
+    // only the last tile can straddle kv_len or (causal) the diagonal
     const int kv0 = j * BK;
-    if (kv0 + BK > kv_len) {  // boundary tile: mask columns >= kv_len
+    if (kv0 + BK > kv_len || (CAUSAL && kv0 + BK - 1 > q0)) {
 #pragma unroll
       for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (kv0 + nb * 8 + (lane % 4) * 2 + (e & 1) >= kv_len) s[nb][e] = kNegInf;
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + nb * 8 + (lane % 4) * 2 + (e & 1);
+          const int row = row_a + (e >> 1) * 8;
+          if (col >= kv_len || (CAUSAL && col > row)) s[nb][e] = kNegInf;
+        }
     }
 
     if (bounded) {
@@ -219,7 +262,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
         l_r[r] *= alpha[r];
       }
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DP / 8; ++i) {
         acc[i][0] *= alpha[0];
         acc[i][1] *= alpha[0];
         acc[i][2] *= alpha[1];
@@ -238,17 +281,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     // O += bf16(p)·v; the S accumulator layout is the A operand layout
 #pragma unroll
     for (int kj = 0; kj < BK / 16; ++kj) {
-      uint32_t a[4] = {pack_bf16(s[2 * kj][0], s[2 * kj][1]),
-                       pack_bf16(s[2 * kj][2], s[2 * kj][3]),
-                       pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
-                       pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
+      uint32_t pa[4] = {pack_bf16(s[2 * kj][0], s[2 * kj][1]),
+                        pack_bf16(s[2 * kj][2], s[2 * kj][3]),
+                        pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
+                        pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, cV + swz(kj * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                       dp * 2 + (lane >> 4)));
-        mma_bf16(acc[2 * dp], a, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], a, vb[2], vb[3]);
+        ldmatrix_x4_trans(vb, cV + T::off(kj * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                                          dp * 2 + (lane >> 4)));
+        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
@@ -262,36 +305,52 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     denom[r] = l == 0.f ? 1.f : l;  // fully masked rows -> 0
   }
-  const int r0 = q0 + warp * 16 + lane / 4;
   __nv_bfloat16* og = o + static_cast<size_t>(b) * Lq * ld + head_off + (lane % 4) * 2;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r0 + r * 8;
+    const int row = row_a + r * 8;
     if (row >= Lq) continue;
     __nv_bfloat16* orow = og + static_cast<size_t>(row) * ld;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < D / 8; ++i) {  // the pad tiles D..DP are dropped
       *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) = __floats2bfloat162_rn(
           __fdiv_rn(acc[i][2 * r], denom[r]), __fdiv_rn(acc[i][2 * r + 1], denom[r]));
     }
   }
 }
 
-}  // namespace
-
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                const void* kv_lens, const void* mbound, const void* safe,
-                                int B, int Lq, int Lk, int N, float qscale, void* stream) {
+template <int D, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+           const void* mbound, const void* safe, int B, int Lq, int Lk, int N, float qscale,
+           cudaStream_t stream) {
   // set on every call: the attribute is per device, and the call is cheap
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+      flash_fwd_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Tile<D>::kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BQ - 1) / BQ, N, B);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<D, CAUSAL><<<grid, kThreads, Tile<D>::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<const int*>(kv_lens), static_cast<const int*>(mbound),
       static_cast<const int*>(safe), Lq, Lk, N, qscale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q/k/v/o packed [B, L, N, head_dim]. Returns the CUDA error code
+// (cudaErrorInvalidValue for a (head_dim, causal) pair without a kernel).
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                                const void* kv_lens, const void* mbound, const void* safe,
+                                int B, int Lq, int Lk, int N, int head_dim, int causal,
+                                float qscale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 128 && !causal)
+    return launch<128, false>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+  if (head_dim == 128 && causal)
+    return launch<128, true>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+  if (head_dim == 72 && !causal)
+    return launch<72, false>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

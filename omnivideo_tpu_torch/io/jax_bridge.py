@@ -13,7 +13,9 @@ where only the layout differs (the Conv3d patch embedding, the modulation
 tables) and casting to each parameter's dtype — the module already holds
 cast_wan_params' split (modulation, norms and head f32; the rest the param
 dtype). Companion and VAE params keep the JAX dict layout and map as they
-are.
+are. `qwen3vl_params_to_state_dict` / `load_qwen3vl` do the same for the
+Qwen3-VL param tree of `qwen3vl_hf_to_params` (scanned `blocks`/`layers`
+stacks split per layer, `lm_head` and the deepstack mergers carried).
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from torch import nn
+
 from ..configs.base import VAEConfig
+from ..models.qwen3vl.full_model import Qwen3VLModel
 from ..models.vae2_1 import decoder_plan
 from ..models.wan_dit import WanDiT
 
@@ -94,11 +99,16 @@ def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
     return sd
 
 
-@torch.no_grad()
 def load_wan_state_dict(model: WanDiT, sd: Mapping[str, Any]) -> WanDiT:
     """Copy a reference-named state dict into `model`; every parameter must
     be present and every key used."""
-    sd = unwrap_state_dict(sd)
+    return _load_strict(model, unwrap_state_dict(sd))
+
+
+@torch.no_grad()
+def _load_strict(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
+    """Copy arrays into the parameters of the same names, reshaping where
+    only the layout differs and casting to each parameter's dtype."""
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(sd))
     unexpected = sorted(set(sd) - set(params))
@@ -186,3 +196,69 @@ def vae_decoder_from_state_dict(sd: Mapping[str, Any], cfg: VAEConfig, device=No
         dec["up"][f"u{i}"] = (res(pref, din != dout) if kind == "res"
                               else attn(pref) if kind == "attn" else resample(pref, kind))
     return to_torch({"decoder": dec, "conv2": conv("conv2")}, device)
+
+
+def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """JAX Qwen3-VL param tree ({'vision', 'text'}, numpy or jax arrays) →
+    the port's parameter names (HF names; Linear weights [out, in])."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def lin(name, kernel, bias=None):
+        sd[f"{name}.weight"] = _np(kernel).T
+        if bias is not None:
+            sd[f"{name}.bias"] = _np(bias)
+
+    def norm(name, p):
+        sd[f"{name}.weight"] = _np(p["weight"])
+        sd[f"{name}.bias"] = _np(p["bias"])
+
+    def merger(name, mp):
+        norm(f"{name}.norm", mp["norm"])
+        lin(f"{name}.linear_fc1", mp["fc1_w"], mp["fc1_b"])
+        lin(f"{name}.linear_fc2", mp["fc2_w"], mp["fc2_b"])
+
+    vis = params["vision"]
+    lin("visual.patch_embed", vis["patch_embed"]["kernel"], vis["patch_embed"]["bias"])
+    sd["visual.pos_embed.weight"] = _np(vis["pos_embed"])
+    merger("visual.merger", vis["merger"])
+    for j, mp in enumerate(vis["deepstack"]):
+        merger(f"visual.deepstack_merger_list.{j}", mp)
+    blocks = {k: (v if isinstance(v, Mapping) else _np(v)) for k, v in vis["blocks"].items()}
+    for i in range(_np(blocks["qkv_w"]).shape[0]):
+        p = f"visual.blocks.{i}"
+        for n in ("norm1", "norm2"):
+            norm(f"{p}.{n}", {k: _np(v)[i] for k, v in blocks[n].items()})
+        lin(f"{p}.attn.qkv", blocks["qkv_w"][i], blocks["qkv_b"][i])
+        lin(f"{p}.attn.proj", blocks["proj_w"][i], blocks["proj_b"][i])
+        lin(f"{p}.mlp.linear_fc1", blocks["mlp_fc1_w"][i], blocks["mlp_fc1_b"][i])
+        lin(f"{p}.mlp.linear_fc2", blocks["mlp_fc2_w"][i], blocks["mlp_fc2_b"][i])
+
+    txt = params["text"]
+    sd["language_model.embed_tokens.weight"] = _np(txt["embed"])
+    sd["language_model.norm.weight"] = _np(txt["norm"])
+    if "lm_head" in txt:
+        lin("lm_head", txt["lm_head"])
+    layers = txt["layers"]
+    a, mlp = layers["attn"], layers["mlp"]
+    for i in range(_np(layers["ln1"]).shape[0]):
+        p = f"language_model.layers.{i}"
+        sd[f"{p}.input_layernorm.weight"] = _np(layers["ln1"])[i]
+        sd[f"{p}.post_attention_layernorm.weight"] = _np(layers["ln2"])[i]
+        for proj in ("q", "k", "v", "o"):
+            lin(f"{p}.self_attn.{proj}_proj", _np(a[proj])[i])
+        sd[f"{p}.self_attn.q_norm.weight"] = _np(a["q_norm"])[i]
+        sd[f"{p}.self_attn.k_norm.weight"] = _np(a["k_norm"])[i]
+        if "experts" in mlp:
+            lin(f"{p}.mlp.gate", _np(mlp["gate"])[i])
+            for part in ("gate", "up", "down"):
+                sd[f"{p}.mlp.experts_{part}"] = _np(mlp["experts"][part])[i]
+        else:
+            for part in ("gate", "up", "down"):
+                lin(f"{p}.mlp.{part}_proj", _np(mlp[part])[i])
+    return sd
+
+
+def load_qwen3vl(model: Qwen3VLModel, sd: Mapping[str, Any]) -> Qwen3VLModel:
+    """Copy a port-named Qwen3-VL state dict (qwen3vl_params_to_state_dict)
+    into `model`; every parameter must be present and every key used."""
+    return _load_strict(model, sd)

@@ -45,7 +45,7 @@ _SIGNATURES = {
                        _c_int, _c_float, _c_void_p],
     "flash_fwd_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
-                         _c_int, _c_int, _c_float, _c_void_p],
+                         _c_int, _c_int, _c_int, _c_int, _c_float, _c_void_p],
 }
 
 _lock = threading.Lock()

@@ -8,11 +8,16 @@ softmax is bounded: each (b, h) subtracts ⌈max|q|·max|k|·scale·log2e⌉
 instead of a running max, but only when 2·max(bound)+2 < 120, so exp2 can
 never underflow a whole row; otherwise the max-tracked form runs. The bound
 and that guard are computed on the device and handed to the kernel as
-tensors: choosing the mode needs no host sync.
+tensors: choosing the mode needs no host sync. `causal=True` is token
+causality (col ≤ row), the Qwen3 text prefill.
 
 `flash_attention` launches the CUDA kernel `csrc/flash_fwd.cu` for CUDA
-tensors and takes `flash_attention_plain` only for CPU tensors. Bound and
-design: see the kernel source.
+tensors and takes `flash_attention_plain` only for CPU tensors. The kernel
+has three instantiations, each with its own launch count in
+`flash_attention.launches`: "flash_fwd" (head dim 128, the Wan DiT),
+"flash_causal" (head dim 128, causal, the Qwen3 prefill) and "flash_d72"
+(head dim 72, the Qwen3-VL vision tower). Any other head dim or mode raises
+on CUDA. Bound and design: see the kernel source.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from . import _kernels
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 GUARD = 120.0  # largest safe 2·bound+2, in log2 units (f32 exp2 flushes below −126)
-HEAD_DIM = 128  # the kernel's only head width
+# (head dim, causal) → the kernel instantiation that serves it
+KERNELS = {(128, False): "flash_fwd", (128, True): "flash_causal", (72, False): "flash_d72"}
 PLAIN_LOGITS_BUDGET = 1 << 28  # f32 logits per q chunk of the plain version
 
 
@@ -65,27 +71,33 @@ def flash_attention_plain(
     softmax_scale: Optional[float] = None,
     mb: Optional[torch.Tensor] = None,
     safe: Optional[torch.Tensor] = None,
+    causal: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel's math, chunked over q rows so the
     f32 logits stay within PLAIN_LOGITS_BUDGET elements (full [B, N, L, L]
-    logits at L = 32,760 would be ~103 GB). Bounded when `safe` is set."""
+    logits at L = 32,760 would be ~103 GB). Bounded when `safe` is set;
+    `causal` masks col > row."""
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
     c = _qscale(softmax_scale if softmax_scale is not None else D**-0.5)
     bounded = safe is not None and bool(safe.reshape(()).item())
     kf = k.float()
+    cols = torch.arange(Lk, device=k.device)
     live = None
     if kv_lens is not None:
-        live = torch.arange(Lk, device=k.device)[None, :] < kv_lens.to(k.device)[:, None]
+        live = cols[None, :] < kv_lens.to(k.device)[:, None]
         v = torch.where(live[:, :, None, None], v, torch.zeros_like(v))
     vf = v.float()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     chunk = max(1, PLAIN_LOGITS_BUDGET // max(1, B * N * Lk))
     for i0 in range(0, Lq, chunk):
         qs = (q[:, i0:i0 + chunk].float() * c).to(k.dtype).float()
         s = torch.einsum("bind,bjnd->bnij", qs, kf)
         if live is not None:
             s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+        if causal:
+            rows = torch.arange(i0, i0 + qs.shape[1], device=k.device)
+            s = s.masked_fill(cols[None, :] > rows[:, None], NEG_INF)
         if bounded:
             p = torch.exp2(s - mb.float()[:, :, None, None])
         else:
@@ -105,9 +117,11 @@ def flash_attention(
     softmax_scale: Optional[float] = None,
     assume_normalized: bool = False,
     qk_row_norms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    causal: bool = False,
 ) -> torch.Tensor:
     """q: [B, Lq, N, D]; k/v: [B, Lk, N, D]; kv_lens: [B] int or None.
-    Returns [B, Lq, N, D] in q.dtype."""
+    Returns [B, Lq, N, D] in q.dtype. The CUDA kernel takes packed
+    contiguous q/k/v."""
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else D**-0.5
@@ -115,11 +129,13 @@ def flash_attention(
     if assume_normalized:
         mb, safe = softmax_bound(q, k, scale, qk_row_norms)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_lens, scale, mb, safe)
+        return flash_attention_plain(q, k, v, kv_lens, scale, mb, safe, causal)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if D != HEAD_DIM:
-        raise ValueError(f"flash kernel supports head_dim {HEAD_DIM} only, got {D}")
+    name = KERNELS.get((D, causal))
+    if name is None:
+        raise ValueError(f"no flash kernel for head_dim {D} with causal={causal} "
+                         f"(kernels: {sorted(KERNELS)})")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError("flash kernel takes bf16 q/k/v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -137,11 +153,11 @@ def flash_attention(
         lens.data_ptr() if lens is not None else None,
         mb.data_ptr() if mb is not None else None,
         safe.data_ptr() if safe is not None else None,
-        B, Lq, Lk, N, _qscale(scale),
+        B, Lq, Lk, N, D, int(causal), _qscale(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _kernels.check(code, "flash_attention")
-    flash_attention.launches += 1
+    _kernels.check(code, f"flash_attention ({name})")
+    flash_attention.launches[name] += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = {name: 0 for name in KERNELS.values()}

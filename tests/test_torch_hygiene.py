@@ -34,6 +34,17 @@ def test_import_and_forward_load_no_jax():
         "with torch.inference_mode():\n"
         "    y = m(torch.zeros(1, 4, 1, 4, 4), torch.tensor([5.0]), torch.zeros(1, 3, 32))\n"
         "assert y.shape == (1, 4, 1, 4, 4)\n"
+        "import numpy as np\n"
+        "from omnivideo_tpu_torch.configs.qwen3vl import Qwen3TextConfig, Qwen3VLConfig,"
+        " Qwen3VLVisionConfig\n"
+        "from omnivideo_tpu_torch.models.qwen3vl.full_model import Qwen3VLModel,"
+        " qwen3vl_greedy_decode\n"
+        "vcfg = Qwen3VLConfig(text=Qwen3TextConfig(vocab_size=32, hidden_size=32,"
+        " num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1, head_dim=16,"
+        " num_experts=4, num_experts_per_tok=2, moe_intermediate_size=8),"
+        " vision=Qwen3VLVisionConfig(depth=0))\n"
+        "vlm = Qwen3VLModel(vcfg, torch.float32, device='cpu')\n"
+        "assert qwen3vl_greedy_decode(vlm, np.array([[1, 2, 3]]), max_new_tokens=2).shape == (2,)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'omnivideo_tpu')]\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n")
@@ -66,7 +77,9 @@ def test_no_jax_import_or_library_attention(path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.configs.qwen3vl import QWEN3_VL_30B_A3B
     from omnivideo_tpu_torch.device import resolve_device
+    from omnivideo_tpu_torch.models.qwen3vl.full_model import Qwen3VLModel
     from omnivideo_tpu_torch.models.vae2_1 import init_vae
     from omnivideo_tpu_torch.models.wan_dit import WanDiT
     from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
@@ -78,7 +91,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                          max_context_len=8)
     for build in (lambda: WanDiT(dit), lambda: init_vae(cfg.vae),
                   lambda: OmniVideoX2XUnified.random_init(cfg),
-                  lambda: resolve_device(None), lambda: resolve_device("cuda:0")):
+                  lambda: resolve_device(None), lambda: resolve_device("cuda:0"),
+                  lambda: Qwen3VLModel(QWEN3_VL_30B_A3B),
+                  lambda: Qwen3VLModel.random_init(QWEN3_VL_30B_A3B)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert resolve_device("cpu") == torch.device("cpu")
