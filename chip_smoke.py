@@ -35,7 +35,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
-            the kernels' launch counts asserted.
+            the kernels' launch counts asserted;
+  flash_train  the training forward (o and LSE) and the dq and dk/dv
+            backward kernels against their plain twins on the same bf16
+            inputs at the training path's shapes (self-attention [1, 32760,
+            12, 128], cross-attention over 6,272 keys, ragged kv_lens with a
+            batch row of none), SDPA forward and backward timed beside them;
+  tiny_train  3 unified train steps of a 2-layer head-dim-128 model on the
+            card (kernels) and on the CPU (plain twins) from the same
+            weights, batch and draws: loss and grad_norm gaps;
+  train     make_unified_train_step on T2V_1_3B at full width and depth, f32
+            master params, batch 1 at 832x480x81 (32,760 tokens, the mixed
+            context cut to 6,272), remat, AdamW: 3 steps on one batch and one
+            set of draws (the loss must fall), launch counts per step
+            asserted, train_step_s and peak memory, then one profiled step.
 The line before the last is the kernel summary; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -74,11 +87,25 @@ from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 from omnivideo_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_train,
+    flash_bwd,
+    flash_bwd_plain,
+    flash_delta,
+    flash_fwd_lse,
+    flash_fwd_lse_plain,
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain, row_tiles
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+from omnivideo_tpu_torch.training.trainer import (
+    TrainConfig,
+    init_train_state,
+    init_unified_params,
+    make_optimizer,
+    make_unified_train_step,
+    sample_draws,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -93,6 +120,13 @@ MOE_TOL = 2e-2  # grouped vs all-experts MoE, of scale: bf16 products, and the
 RN_TOL = 1e-4  # rel, row-norm bound: f32 sums in another order
 QK_PAIR_ULPS = 4.0  # two bf16 roundings before the rotation, one after (pair_ulps)
 QK_MISMATCH = 1e-3  # share of y elements allowed to differ at all
+LSE_TOL = 1e-4  # |LSE − LSE_plain|, natural-log units, rows with keys: f32 sums in another order
+GRAD_TOL = 1e-2  # ‖g − g_plain‖/‖g_plain‖ per (batch row, head): p and ds round to bf16 before
+# their products in both versions, at values that differ in their last f32 bits
+TRAIN_TOL = 2e-3  # tiny train, card vs CPU, relative loss and grad_norm gaps (measured 5.7e-5): q/k/v/dO enter
+# the card's flash kernels in bf16 where the CPU's plain twins compute in f32
+TRAIN_STEPS = 3
+CTX_LEN = 512  # PadSpec text_len and vlm_len
 STEPS = 2
 FRAMES = 81
 SIZE = (832, 480)
@@ -715,7 +749,275 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
     return rec
 
 
+def _grad_rel(g: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """‖g − ref‖ / ‖ref‖ per (batch row, head) of [B, L, N, D] gradients."""
+    num = (g.float() - ref.float()).square().sum(dim=(1, 3)).sqrt()
+    return num / ref.float().square().sum(dim=(1, 3)).sqrt().clamp_min(1e-30)
+
+
+def _bwd_launcher(name, q, k, v, do, lse, delta, kv, outs, scale):
+    """One backward kernel, called on the library directly (timing only:
+    these launches are not counted)."""
+    lib = _kernels.library()
+    B, Lq, N, D = q.shape
+    lens = kv.to(torch.int32).contiguous() if kv is not None else None
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(o.data_ptr() for o in outs),
+            lens.data_ptr() if lens is not None else None, B, Lq, k.shape[1], N, D, scale,
+            torch.cuda.current_stream().cuda_stream)
+    fn = getattr(lib, name + "_launch")
+    return lambda: _kernels.check(fn(*args), name)
+
+
+def _flash_train_case(name, B, Lq, Lk, lens, gen, reps):
+    N, D = 12, 128
+    scale = D**-0.5
+    q, k = _normed(B, Lq, N, D, gen), _normed(B, Lk, N, D, gen)
+    v = torch.randn(B, Lk, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(B, Lq, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kv = torch.tensor(lens, dtype=torch.int32, device="cuda") if lens else None
+    o, lse = flash_fwd_lse(q, k, v, kv)
+    op, lsep = flash_fwd_lse_plain(q, k, v, kv)
+    delta = flash_delta(do, op)
+    grads = flash_bwd(q, k, v, do, lsep, delta, kv)
+    ref = flash_bwd_plain(q, k, v, do, lsep, delta, kv)
+    torch.cuda.synchronize()
+    live = [b for b in range(B) if not lens or lens[b] > 0]
+    dead = [b for b in range(B) if b not in live]
+    ulps = float(row_ulps(o, op).max())
+    lse_err = float((lse[live] - lsep[live]).abs().max())
+    grad_err = {n: float(_grad_rel(g[live], r[live]).max()) for n, g, r in zip(
+        ("dq", "dk", "dv"), grads, ref)}
+    zero_ok = all(bool((t[b] == 0).all()) for b in dead for t in (o, *grads))
+    if lens:
+        zero_ok &= all(bool((g[b, lens[b]:] == 0).all()) for b in live for g in grads[1:])
+    rec = {"phase": "flash_train", "case": name, "q": [B, Lq, N, D], "Lk": Lk,
+           "kv_lens": lens, "max_row_ulps_o": ulps, "tolerance_row_ulps": FLASH_ULPS,
+           "max_abs_err_lse": lse_err, "tolerance_lse": LSE_TOL,
+           "max_rel_err_per_head": grad_err, "tolerance_grad": GRAD_TOL, "zero_rows_ok": zero_ok,
+           "max_abs_err": {"o": float((o.float() - op.float()).abs().max()),
+                           **{n: float((g - r).abs().max()) for n, g, r in zip(
+                               ("dq", "dk", "dv"), grads, ref)}}}
+    if (ulps > FLASH_ULPS or lse_err > LSE_TOL or max(grad_err.values()) > GRAD_TOL
+            or not zero_ok or not all(torch.isfinite(g).all() for g in grads)):
+        raise AssertionError(f"flash_train {name}: {rec}")
+    # times: each kernel alone, the plain twins, SDPA forward and backward
+    dq_out, dk_out, dv_out = (torch.empty_like(g) for g in grads)
+    dq_fn = _bwd_launcher("flash_bwd_dq", q, k, v, do, lsep, delta, kv, (dq_out,), scale)
+    dkv_fn = _bwd_launcher("flash_bwd_dkv", q, k, v, do, lsep, delta, kv, (dk_out, dv_out), scale)
+    lib = _kernels.library()
+    lens_i = kv.contiguous() if kv is not None else None
+    o_out = torch.empty_like(q)
+    fwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o_out.data_ptr(), lse.data_ptr(),
+                lens_i.data_ptr() if lens_i is not None else None, B, Lq, Lk, N, D,
+                flash_mod._qscale(scale), torch.cuda.current_stream().cuda_stream)
+    rec["ms"] = {"flash_fwd_lse": cuda_ms(lambda: _kernels.check(
+        lib.flash_fwd_lse_launch(*fwd_args), "flash_fwd_lse"), reps),
+        "flash_bwd_dq": cuda_ms(dq_fn, reps), "flash_bwd_dkv": cuda_ms(dkv_fn, reps)}
+    rec["plain_ms"] = {"fwd": cuda_ms(lambda: flash_fwd_lse_plain(q, k, v, kv), 1, 0),
+                       "bwd": cuda_ms(lambda: flash_bwd_plain(q, k, v, do, lsep, delta, kv),
+                                      1, 0)}
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    mask = None
+    if kv is not None:
+        mask = (torch.arange(Lk, device="cuda")[None, :] < kv[:, None])[:, None, None, :]
+        mask = mask | ~mask.any(-1, keepdim=True)  # SDPA gives NaN for a row with no key
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
+                                                                    attn_mask=mask)
+    out = sdpa()
+    dot = do.transpose(1, 2).contiguous()
+    rec["library_ms"] = {"sdpa_fwd": cuda_ms(lambda: sdpa().detach(), reps),
+                         "sdpa_bwd": cuda_ms(lambda: torch.autograd.grad(
+                             out, (qt, kt, vt), dot, retain_graph=True), reps)}
+    # bounds from this run's data: live (row, key) pairs, each operand read once
+    live_pairs = sum(Lq * (min(lens[b], Lk) if lens else Lk) for b in range(B))
+    kv_rows = sum(min(lens[b], Lk) if lens else Lk for b in range(B))
+    q_rows = Lq * len(live)
+    row = N * D
+    stat = B * N * Lq * 4  # one f32 per (b, head, q row)
+    nbytes = {"flash_fwd_lse": (q_rows + 2 * kv_rows) * row * 2 + B * Lq * row * 2 + stat,
+              "flash_bwd_dq": (2 * q_rows + 2 * kv_rows) * row * 2 + 2 * stat + B * Lq * row * 4,
+              "flash_bwd_dkv": (2 * q_rows + 2 * kv_rows) * row * 2 + 2 * stat
+              + 2 * B * Lk * row * 4}
+    ops = {"flash_fwd_lse": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+    rec["bound_ms"], rec["bound_by"] = {}, {}
+    for kname, n_ops in ops.items():
+        t_ops = n_ops * N * live_pairs * D / BF16_FLOPS * 1e3
+        t_bytes = nbytes[kname] / HBM_BYTES_PER_S * 1e3
+        rec["bound_ms"][kname] = max(t_ops, t_bytes)
+        rec["bound_by"][kname] = "operations" if t_ops >= t_bytes else "bytes"
+    emit(rec)
+    del q, k, v, do, o, op, grads, ref, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flash_train(gen: torch.Generator) -> dict:
+    """Rows 3b, 4 and 5 at the training path's shapes; returns the
+    self-attention case (the kernels line reads it)."""
+    main = _flash_train_case("self", 1, SEQ, SEQ, None, gen, reps=3)
+    _flash_train_case("cross", 1, SEQ, 6272, None, gen, reps=5)
+    _flash_train_case("kv_lens_ragged", 2, 4100, 8190, [5001, 0], gen, reps=5)
+    return main
+
+
+def _tiny_train_config() -> PipelineConfig:
+    """2 layers at head dim 128 (the kernels' head dim), a 62-token mixed
+    context (6 VLM + 8 text + 48 visual) inside a 64-token budget."""
+    return PipelineConfig(
+        name="tiny-train",
+        dit=WanDiTConfig(patch_size=(1, 2, 2), in_dim=4, dim=256, ffn_dim=512, freq_dim=32,
+                         text_dim=48, out_dim=4, num_heads=2, num_layers=2),
+        vae=VAEConfig(dim=8, z_dim=4), vlm_in_dim=24, max_context_len=64)
+
+
+def _train_launches() -> dict:
+    return dict(flash_attention_train.launches)
+
+
+def _reset_train_launches() -> None:
+    for name in flash_attention_train.launches:
+        flash_attention_train.launches[name] = 0
+
+
+def phase_tiny_train() -> dict:
+    """The unified train step on the card (kernels) vs on the CPU (plain
+    twins): same weights (the DiT head filled), batch and draws, 3 steps."""
+    cfg = _tiny_train_config()
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10, cfg_dropout=0.5)
+    gen = torch.Generator().manual_seed(21)
+    cpu = init_unified_params(cfg, seed=4, device="cpu")
+    with torch.no_grad():
+        cpu.wan.head.head.weight.normal_(0.0, 0.1, generator=gen)
+    gpu = init_unified_params(cfg, seed=4, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    lat = (2, 4, 3, 16, 16)
+    batch = {"latents": torch.randn(lat, generator=gen),
+             "context": torch.cat([torch.randn(2, 5, 48, generator=gen), torch.zeros(2, 3, 48)], 1),
+             "vlm": torch.randn(2, 6, 24, generator=gen),
+             "visual_emb": torch.randn(lat, generator=gen)}
+    draws = [sample_draws(gen, lat, tc) for _ in range(TRAIN_STEPS)]
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        tx = make_optimizer(tc, model)
+        state = init_train_state(model, tx)
+        step = make_unified_train_step(cfg, tc, tx)
+        _reset_train_launches()
+        rows = []
+        for d in draws:
+            state, m = step(state, batch, d)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        out[dev] = (rows, _train_launches())
+    (cpu_rows, _), (gpu_rows, launches) = out["cpu"], out["cuda"]
+    loss_gap = max(abs(g[0] / c[0] - 1) for c, g in zip(cpu_rows, gpu_rows))
+    gn_gap = max(abs(g[1] / c[1] - 1) for c, g in zip(cpu_rows, gpu_rows))
+    n_attn = 2 * cfg.dit.num_layers * TRAIN_STEPS
+    expect = {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn}
+    rec = {"phase": "tiny_train", "steps": TRAIN_STEPS, "loss_cpu": [r[0] for r in cpu_rows],
+           "loss_gpu": [r[0] for r in gpu_rows], "grad_norm_cpu": [r[1] for r in cpu_rows],
+           "grad_norm_gpu": [r[1] for r in gpu_rows], "loss_rel_gap": loss_gap,
+           "grad_norm_rel_gap": gn_gap, "tolerance_rel": TRAIN_TOL, "launches": launches}
+    emit(rec)
+    if loss_gap > TRAIN_TOL or gn_gap > TRAIN_TOL or launches != expect:
+        raise AssertionError(f"tiny_train: {rec} (launches expected {expect})")
+    return rec
+
+
+def _train_profile(step, state, batch, draws) -> dict:
+    """Device time by kernel class of one train step, and its idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, draws)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_name = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        by_name[ev.key] = by_name.get(ev.key, 0.0) + ms
+        c = _kernel_class(ev.key)
+        by_class[c] = by_class.get(c, 0.0) + ms
+    busy = sum(by_class.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms_traced": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def phase_train() -> dict:
+    """make_unified_train_step on T2V_1_3B at full width and depth."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = T2V_1_3B
+    # the JAX CLI's learning rate, 3e-6: Adam's first step moves every param by ~lr,
+    # and 1e-4 on all 1.43B params overshoots (loss 2.87 → 17.6 on this batch)
+    tc = TrainConfig(warmup_steps=0, total_steps=1000, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_unified_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():  # init zero-fills the head: every block gradient would be 0
+        params.wan.head.head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
+    lat = (1, cfg.dit.in_dim, GRID[0], GRID[1] * 2, GRID[2] * 2)
+    batch = {"latents": torch.randn(lat, generator=gen, device="cuda"),
+             "context": torch.randn(1, CTX_LEN, cfg.dit.text_dim, generator=gen, device="cuda"),
+             "vlm": torch.randn(1, CTX_LEN, cfg.vlm_in_dim, generator=gen, device="cuda"),
+             "visual_emb": torch.randn(lat, generator=gen, device="cuda")}
+    draws = sample_draws(gen, lat, tc)
+    tx = make_optimizer(tc, params)
+    state = init_train_state(params, tx)
+    step = make_unified_train_step(cfg, tc, tx)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rows, step_s, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        _reset_launches()
+        _reset_train_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        rows.append((loss, gnorm))
+        per_step.append({**_train_launches(), **_launches()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_attn = 2 * cfg.dit.num_layers
+    expect = {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
+              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0}
+    profile = _train_profile(step, state, batch, draws)
+    rec = {"phase": "train", "config": "T2V_1_3B", "layers": cfg.dit.num_layers,
+           "dim": cfg.dit.dim, "params": n_params, "latents": list(lat), "seq_len": SEQ,
+           "context_len": cfg.max_context_len, "remat": tc.remat, "carry_dtype": tc.carry_dtype,
+           "lr": tc.learning_rate, "tid": int(draws[0][0]), "cfg_drop": bool(draws[2][0]),
+           "init_s": init_s, "loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
+           "step_s": step_s, "train_step_s": sum(step_s[1:]) / (len(step_s) - 1),
+           "max_memory_allocated_gb": peak_gb, "launches_per_step": per_step,
+           "profile_one_step": profile}
+    emit(rec)
+    finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows)
+    if (not finite or not rows[-1][0] < rows[0][0] or any(p != expect for p in per_step)
+            or peak_gb >= 80.0):
+        raise AssertionError(f"train: {rec} (launches expected {expect} per step)")
+    rec["launches"] = per_step[0]
+    del state, params, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _kernel_class(name: str) -> str:
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if kernel in name:
+            return kernel
+    if "flash_fwd_kernel<128, false, true>" in name:
+        return "flash_fwd_lse"
     if "flash_fwd" in name:
         return "flash_fwd"
     if "qk_prep" in name:
@@ -792,13 +1094,18 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     qk = phase_qk_prep(gen)
     fl = phase_flash(gen)
+    ft = phase_flash_train(gen)
     phase_tiny()
     phase_tiny_vlm()
+    phase_tiny_train()
     vlm = phase_vlm()
     e2e = phase_e2e(vlm.pop("features"))["launches"]
+    train = phase_train()
     launches = {"qk_prep": e2e["qk_prep"], "flash_fwd": e2e["flash_fwd"],
                 "flash_causal": vlm["launches"]["flash_causal"],
-                "flash_d72": vlm["launches"]["flash_d72"]}
+                "flash_d72": vlm["launches"]["flash_d72"],
+                **{k: sum(p[k] for p in train["launches_per_step"])
+                   for k in flash_attention_train.launches}}
     kernels = [
         {"name": "qk_prep", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/qk_prep.cu",
          "replaces": "omnivideo_tpu/ops/pallas/qk_prep.py:41",
@@ -814,6 +1121,21 @@ def main(argv) -> int:
              "launches": launches[name], "max_abs_err": rec["max_abs_err"],
              "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    outputs = {"flash_fwd_lse": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
+    replaces = {"flash_fwd_lse": "omnivideo_tpu/ops/pallas/flash_attention.py:42",
+                "flash_bwd_dq": "omnivideo_tpu/ops/pallas/flash_attention.py:485",
+                "flash_bwd_dkv": "omnivideo_tpu/ops/pallas/flash_attention.py:530"}
+    for name, line in replaces.items():
+        src = "flash_fwd.cu" if name == "flash_fwd_lse" else "flash_train.cu"
+        lib = ft["library_ms"]["sdpa_fwd" if name == "flash_fwd_lse" else "sdpa_bwd"]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"omnivideo_tpu_torch/csrc/{src}",
+             "replaces": line, "launches": launches[name],
+             "max_abs_err": max(ft["max_abs_err"][o] for o in outputs[name]),
+             "ms": ft["ms"][name],
+             "plain_ms": ft["plain_ms"]["fwd" if name == "flash_fwd_lse" else "bwd"],
+             "bound_ms": ft["bound_ms"][name], "bound_by": ft["bound_by"][name],
+             "library_ms": lib})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     emit({"kernels": kernels})

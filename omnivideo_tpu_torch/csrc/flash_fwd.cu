@@ -1,4 +1,4 @@
-// Inference flash-attention forward, CUDA C++ for sm_90a (bf16 in, bf16 out).
+// Flash-attention forward, CUDA C++ for sm_90a (bf16 in, bf16 out).
 //
 // Replaces the TPU kernel omnivideo_tpu/ops/pallas/flash_attention.py::
 // _fa_kernel as driven by _flash_fwd_unpadded (pallas_call at :328, reached
@@ -11,7 +11,7 @@
 // max-tracked form. The flag and the bound are computed on the device by the
 // wrapper, so choosing the mode costs no host sync.
 //
-// One template, three instantiations:
+// One template, four instantiations:
 // - D = 128, non-causal: the Wan DiT's self- and cross-attention (kernel
 //   row 1 of the port's table);
 // - D = 128, CAUSAL: the Qwen3 text prefill, _fa_kernel(causal=True)
@@ -22,7 +22,13 @@
 //   head-major transpose for D % 128 ≠ 0 (:308-318, 128-lane tiles); here a
 //   72-wide head is nine 16-byte chunks read in place, and the shared-memory
 //   tile pads it to 80 with zeros so q·kᵀ is five k16 steps and p·v ten n8
-//   tiles (the tenth is dropped).
+//   tiles (the tenth is dropped);
+// - D = 128, non-causal, LSE: the training forward (row 3b), _fa_kernel
+//   (with_lse=True) via _flash_fwd_impl (pallas_call at :430, reached
+//   through the custom-VJP rule _fa_fwd :628): always max-tracked, and it
+//   also writes the natural-log row logsumexp LSE = m·ln2 + ln(max(l, 1e-30))
+//   (:174-175) to lse [B, N, Lq] f32, the residual the backward kernels of
+//   flash_train.cu read. A row with no live key keeps m = −1e30, l = 0.
 //
 // Layout: q/k/v/o are read and written in place as packed [B, L, N·D] — the
 // layout the projection GEMMs produce (a row is N·D elements, a head's slice
@@ -41,100 +47,25 @@
 // ldmatrix reads fall in eight distinct 16-byte bank groups. wgmma/TMA and
 // warp specialisation are left for a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per block (4 warps x 16)
-constexpr int BK = 64;  // kv rows per tile
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+constexpr int kRows = BQ + 4 * BK;  // smem tile rows: q + 2 stages of K and of V
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
-struct Tile {
-  static_assert(D % 8 == 0, "a head row is a whole number of 16-byte chunks");
-  static constexpr int kChunks = D / 8;             // 16-byte chunks read per row
-  static constexpr int DP = (D + 15) / 16 * 16;     // padded to the mma k-depth
-  static constexpr bool kSwizzle = D % 64 == 0;     // >= 8 chunks: XOR swizzle
-  static constexpr int LDS = kSwizzle ? D : DP + 8;  // smem row stride, elements
-  static constexpr int kRows = BQ + 4 * BK;         // q + 2 stages of K and of V
-  static constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * kRows * LDS;
-
-  // element offset of 16-byte chunk `chunk` of tile row `row`
-  __device__ static __forceinline__ int off(int row, int chunk) {
-    return kSwizzle ? row * LDS + ((chunk ^ (row & 7)) << 3) : row * LDS + (chunk << 3);
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * kRows * Tile<D>::LDS;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const int n = pred ? 16 : 0;  // 0 bytes read -> the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a·b, m16n8k16, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [row0, row0+64) of one head (row stride ld elements) into a
-// [64, D] tile; rows >= nvalid are zero-filled and never read. The pad
-// columns D..DP are not touched here (zeroed once per block).
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                          int row0, int nvalid, int ld) {
-  constexpr int C = Tile<D>::kChunks;
-  for (int i = threadIdx.x; i < BK * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const bool ok = row0 + r < nvalid;
-    const __nv_bfloat16* src = ok ? g + static_cast<size_t>(row0 + r) * ld + c * 8 : g;
-    cp_async16(s + Tile<D>::off(r, c), src, ok);
-  }
-}
-
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 const int* __restrict__ kv_lens, const int* __restrict__ mbound,
-                 const int* __restrict__ safe, int Lq, int Lk, int N, float qscale) {
+                 float* __restrict__ lse, const int* __restrict__ kv_lens,
+                 const int* __restrict__ mbound, const int* __restrict__ safe, int Lq, int Lk,
+                 int N, float qscale) {
   using T = Tile<D>;
   constexpr int DP = T::DP;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -147,7 +78,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int ld = N * D;
   int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
   kv_len = min(max(kv_len, 0), Lk);
-  const bool bounded = safe != nullptr && *safe != 0;
+  const bool bounded = !LSE && safe != nullptr && *safe != 0;
   const float mb = bounded ? static_cast<float>(mbound[b * N + h]) : 0.f;
 
   const size_t head_off = static_cast<size_t>(h) * D;
@@ -159,7 +90,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   if (CAUSAL) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);  // tiles with col <= last row
 
   if constexpr (DP != D) {  // zero the pad columns of every tile row once
-    for (int r = threadIdx.x; r < T::kRows; r += kThreads)
+    for (int r = threadIdx.x; r < kRows; r += kThreads)
 #pragma unroll
       for (int c = D; c < DP; c += 8)
         *reinterpret_cast<uint4*>(sQ + r * T::LDS + c) = make_uint4(0u, 0u, 0u, 0u);
@@ -304,6 +235,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     denom[r] = l == 0.f ? 1.f : l;  // fully masked rows -> 0
+    const int row = row_a + r * 8;
+    if (LSE && lane % 4 == 0 && row < Lq)  // m is in log2 units, l domain-free
+      lse[(static_cast<size_t>(b) * N + h) * Lq + row] = m_r[r] * kLn2 + logf(fmaxf(l, 1e-30f));
   }
   __nv_bfloat16* og = o + static_cast<size_t>(b) * Lq * ld + head_off + (lane % 4) * 2;
 #pragma unroll
@@ -319,21 +253,21 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int D, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens,
+template <int D, bool CAUSAL, bool LSE = false>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
            const void* mbound, const void* safe, int B, int Lq, int Lk, int N, float qscale,
            cudaStream_t stream) {
   // set on every call: the attribute is per device, and the call is cheap
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Tile<D>::kSmemBytes));
+      flash_fwd_kernel<D, CAUSAL, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BQ - 1) / BQ, N, B);
-  flash_fwd_kernel<D, CAUSAL><<<grid, kThreads, Tile<D>::kSmemBytes, stream>>>(
+  flash_fwd_kernel<D, CAUSAL, LSE><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(mbound),
-      static_cast<const int*>(safe), Lq, Lk, N, qscale);
+      static_cast<float*>(lse), static_cast<const int*>(kv_lens),
+      static_cast<const int*>(mbound), static_cast<const int*>(safe), Lq, Lk, N, qscale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,10 +281,20 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 float qscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 128 && !causal)
-    return launch<128, false>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return launch<128, false>(q, k, v, o, nullptr, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
   if (head_dim == 128 && causal)
-    return launch<128, true>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return launch<128, true>(q, k, v, o, nullptr, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
   if (head_dim == 72 && !causal)
-    return launch<72, false>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return launch<72, false>(q, k, v, o, nullptr, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The training forward (row 3b): max-tracked, o and lse [B, N, Lq] f32.
+// Head dim 128 only; returns the CUDA error code.
+extern "C" int flash_fwd_lse_launch(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, const void* kv_lens, int B, int Lq, int Lk,
+                                    int N, int head_dim, float qscale, void* stream) {
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<128, false, true>(q, k, v, o, lse, kv_lens, nullptr, nullptr, B, Lq, Lk, N,
+                                  qscale, static_cast<cudaStream_t>(stream));
 }

@@ -13,9 +13,12 @@ where only the layout differs (the Conv3d patch embedding, the modulation
 tables) and casting to each parameter's dtype — the module already holds
 cast_wan_params' split (modulation, norms and head f32; the rest the param
 dtype). Companion and VAE params keep the JAX dict layout and map as they
-are. `qwen3vl_params_to_state_dict` / `load_qwen3vl` do the same for the
-Qwen3-VL param tree of `qwen3vl_hf_to_params` (scanned `blocks`/`layers`
-stacks split per layer, `lm_head` and the deepstack mergers carried).
+are. `unified_params_to_state_dict` / `load_unified` map the training tree
+{'wan', 'companions'} (its params, gradients or updated params) to the
+port's UnifiedParams names. `qwen3vl_params_to_state_dict` / `load_qwen3vl`
+do the same for the Qwen3-VL param tree of `qwen3vl_hf_to_params` (scanned
+`blocks`/`layers` stacks split per layer, `lm_head` and the deepstack
+mergers carried).
 """
 
 from __future__ import annotations
@@ -120,6 +123,29 @@ def _load_strict(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
             raise ValueError(f"{name}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
         p.copy_(src.reshape(p.shape))
     return model
+
+
+def unified_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """The JAX unified tree {'wan', 'companions'} (params, gradients or
+    updated params) → the names of training.UnifiedParams: 'wan.' + the DiT's
+    reference names, 'companions.' + the dotted dict path."""
+    sd = {f"wan.{k}": v for k, v in wan_params_to_state_dict(params["wan"]).items()}
+
+    def flat(prefix, tree):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                flat(f"{prefix}.{k}", v)
+            else:
+                sd[f"{prefix}.{k}"] = _np(v)
+
+    flat("companions", params["companions"])
+    return sd
+
+
+def load_unified(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
+    """Copy `unified_params_to_state_dict`'s arrays into a UnifiedParams;
+    every parameter must be present and every key used."""
+    return _load_strict(model, sd)
 
 
 def split_unified_state_dict(sd: Mapping[str, Any]):

@@ -5,14 +5,17 @@ context adapter over source-video latents, and the concatenation with
 learned special-token sandwiches in the v2 order
 [VLM][<ipl> aligned][<prp> text][<img> visual][<img> ref] or the v1 order
 [<img> visual][<img> ref][<ipl> aligned][<prp> text], zero-padded or
-truncated to max_context_len. Companion parameters keep the JAX dict layout.
+truncated to max_context_len. Companion parameters keep the JAX dict layout:
+a nested dict of tensors for inference, or `Companions`, the same tree as
+trainable parameters, for training (`build_mixed_context_batch`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
+from torch import nn
 
 from ..configs.base import PipelineConfig
 from ..ops.norms import rms_norm
@@ -35,6 +38,30 @@ def init_unified_companions(cfg: PipelineConfig, device=None,
             cfg.visual_context_adapter_patch_size, cfg.dit.in_dim, cfg.dit.dim,
             cfg.dit.text_dim, device=device, generator=generator)
     return params
+
+
+class Companions(nn.Module):
+    """A companion param tree (vlm_norm, vlm_proj, visual_context_adapter) as
+    trainable parameters: sub-dicts become child modules, leaves parameters,
+    so parameter names are the JAX paths with dots ("vlm_proj.kernel"). It
+    reads like the dict: tree[k], k in tree, .get(k)."""
+
+    def __init__(self, tree: Mapping[str, object]):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                self.add_module(key, Companions(val))
+            else:
+                self.register_parameter(key, nn.Parameter(torch.as_tensor(val)))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
 
 
 def project_vlm_features(companions, ar_vision: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -131,3 +158,56 @@ def build_mixed_context(
     elif mixed.shape[0] < L:
         mixed = torch.cat([mixed, mixed.new_zeros(L - mixed.shape[0], td)])
     return mixed
+
+
+def build_mixed_context_batch(
+    companions,
+    cfg: PipelineConfig,
+    text_ctx: Optional[torch.Tensor] = None,
+    vlm: Optional[torch.Tensor] = None,
+    visual_emb: Optional[torch.Tensor] = None,
+    special_tokens: Optional[Dict[str, torch.Tensor]] = None,
+    aligned_emb: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Batched mixed context for training, [B, max_context_len, text_dim] f32:
+    [VLM][<ipl> aligned][<prp> text][<img> visual], each part batched
+    (text_ctx [B, Lt, text_dim] zero-padded, vlm [B, Lv, vlm_dim], visual_emb
+    [B, C, F, h, w] latents, aligned_emb [B, La, text_dim]), sandwiched by the
+    special tokens where given, then zero-padded or truncated."""
+    td = cfg.dit.text_dim
+    B = next((a.shape[0] for a in (text_ctx, vlm, visual_emb, aligned_emb) if a is not None), None)
+    if B is None:
+        raise ValueError("build_mixed_context_batch: no conditioning input")
+
+    def tok(name):
+        t = special_tokens[name]
+        t = t if t.ndim == 2 else t[None]
+        return t[None].float().expand(B, t.shape[0], td)
+
+    parts: List[torch.Tensor] = []
+    if vlm is not None:
+        h = rms_norm(vlm, companions["vlm_norm"], cfg.dit.eps)
+        parts.append(kernel_dense(companions["vlm_proj"], h).float())
+    if aligned_emb is not None:
+        a = aligned_emb.float()
+        if special_tokens is not None and "<ipl_st>" in special_tokens:
+            parts.extend([tok("<ipl_st>"), a, tok("<ipl_ed>")])
+        else:
+            parts.append(a)
+    if text_ctx is not None:
+        if special_tokens is not None:
+            parts.extend([tok("<prp_st>"), text_ctx.float(), tok("<prp_ed>")])
+        else:
+            parts.append(text_ctx.float())
+    if visual_emb is not None and "visual_context_adapter" in companions:
+        vis = vca_apply(companions["visual_context_adapter"], visual_emb,
+                        cfg.visual_context_adapter_patch_size, cfg.dit.eps).float()
+        if special_tokens is not None:
+            parts.extend([tok("<img_st>"), vis, tok("<img_ed>")])
+        else:
+            parts.append(vis)
+    mixed = torch.cat([p.to(parts[0].device) for p in parts], dim=1)
+    L = cfg.max_context_len
+    if mixed.shape[1] > L:
+        return mixed[:, :L]
+    return torch.nn.functional.pad(mixed, (0, 0, 0, L - mixed.shape[1]))

@@ -13,13 +13,19 @@ loads the JAX package's param pytrees. Modulation tables, norms and the head
 stay f32; every other weight has the param dtype (cast_wan_params' split).
 
 The residual stream is stored at `residual_dtype` (f32 for parity, bf16 the
-CLI default); residual adds and norms compute in f32 either way. With
-qk_norm, head_dim % 128 == 0 and N ≤ 128 the attention prologue runs through
-the fused qk_prep kernel and the flash kernel takes its row-norm bounds;
-otherwise the unfused rms_norm → apply_rope → attention_plain chain runs, on
-the CPU only (no config of the port takes it, and it has no kernel).
-Left out of this slice: the i2v k_img/img_emb branch, sequence/tensor
-parallelism, LoRA and rematerialization.
+CLI default); residual adds and norms compute in f32 either way. The
+attention prologue has two forms, chosen by `qk_impl` as in JAX:
+- "kernel" (the generate default): with qk_norm, head_dim % 128 == 0 and
+  N ≤ 128, the fused qk_prep kernel feeds the bounded inference flash
+  kernel its row-norm bounds (inference only: neither kernel has a
+  backward); other configs fall back to the unfused chain;
+- "unfused" (training): rms_norm → apply_rope → `ops.attention.attention`,
+  which under autograd is the differentiable `flash_attention_train`.
+On the card the flash kernels take head dim 128; other head dims raise there.
+`remat` recomputes each block in the backward (torch.utils.checkpoint), and
+`carry_dtype` stores the inter-block carry, and with remat the saved block
+inputs, at that dtype while the block computes from f32 (`wan_dit_apply`).
+Left out: the i2v k_img/img_emb branch, sequence/tensor parallelism, LoRA.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import WanDiTConfig
 from ..device import resolve_device
-from ..ops.attention import attention_plain
+from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.qk_prep import qk_prep
@@ -84,6 +91,9 @@ def unpatchify(x: torch.Tensor, grid: Tuple[int, int, int],
     x = x[:, : f * h * w].reshape(B, f, h, w, pt, ph, pw, out_dim)
     x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
     return x.reshape(B, out_dim, f * pt, h * ph, w * pw)
+
+
+QK_IMPLS = ("kernel", "unfused")
 
 
 class WanAux(NamedTuple):
@@ -153,16 +163,14 @@ class WanBlock(nn.Module):
         return flash_attention(q, k, v, kv_lens=kv_lens, assume_normalized=True,
                                qk_row_norms=(qn, kn))
 
-    def forward(self, x: torch.Tensor, aux: WanAux) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, aux: WanAux, qk_impl: str = "kernel") -> torch.Tensor:
         cfg = self.cfg
         B, L, d = x.shape
         N, hd = cfg.num_heads, cfg.head_dim
         pdtype = self.self_attn.q.weight.dtype
-        fuse_qk = cfg.qk_norm and hd % 128 == 0 and N <= 128
-        if not fuse_qk and x.device.type != "cpu":
-            raise NotImplementedError(
-                f"the unfused attention path (qk_norm={cfg.qk_norm}, head_dim {hd}, "
-                f"{N} heads) runs on the CPU only: it has no kernel")
+        if qk_impl not in QK_IMPLS:
+            raise ValueError(f"qk_impl {qk_impl!r} not in {QK_IMPLS}")
+        fuse_qk = qk_impl == "kernel" and cfg.qk_norm and hd % 128 == 0 and N <= 128
         rdt = x.dtype
         e = self.modulation.float()[None] + aux.e0  # [B, T, 6, d]
         e1, e2, e3, e4, e5, e6 = (e[:, :, i] for i in range(6))
@@ -181,7 +189,7 @@ class WanBlock(nn.Module):
             v = dense(sa.v, y).view(B, L, N, hd)
             q = apply_rope(q, aux.rope_cos, aux.rope_sin)
             k = apply_rope(k, aux.rope_cos, aux.rope_sin)
-            o = attention_plain(q, k, v, kv_lens=aux.kv_lens)
+            o = attention(q, k, v, kv_lens=aux.kv_lens, assume_normalized=cfg.qk_norm)
         o = dense(sa.o, o.reshape(B, L, d))
 
         # --- cross attention over the full padded context
@@ -202,7 +210,7 @@ class WanBlock(nn.Module):
             q = rms_norm(dense(ca.q, xq), ca.norm_q.weight, cfg.eps).view(B, L, N, hd)
             k = rms_norm(dense(ca.k, ctx), ca.norm_k.weight, cfg.eps).view(B, Lc, N, hd)
             v = dense(ca.v, ctx).view(B, Lc, N, hd)
-            o = attention_plain(q, k, v, kv_lens=None)
+            o = attention(q, k, v, kv_lens=None, assume_normalized=cfg.qk_norm)
         o = dense(ca.o, o.reshape(B, L, d))
 
         # --- ffn
@@ -322,11 +330,17 @@ class WanDiT(nn.Module):
         seq_len: Optional[int] = None,
         context_embedded: bool = False,
         residual_dtype: Optional[torch.dtype] = None,
+        qk_impl: str = "kernel",
+        remat: bool = False,
+        carry_dtype: Optional[torch.dtype] = None,
     ) -> torch.Tensor:
         """x: [B, C_in, F, H, W] noisy latents; t: [B] timesteps; context:
         [B, Lc, text_dim] (or [B, Lc, dim] if context_embedded), padded to
         the context budget. seq_len pads the video tokens (masked as KV).
-        Returns the velocity [B, C_out, F, H, W] f32."""
+        qk_impl: "kernel" or "unfused" (the training chain). remat: recompute
+        each block in the backward. carry_dtype: dtype of the inter-block
+        carry (blocks compute from f32); exclusive with a non-f32
+        residual_dtype. Returns the velocity [B, C_out, F, H, W] f32."""
         cfg = self.cfg
         B = x.shape[0]
         pt, ph, pw = cfg.patch_size
@@ -347,9 +361,22 @@ class WanDiT(nn.Module):
         cos, sin = self.rope_tables(grid)
         aux = WanAux(e0=e0, context=context.to(pdtype), rope_cos=cos, rope_sin=sin,
                      kv_lens=kv_lens)
-        hf = h.to(residual_dtype if residual_dtype is not None else torch.float32)
+        bandwidth = residual_dtype is not None and residual_dtype != torch.float32
+        if bandwidth and carry_dtype not in (None, residual_dtype):
+            raise ValueError(f"carry_dtype {carry_dtype} with residual_dtype {residual_dtype}")
+        cdt = carry_dtype if carry_dtype is not None and not bandwidth else torch.float32
+
+        def block_fn(blk, xx):
+            if bandwidth or cdt == torch.float32:
+                return blk(xx, aux, qk_impl)
+            return blk(xx.float(), aux, qk_impl).to(cdt)
+
+        hf = h.to(residual_dtype if bandwidth else cdt)
         for blk in self.blocks:
-            hf = blk(hf, aux)
+            if remat:
+                hf = checkpoint(block_fn, blk, hf, use_reentrant=False)
+            else:
+                hf = block_fn(blk, hf)
         return self._head(hf.float(), e, grid)
 
     def _head(self, hf: torch.Tensor, e: torch.Tensor, grid) -> torch.Tensor:

@@ -10,7 +10,8 @@ is rebuilt only when a source changes.
 Nothing here runs at import time: the first kernel launch builds and loads.
 Every C entry point returns its cudaGetLastError() code; `check` raises on a
 non-zero code, so a launch refused for its shared memory or grid is never
-silent.
+silent. A kernel's output has no autograd history: `check_no_grad` makes a
+wrapper without a backward raise rather than drop a gradient.
 """
 
 from __future__ import annotations
@@ -25,9 +26,12 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("qk_prep.cu", "flash_fwd.cu")
+SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_train.cu")
+HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libomnivideo_kernels.so"
@@ -46,6 +50,9 @@ _SIGNATURES = {
     "flash_fwd_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
                          _c_int, _c_int, _c_int, _c_int, _c_float, _c_void_p],
+    "flash_fwd_lse_launch": [_c_void_p] * 6 + [_c_int] * 5 + [_c_float, _c_void_p],
+    "flash_bwd_dq_launch": [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p],
+    "flash_bwd_dkv_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_float, _c_void_p],
 }
 
 _lock = threading.Lock()
@@ -65,7 +72,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -127,3 +134,10 @@ def library() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise where a kernel without a backward would cut the autograd graph."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward, and an input requires "
+                           "grad; train through ops.flash_attention.flash_attention_train")

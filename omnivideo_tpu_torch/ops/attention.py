@@ -1,10 +1,14 @@
-"""Einsum attention (port of omnivideo_tpu/ops/attention.py `attention_xla`).
+"""Attention entry points (port of omnivideo_tpu/ops/attention.py).
 
-Fixed shapes with `kv_lens` masking (padded KV positions get −1e30 logits),
-no varlen packing, natural-exp softmax in f32. It is the CPU oracle the JAX
-package's unfused path is held to, and the attention of the port's unfused
-WanBlock branch, which runs on the CPU only: every config of the port takes
-the fused qk_prep + flash path (`ops/flash_attention.py`) on the card.
+`attention` is the dispatch of the unfused chain: the differentiable
+`flash_attention_train` when grad mode is on and an input requires grad (the
+custom VJP the JAX `attention(impl="pallas")` reaches under
+`value_and_grad`), otherwise the inference `flash_attention` with its bounded
+softmax. Each takes its kernel on CUDA and its plain twin on the CPU.
+
+`attention_plain` is the einsum oracle (`attention_xla`): fixed shapes with
+`kv_lens` masking (padded KV positions get −1e30 logits), natural-exp
+softmax in f32.
 """
 
 from __future__ import annotations
@@ -13,7 +17,25 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import NEG_INF
+from .flash_attention import NEG_INF, flash_attention, flash_attention_train
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_lens: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+    assume_normalized: bool = False,
+) -> torch.Tensor:
+    """q: [B, Lq, N, D]; k/v: [B, Lk, N, D]; kv_lens: [B] or None.
+    assume_normalized (qk-normed q/k) lets the inference forward take the
+    bounded softmax; the training forward is always max-tracked, as `_fa_fwd`
+    drops the flag."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_train(q, k, v, kv_lens, softmax_scale)
+    return flash_attention(q, k, v, kv_lens=kv_lens, softmax_scale=softmax_scale,
+                           assume_normalized=assume_normalized)
 
 
 def attention_plain(

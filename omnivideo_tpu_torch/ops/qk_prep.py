@@ -8,7 +8,9 @@ an upper bound after the bf16 cast. The op order is the contract.
 
 `qk_prep` launches the CUDA kernel `csrc/qk_prep.cu` for CUDA tensors and
 takes `qk_prep_plain` only for CPU tensors. Bound and design: see the
-kernel source.
+kernel source. The kernel has no backward: on CUDA the wrapper raises when
+grad mode is on and an input requires grad (training takes the unfused
+chain).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ def qk_prep(
     Returns (y [B, L, N, hd] in x.dtype, row-norm bound [B, N] f32)."""
     if x.device.type == "cpu":
         return qk_prep_plain(x, gain, cos, sin, num_heads, eps)
+    _kernels.check_no_grad("qk_prep", x, gain)
     if not x.is_cuda:
         raise ValueError(f"qk_prep: unsupported device {x.device}")
     B, L, d = x.shape

@@ -1,3 +1,4 @@
+from .flow_match import FlowMatchScheduler
 from .unipc import FlowUniPC, UniPCState
 
-__all__ = ["FlowUniPC", "UniPCState"]
+__all__ = ["FlowMatchScheduler", "FlowUniPC", "UniPCState"]

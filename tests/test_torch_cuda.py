@@ -15,7 +15,12 @@ maximum, and an error confined to later KV tiles shows). qk_prep outputs
 ≤ 4 bf16 ulps of each RoPE pair's magnitude and < 0.1% of elements differing
 at all (the f32 rs differs in its last bits with the summation order, which
 can flip the bf16 roundings before the rotation); its row-norm bound 1e-4
-relative.
+relative. The training kernels: o as above, the natural-log LSE within
+1e-4 absolute (f32 sums in another order), dq/dk/dv within 1e-2 of their
+own norm per (batch row, head) (p and ds are rounded to bf16 before their
+products in both versions, at values that differ in the last f32 bits), and
+the autograd function's directional derivatives within 2e-2 of central
+finite differences of an f64 einsum attention (the kernels' bf16 operands).
 """
 
 import numpy as np
@@ -25,6 +30,12 @@ import torch
 from omnivideo_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_train,
+    flash_bwd,
+    flash_bwd_plain,
+    flash_delta,
+    flash_fwd_lse,
+    flash_fwd_lse_plain,
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain
@@ -179,3 +190,96 @@ def test_flash_kernel_rejects_strided_operands(cuda):
     q, k, v = (qkv[..., i * N * D:(i + 1) * N * D].unflatten(-1, (N, D)) for i in range(3))
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
+
+
+TRAIN_CASES = [
+    (2, 1000, 1000, None),      # self-attention, ragged tiles
+    (2, 1000, 300, None),       # cross-attention
+    (2, 300, 700, [433, 0]),    # kv_lens, one batch row without keys
+]
+
+
+def _grad_rel(g, ref):
+    """‖g − ref‖ / ‖ref‖ per (batch row, head) of [B, L, N, D] gradients."""
+    num = (g.float() - ref.float()).square().sum(dim=(1, 3)).sqrt()
+    return num / ref.float().square().sum(dim=(1, 3)).sqrt().clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,lens", TRAIN_CASES)
+def test_flash_train_kernels_match_plain(cuda, B, Lq, Lk, lens):
+    N, D = 4, 128
+    q, k, v = _qkv(B, Lq, Lk, N, D, Lq + 3 * Lk, 1.0, cuda)
+    do = torch.randn(B, Lq, N, D, generator=torch.Generator(cuda).manual_seed(Lq),
+                     device=cuda).bfloat16()
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n0 = dict(flash_attention_train.launches)
+    o, lse = flash_fwd_lse(q, k, v, kv)
+    op, lsep = flash_fwd_lse_plain(q, k, v, kv)
+    _assert_flash_close(o, op)
+    live = [b for b in range(B) if lens is None or lens[b] > 0]
+    torch.testing.assert_close(lse[live], lsep[live], rtol=0, atol=1e-4)
+    assert (lse[[b for b in range(B) if b not in live]] < -1e29).all()  # no keys
+    delta = flash_delta(do, op)
+    grads = flash_bwd(q, k, v, do, lsep, delta, kv)
+    ref = flash_bwd_plain(q, k, v, do, lsep, delta, kv)
+    assert {k_: flash_attention_train.launches[k_] - n0[k_] for k_ in n0} == {
+        "flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for g, r in zip(grads, ref):
+        assert g.dtype == torch.float32
+        worst = float(_grad_rel(g[live], r[live]).max())
+        assert worst < 1e-2, worst
+    if lens is not None:
+        assert (o[1] == 0).all() and (grads[0][1] == 0).all()
+        for g in grads[1:]:
+            assert (g[0, lens[0]:] == 0).all() and (g[1] == 0).all()
+
+
+def test_flash_train_autograd_finite_difference(cuda):
+    """f32 caller: q/k/v enter the kernels in bf16, the gradients come back
+    in f32; each directional derivative of sum(o·g) against central
+    differences of an f64 einsum softmax attention."""
+    B, Lq, Lk, N, D = 1, 96, 80, 2, 128
+    gen = torch.Generator(cuda).manual_seed(7)
+    q, k, v, g = (torch.randn(B, L, N, D, generator=gen, device=cuda)
+                  for L in (Lq, Lk, Lk, Lq))
+    lens = torch.tensor([61], device=cuda)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_train(*ts, lens)
+    assert out.dtype == torch.float32
+    out.backward(g)
+    for i, t in enumerate(ts):
+        assert t.grad.dtype == torch.float32
+        direction = torch.randn(t.shape, generator=gen, device=cuda)
+
+        def f(eps):
+            args = [x.double() for x in (q, k, v)]
+            args[i] = args[i] + eps * direction.double()
+            s_ = torch.einsum("bind,bjnd->bnij", args[0], args[1]) * D**-0.5
+            s_ = s_.masked_fill(torch.arange(Lk, device=cuda) >= lens[:, None, None, None], -1e30)
+            o_ = torch.einsum("bnij,bjnd->bind", s_.softmax(-1), args[2])
+            return float((o_ * g.double()).sum())
+
+        fd = (f(1e-3) - f(-1e-3)) / 2e-3
+        an = float((t.grad.double() * direction.double()).sum())
+        assert abs(an - fd) <= 2e-2 * abs(fd), ("qkv"[i], an, fd)
+
+
+def test_flash_train_kernels_reject_other_head_dims(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        flash_fwd_lse(q, q, q)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        flash_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=cuda), torch.zeros(1, 2, 8, device=cuda))
+
+
+def test_inference_kernels_refuse_grad(cuda):
+    """The inference flash kernel and qk_prep have no backward: with grad
+    mode on they raise for an input that requires grad."""
+    q = torch.zeros(1, 8, 2, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, q, q)
+    x = torch.zeros(1, 8, 256, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qk_prep(x, torch.ones(256, device=cuda), None, None, 2)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).grad_fn is None

@@ -83,6 +83,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from omnivideo_tpu_torch.models.vae2_1 import init_vae
     from omnivideo_tpu_torch.models.wan_dit import WanDiT
     from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+    from omnivideo_tpu_torch.tools import finetune
+    from omnivideo_tpu_torch.training.trainer import init_unified_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     dit = WanDiTConfig(in_dim=4, dim=256, ffn_dim=256, freq_dim=32, text_dim=32,
@@ -93,7 +95,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: OmniVideoX2XUnified.random_init(cfg),
                   lambda: resolve_device(None), lambda: resolve_device("cuda:0"),
                   lambda: Qwen3VLModel(QWEN3_VL_30B_A3B),
-                  lambda: Qwen3VLModel.random_init(QWEN3_VL_30B_A3B)):
+                  lambda: Qwen3VLModel.random_init(QWEN3_VL_30B_A3B),
+                  lambda: init_unified_params(cfg),
+                  lambda: finetune.main(["--dummy_data", "--tiny", "--total_steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -136,3 +136,37 @@ def test_vca_matches_jax(companions):
     out = vca_apply(tcomp["visual_context_adapter"], torch.tensor(x), (1, 4, 4), 1e-6)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
     assert jax.tree_util.tree_structure(jcomp) is not None
+
+
+@pytest.mark.parametrize("with_special,aligned,truncate", [
+    (True, True, False), (False, True, False), (True, False, True)])
+def test_mixed_context_batch_matches_jax(companions, with_special, aligned, truncate):
+    """The training assembly, batched, against build_mixed_context_batch; the
+    companions as trainable parameters (Companions) read like the dict."""
+    from omnivideo_tpu.models.unified import build_mixed_context_batch as jax_batch
+    from omnivideo_tpu_torch.models.unified import Companions, build_mixed_context_batch
+
+    tcomp, jcomp = companions
+    rng = np.random.default_rng(11)
+    B = 2
+    ctx = rng.standard_normal((B, 7, 48)).astype(np.float32)
+    vlm = rng.standard_normal((B, 5, 24)).astype(np.float32)
+    vis = rng.standard_normal((B, 4, 3, 8, 8)).astype(np.float32)
+    ali = rng.standard_normal((B, 4, 48)).astype(np.float32) if aligned else None
+    st = _special(None, seed=4) if with_special else None
+    jcfg = JCFG.replace(max_context_len=20) if truncate else JCFG
+    cfg = CFG.replace(max_context_len=20) if truncate else CFG
+    ref = jax_batch(jcomp, jcfg, text_ctx=jnp.asarray(ctx), vlm=jnp.asarray(vlm),
+                    visual_emb=jnp.asarray(vis),
+                    special_tokens=None if st is None else {k: jnp.asarray(v) for k, v in st.items()},
+                    aligned_emb=None if ali is None else jnp.asarray(ali))
+    params = Companions(tcomp)
+    assert {n for n, _ in params.named_parameters()} >= {"vlm_norm", "vlm_proj.kernel",
+                                                         "visual_context_adapter.projection.bias"}
+    out = build_mixed_context_batch(
+        params, cfg, text_ctx=torch.tensor(ctx), vlm=torch.tensor(vlm),
+        visual_emb=torch.tensor(vis),
+        special_tokens=None if st is None else {k: torch.tensor(v) for k, v in st.items()},
+        aligned_emb=None if ali is None else torch.tensor(ali))
+    assert out.shape == (B, cfg.max_context_len, 48) and out.requires_grad
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)

@@ -132,14 +132,23 @@ def test_golden_forward_parity(golden, seq_len, key):
     np.testing.assert_allclose(out, golden[key], rtol=2e-4, atol=2e-4)
 
 
-def test_unfused_path_is_cpu_only():
-    """head_dim 16 takes the unfused chain, which has no kernel: off the CPU
-    the block raises rather than run a path that no config takes."""
-    from omnivideo_tpu_torch.models.wan_dit import WanBlock
+def test_unfused_path_is_cpu_only(monkeypatch):
+    """Off the CPU the unfused chain (head_dim 16 here) runs only through the
+    flash kernels, which take head dim 128: the block raises there, in
+    inference and under autograd, rather than fall back to a plain version.
+    A meta-device block that reports itself as CUDA stands in for the card."""
+    from omnivideo_tpu_torch.models.wan_dit import WanAux, WanBlock
 
     block = WanBlock(WanDiTConfig(**GOLDEN_CFG), torch.float32, "meta")
-    with pytest.raises(NotImplementedError, match="CPU only"):
-        block(torch.empty(1, 8, 64, device="meta"), aux=None)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    meta = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    aux = WanAux(e0=meta(1, 1, 6, 64), context=meta(1, 4, 64), rope_cos=meta(8, 8),
+                 rope_sin=meta(8, 8), kv_lens=None)
+    x = meta(1, 8, 64)
+    with torch.no_grad(), pytest.raises(ValueError, match="head_dim 16"):
+        block(x, aux, "unfused")
+    with pytest.raises(ValueError, match="head_dim 16"):
+        block(x.requires_grad_(), aux)  # the fused path does not take head_dim 16 either
 
 
 def test_residual_bf16_close_to_f32(golden):
