@@ -36,6 +36,26 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
             the kernels' launch counts asserted;
+  adaln     the fused_adaln CUDA kernel against fused_adaln_plain at the four
+            call sites' shapes of T2V-A14B ([2, 32760, 5120]: modulation only
+            with bf16 out, gated residual + norm3 affine, residual +
+            modulation, the head's modulation with f32 out) and of T2V-1.3B
+            ([2, 32760, 1536]); x_new bit for bit, y per row in bf16 ulps;
+  tiny_a14b a tiny dual-expert model (2 layers, dim 256, head dim 128) in the
+            A14B parity mode (f32 residual, ew_impl="kernel") on the card
+            against the same weights on the CPU, fed by a tiny umT5 encode
+            and a tiny VAE encode (each also compared), both solvers, 7
+            fused_adaln launches per forward asserted;
+  a14b      T2V-A14B at full width and depth from seeded weights: umT5-XXL
+            (bf16, on the card) encodes 512 seeded ids for the prompt and the
+            negative and is freed; the full-size VAE encodes a seeded
+            832x480x81 clip; both experts (2 x 14.29B bf16) run a V2V
+            generate with the vlm phase's features, f32 residual,
+            ew_impl="kernel", qk_impl="kernel", 3 UniPC steps at shift 12
+            (2 high-noise steps, 1 low-noise, asserted) with 121 fused_adaln
+            launches per forward asserted, one profiled forward, then the
+            experts are freed (under 2 GB left allocated) and the VAE
+            decodes to uint8; peak memory below 80 GB;
   flash_train  the training forward (o and LSE) and the dq and dk/dv
             backward kernels against their plain twins on the same bf16
             inputs at the training path's shapes (self-attention [1, 32760,
@@ -65,7 +85,14 @@ import time
 import numpy as np
 import torch
 
-from omnivideo_tpu_torch.configs.base import T2V_1_3B, PipelineConfig, VAEConfig, WanDiTConfig
+from omnivideo_tpu_torch.configs.base import (
+    T2V_1_3B,
+    T2V_A14B,
+    PipelineConfig,
+    T5Config,
+    VAEConfig,
+    WanDiTConfig,
+)
 from omnivideo_tpu_torch.configs.qwen3vl import (
     QWEN3_VL_30B_A3B,
     Qwen3TextConfig,
@@ -82,6 +109,8 @@ from omnivideo_tpu_torch.models.qwen3vl.full_model import (
 )
 from omnivideo_tpu_torch.models.qwen3vl.media import smart_resize
 from omnivideo_tpu_torch.models.qwen3vl.preprocess import frames_to_patches, video_prompt_ids
+from omnivideo_tpu_torch.models.t5 import T5EncoderModel, init_t5
+from omnivideo_tpu_torch.models.vae2_1 import Wan21VAE, init_vae
 from omnivideo_tpu_torch.ops import _kernels
 from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 from omnivideo_tpu_torch.ops.flash_attention import (
@@ -95,9 +124,11 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     flash_fwd_lse_plain,
     softmax_bound,
 )
+from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain, row_tiles
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
     init_train_state,
@@ -126,6 +157,12 @@ GRAD_TOL = 1e-2  # ‖g − g_plain‖/‖g_plain‖ per (batch row, head): p an
 TRAIN_TOL = 2e-3  # tiny train, card vs CPU, relative loss and grad_norm gaps (measured 5.7e-5): q/k/v/dO enter
 # the card's flash kernels in bf16 where the CPU's plain twins compute in f32
 TRAIN_STEPS = 3
+ADALN_F32_TOL = 1e-5  # f32 y, of its row's max |y_plain|: the row sums run in another order
+ADALN_BF16_ULPS = 1.0  # bf16 y, in ulps of its row's max |y_plain|: those sums can flip a rounding
+ENCODE_TOL = 1e-3  # VAE encode, card vs CPU, of the latent scale: f32 convolutions (TF32 off)
+# summed in other orders by cuDNN and oneDNN
+A14B_STEPS = 3  # at the A14B shift 12: t = 999, 959 (high-noise expert), 856 (low-noise)
+T5_IDS = 512  # umT5's text_len: the prompt and the negative are encoded at full length
 CTX_LEN = 512  # PadSpec text_len and vlm_len
 STEPS = 2
 FRAMES = 81
@@ -406,12 +443,14 @@ def vlm_prompt_len() -> int:
 
 def _reset_launches() -> None:
     qk_prep.launches = 0
+    fused_adaln.launches = 0
     for name in flash_attention.launches:
         flash_attention.launches[name] = 0
 
 
 def _launches() -> dict:
-    return {"qk_prep": qk_prep.launches, **flash_attention.launches}
+    return {"qk_prep": qk_prep.launches, "fused_adaln": fused_adaln.launches,
+            **flash_attention.launches}
 
 
 def _tiny_vlm_config() -> Qwen3VLConfig:
@@ -658,7 +697,7 @@ def phase_vlm() -> dict:
         return mb, safe
 
     per_pass = {"flash_d72": vc.depth, "flash_causal": cfg.text.num_hidden_layers,
-                "flash_fwd": 0, "qk_prep": 0}
+                "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0}
     total = {k: 0 for k in per_pass}
     flash_mod.softmax_bound = spy
     try:
@@ -734,7 +773,8 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
         ar_vision_input=ar_vision, size=SIZE, frame_num=FRAMES, sampling_steps=STEPS,
         guide_scale=5.0, output_uint8=True, generator=gen)
     launches = _launches()
-    expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS, "flash_causal": 0, "flash_d72": 0}
+    expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS, "flash_causal": 0, "flash_d72": 0,
+              "fused_adaln": 0}
     shape = tuple(frames.shape)
     if launches != expect or shape != (FRAMES, SIZE[1], SIZE[0], 3):
         raise AssertionError(f"e2e: launches {launches} (expected {expect}), frames {shape}")
@@ -746,6 +786,260 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
            "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
+    return rec
+
+
+ADALN_SITES = (  # (case, (residual, gate, affine, modulation), y dtype): the DiT's call sites
+    ("mod_bf16", (0, 0, 0, 1), torch.bfloat16),  # before self-attention
+    ("res_gate_affine", (1, 1, 1, 0), torch.bfloat16),  # gated residual + norm3
+    ("res_mod", (1, 0, 0, 1), torch.bfloat16),  # residual + modulation before the FFN
+    ("head_mod_f32", (0, 0, 0, 1), torch.float32),  # the head
+)
+
+
+def _adaln_case(config, d, case, subset, out, gen) -> dict:
+    r, g, a, m = subset
+    B, L = 2, SEQ
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    args = (2.0 + 3.0 * f(B, L, d), f(B, L, d).bfloat16() if r else None, f(B, d) if g else None,
+            1.0 + 0.1 * f(d) if a else None, 0.1 * f(d) if a else None,
+            f(B, d) if m else None, f(B, d) if m else None)
+    x_new, y = fused_adaln(*args, eps=1e-6, out_dtype=out)
+    x_ref, y_ref = fused_adaln_plain(*args, eps=1e-6, out_dtype=out)
+    torch.cuda.synchronize()
+    x_equal = None if x_new is None else bool(torch.equal(x_new, x_ref))
+    row_max = y_ref.float().abs().amax(-1, keepdim=True)
+    err = (y.float() - y_ref.float()).abs()
+    if out == torch.bfloat16:
+        worst, limit = float((err / bf16_ulp(row_max)).max()), ADALN_BF16_ULPS
+    else:
+        worst, limit = float((err / row_max).max()), ADALN_F32_TOL
+    max_abs = float(err.max())
+    del x_new, y, x_ref, y_ref, err
+    ms = cuda_ms(lambda: fused_adaln(*args, eps=1e-6, out_dtype=out), reps=20)
+    plain_ms = cuda_ms(lambda: fused_adaln_plain(*args, eps=1e-6, out_dtype=out), reps=3)
+    elems = B * L * d
+    per_elem = 4 + (2 + 4 if r else 0) + out.itemsize  # x, o and x_new, y
+    nbytes = elems * per_elem + 4 * d * (B * (g + 2 * m) + 2 * a)
+    ops = elems * (5 + r + g + 2 * a + 2 * m)  # f32 adds and multiplies per element
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    rec = {"phase": "adaln", "config": config, "case": case, "shape": [B, L, d],
+           "residual": bool(r), "gate": bool(g), "affine": bool(a), "modulation": bool(m),
+           "y_dtype": str(out).replace("torch.", ""), "x_new_bit_equal": x_equal,
+           "max_abs_err": max_abs, "max_err_of_row_max": worst, "tolerance": limit,
+           "tolerance_unit": "bf16 ulps" if out == torch.bfloat16 else "relative",
+           "ms": ms, "plain_ms": plain_ms, "bytes_per_element": per_elem,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "achieved_tb_s": nbytes / ms / 1e9}
+    emit(rec)
+    if worst > limit or x_equal is False:
+        raise AssertionError(f"adaln {config} {case}: {rec}")
+    del args
+    return rec
+
+
+def phase_adaln(gen: torch.Generator) -> dict:
+    """The four sandwiches at A14B and 1.3B width; returns the A14B gated
+    residual case (the kernels line reads it) and every record."""
+    recs = [_adaln_case(cfg, d, case, subset, out, gen)
+            for cfg, d in (("T2V_A14B", 5120), ("T2V_1_3B", 1536))
+            for case, subset, out in ADALN_SITES]
+    torch.cuda.empty_cache()
+    return {"main": recs[1], "cases": recs}
+
+
+def _tiny_a14b_config() -> PipelineConfig:
+    """A dual-expert model at head dim 128 (the kernels' head dim), with a
+    small umT5 and VAE."""
+    return PipelineConfig(
+        name="tiny-a14b",
+        dit=WanDiTConfig(patch_size=(1, 2, 2), in_dim=4, dim=256, ffn_dim=512, freq_dim=32,
+                         text_dim=64, out_dim=4, num_heads=2, num_layers=2),
+        vae=VAEConfig(dim=8, z_dim=4),
+        t5=T5Config(vocab_size=97, dim=64, dim_attn=64, dim_ffn=128, num_heads=4, num_layers=2,
+                    num_buckets=8, text_len=16),
+        vlm_in_dim=24, max_context_len=96, dual_expert=True, sample_shift=12.0)
+
+
+class _ForwardLaunches:
+    """Per DiT forward of each expert: fused_adaln launches (hooks)."""
+
+    def __init__(self, pipe):
+        self.per_forward = {"high": [], "low": []}
+        for name in ("high", "low"):
+            dit = getattr(pipe, f"{name}_noise").wan
+            dit.register_forward_pre_hook(lambda *a: setattr(self, "start", fused_adaln.launches))
+            dit.register_forward_hook(lambda *a, n=name: self.per_forward[n].append(
+                fused_adaln.launches - self.start))
+
+
+def phase_tiny_a14b() -> dict:
+    """The A14B path at tiny width on the card (kernels) vs the CPU (plain
+    twins): umT5 encode of seeded ids (bf16), VAE encode of a seeded clip
+    (f32), then a V2V dual-expert generate with both solvers from the same
+    weights and noise, decoded."""
+    cfg = _tiny_a14b_config()
+    gen = torch.Generator().manual_seed(31)
+    t5_cpu = init_t5(cfg.t5, device="cpu", seed=7)
+    t5_gpu = init_t5(cfg.t5, device="cuda", seed=7)
+    t5_gpu.load_state_dict(t5_cpu.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, 97, (2, 16)))
+    mask = torch.ones(2, 16, dtype=torch.int64)
+    mask[1, 11:] = 0
+    ctx_cpu = T5EncoderModel(t5_cpu).encode_ids(ids, mask)
+    ctx_gpu = [c.cpu() for c in T5EncoderModel(t5_gpu).encode_ids(ids, mask)]
+    t5_rel = max(float((g - c).abs().max() / c.abs().max()) for c, g in zip(ctx_cpu, ctx_gpu))
+
+    pipe_cpu = OmniVideoX2XUnified.random_init(cfg, seed=5, device="cpu", ew_impl="kernel")
+    pipe_gpu = OmniVideoX2XUnified.random_init(cfg, seed=5, device="cuda", ew_impl="kernel")
+    for name in ("low", "high"):
+        src, dst = getattr(pipe_cpu, f"{name}_noise"), getattr(pipe_gpu, f"{name}_noise")
+        with torch.no_grad():
+            src.wan.head.head.weight.normal_(0.0, 0.1, generator=gen)
+        dst.wan.load_state_dict(src.wan.state_dict())
+    for src, dst in ((pipe_cpu.vae.params, pipe_gpu.vae.params),
+                     (pipe_cpu.low_noise.companions, pipe_gpu.low_noise.companions)):
+        _copy_tree(src, dst)
+    clip = torch.rand(1, 3, 9, 64, 64, generator=gen) * 2 - 1
+    vis_cpu = pipe_cpu.vae.encode(clip)[0]
+    vis_gpu = pipe_gpu.vae.encode(clip.cuda())[0].cpu()
+    enc_rel = float((vis_gpu - vis_cpu).abs().max() / vis_cpu.abs().max())
+    counts = _ForwardLaunches(pipe_gpu)
+    noise = torch.randn(1, 4, 3, 8, 8, generator=gen)
+    arv = torch.randn(6, 24, generator=gen)
+    solvers = {}
+    for solver in ("unipc", "dpm++"):
+        counts.per_forward = {"high": [], "low": []}
+        out = {}
+        for dev, pipe, ctx, vis in (("cpu", pipe_cpu, ctx_cpu, vis_cpu),
+                                    ("cuda", pipe_gpu, ctx_gpu, vis_gpu)):
+            lat = pipe.generate(precomputed_context=ctx[0], precomputed_context_null=ctx[1],
+                                ar_vision_input=arv, visual_emb=vis, size=(64, 64), frame_num=9,
+                                sampling_steps=A14B_STEPS, shift=cfg.sample_shift,
+                                guide_scale=cfg.sample_guide_scale, sample_solver=solver,
+                                decode=False, noise=noise)
+            out[dev] = (lat.cpu(), pipe.decode(lat).cpu())
+        (lat_c, vid_c), (lat_g, vid_g) = out["cpu"], out["cuda"]
+        solvers[solver] = {
+            "latent_rel_err": float((lat_g - lat_c).abs().max() / lat_c.abs().max()),
+            "video_max_abs_err": float((vid_g - vid_c).abs().max()),
+            "fused_adaln_per_forward": dict(counts.per_forward)}
+    per_fwd = 3 * cfg.dit.num_layers + 1
+    rec = {"phase": "tiny_a14b", "t5_rel_err": t5_rel, "t5_tolerance_rel": 5e-2,
+           "vae_encode_rel_err": enc_rel, "vae_encode_tolerance_rel": ENCODE_TOL,
+           "solvers": solvers, "tolerance": 5e-2, "expected_fused_adaln_per_forward": per_fwd}
+    emit(rec)
+    bad = [n for n, r in solvers.items()
+           if r["latent_rel_err"] > 5e-2 or r["video_max_abs_err"] > 5e-2
+           or r["fused_adaln_per_forward"] != {"high": [per_fwd] * 2, "low": [per_fwd]}]
+    if t5_rel > 5e-2 or enc_rel > ENCODE_TOL or bad:
+        raise AssertionError(f"tiny_a14b: {rec}")
+    return rec
+
+
+def phase_a14b(ar_vision: torch.Tensor) -> dict:
+    """T2V-A14B at full width and depth: umT5-XXL encode (then freed), VAE
+    encode of the source clip, the dual-expert V2V generate in the f32
+    parity mode with both fused kernels, experts freed, VAE decode."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = T2V_A14B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t5 = init_t5(cfg.t5, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    t5_init_s = time.perf_counter() - t0
+    t5_gb = sum(p.numel() * p.element_size() for p in t5.parameters()) / 1e9
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.t5.vocab_size, (2, T5_IDS)))
+    t0 = time.perf_counter()
+    context, context_null = T5EncoderModel(t5).encode_ids(ids, torch.ones_like(ids))
+    torch.cuda.synchronize()
+    t5_s = time.perf_counter() - t0
+    t5_peak = torch.cuda.max_memory_allocated() / 1e9
+    del t5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vae = Wan21VAE.create(init_vae(cfg.vae, device="cuda", generator=gen), cfg.vae)
+    clip = torch.randint(0, 256, (1, 3, FRAMES, SIZE[1], SIZE[0]), generator=gen,
+                         device="cuda").float() / 127.5 - 1.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    visual_emb = vae.encode(clip)[0]
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    del clip
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pipe = OmniVideoX2XUnified.random_init(cfg, seed=0, device="cuda", with_vae=False,
+                                           qk_impl="kernel", ew_impl="kernel")
+    pipe.vae = vae
+    with torch.no_grad():  # init zero-fills the heads: make velocities non-zero
+        for head in (pipe.high_noise.wan.head.head, pipe.low_noise.wan.head.head):
+            head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
+    del head  # hold no reference to an expert past free_experts()
+    torch.cuda.synchronize()
+    experts_init_s = time.perf_counter() - t0
+    n_params = [sum(p.numel() for p in e.wan.parameters()) for e in (pipe.high_noise,
+                                                                    pipe.low_noise)]
+    experts_gb = sum(p.numel() * p.element_size() for e in (pipe.high_noise, pipe.low_noise)
+                     for p in e.wan.parameters()) / 1e9
+    counts = _ForwardLaunches(pipe)
+    _reset_launches()
+    latents = pipe.generate(precomputed_context=context, precomputed_context_null=context_null,
+                            ar_vision_input=ar_vision, visual_emb=visual_emb, size=SIZE,
+                            frame_num=FRAMES, sampling_steps=A14B_STEPS, shift=cfg.sample_shift,
+                            guide_scale=cfg.sample_guide_scale, decode=False, generator=gen)
+    launches = _launches()
+    per_forward = {k: list(v) for k, v in counts.per_forward.items()}
+    timings = dict(pipe.timings)
+    per_fwd = 3 * cfg.dit.num_layers + 1
+    expect = {"qk_prep": 4 * cfg.dit.num_layers * A14B_STEPS,
+              "flash_fwd": 2 * cfg.dit.num_layers * A14B_STEPS, "flash_causal": 0,
+              "flash_d72": 0, "fused_adaln": per_fwd * A14B_STEPS}
+    dit = pipe.high_noise.wan
+    with torch.inference_mode():
+        x2 = torch.cat([latents, latents]).bfloat16()
+        ctx2 = dit.embed_context(torch.randn(2, cfg.max_context_len, cfg.dit.text_dim,
+                                             generator=gen, device="cuda").bfloat16())
+        t = torch.full((2,), 999.0, device="cuda")
+        profile = _profile(lambda: dit(x2, t, ctx2, context_embedded=True, ew_impl="kernel"))
+    del x2, ctx2, dit
+    denoise_peak = torch.cuda.max_memory_allocated() / 1e9
+    pipe.free_experts()
+    after_free_gb = torch.cuda.memory_allocated() / 1e9
+    frames = pipe.decode(latents, output_uint8=True)
+    shape = tuple(frames.shape)
+    rec = {"phase": "a14b", "config": "T2V_A14B", "layers": cfg.dit.num_layers, "dim": cfg.dit.dim,
+           "heads": cfg.dit.num_heads, "ffn_dim": cfg.dit.ffn_dim, "params_per_expert": n_params,
+           "experts_weights_gb": experts_gb, "t5_weights_gb": t5_gb, "t5_ids": T5_IDS,
+           "t5_init_s": t5_init_s, "t5_s": t5_s, "t5_peak_gb": t5_peak, "encode_s": encode_s,
+           "visual_emb": list(visual_emb.shape), "experts_init_s": experts_init_s,
+           "seq_len": SEQ, "context_len": cfg.max_context_len, "size": list(SIZE),
+           "frames": FRAMES, "steps": A14B_STEPS, "shift": cfg.sample_shift,
+           "timesteps": [float(t) for t in FlowUniPC.create(A14B_STEPS, shift=cfg.sample_shift)
+                         .timesteps], "residual_dtype": "float32",
+           "ar_vision_input": list(ar_vision.shape),
+           "denoise_s": timings["denoise_s"], "denoise_step_s": timings["denoise_step_s"],
+           "decode_s": pipe.timings["decode_s"], "launches": launches,
+           "fused_adaln_per_forward": per_forward,
+           "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
+           "denoise_peak_gb": denoise_peak, "allocated_after_free_gb": after_free_gb,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile_one_forward": profile}
+    emit(rec)
+    if (launches != expect or per_forward != {"high": [per_fwd] * 2, "low": [per_fwd]}
+            or shape != (FRAMES, SIZE[1], SIZE[0], 3) or rec["max_memory_allocated_gb"] >= 80.0
+            or after_free_gb > 2.0
+            or tuple(visual_emb.shape) != (cfg.vae.z_dim, (FRAMES - 1) // 4 + 1,
+                                           SIZE[1] // 8, SIZE[0] // 8)):
+        raise AssertionError(f"a14b: launches {launches} (expected {expect}), per forward "
+                             f"{per_forward}, frames {shape}")
+    del pipe, vae, latents, frames
+    gc.collect()
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -923,14 +1217,16 @@ def phase_tiny_train() -> dict:
     return rec
 
 
-def _train_profile(step, state, batch, draws) -> dict:
-    """Device time by kernel class of one train step, and its idle share."""
+def _profile(fn) -> dict:
+    """fn() once under torch.profiler: device time by kernel class (device-side
+    events only; one stream, so they do not overlap), the top kernels, and the
+    device's idle share of the traced wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, draws)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_class, by_name = {}, {}
@@ -990,8 +1286,8 @@ def phase_train() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_attn = 2 * cfg.dit.num_layers
     expect = {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
-              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0}
-    profile = _train_profile(step, state, batch, draws)
+              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0}
+    profile = _profile(lambda: step(state, batch, draws))
     rec = {"phase": "train", "config": "T2V_1_3B", "layers": cfg.dit.num_layers,
            "dim": cfg.dit.dim, "params": n_params, "latents": list(lat), "seq_len": SEQ,
            "context_len": cfg.max_context_len, "remat": tc.remat, "carry_dtype": tc.carry_dtype,
@@ -1013,7 +1309,7 @@ def phase_train() -> dict:
 
 
 def _kernel_class(name: str) -> str:
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "adaln_kernel"):
         if kernel in name:
             return kernel
     if "flash_fwd_kernel<128, false, true>" in name:
@@ -1033,12 +1329,7 @@ def _kernel_class(name: str) -> str:
 
 def phase_profile() -> dict:
     """One full-size T2V-1.3B DiT forward (CFG batch 2, 32,760 tokens, bf16
-    residual) under torch.profiler: device time by kernel class (device-side
-    events only; one stream, so they do not overlap) and the device's idle
-    share of the traced forward's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    residual) under torch.profiler, after an untraced one."""
     cfg = T2V_1_3B
     pipe = OmniVideoX2XUnified.random_init(cfg, seed=0, device="cuda", with_vae=False)
     dit = pipe.low_noise.wan
@@ -1056,26 +1347,9 @@ def phase_profile() -> dict:
         fwd()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fwd()
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-    by_class, by_name = {}, {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.self_device_time_total / 1e3
-        by_name[ev.key] = by_name.get(ev.key, 0.0) + ms
-        c = _kernel_class(ev.key)
-        by_class[c] = by_class.get(c, 0.0) + ms
-    busy = sum(by_class.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    rec = {"phase": "profile", "what": "one DiT forward, T2V_1_3B, B=2, L=32760, bf16 residual",
-           "wall_ms_untraced": wall_ms, "wall_ms_traced": traced_ms,
-           "device_busy_ms_traced": busy, "idle_share": max(0.0, 1.0 - busy / traced_ms),
-           "by_class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-           "top_kernels_ms": [[k[:80], v] for k, v in top]}
+        rec = {"phase": "profile",
+               "what": "one DiT forward, T2V_1_3B, B=2, L=32760, bf16 residual",
+               "wall_ms_untraced": wall_ms, **_profile(fwd)}
     emit(rec)
     return rec
 
@@ -1099,11 +1373,17 @@ def main(argv) -> int:
     phase_tiny_vlm()
     phase_tiny_train()
     vlm = phase_vlm()
-    e2e = phase_e2e(vlm.pop("features"))["launches"]
+    features = vlm.pop("features")
+    e2e = phase_e2e(features)["launches"]
+    adaln = phase_adaln(gen)["main"]
+    phase_tiny_a14b()
+    a14b = phase_a14b(features)
+    del features
     train = phase_train()
     launches = {"qk_prep": e2e["qk_prep"], "flash_fwd": e2e["flash_fwd"],
                 "flash_causal": vlm["launches"]["flash_causal"],
                 "flash_d72": vlm["launches"]["flash_d72"],
+                "fused_adaln": a14b["launches"]["fused_adaln"],
                 **{k: sum(p[k] for p in train["launches_per_step"])
                    for k in flash_attention_train.launches}}
     kernels = [
@@ -1136,6 +1416,11 @@ def main(argv) -> int:
              "plain_ms": ft["plain_ms"]["fwd" if name == "flash_fwd_lse" else "bwd"],
              "bound_ms": ft["bound_ms"][name], "bound_by": ft["bound_by"][name],
              "library_ms": lib})
+    kernels.append(
+        {"name": "fused_adaln", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/adaln.cu",
+         "replaces": "omnivideo_tpu/ops/pallas/adaln.py:37", "launches": launches["fused_adaln"],
+         "max_abs_err": adaln["max_abs_err"], "ms": adaln["ms"], "plain_ms": adaln["plain_ms"],
+         "bound_ms": adaln["bound_ms"], "bound_by": adaln["bound_by"], "library_ms": None})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     emit({"kernels": kernels})

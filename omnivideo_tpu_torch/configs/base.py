@@ -2,8 +2,9 @@
 omnivideo_tpu/configs/base.py, without its jax.numpy dtype helper).
 
 Field names and defaults equal the JAX package's, so a config can be built
-from the other by `dataclasses.asdict`. Only the T2V-1.3B variant is on this
-slice's path.
+from the other by `dataclasses.asdict`. The ported variants are T2V-1.3B,
+the dual-expert T2V-A14B and the single-expert T2V-14B; the i2v variant
+waits for the i2v slice.
 """
 
 from __future__ import annotations
@@ -63,13 +64,31 @@ class VAEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class T5Config:
+    """umT5-XXL encoder hyperparameters (per-layer relative position
+    embeddings: shared_pos False)."""
+
+    vocab_size: int = 256384
+    dim: int = 4096
+    dim_attn: int = 4096
+    dim_ffn: int = 10240
+    num_heads: int = 64
+    num_layers: int = 24
+    num_buckets: int = 32
+    shared_pos: bool = False
+    rel_max_dist: int = 128
+    text_len: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """End-to-end x2x pipeline configuration (the fields the generate path
-    reads; the umT5 checkpoint names wait for the text-encoder slice)."""
+    """End-to-end x2x pipeline configuration, with the checkpoint file names
+    of the reference layout (pipelines/loading.py)."""
 
     name: str = "t2v-1.3B"
     dit: WanDiTConfig = WanDiTConfig()
     vae: VAEConfig = VAEConfig()
+    t5: T5Config = T5Config()
 
     num_train_timesteps: int = 1000
     sample_fps: int = 16
@@ -77,7 +96,7 @@ class PipelineConfig:
     sample_shift: float = 12.0
     sample_steps: int = 40
     boundary: float = 0.875
-    sample_guide_scale: Tuple[float, float] = (3.0, 4.0)
+    sample_guide_scale: Tuple[float, float] = (3.0, 4.0)  # (low-noise, high-noise)
     dual_expert: bool = False
 
     use_visual_context_adapter: bool = True
@@ -87,6 +106,12 @@ class PipelineConfig:
     max_context_len: int = 6144
 
     param_dtype: str = "bfloat16"
+
+    t5_checkpoint: str = "models_t5_umt5-xxl-enc-bf16.pth"
+    t5_tokenizer: str = "google/umt5-xxl"
+    vae_checkpoint: str = "Wan2.1_VAE.pth"
+    low_noise_checkpoint: str = "low_noise_model"
+    high_noise_checkpoint: str = "high_noise_model"
 
     @property
     def torch_param_dtype(self) -> torch.dtype:
@@ -111,4 +136,40 @@ T2V_1_3B = PipelineConfig(
     ),
     dual_expert=False,
     max_context_len=6272,
+)
+
+# vanilla Wan2.1 14B: single expert, text-only conditioning
+T2V_14B = PipelineConfig(
+    name="t2v-14B",
+    dit=WanDiTConfig(
+        patch_size=(1, 2, 2),
+        dim=5120,
+        ffn_dim=13824,
+        freq_dim=256,
+        num_heads=40,
+        num_layers=40,
+        qk_norm=True,
+        cross_attn_norm=True,
+        eps=1e-6,
+    ),
+    dual_expert=False,
+    max_context_len=512,
+)
+
+# Omni-Video 2: high- and low-noise experts of the 14B width
+T2V_A14B = PipelineConfig(
+    name="t2v-A14B",
+    dit=WanDiTConfig(
+        patch_size=(1, 2, 2),
+        dim=5120,
+        ffn_dim=13824,
+        freq_dim=256,
+        num_heads=40,
+        num_layers=40,
+        qk_norm=True,
+        cross_attn_norm=True,
+        eps=1e-6,
+    ),
+    dual_expert=True,
+    max_context_len=6144,
 )

@@ -1,19 +1,19 @@
-"""Weight bridge into the port's modules.
+"""Weight bridge from the JAX package's param pytrees (nested dicts of
+numpy arrays) into the port's modules; the parity tests use it. The
+reference PyTorch state dicts (the golden fixtures' `sd::` keys, the
+checkpoint files) map through `io/torch_convert.py`.
 
-Two sources:
-- the JAX package's param pytrees, given as nested dicts of numpy arrays
-  (`wan_params_to_state_dict` turns a DiT pytree into reference-named
-  arrays: `_dense` kernels [in, out] become Linear weights [out, in], the
-  stacked `blocks` leaves [n_layers, ...] are split per layer);
-- the reference PyTorch state dicts stored in the golden fixtures
-  (`sd::` keys of tests/golden/*.npz).
-
-`load_wan_state_dict` copies reference-named arrays into a WanDiT, reshaping
-where only the layout differs (the Conv3d patch embedding, the modulation
-tables) and casting to each parameter's dtype — the module already holds
-cast_wan_params' split (modulation, norms and head f32; the rest the param
-dtype). Companion and VAE params keep the JAX dict layout and map as they
-are. `unified_params_to_state_dict` / `load_unified` map the training tree
+`wan_params_to_state_dict` turns a DiT pytree into reference-named arrays
+(`_dense` kernels [in, out] become Linear weights [out, in], the stacked
+`blocks` leaves [n_layers, ...] are split per layer); `load_wan_state_dict`
+copies reference-named arrays into a WanDiT, reshaping where only the layout
+differs (the Conv3d patch embedding, the modulation tables) and casting to
+each parameter's dtype — the module already holds cast_wan_params' split
+(modulation, norms and head f32; the rest the param dtype). Companion and
+VAE params (encoder and decoder) keep the JAX dict layout and map as they
+are (`to_torch`). `t5_params_to_state_dict` / `load_t5` carry the umT5
+pytree (stacked `layers`), and `pipeline_from_jax` assembles an x2x pipeline
+(one or two DiT trees, their companions, the VAE) from JAX pipeline parts. `unified_params_to_state_dict` / `load_unified` map the training tree
 {'wan', 'companions'} (its params, gradients or updated params) to the
 port's UnifiedParams names. `qwen3vl_params_to_state_dict` / `load_qwen3vl`
 do the same for the Qwen3-VL param tree of `qwen3vl_hf_to_params` (scanned
@@ -30,10 +30,14 @@ import torch
 
 from torch import nn
 
-from ..configs.base import VAEConfig
+from ..configs.base import PipelineConfig
+from ..device import resolve_device
 from ..models.qwen3vl.full_model import Qwen3VLModel
-from ..models.vae2_1 import decoder_plan
+from ..models.t5 import T5Encoder, t5_state_dict_to_params
+from ..models.vae2_1 import Wan21VAE
 from ..models.wan_dit import WanDiT
+from ..pipelines.x2x import ExpertParams, OmniVideoX2XUnified
+from .torch_convert import load_strict, unwrap_state_dict
 
 
 def _np(a) -> np.ndarray:
@@ -48,20 +52,6 @@ def to_torch(tree, device=None):
     if isinstance(tree, Mapping):
         return {k: to_torch(v, device) for k, v in tree.items()}
     return torch.as_tensor(_np(tree).copy(), device=device)
-
-
-def unwrap_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
-    """Strip DDP/engine wrappers: 'module' / 'model' keys and prefixes."""
-    for key in ("module", "model"):
-        if key in sd and isinstance(sd[key], Mapping):
-            sd = sd[key]
-    out = {}
-    for k, v in sd.items():
-        for pref in ("module.", "model."):
-            if k.startswith(pref):
-                k = k[len(pref):]
-        out[k] = v
-    return out
 
 
 def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
@@ -105,24 +95,56 @@ def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
 def load_wan_state_dict(model: WanDiT, sd: Mapping[str, Any]) -> WanDiT:
     """Copy a reference-named state dict into `model`; every parameter must
     be present and every key used."""
-    return _load_strict(model, unwrap_state_dict(sd))
+    return load_strict(model, unwrap_state_dict(sd))
 
 
-@torch.no_grad()
-def _load_strict(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
-    """Copy arrays into the parameters of the same names, reshaping where
-    only the layout differs and casting to each parameter's dtype."""
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(sd))
-    unexpected = sorted(set(sd) - set(params))
-    if missing or unexpected:
-        raise KeyError(f"state dict mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
-    for name, p in params.items():
-        src = torch.from_numpy(np.array(_np(sd[name])))  # owned copy
-        if src.numel() != p.numel():
-            raise ValueError(f"{name}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
-        p.copy_(src.reshape(p.shape))
-    return model
+def t5_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """JAX umT5 pytree (`init_t5` / `t5_state_dict_to_params` layout:
+    stacked `layers`, kernels [in, out]) → reference names."""
+    sd = {"token_embedding.weight": _np(params["token_embedding"]),
+          "norm.weight": _np(params["norm"])}
+    lay = params["layers"]
+    for i in range(_np(lay["norm1"]).shape[0]):
+        p = f"blocks.{i}"
+        sd[f"{p}.norm1.weight"] = _np(lay["norm1"])[i]
+        sd[f"{p}.norm2.weight"] = _np(lay["norm2"])[i]
+        for n in "qkvo":
+            sd[f"{p}.attn.{n}.weight"] = _np(lay["attn"][n])[i].T
+        sd[f"{p}.ffn.gate.0.weight"] = _np(lay["ffn"]["gate"])[i].T
+        sd[f"{p}.ffn.fc1.weight"] = _np(lay["ffn"]["fc1"])[i].T
+        sd[f"{p}.ffn.fc2.weight"] = _np(lay["ffn"]["fc2"])[i].T
+        sd[f"{p}.pos_embedding.embedding.weight"] = _np(lay["pos_embedding"])[i]
+    return sd
+
+
+def load_t5(model: T5Encoder, params) -> T5Encoder:
+    """Copy a JAX umT5 pytree into `model` (cast to its dtypes)."""
+    return t5_state_dict_to_params(
+        model, {k: torch.from_numpy(np.array(v)) for k, v in t5_params_to_state_dict(params).items()})
+
+
+def pipeline_from_jax(config: PipelineConfig, low, high=None, vae_params=None, device="cuda",
+                      **pipe_kwargs) -> OmniVideoX2XUnified:
+    """An x2x pipeline from JAX pipeline parts: `low` / `high` expose `.wan`
+    (a DiT pytree) and `.companions` (as the JAX ExpertParams); `high` None
+    or the same object for a single expert; companions shared by the JAX
+    experts stay shared; `vae_params` the JAX VAE dict (both halves)."""
+    dev = resolve_device(device)
+    dit_cfg = config.dit.replace(text_len=config.max_context_len)
+    comps: Dict[int, Any] = {}
+
+    def expert(e):
+        dit = WanDiT(dit_cfg, dtype=config.torch_param_dtype, device=dev)
+        load_wan_state_dict(dit, wan_params_to_state_dict(e.wan))
+        cid = id(e.companions)
+        if cid not in comps:
+            comps[cid] = to_torch(e.companions, dev)
+        return ExpertParams(wan=dit, companions=comps[cid])
+
+    low_e = expert(low)
+    high_e = low_e if high is None or high is low else expert(high)
+    vae = None if vae_params is None else Wan21VAE.create(to_torch(vae_params, dev), config.vae)
+    return OmniVideoX2XUnified(config, low_e, high_e, vae=vae, **pipe_kwargs)
 
 
 def unified_params_to_state_dict(params) -> Dict[str, np.ndarray]:
@@ -145,83 +167,7 @@ def unified_params_to_state_dict(params) -> Dict[str, np.ndarray]:
 def load_unified(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
     """Copy `unified_params_to_state_dict`'s arrays into a UnifiedParams;
     every parameter must be present and every key used."""
-    return _load_strict(model, sd)
-
-
-def split_unified_state_dict(sd: Mapping[str, Any]):
-    """A unified checkpoint → (wan_sd, companion_sd)."""
-    sd = unwrap_state_dict(sd)
-    wan = {k[len("wan_model."):]: v for k, v in sd.items() if k.startswith("wan_model.")}
-    comp = {k: v for k, v in sd.items() if not k.startswith("wan_model.")}
-    return wan, comp
-
-
-def companions_from_state_dict(sd: Mapping[str, Any], device=None):
-    """vlm_norm / vlm_proj / visual_context_adapter from reference names,
-    into the JAX dict layout (kernels [in, out])."""
-    sd = unwrap_state_dict(sd)
-
-    def lin(prefix):
-        return {"kernel": _np(sd[f"{prefix}.weight"]).T, "bias": _np(sd[f"{prefix}.bias"])}
-
-    out: Dict[str, Any] = {}
-    if "vlm_norm.weight" in sd:
-        out["vlm_norm"] = _np(sd["vlm_norm.weight"])
-    if "vlm_proj.weight" in sd:
-        out["vlm_proj"] = lin("vlm_proj")
-    if "visual_context_adapter.patch_embedding.weight" in sd:
-        w = _np(sd["visual_context_adapter.patch_embedding.weight"])
-        out["visual_context_adapter"] = {
-            "patch_embedding": {
-                "kernel": w.reshape(w.shape[0], -1).T,
-                "bias": _np(sd["visual_context_adapter.patch_embedding.bias"])},
-            "projection": lin("visual_context_adapter.projection"),
-        }
-    return to_torch(out, device)
-
-
-def vae_decoder_from_state_dict(sd: Mapping[str, Any], cfg: VAEConfig, device=None):
-    """Reference Wan2.1 VAE state dict → the decoder params (+ conv2)."""
-    g = lambda k: _np(sd[k])  # noqa: E731
-
-    def conv(prefix):
-        return {"weight": g(f"{prefix}.weight"), "bias": g(f"{prefix}.bias")}
-
-    def res(prefix, has_shortcut):
-        p = {"norm1": g(f"{prefix}.residual.0.gamma").reshape(-1),
-             "conv1": conv(f"{prefix}.residual.2"),
-             "norm2": g(f"{prefix}.residual.3.gamma").reshape(-1),
-             "conv2": conv(f"{prefix}.residual.6")}
-        if has_shortcut:
-            p["shortcut"] = conv(f"{prefix}.shortcut")
-        return p
-
-    def attn(prefix):
-        return {"norm": g(f"{prefix}.norm.gamma").reshape(-1),
-                "qkv_w": g(f"{prefix}.to_qkv.weight"), "qkv_b": g(f"{prefix}.to_qkv.bias"),
-                "proj_w": g(f"{prefix}.proj.weight"), "proj_b": g(f"{prefix}.proj.bias")}
-
-    def resample(prefix, kind):
-        c = conv(f"{prefix}.resample.1")
-        p = {"conv_w": c["weight"], "conv_b": c["bias"]}
-        if kind == "up3d":
-            t = conv(f"{prefix}.time_conv")
-            p["time_w"], p["time_b"] = t["weight"], t["bias"]
-        return p
-
-    dec = {
-        "conv1": conv("decoder.conv1"),
-        "mid0": res("decoder.middle.0", False),
-        "mid_attn": attn("decoder.middle.1"),
-        "mid1": res("decoder.middle.2", False),
-        "head": {"norm": g("decoder.head.0.gamma").reshape(-1), "conv": conv("decoder.head.2")},
-        "up": {},
-    }
-    for i, (kind, din, dout) in enumerate(decoder_plan(cfg)):
-        pref = f"decoder.upsamples.{i}"
-        dec["up"][f"u{i}"] = (res(pref, din != dout) if kind == "res"
-                              else attn(pref) if kind == "attn" else resample(pref, kind))
-    return to_torch({"decoder": dec, "conv2": conv("conv2")}, device)
+    return load_strict(model, sd)
 
 
 def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
@@ -287,4 +233,4 @@ def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
 def load_qwen3vl(model: Qwen3VLModel, sd: Mapping[str, Any]) -> Qwen3VLModel:
     """Copy a port-named Qwen3-VL state dict (qwen3vl_params_to_state_dict)
     into `model`; every parameter must be present and every key used."""
-    return _load_strict(model, sd)
+    return load_strict(model, sd)

@@ -5,7 +5,8 @@ context adapter over source-video latents, and the concatenation with
 learned special-token sandwiches in the v2 order
 [VLM][<ipl> aligned][<prp> text][<img> visual][<img> ref] or the v1 order
 [<img> visual][<img> ref][<ipl> aligned][<prp> text], zero-padded or
-truncated to max_context_len. Companion parameters keep the JAX dict layout:
+truncated to max_context_len (`load_special_tokens_pkl` reads the tokens
+of a reference checkpoint). Companion parameters keep the JAX dict layout:
 a nested dict of tensors for inference, or `Companions`, the same tree as
 trainable parameters, for training (`build_mixed_context_batch`).
 """
@@ -158,6 +159,15 @@ def build_mixed_context(
     elif mixed.shape[0] < L:
         mixed = torch.cat([mixed, mixed.new_zeros(L - mixed.shape[0], td)])
     return mixed
+
+
+def load_special_tokens_pkl(path: str, device=None) -> Dict[str, torch.Tensor]:
+    """The reference's special_tokens.pkl (a torch pickle of tensors) → f32
+    tensors on `device`, read without running pickled code."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(obj, Mapping):
+        raise ValueError(f"{path}: expected a dict of special-token tensors, got {type(obj)}")
+    return {k: torch.as_tensor(v).float().to(device) for k, v in obj.items()}
 
 
 def build_mixed_context_batch(

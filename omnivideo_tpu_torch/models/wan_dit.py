@@ -22,6 +22,14 @@ attention prologue has two forms, chosen by `qk_impl` as in JAX:
 - "unfused" (training): rms_norm → apply_rope → `ops.attention.attention`,
   which under autograd is the differentiable `flash_attention_train`.
 On the card the flash kernels take head dim 128; other head dims raise there.
+The elementwise sandwich between the stages (residual add + layer norm +
+AdaLN modulation) has two forms, chosen by `ew_impl` as JAX's `ew_impl`:
+- "unfused" (the default, as JAX resolves "auto" off the TPU): the residual
+  add, `layer_norm` and the modulation as separate tensor ops;
+- "kernel": the fused_adaln kernel (`ops/fused_adaln.py`) at the block's
+  three sandwich sites when e has one timestep, d % 128 == 0 and the
+  residual is stored at f32 (3 launches per block), and at the head when e
+  has one timestep and d % 128 == 0, whatever the residual dtype (f32 out).
 `remat` recomputes each block in the backward (torch.utils.checkpoint), and
 `carry_dtype` stores the inter-block carry, and with remat the saved block
 inputs, at that dtype while the block computes from f32 (`wan_dit_apply`).
@@ -43,6 +51,7 @@ from ..configs.base import WanDiTConfig
 from ..device import resolve_device
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_adaln import fused_adaln
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.qk_prep import qk_prep
 from ..ops.rope import apply_rope, rope_3d_tables
@@ -94,6 +103,7 @@ def unpatchify(x: torch.Tensor, grid: Tuple[int, int, int],
 
 
 QK_IMPLS = ("kernel", "unfused")
+EW_IMPLS = ("kernel", "unfused")
 
 
 class WanAux(NamedTuple):
@@ -163,21 +173,31 @@ class WanBlock(nn.Module):
         return flash_attention(q, k, v, kv_lens=kv_lens, assume_normalized=True,
                                qk_row_norms=(qn, kn))
 
-    def forward(self, x: torch.Tensor, aux: WanAux, qk_impl: str = "kernel") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, aux: WanAux, qk_impl: str = "kernel",
+                ew_impl: str = "unfused") -> torch.Tensor:
         cfg = self.cfg
         B, L, d = x.shape
         N, hd = cfg.num_heads, cfg.head_dim
         pdtype = self.self_attn.q.weight.dtype
         if qk_impl not in QK_IMPLS:
             raise ValueError(f"qk_impl {qk_impl!r} not in {QK_IMPLS}")
+        if ew_impl not in EW_IMPLS:
+            raise ValueError(f"ew_impl {ew_impl!r} not in {EW_IMPLS}")
         fuse_qk = qk_impl == "kernel" and cfg.qk_norm and hd % 128 == 0 and N <= 128
         rdt = x.dtype
         e = self.modulation.float()[None] + aux.e0  # [B, T, 6, d]
         e1, e2, e3, e4, e5, e6 = (e[:, :, i] for i in range(6))
+        # the fused sandwich needs one modulation row per sample and the
+        # residual stored at f32 (JAX wan_block_apply's condition)
+        fused = ew_impl == "kernel" and e.shape[1] == 1 and d % 128 == 0 and rdt == torch.float32
 
         # --- self attention
-        xn = layer_norm(x, cfg.eps, out_f32=True)
-        y = (xn * (1.0 + e2) + e1).to(pdtype)
+        if fused:
+            _, y = fused_adaln(x, mod_scale=e2[:, 0], mod_shift=e1[:, 0], eps=cfg.eps,
+                               out_dtype=pdtype)
+        else:
+            xn = layer_norm(x, cfg.eps, out_f32=True)
+            y = (xn * (1.0 + e2) + e1).to(pdtype)
         sa = self.self_attn
         if fuse_qk:
             o = self._fused_attn(aux, dense(sa.q, y), sa.norm_q.weight, True,
@@ -193,12 +213,16 @@ class WanBlock(nn.Module):
         o = dense(sa.o, o.reshape(B, L, d))
 
         # --- cross attention over the full padded context
-        x = (x.float() + o.float() * e3).to(rdt)
-        if self.norm3 is not None:
-            xn = layer_norm(x, cfg.eps, scale=self.norm3.weight, bias=self.norm3.bias)
+        if fused and self.norm3 is not None:
+            x, xq = fused_adaln(x, o, e3[:, 0], self.norm3.weight, self.norm3.bias,
+                                eps=cfg.eps, out_dtype=pdtype)
         else:
-            xn = x
-        xq = xn.to(pdtype)
+            x = (x.float() + o.float() * e3).to(rdt)
+            if self.norm3 is not None:
+                xn = layer_norm(x, cfg.eps, scale=self.norm3.weight, bias=self.norm3.bias)
+            else:
+                xn = x
+            xq = xn.to(pdtype)
         ca = self.cross_attn
         ctx = aux.context
         Lc = ctx.shape[1]
@@ -214,9 +238,13 @@ class WanBlock(nn.Module):
         o = dense(ca.o, o.reshape(B, L, d))
 
         # --- ffn
-        x = (x.float() + o.float()).to(rdt)
-        xn = layer_norm(x, cfg.eps, out_f32=True)
-        y = (xn * (1.0 + e5) + e4).to(pdtype)
+        if fused:
+            x, y = fused_adaln(x, o, mod_scale=e5[:, 0], mod_shift=e4[:, 0], eps=cfg.eps,
+                               out_dtype=pdtype)
+        else:
+            x = (x.float() + o.float()).to(rdt)
+            xn = layer_norm(x, cfg.eps, out_f32=True)
+            y = (xn * (1.0 + e5) + e4).to(pdtype)
         y = dense(self.ffn[2], gelu_tanh(dense(self.ffn[0], y)))
         return (x.float() + y.float() * e6).to(rdt)
 
@@ -333,11 +361,13 @@ class WanDiT(nn.Module):
         qk_impl: str = "kernel",
         remat: bool = False,
         carry_dtype: Optional[torch.dtype] = None,
+        ew_impl: str = "unfused",
     ) -> torch.Tensor:
         """x: [B, C_in, F, H, W] noisy latents; t: [B] timesteps; context:
         [B, Lc, text_dim] (or [B, Lc, dim] if context_embedded), padded to
         the context budget. seq_len pads the video tokens (masked as KV).
-        qk_impl: "kernel" or "unfused" (the training chain). remat: recompute
+        qk_impl: "kernel" or "unfused" (the training chain). ew_impl:
+        "kernel" (the fused AdaLN sandwich) or "unfused". remat: recompute
         each block in the backward. carry_dtype: dtype of the inter-block
         carry (blocks compute from f32); exclusive with a non-f32
         residual_dtype. Returns the velocity [B, C_out, F, H, W] f32."""
@@ -368,8 +398,8 @@ class WanDiT(nn.Module):
 
         def block_fn(blk, xx):
             if bandwidth or cdt == torch.float32:
-                return blk(xx, aux, qk_impl)
-            return blk(xx.float(), aux, qk_impl).to(cdt)
+                return blk(xx, aux, qk_impl, ew_impl)
+            return blk(xx.float(), aux, qk_impl, ew_impl).to(cdt)
 
         hf = h.to(residual_dtype if bandwidth else cdt)
         for blk in self.blocks:
@@ -377,13 +407,17 @@ class WanDiT(nn.Module):
                 hf = checkpoint(block_fn, blk, hf, use_reentrant=False)
             else:
                 hf = block_fn(blk, hf)
-        return self._head(hf.float(), e, grid)
+        return self._head(hf.float(), e, grid, ew_impl)
 
-    def _head(self, hf: torch.Tensor, e: torch.Tensor, grid) -> torch.Tensor:
+    def _head(self, hf: torch.Tensor, e: torch.Tensor, grid, ew_impl: str) -> torch.Tensor:
         """2-way modulation with e (not e0), f32, then unpatchify."""
         cfg = self.cfg
         eh = self.head.modulation.float()[None] + e[:, :, None]  # [B, T, 2, d]
-        xn = layer_norm(hf, cfg.eps, out_f32=True)
-        y = xn * (1.0 + eh[:, :, 1]) + eh[:, :, 0]
+        if ew_impl == "kernel" and eh.shape[1] == 1 and cfg.dim % 128 == 0:
+            _, y = fused_adaln(hf, mod_scale=eh[:, 0, 1], mod_shift=eh[:, 0, 0], eps=cfg.eps,
+                               out_dtype=torch.float32)
+        else:
+            xn = layer_norm(hf, cfg.eps, out_f32=True)
+            y = xn * (1.0 + eh[:, :, 1]) + eh[:, :, 0]
         out = dense(self.head.head, y, torch.float32)
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)

@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_train.cu")
+SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_train.cu", "adaln.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "flash_fwd_lse_launch": [_c_void_p] * 6 + [_c_int] * 5 + [_c_float, _c_void_p],
     "flash_bwd_dq_launch": [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p],
     "flash_bwd_dkv_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_float, _c_void_p],
+    "adaln_max_dim": [],
+    "adaln_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_float, _c_void_p],
 }
 
 _lock = threading.Lock()

@@ -21,6 +21,9 @@ own norm per (batch row, head) (p and ds are rounded to bf16 before their
 products in both versions, at values that differ in the last f32 bits), and
 the autograd function's directional derivatives within 2e-2 of central
 finite differences of an f64 einsum attention (the kernels' bf16 operands).
+fused_adaln: x_new bit for bit (the kernel rounds each product and sum as
+PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
+1e-5 of it (f32 out): the row mean and variance sum in another order.
 """
 
 import numpy as np
@@ -38,6 +41,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     flash_fwd_lse_plain,
     softmax_bound,
 )
+from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 
@@ -283,3 +287,54 @@ def test_inference_kernels_refuse_grad(cuda):
         qk_prep(x, torch.ones(256, device=cuda), None, None, 2)
     with torch.no_grad():
         assert flash_attention(q, q, q).grad_fn is None
+
+
+@pytest.mark.parametrize("d,out", [(5120, "bfloat16"), (1536, "float32"), (256, "bfloat16")])
+@pytest.mark.parametrize("subset", [(0, 0, 0, 1), (1, 1, 1, 0), (1, 0, 0, 1), (0, 0, 0, 0),
+                                    (1, 1, 1, 1)])
+def test_fused_adaln_kernel_matches_plain(cuda, d, out, subset):
+    """Every sandwich of the DiT (mod only, gated residual + norm3 affine,
+    residual + mod, the head's f32-out mod) and the bare and full subsets,
+    over 37 rows per batch row (ragged against any row tiling)."""
+    r, g, a, m = subset
+    B, L = 2, 37
+    gen = torch.Generator(device=cuda).manual_seed(d + sum(subset))
+    f = lambda *shape: torch.randn(*shape, generator=gen, device=cuda)  # noqa: E731
+    odt = getattr(torch, out)
+    args = (2.0 + 3.0 * f(B, L, d), f(B, L, d).to(odt) if r else None, f(B, d) if g else None,
+            1.0 + 0.1 * f(d) if a else None, 0.1 * f(d) if a else None,
+            f(B, d) if m else None, f(B, d) if m else None)
+    n0 = fused_adaln.launches
+    x_new, y = fused_adaln(*args, eps=1e-6, out_dtype=odt)
+    assert fused_adaln.launches == n0 + 1 and y.dtype == odt
+    x_ref, y_ref = fused_adaln_plain(*args, eps=1e-6, out_dtype=odt)
+    if r:
+        assert torch.equal(x_new, x_ref)
+    else:
+        assert x_new is None
+    row_max = y_ref.float().abs().amax(-1, keepdim=True)
+    err = (y.float() - y_ref.float()).abs()
+    limit = _bf16_ulp(row_max) if out == "bfloat16" else 1e-5 * row_max
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def test_fused_adaln_kernel_backward_and_rejects(cuda):
+    """Under autograd the kernel runs forward and the plain formula's VJP
+    backward; shapes the kernel does not take raise."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 16, 256, generator=gen, device=cuda, requires_grad=True)
+    ms = torch.randn(2, 256, generator=gen, device=cuda, requires_grad=True)
+    mb = torch.randn(2, 256, generator=gen, device=cuda)
+    n0 = fused_adaln.launches
+    _, y = fused_adaln(x, mod_scale=ms, mod_shift=mb, out_dtype=torch.float32)
+    assert fused_adaln.launches == n0 + 1
+    y.square().sum().backward()
+    xr, msr = x.detach().clone().requires_grad_(), ms.detach().clone().requires_grad_()
+    _, yr = fused_adaln_plain(xr, mod_scale=msr, mod_shift=mb, out_dtype=torch.float32)
+    yr.square().sum().backward()
+    torch.testing.assert_close(x.grad, xr.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ms.grad, msr.grad, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        fused_adaln(torch.zeros(1, 4, 200, device=cuda))  # d % 128
+    with pytest.raises(ValueError):
+        fused_adaln(torch.zeros(1, 4, 256, device=cuda).bfloat16())  # x must be f32

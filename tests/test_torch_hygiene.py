@@ -76,14 +76,23 @@ def test_no_jax_import_or_library_attention(path):
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.configs.base import (
+        PipelineConfig,
+        T5Config,
+        VAEConfig,
+        WanDiTConfig,
+    )
     from omnivideo_tpu_torch.configs.qwen3vl import QWEN3_VL_30B_A3B
     from omnivideo_tpu_torch.device import resolve_device
+    from omnivideo_tpu_torch.io.jax_bridge import pipeline_from_jax
+    from omnivideo_tpu_torch.io.torch_convert import wan_state_dict_to_params
     from omnivideo_tpu_torch.models.qwen3vl.full_model import Qwen3VLModel
+    from omnivideo_tpu_torch.models.t5 import T5Encoder, init_t5
     from omnivideo_tpu_torch.models.vae2_1 import init_vae
     from omnivideo_tpu_torch.models.wan_dit import WanDiT
+    from omnivideo_tpu_torch.pipelines.loading import load_expert, load_pipeline
     from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
-    from omnivideo_tpu_torch.tools import finetune
+    from omnivideo_tpu_torch.tools import finetune, generate
     from omnivideo_tpu_torch.training.trainer import init_unified_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -97,7 +106,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: Qwen3VLModel(QWEN3_VL_30B_A3B),
                   lambda: Qwen3VLModel.random_init(QWEN3_VL_30B_A3B),
                   lambda: init_unified_params(cfg),
-                  lambda: finetune.main(["--dummy_data", "--tiny", "--total_steps", "1"])):
+                  lambda: finetune.main(["--dummy_data", "--tiny", "--total_steps", "1"]),
+                  lambda: T5Encoder(T5Config()), lambda: init_t5(T5Config()),
+                  lambda: wan_state_dict_to_params({}, dit),
+                  lambda: load_expert(cfg, "missing_dir", "low_noise_model"),
+                  lambda: load_pipeline(cfg, "missing_dir"),
+                  lambda: pipeline_from_jax(cfg, None),
+                  lambda: generate.main(["--input", "x.jsonl", "--random_weights", "--tiny"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -20,11 +20,9 @@ from omnivideo_tpu.io.torch_convert import split_unified_state_dict as jax_split
 from omnivideo_tpu.io.torch_convert import to_jnp, unified_companions_to_params
 from omnivideo_tpu.models.unified import build_mixed_context as jax_build
 from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
-from omnivideo_tpu_torch.io.jax_bridge import (
-    companions_from_state_dict,
-    load_wan_state_dict,
-    split_unified_state_dict,
-)
+from omnivideo_tpu_torch.io.jax_bridge import load_wan_state_dict
+from omnivideo_tpu_torch.io.torch_convert import split_unified_state_dict
+from omnivideo_tpu_torch.io.torch_convert import unified_companions_to_params as port_companions
 from omnivideo_tpu_torch.models.unified import build_mixed_context, null_ar_vision
 from omnivideo_tpu_torch.models.wan_dit import WanDiT
 
@@ -55,7 +53,7 @@ def companions(golden):
     sd = {k[len("sd::"):]: golden[k] for k in golden.files if k.startswith("sd::")}
     _, comp = split_unified_state_dict(sd)
     _, jcomp = jax_split(sd)
-    return companions_from_state_dict(comp), to_jnp(unified_companions_to_params(jcomp))
+    return port_companions(comp), to_jnp(unified_companions_to_params(jcomp))
 
 
 def _special(golden, seed=None):

@@ -1,9 +1,11 @@
-"""Wan2.1 VAE decode of the port against the reference golden `vae_tiny.npz`
-(rec) and the JAX `vae_decode`, on the CPU, f32.
+"""Wan2.1 VAE encode and decode of the port against the reference golden
+`vae_tiny.npz` (z from x, rec from z_in) and the JAX `vae_encode` /
+`vae_decode`, on the CPU, f32.
 
-Tolerance 1e-4 absolute on [-1, 1] frames: the golden test of the JAX
-package uses the same for the reference implementation; against JAX the
-convolutions sum in another order (oneDNN vs XLA) over up to 27·C taps."""
+Tolerance 1e-4 absolute on [-1, 1] frames and on latents: the golden tests
+of the JAX package use the same for the reference implementation; against
+JAX the convolutions sum in another order (oneDNN vs XLA) over up to 27·C
+taps."""
 
 from pathlib import Path
 
@@ -16,8 +18,13 @@ import torch
 from omnivideo_tpu.configs.base import VAEConfig as JaxVAEConfig
 from omnivideo_tpu.models.vae2_1 import Wan21VAE as JaxVAE
 from omnivideo_tpu_torch.configs.base import VAEConfig
-from omnivideo_tpu_torch.io.jax_bridge import vae_decoder_from_state_dict
-from omnivideo_tpu_torch.models.vae2_1 import Wan21VAE, init_vae, vae_decode
+from omnivideo_tpu_torch.models.vae2_1 import (
+    Wan21VAE,
+    init_vae,
+    vae_decode,
+    vae_encode,
+    vae_state_dict_to_params,
+)
 
 GOLDEN = Path(__file__).parent / "golden" / "vae_tiny.npz"
 TINY = dict(dim=8, z_dim=4, dim_mult=(1, 2, 4, 4), num_res_blocks=2, attn_scales=(),
@@ -37,12 +44,39 @@ def golden():
     return np.load(GOLDEN)
 
 
-def test_decode_matches_golden(golden):
+def _golden_params(golden):
     sd = {k[len("sd::"):]: golden[k] for k in golden.files if k.startswith("sd::")}
-    params = vae_decoder_from_state_dict(sd, VAEConfig(**TINY))
-    rec = vae_decode(params, VAEConfig(**TINY), torch.tensor(golden["z_in"]))
+    return vae_state_dict_to_params(sd, VAEConfig(**TINY))
+
+
+def test_decode_matches_golden(golden):
+    rec = vae_decode(_golden_params(golden), VAEConfig(**TINY), torch.tensor(golden["z_in"]))
     assert rec.shape == golden["rec"].shape
     np.testing.assert_allclose(rec.numpy(), golden["rec"], rtol=1e-4, atol=1e-4)
+
+
+def test_encode_matches_golden(golden):
+    z = vae_encode(_golden_params(golden), VAEConfig(**TINY), torch.tensor(golden["x"]))
+    assert z.shape == golden["z"].shape
+    np.testing.assert_allclose(z.numpy(), golden["z"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("frames,attn_scales", [(9, (1.0,)), (5, ())])
+def test_encode_matches_jax(frames, attn_scales):
+    """Seeded params (with non-zero attention projections) through both
+    encoders, with the Wan2.1 latent scaling."""
+    kw = dict(TINY, attn_scales=attn_scales)
+    tparams = init_vae(VAEConfig(**kw), device="cpu",
+                       generator=torch.Generator().manual_seed(frames))
+    _shift_attn_proj(tparams)
+    jparams = jax.tree_util.tree_map(lambda a: jnp.asarray(a.numpy()), tparams)
+    x = np.random.default_rng(frames).uniform(-1, 1, (1, 3, frames, 16, 24)).astype(np.float32)
+    ref = np.asarray(JaxVAE.create(jparams, JaxVAEConfig(**kw)).encode(jnp.asarray(x)))
+    out = Wan21VAE.create(tparams, VAEConfig(**kw)).encode(torch.tensor(x)).numpy()
+    assert out.shape == ref.shape == (1, 4, 1 + (frames - 1) // 4, 2, 3)
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="4n\\+1"):
+        vae_encode(tparams, VAEConfig(**kw), torch.zeros(1, 3, frames + 1, 16, 24))
 
 
 @pytest.mark.parametrize("t_lat,attn_scales", [(3, (0.5,)), (2, ())])
