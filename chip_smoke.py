@@ -4,6 +4,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py profile    # device time by kernel class, one DiT forward
+    python3 chip_smoke.py sp         # the sp phase alone (VLM features seeded): on a
+                                     # machine with 2+ cards its multi-card half runs
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -36,6 +38,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
             the kernels' launch counts asserted;
+  ring      the ring-step CUDA kernel (row 8) over in-process shards against
+            the same driver with ring_step_plain (per output row, bf16 ulps)
+            and against the flash kernel over the whole sequence: the sp
+            phase's launch ([2, 32760, 12, 128], one shard), a 4-card run's
+            per-rank shapes (4 shards of 8,190), kv_lens with 8 pad keys and
+            with the last shard all padding, and the four causal layouts at
+            [1, 4096, 32, 128] (block against the plain twin; token, stripe
+            and zigzag also against the causal flash kernel);
+  sp        the e2e pipeline sequence-parallel: a real NCCL process group of
+            world 1 runs the ring with the fused step (30 ring_step launches
+            per forward asserted), held to the same pipeline's non-SP
+            unfused generate from the same seed and features; with 2+ cards
+            min(4, count) spawned ranks also run Ulysses and the ring (both
+            impls) against the same reference, else a line says why not;
   adaln     the fused_adaln CUDA kernel against fused_adaln_plain at the four
             call sites' shapes of T2V-A14B ([2, 32760, 5120]: modulation only
             with bf16 out, gated residual + norm3 affine, residual +
@@ -78,12 +94,17 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from omnivideo_tpu_torch.configs.base import (
     T2V_1_3B,
@@ -110,6 +131,7 @@ from omnivideo_tpu_torch.models.qwen3vl.full_model import (
 from omnivideo_tpu_torch.models.qwen3vl.media import smart_resize
 from omnivideo_tpu_torch.models.qwen3vl.preprocess import frames_to_patches, video_prompt_ids
 from omnivideo_tpu_torch.models.t5 import T5EncoderModel, init_t5
+from omnivideo_tpu_torch.models.wan_dit import SPConfig
 from omnivideo_tpu_torch.models.vae2_1 import Wan21VAE, init_vae
 from omnivideo_tpu_torch.ops import _kernels
 from omnivideo_tpu_torch.ops import flash_attention as flash_mod
@@ -125,8 +147,18 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
+from omnivideo_tpu_torch.ops.ring_attention import (
+    ring_carry,
+    ring_flash_attention_shards,
+    ring_step,
+    ring_step_plain,
+    stripe_order,
+    zigzag_order,
+)
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain, row_tiles
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
+from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
+from omnivideo_tpu_torch.parallel.mesh import create_mesh
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
 from omnivideo_tpu_torch.training.trainer import (
@@ -444,13 +476,14 @@ def vlm_prompt_len() -> int:
 def _reset_launches() -> None:
     qk_prep.launches = 0
     fused_adaln.launches = 0
+    ring_step.launches = 0
     for name in flash_attention.launches:
         flash_attention.launches[name] = 0
 
 
 def _launches() -> dict:
     return {"qk_prep": qk_prep.launches, "fused_adaln": fused_adaln.launches,
-            **flash_attention.launches}
+            "ring_step": ring_step.launches, **flash_attention.launches}
 
 
 def _tiny_vlm_config() -> Qwen3VLConfig:
@@ -697,7 +730,7 @@ def phase_vlm() -> dict:
         return mb, safe
 
     per_pass = {"flash_d72": vc.depth, "flash_causal": cfg.text.num_hidden_layers,
-                "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0}
+                "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0, "ring_step": 0}
     total = {k: 0 for k in per_pass}
     flash_mod.softmax_bound = spy
     try:
@@ -753,18 +786,28 @@ def phase_vlm() -> dict:
     return rec
 
 
-def phase_e2e(ar_vision: torch.Tensor) -> dict:
-    """The x2x generate at full width and depth, conditioned on the VLM
-    features (`ar_vision_input`, [L, 2048] f32 on the card)."""
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pipe = OmniVideoX2XUnified.random_init(T2V_1_3B, seed=0, device="cuda",
-                                           residual_dtype="bfloat16")
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def t2v_pipeline(cfg: PipelineConfig, device, **pipe_kw):
+    """The seeded x2x pipeline of the e2e and sp phases (and of every rank
+    of the multi-card sp run): random_init from seed 0, the zero-init DiT
+    head filled with N(0, 1/√dim), a 77-token context; returns (pipe, ctx,
+    the generator those were drawn from)."""
+    pipe = OmniVideoX2XUnified.random_init(cfg, seed=0, device=device,
+                                           residual_dtype="bfloat16", **pipe_kw)
+    gen = torch.Generator(device=device).manual_seed(1)
     head = pipe.low_noise.wan.head.head
     with torch.no_grad():  # init zero-fills the head: make velocities non-zero
-        head.weight.normal_(0.0, T2V_1_3B.dit.dim**-0.5, generator=gen)
-    ctx = torch.randn(77, T2V_1_3B.dit.text_dim, generator=gen, device="cuda")
+        head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
+    ctx = torch.randn(77, cfg.dit.text_dim, generator=gen, device=device)
+    return pipe, ctx, gen
+
+
+def phase_e2e(ar_vision: torch.Tensor) -> dict:
+    """The x2x generate at full width and depth, conditioned on the VLM
+    features (`ar_vision_input`, [L, 2048] f32 on the card). The record
+    carries the pipeline and its context ("pipe", "ctx") for the sp phase."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe, ctx, gen = t2v_pipeline(T2V_1_3B, "cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     _reset_launches()
@@ -774,7 +817,7 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
         guide_scale=5.0, output_uint8=True, generator=gen)
     launches = _launches()
     expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS, "flash_causal": 0, "flash_d72": 0,
-              "fused_adaln": 0}
+              "fused_adaln": 0, "ring_step": 0}
     shape = tuple(frames.shape)
     if launches != expect or shape != (FRAMES, SIZE[1], SIZE[0], 3):
         raise AssertionError(f"e2e: launches {launches} (expected {expect}), frames {shape}")
@@ -786,6 +829,248 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
            "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
+    rec.update(pipe=pipe, ctx=ctx)
+    return rec
+
+
+RING_N = 4  # in-process shards: the per-rank shapes of a 4-card SP run
+CAUSAL_Q = (1, 4096, 32, 128)  # a Qwen3 prefill's heads at a length 2n chunks of 64 divide
+SP_SEED = 5
+SP_TOL = 5e-2  # SP latents vs the non-SP unfused ones, of scale, the tiny generate's limit:
+# measured 1.2e-2 to 1.5e-2 on the H100 at world 1 and 4 (bf16 residual; the ring's
+# max-tracked softmax rounds p where the non-SP chain's bounded one does not)
+
+
+def _shards(t: torch.Tensor, n: int):
+    return [c.contiguous() for c in t.chunk(n, 1)]
+
+
+def _causal_pairs(B, L, causal, n) -> int:
+    """(q row, key) pairs a causal mode makes visible, per head."""
+    if causal == "block":
+        return B * (L // n) ** 2 * n * (n + 1) // 2
+    return B * L * (L + 1) // 2  # the token triangle, in whichever layout
+
+
+def _ring_case(name, q, k, v, n, kv=None, causal=None, whole=None, reps=10) -> dict:
+    """The kernel over n in-process shards (ring_flash_attention_shards)
+    against the same driver with ring_step_plain, per output row in bf16
+    ulps of the row's max, and against `whole` (the flash kernel over the
+    whole sequence, in the shards' token order) when given. Times: one step
+    (own shard, non-causal) or the whole driver (causal), the plain twin's,
+    and SDPA over the same pairs as a yardstick."""
+    B, L, N, D = q.shape
+    Ls = L // n
+    qs, ks, vs = (_shards(t, n) for t in (q, k, v))
+    out = torch.cat(ring_flash_attention_shards(qs, ks, vs, kv_lens=kv, causal=causal), 1)
+    ref = torch.cat(ring_flash_attention_shards(qs, ks, vs, kv_lens=kv, causal=causal,
+                                                step=ring_step_plain), 1)
+    torch.cuda.synchronize()
+    ulps = float(row_ulps(out, ref).max())
+    ulps_whole = None if whole is None else float(row_ulps(out, whole).max())
+    rec = {"phase": "ring", "case": name, "q": [B, L, N, D], "shards": n,
+           "kv_lens": kv.tolist() if kv is not None else None, "causal": causal,
+           "max_abs_err": float((out.float() - ref.float()).abs().max()), "max_row_ulps": ulps,
+           "max_row_ulps_vs_flash": ulps_whole, "tolerance_row_ulps": FLASH_ULPS}
+    if (ulps > FLASH_ULPS or (ulps_whole is not None and ulps_whole > FLASH_ULPS)
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"ring {name}: {rec}")
+    del out, ref
+    row = N * D
+    if causal is None:  # one step: rank 0 against its own shard
+        lens = None if kv is None else kv.clamp(max=Ls)
+        carry = ring_carry(B, Ls, N, D, "cuda")
+        rec["ms"] = cuda_ms(lambda: ring_step(qs[0], ks[0], vs[0], *carry, step_lens=lens), reps)
+        rec["plain_ms"] = cuda_ms(lambda: ring_step_plain(qs[0], ks[0], vs[0], *carry,
+                                                          step_lens=lens), 1, 0)
+        mask = None
+        if lens is not None:
+            mask = (torch.arange(Ls, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qs[0], ks[0], vs[0]))
+        rec["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), reps)
+        pairs = Ls * (sum(int(x) for x in lens.tolist()) if lens is not None else B * Ls)
+        kv_rows = pairs // Ls
+        nbytes = (B * Ls + 2 * kv_rows) * row * 2 + 2 * (2 * B * N * Ls * 4 + B * Ls * row * 4)
+        rec["timed"] = "one step: shard 0 against its own K/V"
+        del qt, kt, vt, carry
+    else:  # the whole driver, n·n steps
+        rec["ms"] = cuda_ms(lambda: ring_flash_attention_shards(qs, ks, vs, causal=causal), 3)
+        rec["plain_ms"] = cuda_ms(lambda: ring_flash_attention_shards(
+            qs, ks, vs, causal=causal, step=ring_step_plain), 1, 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rec["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 3)  # causal attention in the original order
+        pairs = _causal_pairs(B, L, causal, n)
+        nbytes = 3 * B * L * row * 2 + 2 * (2 * B * N * L * 4 + B * L * row * 4)
+        rec["timed"] = f"the whole driver, {n * n} steps"
+        del qt, kt, vt
+    t_ops = 4 * N * D * pairs / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               visible_pairs_per_head=pairs)
+    emit(rec)
+    return rec
+
+
+def phase_ring(gen: torch.Generator) -> dict:
+    """Row 8 at the 1.3B DiT's SP shapes and at a causal prefill's; returns
+    {case: record}."""
+    recs = {}
+
+    def dit(name, n, L, lens):
+        q, k = _normed(2, L, 12, 128, gen), _normed(2, L, 12, 128, gen)
+        v = torch.randn(2, L, 12, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        kv = None if lens is None else torch.tensor([lens] * 2, dtype=torch.int32, device="cuda")
+        whole = flash_attention(q, k, v, kv_lens=kv)  # row 1, max-tracked
+        recs[name] = _ring_case(name, q, k, v, n, kv, whole=whole)
+
+    dit("sp1_main", 1, SEQ, None)  # the sp phase's launch: one card, one step of 32,760 keys
+    dit("sp4", RING_N, SEQ, None)  # a 4-card run's per-rank step: 8,190 q rows x 8,190 keys
+    dit("sp4_pad8", RING_N, 32768, 32760)  # the last shard ends in 8 pad keys
+    dit("sp4_empty_shard", RING_N, 32768, 24576)  # the last shard is all padding
+    B, L, N, D = CAUSAL_Q
+    q, k = _normed(B, L, N, D, gen), _normed(B, L, N, D, gen)
+    v = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    causal = flash_attention(q, k, v, causal=True)  # row 2 over the whole sequence
+    recs["block"] = _ring_case("block", q, k, v, RING_N, causal="block")
+    recs["token"] = _ring_case("token", q, k, v, RING_N, causal="token", whole=causal)
+    for name, order in (("stripe", stripe_order(L, RING_N)), ("zigzag", zigzag_order(L, RING_N))):
+        idx = order.to("cuda")
+        recs[name] = _ring_case(name, *(t[:, idx].contiguous() for t in (q, k, v)), RING_N,
+                                causal=name, whole=causal[:, idx])
+    del q, k, v, causal
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sp_generate(pipe, ctx, features, size, frames, steps=STEPS):
+    """Denoise steps from the SP seed; (latents, denoise_step_s, ring_step
+    launches of each DiT forward). Callers first run one untimed step, so
+    the timed steps find NCCL's communicators, cuBLAS and the kernels warm."""
+    per_forward, dit = [], pipe.low_noise.wan
+    hooks = [dit.register_forward_pre_hook(lambda *a: per_forward.append(ring_step.launches)),
+             dit.register_forward_hook(
+                 lambda *a: per_forward.append(ring_step.launches - per_forward.pop()))]
+    try:
+        lat = pipe.generate(precomputed_context=ctx, precomputed_context_null=torch.zeros_like(ctx),
+                            ar_vision_input=features, size=size, frame_num=frames,
+                            sampling_steps=steps, guide_scale=5.0, decode=False,
+                            generator=torch.Generator(device=ctx.device).manual_seed(SP_SEED))
+    finally:
+        for h in hooks:
+            h.remove()
+    return lat, pipe.timings["denoise_step_s"], per_forward
+
+
+def _sp_rank(rank, world, port, tmp, device, cfg, size, frames):
+    """One rank of the multi-card sp run: the seeded pipeline on its own
+    card, then Ulysses and the ring at full width; rank 0 writes the
+    latents and the records to `tmp`."""
+    maybe_initialize_distributed(f"localhost:{port}", world, rank, device=device, local_rank=rank)
+    try:
+        mesh = create_mesh(sp=world, device=device)
+        base, ctx, _ = t2v_pipeline(cfg, device, with_vae=False)
+        features = torch.load(Path(tmp) / "features.pt").to(ctx.device)
+        recs, lats = {}, {}
+        for mode in ("ulysses", "ring"):
+            pipe = OmniVideoX2XUnified(cfg, base.low_noise, residual_dtype="bfloat16",
+                                       sp=SPConfig(mesh, mode, ring_impl="pallas"))
+            _sp_generate(pipe, ctx, features, size, frames, steps=1)  # warm-up
+            _reset_launches()
+            lat, step_s, per_forward = _sp_generate(pipe, ctx, features, size, frames)
+            recs[mode] = {"denoise_step_s": step_s, "launches": _launches(),
+                          "ring_step_per_forward": per_forward}
+            lats[mode] = lat.cpu()
+        if rank == 0:
+            torch.save(lats, Path(tmp) / "latents.pt")
+            (Path(tmp) / "records.json").write_text(json.dumps(recs))
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_multi_card(world, device, cfg, features, ref, size=SIZE, frames=FRAMES) -> dict:
+    """Spawn `world` ranks (one card each; "cpu": gloo, for a rehearsal),
+    run Ulysses and the ring, hold each mode's latents to `ref` (SP_TOL of
+    scale) and its launch counts; returns the records."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp"))
+    try:
+        torch.save(features.cpu(), tmp / "features.pt")
+        mp.spawn(_sp_rank, args=(world, _free_port(), str(tmp), device, cfg, size, frames),
+                 nprocs=world)
+        lats = torch.load(tmp / "latents.pt")
+        recs = json.loads((tmp / "records.json").read_text())
+    finally:
+        for f in tmp.iterdir():
+            f.unlink()
+        tmp.rmdir()
+    ref = ref.float().cpu()
+    layers = cfg.dit.num_layers
+    for name, rec in recs.items():
+        rec["latent_rel_err"] = float((lats[name] - ref).abs().max() / ref.abs().max())
+        ring = name == "ring"
+        want = [layers * world if ring else 0] * STEPS
+        if (rec["latent_rel_err"] > SP_TOL or rec["ring_step_per_forward"] != want
+                or rec["launches"]["flash_fwd"] != (1 if ring else 2) * layers * STEPS):
+            raise AssertionError(f"sp {name} on {world} ranks: {rec}, ring_step per forward "
+                                 f"expected {want}")
+    return recs
+
+
+def phase_sp(pipe, ctx, features) -> dict:
+    """The sequence-parallel generate at full width and depth: on this card
+    a real NCCL process group of world size 1 runs the ring with the fused
+    step (30 ring_step launches per forward: one step per block), held to
+    the same pipeline's non-SP generate with the unfused attention chain
+    (which SP resolves to) from the same seed and features. With 2 or more
+    cards, world = min(4, count) ranks also run Ulysses and the ring (its
+    two `ring_impl` names run one path) and are held to the same
+    reference."""
+    cfg = T2V_1_3B
+    ref_pipe = OmniVideoX2XUnified(cfg, pipe.low_noise, residual_dtype="bfloat16",
+                                   qk_impl="unfused")
+    _sp_generate(ref_pipe, ctx, features, SIZE, FRAMES, steps=1)  # warm-up
+    lat_ref, step_ref, _ = _sp_generate(ref_pipe, ctx, features, SIZE, FRAMES)
+    maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = create_mesh(sp=1, device="cuda")
+        sp_pipe = OmniVideoX2XUnified(cfg, pipe.low_noise, residual_dtype="bfloat16",
+                                      sp=SPConfig(mesh, "ring", ring_impl="pallas"))
+        _sp_generate(sp_pipe, ctx, features, SIZE, FRAMES, steps=1)  # warm-up
+        _reset_launches()
+        lat_sp, step_sp, per_forward = _sp_generate(sp_pipe, ctx, features, SIZE, FRAMES)
+        launches = _launches()
+    finally:
+        dist.destroy_process_group()
+    rel = float((lat_sp - lat_ref).abs().max() / lat_ref.abs().max())
+    layers = cfg.dit.num_layers
+    expect = {"ring_step": layers * STEPS, "flash_fwd": layers * STEPS, "qk_prep": 0,
+              "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0}
+    rec = {"phase": "sp", "config": "T2V_1_3B", "size": list(SIZE), "frames": FRAMES,
+           "steps": STEPS, "world": 1, "mode": "ring", "ring_impl": "pallas",
+           "latent_rel_err": rel, "tolerance_rel": SP_TOL, "denoise_step_s": step_sp,
+           "denoise_step_s_no_sp_unfused": step_ref, "launches": launches,
+           "ring_step_per_forward": per_forward}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        del sp_pipe, ref_pipe
+        torch.cuda.empty_cache()
+        rec["multi_card"] = {"world": min(4, count),
+                             **sp_multi_card(min(4, count), "cuda", cfg, features, lat_ref)}
+    else:
+        print(f"sp: the multi-card half did not run: this machine has {count} CUDA device "
+              "(it needs 2 or more, one per rank)", flush=True)
+        rec["multi_card"] = None
+    emit(rec)
+    if (launches != expect or per_forward != [layers] * STEPS or rel > SP_TOL
+            or not torch.isfinite(lat_sp).all()):
+        raise AssertionError(f"sp: {rec} (launches expected {expect})")
     return rec
 
 
@@ -998,7 +1283,7 @@ def phase_a14b(ar_vision: torch.Tensor) -> dict:
     per_fwd = 3 * cfg.dit.num_layers + 1
     expect = {"qk_prep": 4 * cfg.dit.num_layers * A14B_STEPS,
               "flash_fwd": 2 * cfg.dit.num_layers * A14B_STEPS, "flash_causal": 0,
-              "flash_d72": 0, "fused_adaln": per_fwd * A14B_STEPS}
+              "flash_d72": 0, "fused_adaln": per_fwd * A14B_STEPS, "ring_step": 0}
     dit = pipe.high_noise.wan
     with torch.inference_mode():
         x2 = torch.cat([latents, latents]).bfloat16()
@@ -1286,7 +1571,8 @@ def phase_train() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_attn = 2 * cfg.dit.num_layers
     expect = {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
-              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0}
+              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0,
+              "ring_step": 0}
     profile = _profile(lambda: step(state, batch, draws))
     rec = {"phase": "train", "config": "T2V_1_3B", "layers": cfg.dit.num_layers,
            "dim": cfg.dit.dim, "params": n_params, "latents": list(lat), "seq_len": SEQ,
@@ -1362,8 +1648,14 @@ def main(argv) -> int:
         phase_device()
         phase_profile()
         return 0
+    if argv[:1] == ["sp"]:
+        phase_device()
+        pipe, ctx, gen = t2v_pipeline(T2V_1_3B, "cuda")
+        phase_sp(pipe, ctx, torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size,
+                                        generator=gen, device="cuda"))
+        return 0
     if argv:
-        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile')")
+        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile' or 'sp')")
     dev = phase_device()
     gen = torch.Generator(device="cuda").manual_seed(0)
     qk = phase_qk_prep(gen)
@@ -1374,7 +1666,13 @@ def main(argv) -> int:
     phase_tiny_train()
     vlm = phase_vlm()
     features = vlm.pop("features")
-    e2e = phase_e2e(features)["launches"]
+    e2e_rec = phase_e2e(features)
+    e2e = e2e_rec["launches"]
+    ring = phase_ring(gen)
+    sp = phase_sp(e2e_rec.pop("pipe"), e2e_rec.pop("ctx"), features)
+    del e2e_rec
+    gc.collect()
+    torch.cuda.empty_cache()
     adaln = phase_adaln(gen)["main"]
     phase_tiny_a14b()
     a14b = phase_a14b(features)
@@ -1421,6 +1719,14 @@ def main(argv) -> int:
          "replaces": "omnivideo_tpu/ops/pallas/adaln.py:37", "launches": launches["fused_adaln"],
          "max_abs_err": adaln["max_abs_err"], "ms": adaln["ms"], "plain_ms": adaln["plain_ms"],
          "bound_ms": adaln["bound_ms"], "bound_by": adaln["bound_by"], "library_ms": None})
+    main_ring = ring["sp1_main"]
+    kernels.append(
+        {"name": "ring_step", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/ring_step.cu",
+         "replaces": "omnivideo_tpu/ops/pallas/ring_attention.py:36",
+         "launches": sp["launches"]["ring_step"], "max_abs_err": main_ring["max_abs_err"],
+         "ms": main_ring["ms"], "plain_ms": main_ring["plain_ms"],
+         "bound_ms": main_ring["bound_ms"], "bound_by": main_ring["bound_by"],
+         "library_ms": main_ring["library_ms"]})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     emit({"kernels": kernels})

@@ -33,16 +33,26 @@ AdaLN modulation) has two forms, chosen by `ew_impl` as JAX's `ew_impl`:
 `remat` recomputes each block in the backward (torch.utils.checkpoint), and
 `carry_dtype` stores the inter-block carry, and with remat the saved block
 inputs, at that dtype while the block computes from f32 (`wan_dit_apply`).
-Left out: the i2v k_img/img_emb branch, sequence/tensor parallelism, LoRA.
+`sp` (an `SPConfig`) runs the forward sequence-parallel over a process
+group: every rank embeds patches, time and context; each keeps only its
+token shard of the padded sequence (and the RoPE rows at its global
+positions) through the blocks; self-attention goes through Ulysses, the
+ring or the hybrid of both (`parallel/`); cross-attention takes the rank's
+q shard against the whole context with no communication; the head's output
+shards are all-gathered, the pad dropped and the result unpatchified on
+every rank. Under SP `qk_impl` and `ew_impl` are "unfused", as JAX forces.
+Left out: the i2v k_img/img_emb branch, tensor parallelism, LoRA.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -55,6 +65,8 @@ from ..ops.fused_adaln import fused_adaln
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.qk_prep import qk_prep
 from ..ops.rope import apply_rope, rope_3d_tables
+from ..parallel.ring import RING_IMPLS, hybrid_attention, ring_attention
+from ..parallel.ulysses import ulysses_attention
 
 
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -106,14 +118,81 @@ QK_IMPLS = ("kernel", "unfused")
 EW_IMPLS = ("kernel", "unfused")
 
 
+SP_MODES = ("ulysses", "ring", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class SPConfig:
+    """Sequence parallelism of the DiT forward (JAX `SPConfig`).
+
+    mesh: a `parallel.mesh.create_mesh` DeviceMesh. mode: "ulysses"
+    (all-to-all head scatter over `seq_axis`), "ring" (K/V rotation over
+    `seq_axis`, `ring_impl` "ppermute" or "pallas": JAX's two names, both
+    running the ring-step kernel with each transfer posted before the
+    launch) or "hybrid" (Ulysses over `ulysses_axis` inside, the
+    ring over `seq_axis` outside). Rank (u, r) of the hybrid holds token
+    shard u·n_seq + r."""
+
+    mesh: Any
+    mode: str = "ulysses"
+    seq_axis: str = "seq"
+    ulysses_axis: str = "fsdp"
+    ring_impl: str = "ppermute"
+
+    def __post_init__(self):
+        if self.mode == "tp":
+            raise NotImplementedError("SPConfig(mode='tp'): tensor parallelism is not ported; it "
+                                      "comes with the FSDP/TP slice (ROADMAP §1)")
+        if self.mode not in SP_MODES:
+            raise ValueError(f"sp mode {self.mode!r} not in {SP_MODES}")
+        if self.ring_impl not in RING_IMPLS:
+            raise ValueError(f"ring_impl {self.ring_impl!r} not in {RING_IMPLS}")
+
+    def _axes(self) -> Tuple[str, ...]:
+        """Mesh axes the token shards span, outer first."""
+        return (self.ulysses_axis, self.seq_axis) if self.mode == "hybrid" else (self.seq_axis,)
+
+    @property
+    def sp_size(self) -> int:
+        return math.prod(dist.get_world_size(self.mesh.get_group(a)) for a in self._axes())
+
+    @property
+    def shard_index(self) -> int:
+        i = 0
+        for a in self._axes():
+            i = i * dist.get_world_size(self.mesh.get_group(a)) + self.mesh.get_local_rank(a)
+        return i
+
+    def attention(self, q, k, v, kv_lens, assume_normalized: bool) -> torch.Tensor:
+        """Self-attention of this rank's token shards; kv_lens is global."""
+        seq = self.mesh.get_group(self.seq_axis)
+        if self.mode == "ulysses":
+            return ulysses_attention(q, k, v, seq, kv_lens=kv_lens,
+                                     assume_normalized=assume_normalized)
+        if self.mode == "ring":
+            return ring_attention(q, k, v, seq, impl=self.ring_impl, kv_lens=kv_lens)
+        return hybrid_attention(q, k, v, self.mesh.get_group(self.ulysses_axis), seq,
+                                ring_impl=self.ring_impl, kv_lens=kv_lens)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, L/n, ...] shards → [B, L, ...] in shard order, on every rank."""
+        for a in reversed(self._axes()):  # inner axis first
+            g = self.mesh.get_group(a)
+            parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, x.contiguous(), group=g)
+            x = torch.cat(parts, 1)
+        return x
+
+
 class WanAux(NamedTuple):
     """Per-call tensors shared by every block."""
 
     e0: torch.Tensor  # [B, T, 6, dim] f32 AdaLN input
     context: torch.Tensor  # [B, Lc, dim] embedded context (param dtype)
-    rope_cos: torch.Tensor  # [Lr, head_dim//2] f32
+    rope_cos: torch.Tensor  # [Lr, head_dim//2] f32 (under SP: this shard's rows)
     rope_sin: torch.Tensor
-    kv_lens: Optional[torch.Tensor]  # [B] int32 valid self-attn length, or None
+    kv_lens: Optional[torch.Tensor]  # [B] int32 valid self-attn length (global), or None
+    sp: Optional[SPConfig] = None
 
 
 class Gain(nn.Module):
@@ -209,7 +288,10 @@ class WanBlock(nn.Module):
             v = dense(sa.v, y).view(B, L, N, hd)
             q = apply_rope(q, aux.rope_cos, aux.rope_sin)
             k = apply_rope(k, aux.rope_cos, aux.rope_sin)
-            o = attention(q, k, v, kv_lens=aux.kv_lens, assume_normalized=cfg.qk_norm)
+            if aux.sp is None:
+                o = attention(q, k, v, kv_lens=aux.kv_lens, assume_normalized=cfg.qk_norm)
+            else:
+                o = aux.sp.attention(q, k, v, aux.kv_lens, cfg.qk_norm)
         o = dense(sa.o, o.reshape(B, L, d))
 
         # --- cross attention over the full padded context
@@ -362,6 +444,7 @@ class WanDiT(nn.Module):
         remat: bool = False,
         carry_dtype: Optional[torch.dtype] = None,
         ew_impl: str = "unfused",
+        sp: Optional[SPConfig] = None,
     ) -> torch.Tensor:
         """x: [B, C_in, F, H, W] noisy latents; t: [B] timesteps; context:
         [B, Lc, text_dim] (or [B, Lc, dim] if context_embedded), padded to
@@ -370,7 +453,9 @@ class WanDiT(nn.Module):
         "kernel" (the fused AdaLN sandwich) or "unfused". remat: recompute
         each block in the backward. carry_dtype: dtype of the inter-block
         carry (blocks compute from f32); exclusive with a non-f32
-        residual_dtype. Returns the velocity [B, C_out, F, H, W] f32."""
+        residual_dtype. sp: run sequence-parallel (every rank passes the
+        same inputs and gets the whole output; seq_len % sp_size == 0).
+        Returns the velocity [B, C_out, F, H, W] f32."""
         cfg = self.cfg
         B = x.shape[0]
         pt, ph, pw = cfg.patch_size
@@ -389,8 +474,20 @@ class WanDiT(nn.Module):
         if not context_embedded:
             context = self.embed_context(context)
         cos, sin = self.rope_tables(grid)
+        if sp is not None:
+            n = sp.sp_size
+            if L % n:
+                raise ValueError(f"seq_len {L} not divisible by sp_size {n}; round it up")
+            if e0.shape[1] != 1:
+                raise NotImplementedError("per-token timesteps under sequence parallelism")
+            qk_impl = ew_impl = "unfused"
+            s0 = sp.shard_index * (L // n)
+            s1 = s0 + L // n
+            h = h[:, s0:s1].contiguous()
+            # rows past L_nat are cut, not padded: apply_rope lets them pass
+            cos, sin = cos[s0:min(s1, L_nat)], sin[s0:min(s1, L_nat)]
         aux = WanAux(e0=e0, context=context.to(pdtype), rope_cos=cos, rope_sin=sin,
-                     kv_lens=kv_lens)
+                     kv_lens=kv_lens, sp=sp)
         bandwidth = residual_dtype is not None and residual_dtype != torch.float32
         if bandwidth and carry_dtype not in (None, residual_dtype):
             raise ValueError(f"carry_dtype {carry_dtype} with residual_dtype {residual_dtype}")
@@ -407,10 +504,12 @@ class WanDiT(nn.Module):
                 hf = checkpoint(block_fn, blk, hf, use_reentrant=False)
             else:
                 hf = block_fn(blk, hf)
-        return self._head(hf.float(), e, grid, ew_impl)
+        return self._head(hf.float(), e, grid, ew_impl, sp)
 
-    def _head(self, hf: torch.Tensor, e: torch.Tensor, grid, ew_impl: str) -> torch.Tensor:
-        """2-way modulation with e (not e0), f32, then unpatchify."""
+    def _head(self, hf: torch.Tensor, e: torch.Tensor, grid, ew_impl: str,
+              sp: Optional[SPConfig] = None) -> torch.Tensor:
+        """2-way modulation with e (not e0), f32, (under SP the shards
+        gathered,) then unpatchify."""
         cfg = self.cfg
         eh = self.head.modulation.float()[None] + e[:, :, None]  # [B, T, 2, d]
         if ew_impl == "kernel" and eh.shape[1] == 1 and cfg.dim % 128 == 0:
@@ -420,4 +519,6 @@ class WanDiT(nn.Module):
             xn = layer_norm(hf, cfg.eps, out_f32=True)
             y = xn * (1.0 + eh[:, :, 1]) + eh[:, :, 0]
         out = dense(self.head.head, y, torch.float32)
+        if sp is not None:
+            out = sp.gather(out)
         return unpatchify(out, grid, cfg.patch_size, cfg.out_dim)

@@ -18,6 +18,14 @@ which torch cannot reproduce from a seed).
 The experts and the VAE decode need not be resident together: an A14B run
 calls `generate(decode=False)`, `free_experts()` (57 GB of bf16 experts),
 then `decode(latents)`.
+
+`sp` (models/wan_dit.py `SPConfig`) denoises sequence-parallel: every rank
+of the mesh runs `generate` with the same inputs, the token count is
+rounded up to a multiple of the SP size, each DiT forward keeps one token
+shard per rank and gathers the velocity, and every rank steps the same
+solver on the same latents. An unseeded SP run (no `noise`, no `generator`)
+draws its seed on rank 0 and broadcasts it, so every rank draws the same
+noise. The decode runs on every rank; callers use rank 0's result.
 """
 
 from __future__ import annotations
@@ -31,13 +39,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import PipelineConfig
 from ..configs.prompts import SAMPLE_NEG_PROMPT_EN
 from ..device import resolve_device
 from ..models.unified import build_mixed_context, init_unified_companions, null_ar_vision
 from ..models.vae2_1 import Wan21VAE, init_vae
-from ..models.wan_dit import WanDiT
+from ..models.wan_dit import SPConfig, WanDiT
 from ..schedulers.fm_dpm import FlowDPMSolver, get_sampling_sigmas
 from ..schedulers.unipc import FlowUniPC
 
@@ -72,8 +81,10 @@ class OmniVideoX2XUnified:
         qk_impl: str = "kernel",
         ew_impl: str = "unfused",
         residual_dtype: Optional[str] = None,
+        sp: Optional[SPConfig] = None,
     ):
         self.config = config
+        self.sp = sp
         self.low_noise = low_noise
         self.high_noise = high_noise or low_noise
         self.vae = vae
@@ -187,7 +198,9 @@ class OmniVideoX2XUnified:
         dev = self.device
         target_shape = self._latent_shape(size, frame_num)
         _, ph, pw = cfg.dit.patch_size
-        seq_len = math.ceil(target_shape[2] * target_shape[3] / (ph * pw) * target_shape[1])
+        sp_size = self.sp.sp_size if self.sp is not None else 1
+        seq_len = math.ceil(target_shape[2] * target_shape[3] / (ph * pw) * target_shape[1]
+                            / sp_size) * sp_size
         solver = self._make_solver(sample_solver, sampling_steps, shift)
 
         ar_vision_input, visual_emb, aligned_emb, ref_images = (
@@ -214,6 +227,11 @@ class OmniVideoX2XUnified:
                 condition_mode="full" if condition_mode == "auto" else condition_mode,
                 order=token_order).to(dev)
 
+        if noise is None and generator is None and self.sp is not None:
+            # every rank must draw the same noise: rank 0's seed, broadcast
+            seed = torch.randint(0, 2**31 - 1, (1,), device=dev)
+            dist.broadcast(seed, src=0)
+            generator = torch.Generator(device=dev).manual_seed(int(seed.item()))
         if noise is None:
             noise = torch.randn((1,) + target_shape, generator=generator,
                                 device=dev, dtype=torch.float32)
@@ -247,7 +265,7 @@ class OmniVideoX2XUnified:
                 t2 = torch.full((2,), float(solver.coeffs["timestep"][i]), device=dev)
                 v2 = dit(x2, t2, ctx_emb2, seq_len=seq_len, context_embedded=True,
                          residual_dtype=self.residual_dtype, qk_impl=self.qk_impl,
-                         ew_impl=self.ew_impl)
+                         ew_impl=self.ew_impl, sp=self.sp)
                 v = v2[1:] + g * (v2[0:1] - v2[1:])
                 state = solver.step(state, v, i)
             if not bool(torch.isfinite(state.x).all()):

@@ -15,6 +15,16 @@ bf16 experts), the experts are freed before the VAE decodes the rows.
     python -m omnivideo_tpu_torch.tools.generate --task t2v-1.3B --tiny --random_weights \\
         --input samples/t2v_example.jsonl --output_dir outputs/gen --device cpu
 
+`--sp_size N` denoises sequence-parallel over N processes, one card each
+(`--sp_mode ulysses|ring`, `--ring_impl ppermute|pallas`: JAX's names,
+both running the ring-step kernel), started by torchrun or by the
+`--coordinator/--num_processes/--process_id` flags; every rank runs every
+row and rank 0 writes the outputs:
+
+    torchrun --nproc_per_node 4 -m omnivideo_tpu_torch.tools.generate --sp_size 4 \\
+        --sp_mode ring --ring_impl pallas --task t2v-1.3B --random_weights \\
+        --input samples/t2v_example.jsonl --output_dir outputs/gen
+
 `--random_weights` runs seeded random params with a deterministic
 pseudo-context per prompt (no checkpoint, no text encoder); `--tiny` shrinks
 the model (head dim 128, the kernels' head dim) and the workload. Without
@@ -36,17 +46,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from omnivideo_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from omnivideo_tpu_torch.device import resolve_device
+from omnivideo_tpu_torch.models.wan_dit import SPConfig
+from omnivideo_tpu_torch.parallel.distributed import add_distributed_args, maybe_initialize_distributed
+from omnivideo_tpu_torch.parallel.mesh import create_mesh
 from omnivideo_tpu_torch.pipelines.loading import load_pipeline
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
 
 # flag → (value meaning "off", why it is not ported)
 NOT_PORTED = {
-    "sp_size": (1, "it comes with the parallel slice, ROADMAP §1"),
-    "tp_size": (1, "it comes with the parallel slice, ROADMAP §1"),
-    "fsdp_size": (1, "it comes with the parallel slice, ROADMAP §1"),
+    "tp_size": (1, "tensor parallelism comes with the FSDP/TP slice, ROADMAP §1"),
+    "fsdp_size": (1, "parameter sharding comes with the FSDP/TP slice, ROADMAP §1"),
     "layer_stream": (False, "it comes with the streaming slice, ROADMAP §1"),
     "stream_quant": (None, "it comes with the streaming slice, ROADMAP §1"),
     "lora_adapters": (None, "it comes with LoRA, ROADMAP §1 training follow-ups"),
@@ -88,7 +101,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--token_order", default="v2", choices=["v2", "v1"])
     p.add_argument("--fps", type=int, default=None)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--sp_size", type=int, default=1)
+    p.add_argument("--sp_size", type=int, default=1,
+                   help="sequence-parallel degree: processes (cards) along 'seq'")
+    p.add_argument("--sp_mode", default="ulysses", choices=["ulysses", "ring", "hybrid"])
+    p.add_argument("--ring_impl", default="ppermute", choices=["ppermute", "pallas"],
+                   help="JAX's two names; both run the ring-step kernel with each K/V "
+                        "transfer posted before the launch")
     p.add_argument("--tp_size", type=int, default=1)
     p.add_argument("--fsdp_size", type=int, default=1)
     p.add_argument("--layer_stream", action="store_true")
@@ -96,10 +114,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--lora_adapters", default=None)
     p.add_argument("--vlm_path", default=None)
     p.add_argument("--max_steps_per_call", type=int, default=None)
+    add_distributed_args(p)
     args = p.parse_args(argv)
     for flag, (off, what) in NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(f"--{flag} is not ported ({what})")
+    if args.sp_mode == "hybrid":
+        raise NotImplementedError("--sp_mode hybrid takes the 'fsdp' axis as its Ulysses axis, "
+                                  "as the JAX CLI does, and --fsdp_size comes with the FSDP/TP "
+                                  "slice (ROADMAP §1); the API runs it (SPConfig on a 2-D mesh)")
     if not args.random_weights and not args.ckpt_dir:
         p.error("--ckpt_dir is required without --random_weights")
     return args
@@ -145,6 +168,17 @@ def _features(features_dir, sample_id):
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    sp = None
+    if args.sp_size > 1:
+        maybe_initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                     device=args.device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != args.sp_size:
+            raise ValueError(f"--sp_size {args.sp_size} needs {args.sp_size} processes, one per "
+                             f"card (torchrun --nproc_per_node {args.sp_size}); this run has {world}")
+        sp = SPConfig(create_mesh(sp=args.sp_size, device=args.device), args.sp_mode,
+                      ring_impl=args.ring_impl)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
     if args.max_context_len:
@@ -164,14 +198,16 @@ def main(argv=None) -> int:
     shift = args.sample_shift or cfg.sample_shift
     guide = ((args.sample_guide_scale,) * 2 if args.sample_guide_scale
              else cfg.sample_guide_scale)
-    impl = dict(qk_impl=args.qk_impl, ew_impl=args.ew_impl, residual_dtype=args.residual_dtype)
+    impl = dict(qk_impl=args.qk_impl, ew_impl=args.ew_impl, residual_dtype=args.residual_dtype,
+                sp=sp)
     if args.random_weights:
         pipe = OmniVideoX2XUnified.random_init(cfg, device=device, **impl)
     else:
         pipe = load_pipeline(cfg, args.ckpt_dir, dtype=cfg.torch_param_dtype, device=device,
                              **impl)
     out_dir = Path(args.output_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if rank0:
+        out_dir.mkdir(parents=True, exist_ok=True)
     rows = [json.loads(line) for line in open(args.input) if line.strip()]
 
     # denoise every row, then (dual expert) free the experts, then decode
@@ -206,11 +242,15 @@ def main(argv=None) -> int:
     if cfg.dual_expert:
         pipe.free_experts()
     for sample_id, latents, timings in done:
-        frames = pipe.decode(latents, output_uint8=True).cpu().numpy()
+        frames = pipe.decode(latents, output_uint8=True).cpu().numpy()  # every rank decodes
+        if not rank0:
+            continue
         path = out_dir / f"{sample_id}.npz"
         np.savez(path, frames=frames, fps=args.fps or cfg.sample_fps)
         timings["decode_s"] = pipe.timings["decode_s"]
         logging.info("sample %s -> %s %s", sample_id, path, json.dumps(timings))
+    if dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

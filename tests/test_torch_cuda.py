@@ -24,6 +24,9 @@ finite differences of an f64 einsum attention (the kernels' bf16 operands).
 fused_adaln: x_new bit for bit (the kernel rounds each product and sum as
 PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
 1e-5 of it (f32 out): the row mean and variance sum in another order.
+ring_step: the finished output within 4 bf16 ulps of each row's max, as
+flash; the carried m within 1e-4 (log2 units) and l within 1e-4 relative of
+the plain twin's (f32 sums in another order).
 """
 
 import numpy as np
@@ -43,6 +46,15 @@ from omnivideo_tpu_torch.ops.flash_attention import (
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain
+from omnivideo_tpu_torch.ops.ring_attention import (
+    ring_carry,
+    ring_finish,
+    ring_flash_attention_shards,
+    ring_step,
+    ring_step_plain,
+    stripe_order,
+    zigzag_order,
+)
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 
 pytestmark = pytest.mark.cuda
@@ -338,3 +350,75 @@ def test_fused_adaln_kernel_backward_and_rejects(cuda):
         fused_adaln(torch.zeros(1, 4, 200, device=cuda))  # d % 128
     with pytest.raises(ValueError):
         fused_adaln(torch.zeros(1, 4, 256, device=cuda).bfloat16())  # x must be f32
+
+
+RING_CASES = [  # (causal, shard length, kv_lens)
+    (None, 200, None),          # ragged tiles
+    (None, 200, [730, 0]),      # last shard ends in pad keys; a batch row with none
+    (None, 256, [520, 1024]),   # shards 2 and 3 all padding for batch row 0
+    ("block", 200, None),
+    ("token", 200, None),
+    ("stripe", 200, None),
+    ("zigzag", 256, None),
+]
+
+
+@pytest.mark.parametrize("causal,Ls,lens", RING_CASES)
+def test_ring_step_kernel_matches_plain(cuda, causal, Ls, lens):
+    """Four in-process shards: every step after the first meets a carry
+    that is not empty; the layouts of the causal modes as their callers
+    make them."""
+    n, B, N, D = 4, 2, 2, 128
+    q, k, v = _qkv(B, n * Ls, n * Ls, N, D, Ls, 1.0, cuda)
+    order = {"zigzag": zigzag_order, "stripe": stripe_order}.get(causal)
+    if order is not None:
+        idx = order(n * Ls, n).to(cuda)
+        q, k, v = (t[:, idx].contiguous() for t in (q, k, v))
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    shards = [list(t.chunk(n, 1)) for t in (q, k, v)]
+    shards = [[s_.contiguous() for s_ in t] for t in shards]
+    n0 = ring_step.launches
+    outs = ring_flash_attention_shards(*shards, kv_lens=kv, causal=causal, return_lse=True)
+    assert ring_step.launches - n0 == n * n
+    refs = ring_flash_attention_shards(*shards, kv_lens=kv, causal=causal, return_lse=True,
+                                       step=ring_step_plain)
+    for (o, lse), (o_p, lse_p) in zip(outs, refs):
+        _assert_flash_close(o, o_p)
+        seen = lse_p > -1e29
+        torch.testing.assert_close(lse[seen], lse_p[seen], rtol=0, atol=1e-4)
+    if lens is not None and 0 in lens:
+        assert all((o[lens.index(0)] == 0).all() for o, _ in outs)
+
+
+def test_ring_step_kernel_carry_in_place(cuda):
+    """One step on a carry that arrives non-empty: m, l and acc updated in
+    place, as the plain twin returns them."""
+    B, L, N, D = 1, 300, 2, 128
+    q, k, v = _qkv(B, L, L, N, D, 11, 1.0, cuda)
+    k2, v2 = list(_qkv(B, L, L, N, D, 12, 1.0, cuda))[1:]
+    carry = ring_step_plain(q, k, v, *ring_carry(B, L, N, D, cuda))
+    m, l, acc = (t.clone() for t in carry)
+    out = ring_step(q, k2, v2, m, l, acc, causal="stripe", my=1, src=2, n=4)
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(out, (m, l, acc)))
+    m_p, l_p, acc_p = ring_step_plain(q, k2, v2, *carry, causal="stripe", my=1, src=2, n=4)
+    torch.testing.assert_close(m, m_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=0)
+    _assert_flash_close(ring_finish(m, l, acc, torch.bfloat16),
+                        ring_finish(m_p, l_p, acc_p, torch.bfloat16))
+
+
+def test_ring_step_kernel_refuses_grad_and_bad_operands(cuda):
+    B, L, N, D = 1, 64, 2, 128
+    carry = ring_carry(B, L, N, D, cuda)
+    q = torch.zeros(B, L, N, D, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ring_step(q, q, q, *carry)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head_dim 64"):
+            x = torch.zeros(B, L, N, 64, device=cuda, dtype=torch.bfloat16)
+            ring_step(x, x, x, *ring_carry(B, L, N, 64, cuda))
+        with pytest.raises(ValueError, match="bf16"):
+            ring_step(q.float(), q.float(), q.float(), *carry)
+        with pytest.raises(ValueError, match="zigzag"):
+            x = torch.zeros(B, 96, N, D, device=cuda, dtype=torch.bfloat16)
+            ring_step(x, x, x, *ring_carry(B, 96, N, D, cuda), causal="zigzag", n=2)

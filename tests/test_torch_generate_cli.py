@@ -67,7 +67,7 @@ def test_read_clip_samples_and_pads(tmp_path):
         generate.read_clip(str(tmp_path / "c.avi"), 5, (4, 2), 16.0)
 
 
-@pytest.mark.parametrize("flag", [["--sp_size", "2"], ["--layer_stream"],
+@pytest.mark.parametrize("flag", [["--fsdp_size", "2"], ["--layer_stream"],
                                   ["--max_steps_per_call", "3"], ["--vlm_path", "x"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -90,6 +90,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from omnivideo_tpu_torch.models.t5 import T5Encoder, init_t5
     from omnivideo_tpu_torch.models.vae2_1 import init_vae
     from omnivideo_tpu_torch.models.wan_dit import WanDiT
+    from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
     from omnivideo_tpu_torch.pipelines.loading import load_expert, load_pipeline
     from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
     from omnivideo_tpu_torch.tools import finetune, generate
@@ -112,7 +113,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: load_expert(cfg, "missing_dir", "low_noise_model"),
                   lambda: load_pipeline(cfg, "missing_dir"),
                   lambda: pipeline_from_jax(cfg, None),
-                  lambda: generate.main(["--input", "x.jsonl", "--random_weights", "--tiny"])):
+                  lambda: generate.main(["--input", "x.jsonl", "--random_weights", "--tiny"]),
+                  lambda: maybe_initialize_distributed("localhost:1", 2, 0),
+                  lambda: generate.main(["--input", "x.jsonl", "--random_weights", "--tiny",
+                                         "--sp_size", "2", "--coordinator", "localhost:1",
+                                         "--num_processes", "2", "--process_id", "0"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     assert resolve_device("cpu") == torch.device("cpu")
