@@ -9,7 +9,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
-            switches, kernel build time and nvcc's register/spill report;
+            switches, kernel build time and nvcc's register/spill report
+            (the backward kernels' registers and spills broken out);
   qk_prep   the qk_prep CUDA kernel against qk_prep_plain on the card at the
             T2V-1.3B shapes (RoPE self-attention q/k, norm-only context k, a
             sequence longer than the RoPE table);
@@ -76,7 +77,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             backward kernels against their plain twins on the same bf16
             inputs at the training path's shapes (self-attention [1, 32760,
             12, 128], cross-attention over 6,272 keys, ragged kv_lens with a
-            batch row of none), SDPA forward and backward timed beside them;
+            batch row of none), two backward launches bit for bit equal,
+            achieved TFLOP/s and share of bound beside each time, SDPA
+            forward and backward timed beside them;
   tiny_train  3 unified train steps of a 2-layer head-dim-128 model on the
             card (kernels) and on the CPU (plain twins) from the same
             weights, batch and draws: loss and grad_norm gaps;
@@ -94,6 +97,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import socket
 import subprocess
 import sys
@@ -248,6 +252,25 @@ def pair_ulps(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return (y.float() - ref.float()).abs() / bf16_ulp(r)
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """{kernel: {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}
+    for the backward kernels (rows 4 and 5), from nvcc's -Xptxas -v log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(flash_bwd_dkv|flash_bwd_dq)_kernel", ln)
+        if m:
+            name = m.group(1)
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out.setdefault(name, {}).update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            out.setdefault(name, {})["registers"] = int(re.search(r"Used (\d+) registers",
+                                                                  ln).group(1))
+    return out
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -259,6 +282,7 @@ def phase_device() -> dict:
     ptxas = [ln.strip() for ln in _kernels.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+            "ptxas_by_kernel": ptxas_by_kernel(_kernels.build_log),
             "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
@@ -1367,6 +1391,9 @@ def _flash_train_case(name, B, Lq, Lk, lens, gen, reps):
     lse_err = float((lse[live] - lsep[live]).abs().max())
     grad_err = {n: float(_grad_rel(g[live], r[live]).max()) for n, g, r in zip(
         ("dq", "dk", "dv"), grads, ref)}
+    again = flash_bwd(q, k, v, do, lsep, delta, kv)
+    deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))  # bit for bit
+    del again
     zero_ok = all(bool((t[b] == 0).all()) for b in dead for t in (o, *grads))
     if lens:
         zero_ok &= all(bool((g[b, lens[b]:] == 0).all()) for b in live for g in grads[1:])
@@ -1374,11 +1401,12 @@ def _flash_train_case(name, B, Lq, Lk, lens, gen, reps):
            "kv_lens": lens, "max_row_ulps_o": ulps, "tolerance_row_ulps": FLASH_ULPS,
            "max_abs_err_lse": lse_err, "tolerance_lse": LSE_TOL,
            "max_rel_err_per_head": grad_err, "tolerance_grad": GRAD_TOL, "zero_rows_ok": zero_ok,
+           "bwd_deterministic": deterministic,
            "max_abs_err": {"o": float((o.float() - op.float()).abs().max()),
                            **{n: float((g - r).abs().max()) for n, g, r in zip(
                                ("dq", "dk", "dv"), grads, ref)}}}
     if (ulps > FLASH_ULPS or lse_err > LSE_TOL or max(grad_err.values()) > GRAD_TOL
-            or not zero_ok or not all(torch.isfinite(g).all() for g in grads)):
+            or not zero_ok or not deterministic or not all(torch.isfinite(g).all() for g in grads)):
         raise AssertionError(f"flash_train {name}: {rec}")
     # times: each kernel alone, the plain twins, SDPA forward and backward
     dq_out, dk_out, dv_out = (torch.empty_like(g) for g in grads)
@@ -1419,12 +1447,15 @@ def _flash_train_case(name, B, Lq, Lk, lens, gen, reps):
               "flash_bwd_dkv": (2 * q_rows + 2 * kv_rows) * row * 2 + 2 * stat
               + 2 * B * Lk * row * 4}
     ops = {"flash_fwd_lse": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
-    rec["bound_ms"], rec["bound_by"] = {}, {}
+    rec["bound_ms"], rec["bound_by"], rec["tflops"], rec["share_of_bound"] = {}, {}, {}, {}
     for kname, n_ops in ops.items():
-        t_ops = n_ops * N * live_pairs * D / BF16_FLOPS * 1e3
+        flop = n_ops * N * live_pairs * D
+        t_ops = flop / BF16_FLOPS * 1e3
         t_bytes = nbytes[kname] / HBM_BYTES_PER_S * 1e3
         rec["bound_ms"][kname] = max(t_ops, t_bytes)
         rec["bound_by"][kname] = "operations" if t_ops >= t_bytes else "bytes"
+        rec["tflops"][kname] = flop / (rec["ms"][kname] * 1e-3) / 1e12
+        rec["share_of_bound"][kname] = rec["bound_ms"][kname] / rec["ms"][kname]
     emit(rec)
     del q, k, v, do, o, op, grads, ref, qt, kt, vt, out
     torch.cuda.empty_cache()

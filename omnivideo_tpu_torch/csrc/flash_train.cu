@@ -2,13 +2,13 @@
 // flash_bwd_core has (omnivideo_tpu/ops/pallas/flash_attention.py:640):
 //
 // - flash_bwd_dq: replaces _fa_bwd_dq_kernel (:485, pallas_call at :670).
-//   One block per 64 q rows of one (b, head) walks the KV tiles up to kv_len:
-//   s = (q·kᵀ)·scale in f32 from the UNSCALED q, p = exp(s − LSE),
+//   A block owns 128 q rows of one (b, head) and walks the KV tiles up to
+//   kv_len: s = q·kᵀ in f32 from the UNSCALED q, p = exp(s·scale − LSE),
 //   dp = dO·vᵀ, ds = p·(dp − delta)·scale, dq += bf16(ds)·k.
 // - flash_bwd_dkv: replaces _fa_bwd_dkv_kernel (:530, pallas_call at :691).
-//   One block per 64 KV rows of one (b, head) walks every q tile:
+//   A block owns 128 KV rows of one (b, head) and walks every q tile:
 //   dv += bf16(p)ᵀ·dO, dk += bf16(ds)ᵀ·q. Blocks that start at or past
-//   kv_len write zeros.
+//   kv_len write zeros without loading.
 //
 // Both recompute p from the forward's natural-log LSE (row 3b, flash_fwd.cu)
 // and take delta = rowsum(dO·O) in f32 from the wrapper; LSE and delta are
@@ -17,286 +17,408 @@
 // bf16, read in place as packed [B, L, N·D] rows (D = 128); dq, dk and dv are
 // written in f32 in the same packed layout, so the wrapper casts them once to
 // the caller's dtype. Two kernels instead of one with atomic dq: each output
-// is written by exactly one block, deterministically, and the ring step (row
-// 8) can run them once per ring step with global LSE/delta.
+// is written by exactly one block, so every run gives the same bits, and the
+// ring backward can run them once per ring step with global LSE/delta.
 //
 // Bound on the H100: operations, on the bf16 tensor cores (989 TFLOP/s):
-// dq does three products (6·B·N·Lq·Lk·D FLOPs), dk/dv four (8·B·N·Lq·Lk·D).
-// Design (simple first, FA2-style, as flash_fwd.cu): 4 warps per block, each
-// owning 16 rows of the block's own side, whose A-operand fragments are read
-// with ldmatrix from a tile that stays in shared memory; the walked side's
-// tiles are double-buffered with cp.async; mma.sync.m16n8k16 bf16 with f32
-// accumulators. In dk/dv each warp takes the transposed view (its KV rows
-// are the M side: sᵀ = k·qᵀ, dpᵀ = v·dOᵀ), so pᵀ and dsᵀ leave the
-// accumulators already in the A layout of dv += pᵀ·dO and dk += dsᵀ·q; the
-// q tile is taken in two 32-column halves to keep dk and dv (128 f32
-// registers) live without spilling. wgmma/TMA are left for a later change.
+// dq does three products (6·B·N·Lq·Lk·D FLOPs), dk/dv four (8·B·N·Lq·Lk·D),
+// and p costs one exponential per (q row, key) in each kernel.
+//
+// Design (hopper_common.cuh holds the building blocks): a block is one
+// producer warpgroup and two consumer warpgroups (384 threads, one block per
+// SM). The producer keeps TMA loads of the streamed side in flight through
+// a ring of kStages shared-memory stages tracked by full/empty mbarriers, and
+// gives its registers to the consumers (setmaxnreg 40 / 232). Each consumer
+// warpgroup owns 64 rows of the block's stationary side, loaded once by TMA,
+// and runs every product as wgmma: s (or sᵀ) and dp (or dpᵀ) as 64x64 SS
+// products over D, then the gradient product from registers (RS, 64x128),
+// the streamed tile read MN-major through wgmma's transpose bit. The f32
+// accumulator of s/dp is already the register A layout of the next product,
+// so p and ds never touch shared memory. In dk/dv the consumers take the
+// transposed view (their KV rows are the M side: sᵀ = k·qᵀ, dpᵀ = v·dOᵀ);
+// the q tile's LSE (pre-scaled by log2 e, so p is one FMA and one ex2) and
+// delta are staged beside it by the producer warp. The two consumers read
+// the same stage, so one warpgroup's exponentials overlap the other's
+// products. A 128-row stationary side halves the L2 reads of the streamed
+// side against a 64-row one; a head's blocks are adjacent in launch order
+// (tile index fastest) so the streamed side stays in L2. Accumulators per
+// consumer thread: dk and dv 64 f32 each, sᵀ and dpᵀ 32 each (dq: 64 + 32 +
+// 32). Edges: TMA zero-fills rows past L (q and dO rows past Lq, with LSE =
+// delta = 0, add exactly nothing), and rows past the output's length are not
+// stored.
 
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 constexpr int D = 128;
-using T = Tile<D>;
-constexpr int kTileElems = BK * T::LDS;
-constexpr size_t kSmemBytes = sizeof(__nv_bfloat16) * 6 * kTileElems;  // 96 KiB
-constexpr size_t kSmemBytesDkv = kSmemBytes + 2 * 2 * BK * sizeof(float);  // + lse, delta
+constexpr int kRows = 64;             // rows per consumer warpgroup and per streamed tile
+constexpr int kStationary = 2 * kRows;  // rows a block owns
+constexpr int kStages = 3;
+constexpr int kThreadsWS = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr uint32_t kPanel = kRows * 128;    // 64 rows x 64 bf16, 8 KiB
+constexpr uint32_t kTile = 2 * kPanel;      // 64 rows x 128 bf16, 16 KiB
+constexpr uint32_t kKMajorSbo = 1024;       // next 8 rows of a swizzled panel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kProducerRegs = 40;  // 128·40 + 256·232 = 384·168, the registers the block launches with
+constexpr int kConsumerRegs = 232;
 
-// acc (16 x NC) = A(16 rows of sA from a0, D wide) · B(rows b0..b0+NC of sB)ᵀ
-template <int NC>
-__device__ __forceinline__ void mma_abt(float (&acc)[NC / 8][4], const __nv_bfloat16* sA,
-                                        int a0, const __nv_bfloat16* sB, int b0, int lane) {
-#pragma unroll
-  for (int i = 0; i < NC / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldmatrix_x4(a, sA + T::off(a0 + (lane % 16), kk * 2 + lane / 16));
-#pragma unroll
-    for (int np = 0; np < NC / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, sB + T::off(b0 + np * 16 + (lane / 16) * 8 + (lane % 8),
-                                 kk * 2 + ((lane / 8) & 1)));
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+// shared-memory layout: two stationary 128-row tiles ([warpgroup][panel]),
+// kStages stages of two streamed tiles, then (dk/dv) per-stage LSE/delta,
+// then the barriers
+constexpr uint32_t kStationaryBytes = 2 * 2 * kTile;
+constexpr uint32_t kStageBytes = 2 * kTile;
+constexpr uint32_t kStatsOff = kStationaryBytes + kStages * kStageBytes;
+constexpr uint32_t kBarOff = kStatsOff + kStages * 2 * kRows * sizeof(float);
+constexpr size_t kSmemBytes = kBarOff + (1 + 2 * kStages) * sizeof(uint64_t) + 1024;  // + align
+
+struct Smem {
+  unsigned char* base;  // 1024-byte aligned
+  __device__ unsigned char* stat(int i) const { return base + i * kTile * 2; }
+  __device__ unsigned char* stage(int s, int i) const {
+    return base + kStationaryBytes + s * kStageBytes + i * kTile;
+  }
+  __device__ float* stats(int s) const {
+    return reinterpret_cast<float*>(base + kStatsOff) + s * 2 * kRows;
+  }
+  __device__ uint64_t* bar(int i) const { return reinterpret_cast<uint64_t*>(base + kBarOff) + i; }
+  __device__ uint64_t* stat_full() const { return bar(0); }
+  __device__ uint64_t* full(int s) const { return bar(1 + s); }
+  __device__ uint64_t* empty(int s) const { return bar(1 + kStages + s); }
+};
+
+__device__ __forceinline__ Smem smem_layout() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t a = smem_u32(smem_raw);
+  return Smem{smem_raw + (((a + 1023) & ~1023u) - a)};
+}
+
+__device__ __forceinline__ void init_barriers(const Smem& sm, int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(sm.stat_full(), 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(sm.full(s), full_count);
+      mbar_init(sm.empty(s), kConsumerWarps);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// rows row0..row0+127 of one head (row stride ld floats) set to 0, rows < n
+__device__ __forceinline__ void zero_rows(float* __restrict__ g, int row0, int n, int ld) {
+  for (int i = threadIdx.x; i < kStationary * (D / 4); i += blockDim.x) {
+    const int row = row0 + i / (D / 4);
+    if (row < n)
+      *reinterpret_cast<float4*>(g + static_cast<size_t>(row) * ld + (i % (D / 4)) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// acc (16 x D) += bf16(p) (16 x NC, accumulator layout) · B(rows b0..b0+NC of sB)
-template <int NC>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const float (&p)[NC / 8][4],
-                                       const __nv_bfloat16* sB, int b0, int lane) {
-#pragma unroll
-  for (int kj = 0; kj < NC / 16; ++kj) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kj][0], p[2 * kj][1]),
-                            pack_bf16(p[2 * kj][2], p[2 * kj][3]),
-                            pack_bf16(p[2 * kj + 1][0], p[2 * kj + 1][1]),
-                            pack_bf16(p[2 * kj + 1][2], p[2 * kj + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t vb[4];
-      ldmatrix_x4_trans(vb, sB + T::off(b0 + kj * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                        dp * 2 + (lane >> 4)));
-      mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-      mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
-
-// rows row_a and row_a + 8 of this thread's accumulator (16 x D) → f32 out
-__device__ __forceinline__ void store_rows(float* __restrict__ g, const float (&acc)[D / 8][4],
-                                           int row_a, int nrows, int ld, int lane) {
+// a consumer thread's rows row_a and row_a + 8 of its 64 x 128 accumulator
+__device__ __forceinline__ void store_acc(float* __restrict__ g, const float (&acc)[64], int row_a,
+                                          int n, int ld, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + r * 8;
-    if (row >= nrows) continue;
+    if (row >= n) continue;
     float* out = g + static_cast<size_t>(row) * ld + (lane % 4) * 2;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<float2*>(out + i * 8) = make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+      *reinterpret_cast<float2*>(out + i * 8) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+// the stationary side of one consumer warpgroup: tiles i (two 128-row tiles
+// of the block) at rows row0 + 64·wg, both panels, onto `bar`
+__device__ __forceinline__ void load_stationary(const Smem& sm, int i, const CUtensorMap* map,
+                                                int h, int row0, int b) {
+#pragma unroll
+  for (int wg = 0; wg < 2; ++wg)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      tma_load(sm.stat(i) + wg * kTile + p * kPanel, map, sm.stat_full(), p * 64, h,
+               row0 + wg * kRows, b);
+}
+
+__device__ __forceinline__ void load_streamed(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int h, int row0, int b) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    tma_load(static_cast<unsigned char*>(dst) + p * kPanel, map, bar, p * 64, h, row0, b);
+}
+
+// d (64 x 64) = A (64 rows at a, K-major) · B (64 rows at b, K-major)ᵀ over D
+__device__ __forceinline__ void gemm_abt(float (&d)[32], uint32_t a, uint32_t b) {
+  constexpr uint32_t hi = wgmma_desc_hi(kKMajorSbo);
+  const uint32_t la = wgmma_desc_lo(a, 16), lb = wgmma_desc_lo(b, 16);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint32_t off = ((k / 4) * kPanel + (k % 4) * 32) >> 4;
+    wgmma_ss_n64(d, wgmma_desc(la + off, hi), wgmma_desc(lb + off, hi), k > 0);
+  }
+  wgmma_commit();
+}
+
+// d (64 x 128) += A (64 x 64, registers) · B (64 rows at b, MN-major)
+__device__ __forceinline__ void gemm_pb(float (&d)[64], const uint32_t (&a)[4][4], uint32_t b) {
+  constexpr uint32_t hi = wgmma_desc_hi(kKMajorSbo);
+  const uint32_t lb = wgmma_desc_lo(b, kPanel);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n128_tb(d, a[kk], wgmma_desc(lb + ((kk * 2048) >> 4), hi));
+}
+
+// the operands of an RS batch held in place: the accumulators and A
+// fragments are neither read nor written by other code while it runs
+__device__ __forceinline__ void fence_batch(float (&d0)[64], float (&d1)[64], uint32_t (&a0)[4][4],
+                                            uint32_t (&a1)[4][4]) {
+  fence_operands(d0);
+  fence_operands(d1);
+  fence_operands(a0);
+  fence_operands(a1);
+}
+
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, const int* __restrict__ kv_lens, int Lq, int Lk,
                     int N, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDO = sQ + kTileElems;
-  __nv_bfloat16* sK = sDO + kTileElems;      // 2 stages
-  __nv_bfloat16* sV = sK + 2 * kTileElems;   // 2 stages
-
   const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kStationary;
   const int ld = N * D;
   int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
   kv_len = min(max(kv_len, 0), Lk);
-  const size_t head_off = static_cast<size_t>(h) * D;
-  const size_t q_off = static_cast<size_t>(b) * Lq * ld + head_off;
-  const __nv_bfloat16* kg = k + static_cast<size_t>(b) * Lk * ld + head_off;
-  const __nv_bfloat16* vg = v + static_cast<size_t>(b) * Lk * ld + head_off;
-  const int q0 = blockIdx.x * BQ;
-  const int n_tiles = (kv_len + BK - 1) / BK;
-
-  load_tile<D>(sQ, q + q_off + static_cast<size_t>(q0) * ld, 0, Lq - q0, ld);
-  load_tile<D>(sDO, dout + q_off + static_cast<size_t>(q0) * ld, 0, Lq - q0, ld);
-  cp_async_commit();
-  if (n_tiles > 0) {
-    load_tile<D>(sK, kg, 0, kv_len, ld);
-    load_tile<D>(sV, vg, 0, kv_len, ld);
+  const int n_tiles = (kv_len + kRows - 1) / kRows;
+  float* dq_bh = dq + static_cast<size_t>(b) * Lq * ld + static_cast<size_t>(h) * D;
+  if (n_tiles == 0) {  // no key: zero gradient
+    zero_rows(dq_bh, q0, Lq, ld);
+    return;
   }
-  cp_async_commit();
+  const Smem sm = smem_layout();
+  init_barriers(sm, 1);
 
-  const int row_a = q0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
-  const float* lse_bh = lse + (static_cast<size_t>(b) * N + h) * Lq;
-  const float* delta_bh = delta + (static_cast<size_t>(b) * N + h) * Lq;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + r * 8;
-    lse_r[r] = row < Lq ? lse_bh[row] : 0.f;
-    delta_r[r] = row < Lq ? delta_bh[row] : 0.f;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<D>(sK + (st ^ 1) * kTileElems, kg, (j + 1) * BK, kv_len, ld);
-      load_tile<D>(sV + (st ^ 1) * kTileElems, vg, (j + 1) * BK, kv_len, ld);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // q, dO and tile j have landed; tile j+1 may be in flight
-    __syncthreads();
-    const __nv_bfloat16* cK = sK + st * kTileElems;
-    const __nv_bfloat16* cV = sV + st * kTileElems;
-
-    float s[BK / 8][4], dp[BK / 8][4];
-    mma_abt<BK>(s, sQ, warp * 16, cK, 0, lane);    // q·kᵀ
-    mma_abt<BK>(dp, sDO, warp * 16, cV, 0, lane);  // dO·vᵀ
-    const int kv0 = j * BK;
-#pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nb * 8 + (lane % 4) * 2 + (e & 1);
-        const int r = e >> 1;
-        const float p = col < kv_len ? expf(s[nb][e] * scale - lse_r[r]) : 0.f;
-        s[nb][e] = p * (dp[nb][e] - delta_r[r]) * scale;  // ds
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread starts every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(sm.stat_full(), kStationaryBytes);
+      load_stationary(sm, 0, &tq, h, q0, b);
+      load_stationary(sm, 1, &tdo, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(sm.empty(s), ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(sm.full(s), kStageBytes);
+        load_streamed(sm.stage(s, 0), &tk, sm.full(s), h, j * kRows, b);
+        load_streamed(sm.stage(s, 1), &tv, sm.full(s), h, j * kRows, b);
       }
-    mma_pb<BK>(acc, s, cK, 0, lane);  // dq += ds·k
-    __syncthreads();  // every warp is done with stage st before it is refilled
+    }
+  } else {  // consumer warpgroups: 64 q rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row_a = q0 + cw * kRows + (t / 32) * 16 + lane / 4;  // rows row_a, row_a + 8
+    const float* lse_bh = lse + (static_cast<size_t>(b) * N + h) * Lq;
+    const float* delta_bh = delta + (static_cast<size_t>(b) * N + h) * Lq;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + r * 8;
+      lse2[r] = row < Lq ? lse_bh[row] * kLog2e : 0.f;
+      dl[r] = row < Lq ? delta_bh[row] : 0.f;
+    }
+    const float sl2 = scale * kLog2e;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const uint32_t sq = smem_u32(sm.stat(0) + cw * kTile), sdo = smem_u32(sm.stat(1) + cw * kTile);
+    mbar_wait(sm.stat_full(), 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(sm.full(s), (j / kStages) & 1);
+      const uint32_t sk = smem_u32(sm.stage(s, 0)), sv = smem_u32(sm.stage(s, 1));
+      float sc[32], dp[32];
+      gemm_abt(sc, sq, sk);   // q·kᵀ
+      gemm_abt(dp, sdo, sv);  // dO·vᵀ
+      wgmma_wait<1>();
+      fence_operands(sc);
+      const int c0 = j * kRows + (lane % 4) * 2;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = c0 + (i / 4) * 8 + (i & 1);
+        sc[i] = col < kv_len ? fast_exp2(fmaf(sc[i], sl2, -lse2[(i >> 1) & 1])) : 0.f;
+      }
+      wgmma_wait<0>();
+      fence_operands(dp);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;  // ds
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], dp, kk);
+      fence_operands(acc);
+      fence_operands(da);
+      wgmma_fence();
+      gemm_pb(acc, da, sk);  // dq += ds·k
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(s));
+    }
+    store_acc(dq_bh, acc, row_a, Lq, ld, lane);
   }
-  store_rows(dq + q_off, acc, row_a, Lq, ld, lane);
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kThreadsWS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv,
                      const int* __restrict__ kv_lens, int Lq, int Lk, int N, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTileElems;
-  __nv_bfloat16* sQ = sV + kTileElems;       // 2 stages
-  __nv_bfloat16* sDO = sQ + 2 * kTileElems;  // 2 stages
-  float* sL = reinterpret_cast<float*>(sDO + 2 * kTileElems);  // 2 stages of BQ lse
-  float* sD = sL + 2 * BQ;                                      // 2 stages of BQ delta
-
   const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * kStationary;
   const int ld = N * D;
   int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
   kv_len = min(max(kv_len, 0), Lk);
-  const size_t head_off = static_cast<size_t>(h) * D;
-  const size_t kv_off = static_cast<size_t>(b) * Lk * ld + head_off;
-  const int k0 = blockIdx.x * BK;
-  const int row_a = k0 + warp * 16 + lane / 4;  // this thread's KV rows: row_a, row_a + 8
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+  const size_t kv_off = static_cast<size_t>(b) * Lk * ld + static_cast<size_t>(h) * D;
   if (k0 >= kv_len) {  // no live key in this block: zero gradient
-    store_rows(dk + kv_off, acc_k, row_a, Lk, ld, lane);
-    store_rows(dv + kv_off, acc_v, row_a, Lk, ld, lane);
+    zero_rows(dk + kv_off, k0, Lk, ld);
+    zero_rows(dv + kv_off, k0, Lk, ld);
     return;
   }
+  const int n_tiles = (Lq + kRows - 1) / kRows;
+  const Smem sm = smem_layout();
+  init_barriers(sm, 32);
 
-  const size_t q_off = static_cast<size_t>(b) * Lq * ld + head_off;
-  const __nv_bfloat16* qg = q + q_off;
-  const __nv_bfloat16* dog = dout + q_off;
-  const float* lse_bh = lse + (static_cast<size_t>(b) * N + h) * Lq;
-  const float* delta_bh = delta + (static_cast<size_t>(b) * N + h) * Lq;
-  const int n_tiles = (Lq + BQ - 1) / BQ;
-
-  // K/V rows past kv_len are zero-filled; q/dO rows past Lq too, with lse =
-  // delta = 0 there: p = 1 against a zero dO row and dp − delta = 0, so
-  // those rows add exactly nothing to dk or dv
-  auto stage_rows = [&](int st, int t) {
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const int row = t * BQ + i;
-      sL[st * BQ + i] = row < Lq ? lse_bh[row] : 0.f;
-      sD[st * BQ + i] = row < Lq ? delta_bh[row] : 0.f;
+  if (threadIdx.x < 128) {  // producer warpgroup: warp 0 stages LSE/delta, lane 0 the TMA
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const float* lse_bh = lse + (static_cast<size_t>(b) * N + h) * Lq;
+      const float* delta_bh = delta + (static_cast<size_t>(b) * N + h) * Lq;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(sm.stat_full(), kStationaryBytes);
+        load_stationary(sm, 0, &tk, h, k0, b);
+        load_stationary(sm, 1, &tv, h, k0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(sm.empty(s), ((j / kStages) & 1) ^ 1);
+        float* st = sm.stats(s);
+        for (int i = lane; i < kRows; i += 32) {  // q rows past Lq: LSE = delta = 0
+          const int row = j * kRows + i;
+          st[i] = row < Lq ? lse_bh[row] * kLog2e : 0.f;
+          st[kRows + i] = row < Lq ? delta_bh[row] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(sm.full(s), kStageBytes);
+          load_streamed(sm.stage(s, 0), &tq, sm.full(s), h, j * kRows, b);
+          load_streamed(sm.stage(s, 1), &tdo, sm.full(s), h, j * kRows, b);
+        } else {
+          mbar_arrive(sm.full(s));
+        }
+      }
     }
-  };
-  load_tile<D>(sK, k + kv_off + static_cast<size_t>(k0) * ld, 0, kv_len - k0, ld);
-  load_tile<D>(sV, v + kv_off + static_cast<size_t>(k0) * ld, 0, kv_len - k0, ld);
-  cp_async_commit();
-  load_tile<D>(sQ, qg, 0, Lq, ld);
-  load_tile<D>(sDO, dog, 0, Lq, ld);
-  cp_async_commit();
-  stage_rows(0, 0);
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<D>(sQ + (st ^ 1) * kTileElems, qg, (j + 1) * BQ, Lq, ld);
-      load_tile<D>(sDO + (st ^ 1) * kTileElems, dog, (j + 1) * BQ, Lq, ld);
-      stage_rows(st ^ 1, j + 1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and q tile j have landed; tile j+1 may be in flight
-    __syncthreads();
-    const __nv_bfloat16* cQ = sQ + st * kTileElems;
-    const __nv_bfloat16* cDO = sDO + st * kTileElems;
-    const float* cL = sL + st * BQ;
-    const float* cD = sD + st * BQ;
-
+  } else {  // consumer warpgroups: 64 KV rows each, the transposed view
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row_a = k0 + cw * kRows + (t / 32) * 16 + lane / 4;  // KV rows row_a, row_a + 8
+    const bool live[2] = {row_a < kv_len, row_a + 8 < kv_len};
+    const float sl2 = scale * kLog2e;
+    float acc_k[64], acc_v[64];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      constexpr int NC = BQ / 2;
-      const int c0 = half * NC;
-      float pt[NC / 8][4], dst[NC / 8][4];
-      mma_abt<NC>(pt, sK, warp * 16, cQ, c0, lane);    // sᵀ = k·qᵀ
-      mma_abt<NC>(dst, sV, warp * 16, cDO, c0, lane);  // dpᵀ = v·dOᵀ
+    for (int i = 0; i < 64; ++i) acc_k[i] = acc_v[i] = 0.f;
+    const uint32_t sk = smem_u32(sm.stat(0) + cw * kTile), sv = smem_u32(sm.stat(1) + cw * kTile);
+    mbar_wait(sm.stat_full(), 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(sm.full(s), (j / kStages) & 1);
+      const uint32_t sq = smem_u32(sm.stage(s, 0)), sdo = smem_u32(sm.stage(s, 1));
+      const float* st = sm.stats(s);
+      float pt[32], dst[32];
+      gemm_abt(pt, sk, sq);    // sᵀ = k·qᵀ
+      gemm_abt(dst, sv, sdo);  // dpᵀ = v·dOᵀ
+      wgmma_wait<1>();
+      fence_operands(pt);
+      const int c0 = (lane % 4) * 2;  // this thread's q columns: c0 + 8·n8 + {0, 1}
 #pragma unroll
-      for (int nb = 0; nb < NC / 8; ++nb)
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const float2 l2 = *reinterpret_cast<const float2*>(st + c0 + n8 * 8);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = c0 + nb * 8 + (lane % 4) * 2 + (e & 1);  // q row in the tile
-          const int row = row_a + (e >> 1) * 8;                  // KV row
-          const float p = row < kv_len ? expf(pt[nb][e] * scale - cL[c]) : 0.f;
-          pt[nb][e] = p;
-          dst[nb][e] = p * (dst[nb][e] - cD[c]) * scale;  // dsᵀ
+          const float p = fast_exp2(fmaf(pt[4 * n8 + e], sl2, -((e & 1) ? l2.y : l2.x)));
+          pt[4 * n8 + e] = live[e >> 1] ? p : 0.f;
         }
-      mma_pb<NC>(acc_v, pt, cDO, c0, lane);  // dv += pᵀ·dO
-      mma_pb<NC>(acc_k, dst, cQ, c0, lane);  // dk += dsᵀ·q
+      }
+      wgmma_wait<0>();
+      fence_operands(dst);
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const float2 dl = *reinterpret_cast<const float2*>(st + kRows + c0 + n8 * 8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dst[4 * n8 + e] = pt[4 * n8 + e] * (dst[4 * n8 + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a(pa[kk], pt, kk);
+        acc_to_a(da[kk], dst, kk);
+      }
+      fence_batch(acc_v, acc_k, pa, da);
+      wgmma_fence();
+      gemm_pb(acc_v, pa, sdo);  // dv += pᵀ·dO
+      gemm_pb(acc_k, da, sq);   // dk += dsᵀ·q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_batch(acc_v, acc_k, pa, da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(s));
     }
-    __syncthreads();  // every warp is done with stage st before it is refilled
+    store_acc(dk + kv_off, acc_k, row_a, Lk, ld, lane);
+    store_acc(dv + kv_off, acc_v, row_a, Lk, ld, lane);
   }
-  store_rows(dk + kv_off, acc_k, row_a, Lk, ld, lane);
-  store_rows(dv + kv_off, acc_v, row_a, Lk, ld, lane);
+}
+
+// the four operand maps of one launch; false if the CUDA driver refuses one
+bool encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                 const void* dout, int B, int Lq, int Lk, int N) {
+  return encode_packed_map(&maps[0], q, B, Lq, N, kRows) &&
+         encode_packed_map(&maps[1], k, B, Lk, N, kRows) &&
+         encode_packed_map(&maps[2], v, B, Lk, N, kRows) &&
+         encode_packed_map(&maps[3], dout, B, Lq, N, kRows);
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kSmemBytes));
 }
 
 }  // namespace
 
-// q/k/v/dout packed [B, L, N, 128] bf16; lse/delta [B, N, Lq] f32; dq
-// [B, Lq, N, 128] f32. kv_lens [B] int32 or null. Returns the CUDA error code.
+// q/k/v/dout packed [B, L, N, 128] bf16 (16-byte aligned); lse/delta
+// [B, N, Lq] f32; dq [B, Lq, N, 128] f32. kv_lens [B] int32 or null.
+// Returns the CUDA error code (cudaErrorInvalidValue for a head dim other
+// than 128 or operands the TMA cannot describe).
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, void* dq,
                                    const void* kv_lens, int B, int Lq, int Lk, int N,
                                    int head_dim, float scale, void* stream) {
-  if (head_dim != D) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  CUtensorMap maps[4];
+  if (head_dim != D || !encode_maps(maps, q, k, v, dout, B, Lq, Lk, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = set_smem(flash_bwd_dq_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lq + BQ - 1) / BQ, N, B);
-  flash_bwd_dq_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq),
-      static_cast<const int*>(kv_lens), Lq, Lk, N, scale);
+  const dim3 grid((Lq + kStationary - 1) / kStationary, N, B);
+  flash_bwd_dq_kernel<<<grid, kThreadsWS, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), static_cast<const int*>(kv_lens),
+      Lq, Lk, N, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -305,16 +427,15 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const void* kv_lens, int B, int Lq,
                                     int Lk, int N, int head_dim, float scale, void* stream) {
-  if (head_dim != D) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytesDkv));
+  CUtensorMap maps[4];
+  if (head_dim != D || !encode_maps(maps, q, k, v, dout, B, Lq, Lk, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = set_smem(flash_bwd_dkv_kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lk + BK - 1) / BK, N, B);
-  flash_bwd_dkv_kernel<<<grid, kThreads, kSmemBytesDkv, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<const int*>(kv_lens), Lq, Lk, N, scale);
+  const dim3 grid((Lk + kStationary - 1) / kStationary, N, B);
+  flash_bwd_dkv_kernel<<<grid, kThreadsWS, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<const int*>(kv_lens), Lq, Lk, N, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,243 @@
+// Hopper (sm_90a) building blocks shared by the warp-specialised kernels:
+// TMA tensor maps and loads, mbarriers, register reallocation and wgmma.
+//
+// Operand tiles live in shared memory in the layout a 128-byte-swizzled TMA
+// box writes: a panel of R rows x 64 bf16 (128 bytes a row, 16-byte chunk c
+// of row r stored at chunk c ^ (r & 7)), so a 128-wide head row spans two
+// panels. Panels start on 1024-byte boundaries, as the swizzle needs. wgmma
+// reads such a panel through a descriptor with the 128-byte swizzle mode:
+// K-major (the reduction runs along the row) with SBO = 1024 bytes (the next
+// 8 rows) and the start address stepped 32 bytes per k16 step; MN-major (the
+// reduction runs down the rows) with SBO = 1024 bytes (the next 8 rows of
+// the reduction), LBO = the panel size (the next 64 columns) and the start
+// stepped 2048 bytes per k16 step.
+//
+// The host encodes one tensor map per operand of the packed [B, L, N, D]
+// layout as a 4-D map (D, N, L, B), so a box that runs past L is zero-filled
+// by the hardware instead of reading the next batch row's tokens.
+// cuTensorMapEncodeTiled comes from the CUDA driver through the runtime's
+// cudaGetDriverEntryPoint, so the library links without -lcuda.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+// ---- host: tensor maps ------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map over one packed bf16 operand [B, L, N, D] (D = 128), box = `rows`
+// rows x 64 columns of one head, 128-byte swizzle, zero fill past L.
+// Returns false if the CUDA driver refuses it (alignment, sizes).
+bool encode_packed_map(CUtensorMap* map, const void* base, int B, int L, int N, int rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  constexpr int D = 128;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(N) * D * 2;
+  const cuuint64_t strides[3] = {D * 2, row_bytes, row_bytes * static_cast<cuuint64_t>(L)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- device: TMA and mbarriers ----------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase with this parity has completed (no timeout: a trap
+// on this path cost the consumer warpgroups ~50 registers of spills)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a packed map: columns d0..d0+63 of head h, rows row..row+rows-1
+// of batch row b, into `dst` (1024-byte aligned); completes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int d0,
+                                         int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(h), "r"(row), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- device: warpgroups ------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// shared-memory descriptor, 128-byte swizzle (layout type 1), as two
+// halves: the low word holds the start address and LBO, the high word SBO
+// and the layout. A k step adds (bytes >> 4) to the low word only.
+__host__ __device__ constexpr uint32_t wgmma_desc_hi(uint32_t sbo) {
+  return ((sbo >> 4) & 0x3FFF) | (1u << 30);
+}
+
+__device__ __forceinline__ uint32_t wgmma_desc_lo(uint32_t addr, uint32_t lbo) {
+  return ((addr & 0x3FFFF) >> 4) | (((lbo >> 4) & 0x3FFF) << 16);
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t lo, uint32_t hi) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A·B; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A·B; A (64 x 16 bf16) from registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// the A fragment (64 x 16 bf16, registers) of k16 step kk from a 64 x N f32
+// accumulator: the accumulator's two n8 column groups 2kk and 2kk+1
+template <int NACC>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[NACC], int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace

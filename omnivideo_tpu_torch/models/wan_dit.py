@@ -478,12 +478,14 @@ class WanDiT(nn.Module):
             n = sp.sp_size
             if L % n:
                 raise ValueError(f"seq_len {L} not divisible by sp_size {n}; round it up")
-            if e0.shape[1] != 1:
-                raise NotImplementedError("per-token timesteps under sequence parallelism")
             qk_impl = ew_impl = "unfused"
             s0 = sp.shard_index * (L // n)
             s1 = s0 + L // n
             h = h[:, s0:s1].contiguous()
+            if e0.shape[1] == L:  # per-token timesteps [B, L]: this shard's rows
+                e, e0 = e[:, s0:s1], e0[:, s0:s1]
+            elif e0.shape[1] != 1:
+                raise ValueError(f"per-token t has {e0.shape[1]} tokens, not seq_len {L}")
             # rows past L_nat are cut, not padded: apply_rope lets them pass
             cos, sin = cos[s0:min(s1, L_nat)], sin[s0:min(s1, L_nat)]
         aux = WanAux(e0=e0, context=context.to(pdtype), rope_cos=cos, rope_sin=sin,

@@ -25,8 +25,10 @@ from pathlib import Path
 
 import torch
 
-from omnivideo_tpu_torch.configs.base import T2V_1_3B
+from omnivideo_tpu_torch.configs.base import T2V_1_3B, PipelineConfig
 from omnivideo_tpu_torch.device import resolve_device
+from omnivideo_tpu_torch.models.unified import Companions, init_unified_companions
+from omnivideo_tpu_torch.pipelines.loading import load_expert
 from omnivideo_tpu_torch.training.checkpoint import CheckpointManager
 from omnivideo_tpu_torch.training.dataset import (
     OmniVideoDataset,
@@ -37,6 +39,7 @@ from omnivideo_tpu_torch.training.dataset import (
 )
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
+    UnifiedParams,
     init_train_state,
     init_unified_params,
     make_optimizer,
@@ -49,22 +52,21 @@ from omnivideo_tpu_torch.utils.observability import (
 )
 
 CONFIGS = {"t2v-1.3B": T2V_1_3B}
-# flag → (value meaning "off", the ROADMAP item that brings it)
+# flag → (value meaning "off", the ROADMAP §1 item that brings it)
 NOT_PORTED = {
-    "config": (None, "§1 slice 3: the YAML run config, with the checkpoint loader"),
-    "ckpt_dir": (None, "§1 slice 3: the checkpoint loader (pipelines/loading.py)"),
-    "lora_rank": (0, "§1 training follow-ups: LoRA (training/lora.py)"),
-    "lora_alpha": (None, "§1 training follow-ups: LoRA (training/lora.py)"),
-    "lora_targets": (None, "§1 training follow-ups: LoRA (training/lora.py)"),
-    "lora_export": (None, "§1 training follow-ups: LoRA (training/lora.py)"),
-    "lora_adapter_export": (None, "§1 training follow-ups: LoRA (training/lora.py)"),
-    "layer_stream": (False, "§1 slice 5: the streamed trainers (training/streaming.py)"),
-    "stream_quant": (None, "§1 slice 5: the streamed trainers with ops/quant.py"),
-    "optimizer": ("adamw", "§1 training follow-ups: adafactor and _lr_scaled_decay"),
-    "dp": (1, "§1 slice 2: the mesh (parallel/*)"),
-    "fsdp": (1, "§1 slice 2: the mesh (parallel/*)"),
-    "sp": (1, "§1 slice 2: the mesh (parallel/*) with kernel row 8"),
-    "tp": (1, "§1 slice 2: the mesh (parallel/*)"),
+    "config": (None, "§1 item 3: the YAML run config (utils/run_config.py)"),
+    "lora_rank": (0, "§1 item 3: LoRA (training/lora.py)"),
+    "lora_alpha": (None, "§1 item 3: LoRA (training/lora.py)"),
+    "lora_targets": (None, "§1 item 3: LoRA (training/lora.py)"),
+    "lora_export": (None, "§1 item 3: LoRA (training/lora.py)"),
+    "lora_adapter_export": (None, "§1 item 3: LoRA (training/lora.py)"),
+    "layer_stream": (False, "§1 item 6: the streamed trainers (training/streaming.py)"),
+    "stream_quant": (None, "§1 item 6: the streamed trainers with ops/quant.py"),
+    "optimizer": ("adamw", "§1 item 3: adafactor and _lr_scaled_decay"),
+    "dp": (1, "§1 item 2: training under SP, FSDP2 and TP"),
+    "fsdp": (1, "§1 item 2: training under SP, FSDP2 and TP"),
+    "sp": (1, "§1 item 2: training under SP (the ring backward from rows 4 and 5)"),
+    "tp": (1, "§1 item 2: training under SP, FSDP2 and TP"),
 }
 
 
@@ -105,7 +107,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fsdp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="start from <ckpt_dir>/<low_noise_checkpoint>/model.pt (reference layout)")
     p.add_argument("--walltime", type=float, default=None,
                    help="seconds; stop and checkpoint before this walltime")
     p.add_argument("--layer_stream", action="store_true")
@@ -122,6 +125,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def task_config(args: argparse.Namespace) -> PipelineConfig:
+    cfg = CONFIGS[args.task]
+    if args.tiny:
+        cfg = cfg.replace(
+            dit=cfg.dit.replace(dim=64, ffn_dim=128, num_heads=4, num_layers=2, freq_dim=32,
+                                text_dim=48),
+            max_context_len=64, vlm_in_dim=16)
+    return cfg
+
+
+def initial_params(cfg: PipelineConfig, args: argparse.Namespace, device) -> UnifiedParams:
+    """The f32 master params a run starts from: the low-noise expert of
+    `--ckpt_dir` (companions the checkpoint lacks are initialised from the
+    seed, as the JAX CLI does), else the seeded init."""
+    if args.ckpt_dir is None:
+        return init_unified_params(cfg, seed=args.seed, device=device)
+    expert = load_expert(cfg, args.ckpt_dir, cfg.low_noise_checkpoint, torch.float32, device)
+    companions = expert.companions or init_unified_companions(
+        cfg, device=device, generator=torch.Generator(device=device).manual_seed(args.seed))
+    return UnifiedParams(expert.wan, Companions(companions))
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
@@ -129,12 +154,7 @@ def main(argv=None) -> int:
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
     (out / "run_config.json").write_text(json.dumps(vars(args), indent=1, sort_keys=True))
-    cfg = CONFIGS[args.task]
-    if args.tiny:
-        cfg = cfg.replace(
-            dit=cfg.dit.replace(dim=64, ffn_dim=128, num_heads=4, num_layers=2, freq_dim=32,
-                                text_dim=48),
-            max_context_len=64, vlm_in_dim=16)
+    cfg = task_config(args)
 
     tc = TrainConfig(
         learning_rate=args.lr, grad_clip=args.grad_clip, warmup_steps=args.warmup_steps,
@@ -165,7 +185,7 @@ def main(argv=None) -> int:
         raise SystemExit("no datasets configured (--dummy_data or --data_dirs)")
 
     # ---- params, optimizer, step ---------------------------------------------
-    params = init_unified_params(cfg, seed=args.seed, device=device)
+    params = initial_params(cfg, args, device)
     tx = make_optimizer(tc, params)
     state = init_train_state(params, tx)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)

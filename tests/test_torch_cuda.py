@@ -212,6 +212,11 @@ TRAIN_CASES = [
     (2, 1000, 1000, None),      # self-attention, ragged tiles
     (2, 1000, 300, None),       # cross-attention
     (2, 300, 700, [433, 0]),    # kv_lens, one batch row without keys
+    (1, 40, 50, None),          # Lq and Lk under one 64-row tile
+    (1, 300, 50, None),         # Lk under one tile, several q tiles
+    (2, 200, 200, None),        # a 128-row KV block whose second half is ragged
+    (1, 260, 400, [150]),       # kv_len ends inside the first half of a 128-row block
+    (2, 1000, 260, [0, 200]),   # the first batch row without keys
 ]
 
 
@@ -245,9 +250,46 @@ def test_flash_train_kernels_match_plain(cuda, B, Lq, Lk, lens):
         worst = float(_grad_rel(g[live], r[live]).max())
         assert worst < 1e-2, worst
     if lens is not None:
-        assert (o[1] == 0).all() and (grads[0][1] == 0).all()
-        for g in grads[1:]:
-            assert (g[0, lens[0]:] == 0).all() and (g[1] == 0).all()
+        for b in range(B):
+            if lens[b] == 0:
+                assert (o[b] == 0).all() and (grads[0][b] == 0).all()
+            for g in grads[1:]:
+                assert (g[b, lens[b]:] == 0).all()
+
+
+def _train_operands(B, Lq, Lk, N, lens, device):
+    q, k, v = _qkv(B, Lq, Lk, N, 128, Lq + 3 * Lk + N, 1.0, device)
+    do = torch.randn(B, Lq, N, 128, generator=torch.Generator(device).manual_seed(Lq + N),
+                     device=device).bfloat16()
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=device)
+    _, lse = flash_fwd_lse_plain(q, k, v, kv)
+    delta = flash_delta(do, flash_fwd_lse_plain(q, k, v, kv)[0])
+    return q, k, v, do, lse, delta, kv
+
+
+def test_flash_bwd_kernels_deterministic(cuda):
+    """Each output element is written by one block, with no atomics: two
+    launches give the same bits."""
+    args = _train_operands(2, 700, 900, 4, [900, 333], cuda)
+    first = flash_bwd(*args)
+    second = flash_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [3, 1])
+def test_flash_bwd_kernels_other_head_counts(cuda, N):
+    """N heads of 128 make a row stride of N·256 bytes: the tensor maps take
+    their strides from N (3 heads: 768 bytes, not the 3,072 of 12 heads)."""
+    B, Lq, Lk, lens = 2, 330, 470, [470, 129]
+    q, k, v, do, lse, delta, kv = _train_operands(B, Lq, Lk, N, lens, cuda)
+    grads = flash_bwd(q, k, v, do, lse, delta, kv)
+    ref = flash_bwd_plain(q, k, v, do, lse, delta, kv)
+    for g, r in zip(grads, ref):
+        worst = float(_grad_rel(g, r).max())
+        assert worst < 1e-2, (N, worst)
+    for g in grads[1:]:
+        assert (g[1, lens[1]:] == 0).all()
 
 
 def test_flash_train_autograd_finite_difference(cuda):

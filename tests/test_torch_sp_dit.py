@@ -52,6 +52,8 @@ def run(tmp_path_factory):
     inputs = dict(x=rng.standard_normal((1, 4, 4, 8, 8)).astype(np.float32),
                   xp=rng.standard_normal((1, 4, 5, 6, 6)).astype(np.float32),
                   t=np.array([500.0], np.float32),
+                  tl=rng.uniform(0.0, 1000.0, (1, 64)).astype(np.float32),
+                  tlp=rng.uniform(0.0, 1000.0, (1, 48)).astype(np.float32),
                   ctx=rng.standard_normal((1, 16, 48)).astype(np.float32))
     np.savez(tmp / "sd.npz", **sd)
     np.savez(tmp / "inputs.npz", **inputs)
@@ -63,13 +65,13 @@ def run(tmp_path_factory):
 _JAX = {}
 
 
-def _jax_sp(params, inputs, family, padded):
-    key = (family, padded)
+def _jax_sp(params, inputs, family, padded, t="t"):
+    key = (family, padded, t)
     if key not in _JAX:
         mesh = jax_mesh(fsdp=2, sp=2) if family == "hybrid" else jax_mesh(sp=WORLD)
         x = inputs["xp" if padded else "x"]
         _JAX[key] = np.asarray(wan_dit_apply(
-            params, JaxDiTConfig(**CFG), jnp.asarray(x), jnp.asarray(inputs["t"]),
+            params, JaxDiTConfig(**CFG), jnp.asarray(x), jnp.asarray(inputs[t]),
             jnp.asarray(inputs["ctx"]), attn_impl="xla", seq_len=48 if padded else None,
             sp=JaxSPConfig(mesh=mesh, mode=family)))
     return _JAX[key]
@@ -90,6 +92,31 @@ def test_sp_forward_matches_jax_and_single_process(run, mode, padded):
     assert outs[0].shape == single.shape == x.shape
     np.testing.assert_allclose(outs[0], single, **TOL)
     np.testing.assert_allclose(outs[0], _jax_sp(params, inputs, mode.split("_")[0], padded), **TOL)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["L64", "L45_padded_48"])
+@pytest.mark.parametrize("mode", ["ulysses", "ring_pallas"])
+def test_sp_forward_per_token_timesteps(run, mode, padded):
+    """t of shape [B, L] (one timestep per token): each rank takes its
+    shard's rows of the time embeddings, as JAX's global-view SP forward
+    does; held to the port's single-process forward with the same t and to
+    JAX's SP forward."""
+    params, sd, inputs, dit, _ = run
+    name = mode + "_tokens" + ("_padded" if padded else "")
+    outs = [r[name] for r in dit]
+    for r in range(1, WORLD):
+        np.testing.assert_array_equal(outs[r], outs[0])
+    model = load_wan_state_dict(WanDiT(WanDiTConfig(**CFG), torch.float32, device="cpu"), sd)
+    x, t = inputs["xp" if padded else "x"], inputs["tlp" if padded else "tl"]
+    with torch.inference_mode():
+        single = model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(inputs["ctx"]),
+                       seq_len=48 if padded else None).numpy()
+        uniform = model(*(torch.from_numpy(a) for a in (x, inputs["t"], inputs["ctx"]))).numpy()
+    assert outs[0].shape == single.shape == x.shape
+    assert np.abs(single - uniform).max() > 1e-3  # the per-token t reaches the output
+    np.testing.assert_allclose(outs[0], single, **TOL)
+    jax_out = _jax_sp(params, inputs, mode.split("_")[0], padded, "tlp" if padded else "tl")
+    np.testing.assert_allclose(outs[0], jax_out, **TOL)
 
 
 def test_sp_generate_matches_single_process(run):

@@ -24,9 +24,12 @@ import pytest
 import torch
 
 import torch_train_tiny as tiny
+from omnivideo_tpu.configs.base import T2V_1_3B as JAX_T2V_1_3B
 from omnivideo_tpu.models.wan_dit import wan_dit_apply
+from omnivideo_tpu.pipelines.loading import load_expert as jax_load_expert
 from omnivideo_tpu.training import dataset as jax_dataset
 from omnivideo_tpu.training import trainer as jax_trainer
+from omnivideo_tpu_torch.io.jax_bridge import wan_params_to_state_dict
 from omnivideo_tpu_torch.tools import finetune
 from omnivideo_tpu_torch.training import dataset, trainer
 from omnivideo_tpu_torch.training.checkpoint import CheckpointManager
@@ -196,3 +199,74 @@ def test_finetune_cli(tmp_path):
                  ["--layer_stream"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             finetune.main(base + flag)
+
+
+def _write_tiny_checkpoint(root, cfg, with_companions, seed=11):
+    """<root>/low_noise_model/model.pt in the reference layout (a unified
+    state dict: `wan_model.*` and, optionally, the companions under their
+    torch names), every value a seeded normal."""
+    rng = np.random.default_rng(seed)
+    wan = trainer.init_unified_params(cfg, seed=0, device="cpu").wan
+    sd = {f"wan_model.{k}": torch.tensor(rng.standard_normal(v.shape).astype(np.float32) * 0.05)
+          for k, v in wan.state_dict().items()}
+    if with_companions:
+        v, d = cfg.vlm_in_dim, cfg.dit.text_dim
+        sd["vlm_norm.weight"] = torch.tensor(1.0 + 0.1 * rng.standard_normal(v).astype(np.float32))
+        sd["vlm_proj.weight"] = torch.tensor(rng.standard_normal((d, v)).astype(np.float32) * 0.1)
+        sd["vlm_proj.bias"] = torch.tensor(rng.standard_normal(d).astype(np.float32) * 0.1)
+    sub = root / cfg.low_noise_checkpoint
+    sub.mkdir(parents=True)
+    torch.save(sd, sub / "model.pt")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v.detach().numpy() if torch.is_tensor(v) else v, np.float32)
+    return out
+
+
+@pytest.mark.parametrize("with_companions", [True, False])
+def test_finetune_cli_ckpt_dir(tmp_path, with_companions):
+    """--ckpt_dir starts from the low-noise expert, as the JAX CLI's
+    load_expert(cfg, ckpt_dir, cfg.low_noise_checkpoint, f32): the same
+    arrays, exactly; companions the file lacks come from the seed. Then two
+    steps with a finite loss."""
+    ckpt, out = tmp_path / "ckpt", tmp_path / "ft"
+    args = finetune.parse_args(["--dummy_data", "--tiny", "--device", "cpu", "--ckpt_dir",
+                                str(ckpt), "--output_dir", str(out), "--log_interval", "1"])
+    cfg = finetune.task_config(args)
+    _write_tiny_checkpoint(ckpt, cfg, with_companions)
+    params = finetune.initial_params(cfg, args, torch.device("cpu"))
+    jcfg = JAX_T2V_1_3B.replace(dit=JAX_T2V_1_3B.dit.replace(num_layers=cfg.dit.num_layers))
+    expert = jax_load_expert(jcfg, str(ckpt), cfg.low_noise_checkpoint, jnp.float32)
+    ref = wan_params_to_state_dict(jax.tree_util.tree_map(np.asarray, expert.wan))
+    got = {k: v.detach().numpy() for k, v in params.wan.named_parameters()}
+    assert set(ref) == set(got)
+    for k in ref:
+        assert got[k].dtype == np.float32
+        np.testing.assert_array_equal(got[k], np.asarray(ref[k], np.float32).reshape(got[k].shape),
+                                      err_msg=k)
+    companions = {k: v.detach().numpy() for k, v in params.companions.named_parameters()}
+    if with_companions:
+        jc = _flat(jax.tree_util.tree_map(np.asarray, expert.companions))
+        assert set(jc) == set(companions)
+        for k in jc:
+            np.testing.assert_array_equal(companions[k], jc[k], err_msg=k)
+    else:
+        assert not expert.companions
+        seeded = trainer.init_unified_companions(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(args.seed))
+        ref_c = _flat(seeded)
+        assert set(ref_c) == set(companions)
+        for k in ref_c:
+            np.testing.assert_array_equal(companions[k], ref_c[k], err_msg=k)
+    argv = ["--dummy_data", "--tiny", "--device", "cpu", "--ckpt_dir", str(ckpt),
+            "--output_dir", str(out), "--log_interval", "1", "--total_steps", "2"]
+    assert finetune.main(argv) == 0
+    lines = [json.loads(s) for s in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in lines] == [1, 2]
+    assert all(np.isfinite(r["loss/t2v"]) for r in lines)

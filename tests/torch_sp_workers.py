@@ -109,6 +109,11 @@ def dit_worker(rank, tmp, cfg_kw):
         for name, sp in modes.items():
             out[name] = model(data["x"], data["t"], data["ctx"], sp=sp)
             out[name + "_padded"] = model(data["xp"], data["t"], data["ctx"], seq_len=48, sp=sp)
+        for name in ("ulysses", "ring_pallas"):  # per-token timesteps [B, L]
+            sp = modes[name]
+            out[name + "_tokens"] = model(data["x"], data["tl"], data["ctx"], sp=sp)
+            out[name + "_tokens_padded"] = model(data["xp"], data["tlp"], data["ctx"], seq_len=48,
+                                                 sp=sp)
     _save(tmp, f"dit_{rank}", **{n: t.numpy() for n, t in out.items()})
 
 
