@@ -254,12 +254,18 @@ def pair_ulps(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def ptxas_by_kernel(log: str) -> dict:
     """{kernel: {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}
-    for the backward kernels (rows 4 and 5), from nvcc's -Xptxas -v log."""
+    for the Hopper kernels (rows 3b, 4, 5 and 8), from nvcc's -Xptxas -v log.
+    Rows 3b and 8 are two instantiations of one mainloop, told apart by their
+    epilogue's type in the mangled name."""
     out, name = {}, None
+    fwd = {"LseOut": "flash_fwd_lse", "RingCarry": "ring_step"}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(flash_bwd_dkv|flash_bwd_dq)_kernel", ln)
+        f = re.search(r"Compiling entry function '\w*?attn_fwd_kernel\w*?(LseOut|RingCarry)", ln)
         if m:
             name = m.group(1)
+        elif f:
+            name = fwd[f.group(1)]
         elif "Compiling entry function" in ln:
             name = None
         elif name and "spill stores" in ln:
@@ -1629,8 +1635,8 @@ def _kernel_class(name: str) -> str:
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "adaln_kernel"):
         if kernel in name:
             return kernel
-    if "flash_fwd_kernel<128, false, true>" in name:
-        return "flash_fwd_lse"
+    if "attn_fwd_kernel" in name:  # the Hopper forward mainloop: rows 3b and 8
+        return "ring_step" if "RingCarry" in name else "flash_fwd_lse"
     if "flash_fwd" in name:
         return "flash_fwd"
     if "qk_prep" in name:

@@ -11,7 +11,7 @@
 // max-tracked form. The flag and the bound are computed on the device by the
 // wrapper, so choosing the mode costs no host sync.
 //
-// One template, four instantiations:
+// One mma.sync template, three instantiations:
 // - D = 128, non-causal: the Wan DiT's self- and cross-attention (kernel
 //   row 1 of the port's table);
 // - D = 128, CAUSAL: the Qwen3 text prefill, _fa_kernel(causal=True)
@@ -22,20 +22,27 @@
 //   head-major transpose for D % 128 ≠ 0 (:308-318, 128-lane tiles); here a
 //   72-wide head is nine 16-byte chunks read in place, and the shared-memory
 //   tile pads it to 80 with zeros so q·kᵀ is five k16 steps and p·v ten n8
-//   tiles (the tenth is dropped);
-// - D = 128, non-causal, LSE: the training forward (row 3b), _fa_kernel
-//   (with_lse=True) via _flash_fwd_impl (pallas_call at :430, reached
-//   through the custom-VJP rule _fa_fwd :628): always max-tracked, and it
-//   also writes the natural-log row logsumexp LSE = m·ln2 + ln(max(l, 1e-30))
-//   (:174-175) to lse [B, N, Lq] f32, the residual the backward kernels of
-//   flash_train.cu read. A row with no live key keeps m = −1e30, l = 0.
+//   tiles (the tenth is dropped).
+//
+// The training forward (row 3b) runs the Hopper mainloop of
+// flash_fwd_hopper.cuh instead, with this file's epilogue (LseOut below):
+// it replaces _fa_kernel(with_lse=True) via _flash_fwd_impl (pallas_call at
+// :430, reached through the custom-VJP rule _fa_fwd :628): always
+// max-tracked, and it also writes the natural-log row logsumexp
+// LSE = m·ln2 + ln(max(l, 1e-30)) (:174-175) to lse [B, N, Lq] f32, the
+// residual the backward kernels of flash_train.cu read. A row with no live
+// key keeps m = −1e30, l = 0 and gets o = 0. Its bound on the H100 is
+// operations: 4·N·Lq·Lk·D FLOPs at [1, 32760, 12, 128] is 6.6 TFLOP, 6.7 ms;
+// the mainloop's design (wgmma fed by TMA through an mbarrier ring, one
+// producer and two consumer warpgroups, the exponentials of one tile under
+// the products of another) is what it does about that.
 //
 // Layout: q/k/v/o are read and written in place as packed [B, L, N·D] — the
 // layout the projection GEMMs produce (a row is N·D elements, a head's slice
 // starts at n·D: 16-byte aligned for D = 72 and 128).
 //
-// Bound on the H100: operations, 4·B·N·Lq·Lk·D FLOPs on the bf16 tensor
-// cores (989 TFLOP/s), half the logits when causal: self-attention at B=2,
+// Bound of the mma.sync rows on the H100: operations, 4·B·N·Lq·Lk·D FLOPs on
+// the bf16 tensor cores (989 TFLOP/s), half the logits when causal: self-attention at B=2,
 // N=12, L=32,760 is 13.2 TFLOP, 13.3 ms. Design (simple first, FA2-style):
 // grid (Lq/64, N, B), 4 warps per block, each warp owns 16 q rows whose bf16
 // fragments stay in registers; K/V tiles of 64 rows are staged in shared
@@ -44,26 +51,68 @@
 // S = q·kᵀ and O += bf16(p)·v. Bank conflicts: a 128-wide row (256 B) is
 // XOR-swizzled by 16-byte chunk; the 72-wide row sits at a padded stride of
 // 88 elements (176 B, an odd multiple of 16 B), so the eight rows an
-// ldmatrix reads fall in eight distinct 16-byte bank groups. wgmma/TMA and
-// warp specialisation are left for a later change.
+// ldmatrix reads fall in eight distinct 16-byte bank groups.
 
 #include "flash_common.cuh"
+#include "flash_fwd_hopper.cuh"
 
 namespace {
 
 constexpr int kRows = BQ + 4 * BK;  // smem tile rows: q + 2 stages of K and of V
 constexpr float kLn2 = 0.6931471805599453f;
 
+// Row 3b's hooks into the Hopper mainloop: every key below kv_len, the state
+// starts empty, and the epilogue writes o = acc / l (bf16, rows past Lq not
+// stored) and the natural-log LSE.
+struct LseOut {
+  __nv_bfloat16* o;
+  float* lse;
+  const int* kv_lens;
+  int Lq, Lk, N;
+  static constexpr bool kSkipEmpty = false;
+
+  __device__ int kv_len(int b) const { return kv_lens != nullptr ? kv_lens[b] : Lk; }
+  __device__ int live_tiles(int, int n_tiles) const { return n_tiles; }
+  __device__ fwdh::TileMask mask(int, int) const { return {false, false, 0, 0, 0}; }
+
+  __device__ void load(float (&acc)[64], float (&m)[2], float (&l)[2], int, int, int,
+                       int) const {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    m[0] = m[1] = fwdh::kInitMax;
+    l[0] = l[1] = 0.f;
+  }
+
+  __device__ void store(const float (&acc)[64], const float (&m)[2], const float (&l)[2], int b,
+                        int h, int row_a, int lane, bool) const {
+    const size_t ld = static_cast<size_t>(N) * fwdh::D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + r * 8;
+      if (row >= Lq) continue;
+      if (lane % 4 == 0)  // m is in log2 units, l domain-free
+        lse[(static_cast<size_t>(b) * N + h) * Lq + row] = m[r] * kLn2 + logf(fmaxf(l[r], 1e-30f));
+      const float denom = l[r] == 0.f ? 1.f : l[r];  // a row with no live key -> 0
+      __nv_bfloat16* out = o + (static_cast<size_t>(b) * Lq + row) * ld +
+                           static_cast<size_t>(h) * fwdh::D + (lane % 4) * 2;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(out + i * 8) = __floats2bfloat162_rn(
+            __fdiv_rn(acc[4 * i + 2 * r], denom), __fdiv_rn(acc[4 * i + 2 * r + 1], denom));
+    }
+  }
+};
+
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(__nv_bfloat16) * kRows * Tile<D>::LDS;
 }
 
-template <int D, bool CAUSAL, bool LSE>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, const int* __restrict__ kv_lens,
+                 const int* __restrict__ kv_lens,
                  const int* __restrict__ mbound, const int* __restrict__ safe, int Lq, int Lk,
                  int N, float qscale) {
   using T = Tile<D>;
@@ -78,7 +127,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const int ld = N * D;
   int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
   kv_len = min(max(kv_len, 0), Lk);
-  const bool bounded = !LSE && safe != nullptr && *safe != 0;
+  const bool bounded = safe != nullptr && *safe != 0;
   const float mb = bounded ? static_cast<float>(mbound[b * N + h]) : 0.f;
 
   const size_t head_off = static_cast<size_t>(h) * D;
@@ -235,9 +284,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     denom[r] = l == 0.f ? 1.f : l;  // fully masked rows -> 0
-    const int row = row_a + r * 8;
-    if (LSE && lane % 4 == 0 && row < Lq)  // m is in log2 units, l domain-free
-      lse[(static_cast<size_t>(b) * N + h) * Lq + row] = m_r[r] * kLn2 + logf(fmaxf(l, 1e-30f));
   }
   __nv_bfloat16* og = o + static_cast<size_t>(b) * Lq * ld + head_off + (lane % 4) * 2;
 #pragma unroll
@@ -253,20 +299,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-template <int D, bool CAUSAL, bool LSE = false>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* kv_lens,
+template <int D, bool CAUSAL>
+int launch(const void* q, const void* k, const void* v, void* o, const void* kv_lens,
            const void* mbound, const void* safe, int B, int Lq, int Lk, int N, float qscale,
            cudaStream_t stream) {
   // set on every call: the attribute is per device, and the call is cheap
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, CAUSAL, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<D>()));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BQ - 1) / BQ, N, B);
-  flash_fwd_kernel<D, CAUSAL, LSE><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+  flash_fwd_kernel<D, CAUSAL><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), static_cast<const int*>(kv_lens),
+      static_cast<const int*>(kv_lens),
       static_cast<const int*>(mbound), static_cast<const int*>(safe), Lq, Lk, N, qscale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -281,20 +327,22 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 float qscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 128 && !causal)
-    return launch<128, false>(q, k, v, o, nullptr, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return launch<128, false>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
   if (head_dim == 128 && causal)
-    return launch<128, true>(q, k, v, o, nullptr, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return launch<128, true>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
   if (head_dim == 72 && !causal)
-    return launch<72, false>(q, k, v, o, nullptr, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return launch<72, false>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The training forward (row 3b): max-tracked, o and lse [B, N, Lq] f32.
-// Head dim 128 only; returns the CUDA error code.
+// The training forward (row 3b), on the Hopper mainloop: max-tracked, o and
+// lse [B, N, Lq] f32. Head dim 128 only, operands 16-byte aligned; returns
+// the CUDA error code.
 extern "C" int flash_fwd_lse_launch(const void* q, const void* k, const void* v, void* o,
                                     void* lse, const void* kv_lens, int B, int Lq, int Lk,
                                     int N, int head_dim, float qscale, void* stream) {
   if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<128, false, true>(q, k, v, o, lse, kv_lens, nullptr, nullptr, B, Lq, Lk, N,
-                                  qscale, static_cast<cudaStream_t>(stream));
+  const LseOut pol{static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+                   static_cast<const int*>(kv_lens), Lq, Lk, N};
+  return fwdh::launch(q, k, v, pol, B, qscale, static_cast<cudaStream_t>(stream));
 }

@@ -57,9 +57,6 @@ constexpr int kStationary = 2 * kRows;  // rows a block owns
 constexpr int kStages = 3;
 constexpr int kThreadsWS = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;
-constexpr uint32_t kPanel = kRows * 128;    // 64 rows x 64 bf16, 8 KiB
-constexpr uint32_t kTile = 2 * kPanel;      // 64 rows x 128 bf16, 16 KiB
-constexpr uint32_t kKMajorSbo = 1024;       // next 8 rows of a swizzled panel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kProducerRegs = 40;  // 128·40 + 256·232 = 384·168, the registers the block launches with
 constexpr int kConsumerRegs = 232;

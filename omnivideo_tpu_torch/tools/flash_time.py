@@ -1,6 +1,7 @@
 """Time the flash-attention kernels of one checkout at the Wan DiT's shapes.
 
-    PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py [--which fwd|bwd|all]
+    PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
+        [--which fwd|bwd|fwd_lse|ring|all]
 
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
@@ -11,9 +12,15 @@ q/k with RMS 1. The backward cases are those of its flash_train phase: the
 training backward (rows 4 and 5) at [1, 32760, 12, 128] against 32,760 keys
 (self) and 6,272 keys (cross), timed as the pair through `flash_bwd` and as
 each kernel alone through the library's C entry points (whose arguments every
-checkout shares). Each case prints one JSON line with the device time per
-launch (CUDA events) of `rounds` rounds of `reps` launches each. Needs one
-CUDA device; builds the checkout's kernels on first use.
+checkout shares). `fwd_lse` times the training forward (row 3b) through
+`flash_fwd_lse_launch` at the same two shapes; `ring` times one ring step
+(row 8) through `ring_step_launch`, non-causal, on an empty carry that the
+launches keep updating: the sp phase's step, q [2, 32760, 12, 128] against
+32,760 keys, and a 4-card run's per-rank step, 8,190 q rows against 8,190
+keys. Each case prints one JSON line with the device time per launch (CUDA
+events) of `rounds` rounds of `reps` launches each, and the bound: the
+case's matmul FLOPs over the H100's 989 TFLOP/s. Needs one CUDA device;
+builds the checkout's kernels on first use.
 """
 
 from __future__ import annotations
@@ -30,7 +37,10 @@ from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 SEQ = 21 * 30 * 52  # 832x480x81 after the (1, 2, 2) patch
 CASES = (("self_bounded", SEQ), ("cross_bounded", 6272))
 BWD_CASES = (("bwd_self", SEQ), ("bwd_cross", 6272))
+LSE_CASES = (("fwd_lse_self", SEQ), ("fwd_lse_cross", 6272))
+RING_CASES = (("ring_sp1", SEQ), ("ring_sp4", SEQ // 4))  # (case, q rows = keys per step)
 N, D = 12, 128
+BF16_FLOPS = 989e12  # the H100 SXM's dense bf16 tensor-core rate
 
 
 def _normed(B, L, gen):
@@ -91,11 +101,56 @@ def _backward(args, smi, gen) -> None:
         del q, k, v, do, o, dq, dk, dv
 
 
+def _bound(B, Lq, Lk) -> dict:
+    flop = 4 * B * N * Lq * Lk * D
+    return {"bound_ms": flop / BF16_FLOPS * 1e3, "gflop": flop / 1e9}
+
+
+def _fwd_lse(args, smi, gen) -> None:
+    B = 1
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    qscale = flash_mod._qscale(D**-0.5)
+    for name, Lk in LSE_CASES:
+        q, k = _normed(B, SEQ, gen), _normed(B, Lk, gen)
+        v = torch.randn(B, Lk, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        o = torch.empty_like(q)
+        lse = torch.empty(B, N, SEQ, dtype=torch.float32, device="cuda")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), None)
+        ms = _time(lambda: _kernels.check(lib.flash_fwd_lse_launch(
+            *ptrs, B, SEQ, Lk, N, D, qscale, stream), "flash_fwd_lse"), args.reps, args.rounds)
+        print(json.dumps({"case": name, "q": [B, SEQ, N, D], "Lk": Lk, "flash_fwd_lse_ms": ms,
+                          **_bound(B, SEQ, Lk), "package": flash_mod.__file__,
+                          "nvidia_smi": smi}), flush=True)
+        del q, k, v, o, lse
+
+
+def _ring(args, smi, gen) -> None:
+    B = 2
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    qscale = flash_mod._qscale(D**-0.5)
+    for name, L in RING_CASES:
+        q, k = _normed(B, L, gen), _normed(B, L, gen)
+        v = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        m = torch.full((B, N, L), -1e30, dtype=torch.float32, device="cuda")
+        l = torch.zeros(B, N, L, dtype=torch.float32, device="cuda")
+        acc = torch.zeros(B, L, N, D, dtype=torch.float32, device="cuda")
+        ptrs = tuple(t.data_ptr() for t in (q, k, v, m, l, acc)) + (None,)
+        ms = _time(lambda: _kernels.check(lib.ring_step_launch(
+            *ptrs, B, L, L, N, D, 0, 0, 0, 1, 0, qscale, stream), "ring_step"),
+            args.reps, args.rounds)
+        print(json.dumps({"case": name, "q": [B, L, N, D], "Lk": L, "ring_step_ms": ms,
+                          **_bound(B, L, L), "package": flash_mod.__file__,
+                          "nvidia_smi": smi}), flush=True)
+        del q, k, v, m, l, acc
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--which", choices=("fwd", "bwd", "all"), default="fwd")
+    ap.add_argument("--which", choices=("fwd", "bwd", "fwd_lse", "ring", "all"), default="fwd")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -104,6 +159,10 @@ def main() -> None:
         _forward(args, smi, gen)
     if args.which in ("bwd", "all"):
         _backward(args, smi, gen)
+    if args.which in ("fwd_lse", "all"):
+        _fwd_lse(args, smi, gen)
+    if args.which in ("ring", "all"):
+        _ring(args, smi, gen)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,9 @@ PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
 1e-5 of it (f32 out): the row mean and variance sum in another order.
 ring_step: the finished output within 4 bf16 ulps of each row's max, as
 flash; the carried m within 1e-4 (log2 units) and l within 1e-4 relative of
-the plain twin's (f32 sums in another order).
+the plain twin's (f32 sums in another order). Where K/V rows past kv_len
+(or a ring step's step_lens) hold NaN, the forward kernels' outputs are
+finite and held to the plain twin on the same inputs with those rows zeroed.
 """
 
 import numpy as np
@@ -217,6 +219,8 @@ TRAIN_CASES = [
     (2, 200, 200, None),        # a 128-row KV block whose second half is ragged
     (1, 260, 400, [150]),       # kv_len ends inside the first half of a 128-row block
     (2, 1000, 260, [0, 200]),   # the first batch row without keys
+    (2, 1050, 700, None),       # Lq % 128 = 26: the last block's second warpgroup has no rows
+    (1, 6272, 6272, [6000]),    # several pipelined KV tiles, kv_len inside the last one
 ]
 
 
@@ -265,6 +269,52 @@ def _train_operands(B, Lq, Lk, N, lens, device):
     _, lse = flash_fwd_lse_plain(q, k, v, kv)
     delta = flash_delta(do, flash_fwd_lse_plain(q, k, v, kv)[0])
     return q, k, v, do, lse, delta, kv
+
+
+def _nan_past(t, lens):
+    """A copy of [B, L, ...] `t` with the rows past lens[b] set to NaN."""
+    t = t.clone()
+    for b, n in enumerate(lens):
+        t[b, n:] = float("nan")
+    return t
+
+
+def test_flash_fwd_lse_kernel_ignores_rows_past_kv_len(cuda):
+    """K and V rows past kv_len hold NaN: the kernel's o and LSE are finite
+    and equal the plain twin's on the same inputs with those rows zeroed (a
+    masked key adds exactly 0, not 0·NaN)."""
+    B, Lq, Lk, N, lens = 3, 300, 700, 2, [433, 64, 700]
+    q, k, v = _qkv(B, Lq, Lk, N, 128, 31, 1.0, cuda)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    o, lse = flash_fwd_lse(q, _nan_past(k, lens), _nan_past(v, lens), kv)
+    op, lsep = flash_fwd_lse_plain(q, _nan_past(k, lens).nan_to_num(0.0),
+                                   _nan_past(v, lens).nan_to_num(0.0), kv)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _assert_flash_close(o, op)
+    torch.testing.assert_close(lse, lsep, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("N", [3, 1])
+def test_flash_fwd_lse_kernel_other_head_counts(cuda, N):
+    """The forward's tensor maps take their strides from N, as the
+    backward's do."""
+    B, Lq, Lk, lens = 2, 330, 470, [470, 129]
+    q, k, v = _qkv(B, Lq, Lk, N, 128, 40 + N, 1.0, cuda)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    o, lse = flash_fwd_lse(q, k, v, kv)
+    op, lsep = flash_fwd_lse_plain(q, k, v, kv)
+    _assert_flash_close(o, op)
+    torch.testing.assert_close(lse, lsep, rtol=0, atol=1e-4)
+
+
+def test_flash_fwd_lse_kernel_deterministic(cuda):
+    """Each output row is written by one warpgroup, with no atomics: two
+    launches give the same bits."""
+    q, k, v = _qkv(2, 700, 900, 4, 128, 17, 1.0, cuda)
+    kv = torch.tensor([900, 333], dtype=torch.int32, device=cuda)
+    o1, lse1 = flash_fwd_lse(q, k, v, kv)
+    o2, lse2 = flash_fwd_lse(q, k, v, kv)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
 def test_flash_bwd_kernels_deterministic(cuda):
@@ -402,7 +452,22 @@ RING_CASES = [  # (causal, shard length, kv_lens)
     ("token", 200, None),
     ("stripe", 200, None),
     ("zigzag", 256, None),
+    (None, 150, None),          # Lq % 128 = 22: the last block's second warpgroup has no rows
+    ("zigzag", 384, None),      # zz = 192, zz % 128 = 64: a block straddles the chunk boundary
+    ("zigzag", 128, None),      # zz = 64: every block straddles it
+    ("token", 320, None),       # the two halves of a block meet the diagonal in different tiles
+    ("stripe", 320, None),      # as token, shifted by one for src > my
+    ("block", 256, [900, 1024]),   # a causal mode with padded keys
 ]
+
+
+def _ring_layout(q, k, v, causal, n, Ls, device):
+    """n shards of q/k/v in the token order of the causal layout."""
+    order = {"zigzag": zigzag_order, "stripe": stripe_order}.get(causal)
+    if order is not None:
+        idx = order(n * Ls, n).to(device)
+        q, k, v = (t[:, idx].contiguous() for t in (q, k, v))
+    return [[s_.contiguous() for s_ in t.chunk(n, 1)] for t in (q, k, v)]
 
 
 @pytest.mark.parametrize("causal,Ls,lens", RING_CASES)
@@ -412,13 +477,8 @@ def test_ring_step_kernel_matches_plain(cuda, causal, Ls, lens):
     make them."""
     n, B, N, D = 4, 2, 2, 128
     q, k, v = _qkv(B, n * Ls, n * Ls, N, D, Ls, 1.0, cuda)
-    order = {"zigzag": zigzag_order, "stripe": stripe_order}.get(causal)
-    if order is not None:
-        idx = order(n * Ls, n).to(cuda)
-        q, k, v = (t[:, idx].contiguous() for t in (q, k, v))
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
-    shards = [list(t.chunk(n, 1)) for t in (q, k, v)]
-    shards = [[s_.contiguous() for s_ in t] for t in shards]
+    shards = _ring_layout(q, k, v, causal, n, Ls, cuda)
     n0 = ring_step.launches
     outs = ring_flash_attention_shards(*shards, kv_lens=kv, causal=causal, return_lse=True)
     assert ring_step.launches - n0 == n * n
@@ -430,6 +490,49 @@ def test_ring_step_kernel_matches_plain(cuda, causal, Ls, lens):
         torch.testing.assert_close(lse[seen], lse_p[seen], rtol=0, atol=1e-4)
     if lens is not None and 0 in lens:
         assert all((o[lens.index(0)] == 0).all() for o, _ in outs)
+
+
+def test_ring_step_kernel_ignores_keys_past_step_lens(cuda):
+    """K and V tokens past kv_len hold NaN (the padded tail of the last
+    shards): the outputs are finite and equal the plain twin's on the same
+    inputs with those tokens zeroed."""
+    n, B, N, Ls, lens = 4, 2, 2, 200, [730, 333]
+    q, k, v = _qkv(B, n * Ls, n * Ls, N, 128, 23, 1.0, cuda)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kn, vn = _nan_past(k, lens), _nan_past(v, lens)
+    shards = _ring_layout(q, kn, vn, None, n, Ls, cuda)
+    zeroed = _ring_layout(q, kn.nan_to_num(0.0), vn.nan_to_num(0.0), None, n, Ls, cuda)
+    outs = ring_flash_attention_shards(*shards, kv_lens=kv)
+    refs = ring_flash_attention_shards(*zeroed, kv_lens=kv, step=ring_step_plain)
+    for o, o_p in zip(outs, refs):
+        assert torch.isfinite(o).all()
+        _assert_flash_close(o, o_p)
+
+
+@pytest.mark.parametrize("N,causal", [(3, None), (1, "token"), (3, "zigzag")])
+def test_ring_step_kernel_other_head_counts(cuda, N, causal):
+    """N = 1 and 3 heads pin the tensor maps' strides."""
+    n, B, Ls = 4, 2, 256
+    q, k, v = _qkv(B, n * Ls, n * Ls, N, 128, 50 + N, 1.0, cuda)
+    shards = _ring_layout(q, k, v, causal, n, Ls, cuda)
+    outs = ring_flash_attention_shards(*shards, causal=causal)
+    refs = ring_flash_attention_shards(*shards, causal=causal, step=ring_step_plain)
+    for o, o_p in zip(outs, refs):
+        _assert_flash_close(o, o_p)
+
+
+def test_ring_step_kernel_deterministic(cuda):
+    """Two launches on the same carry give the same bits."""
+    B, L, N, D = 2, 300, 2, 128
+    q, k, v = _qkv(B, L, L, N, D, 13, 1.0, cuda)
+    lens = torch.tensor([300, 170], dtype=torch.int32, device=cuda)
+    start = ring_step_plain(q, k, v, *ring_carry(B, L, N, D, cuda))
+    runs = []
+    for _ in range(2):
+        carry = [t.clone() for t in start]
+        ring_step(q, k, v, *carry, step_lens=lens, causal="stripe", my=2, src=1, n=4)
+        runs.append(carry)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_ring_step_kernel_carry_in_place(cuda):

@@ -5,7 +5,8 @@
 - no module of it imports them, calls a library attention or
   torch.compile (AST scan);
 - its entry points default to CUDA and raise without a CUDA device unless
-  the caller asks for the CPU.
+  the caller asks for the CPU;
+- every CUDA source and header is in the kernel build's digest.
 """
 
 import ast
@@ -123,3 +124,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     pipe = OmniVideoX2XUnified.random_init(cfg, device="cpu")
     assert pipe.device == torch.device("cpu")
+
+
+def test_every_csrc_file_is_in_the_build_digest():
+    """The build is cached by a digest of SOURCES and HEADERS: a file under
+    csrc/ missing from both would not trigger a rebuild when edited."""
+    from omnivideo_tpu_torch.ops import _kernels
+
+    listed = set(_kernels.SOURCES) | set(_kernels.HEADERS)
+    on_disk = {p.name for p in (PKG / "csrc").iterdir() if p.is_file()}
+    assert on_disk == listed, (sorted(on_disk - listed), sorted(listed - on_disk))
+    assert all(name.endswith(".cu") for name in _kernels.SOURCES)
