@@ -10,18 +10,21 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
             switches, kernel build time and nvcc's register/spill report
-            (the backward kernels' registers and spills broken out);
+            per kernel row (fails if a row is missing from it, or if
+            ptxas serialised a kernel's wgmma: a C75xx warning);
   qk_prep   the qk_prep CUDA kernel against qk_prep_plain on the card at the
             T2V-1.3B shapes (RoPE self-attention q/k, norm-only context k, a
             sequence longer than the RoPE table);
   flash     the flash CUDA kernel against the q-chunked flash_attention_plain
-            at the DiT's shapes (bounded self- and cross-attention, a forced
-            max-tracked case, a ragged kv_lens case with one fully masked
-            batch row), the Qwen3 prefill's (causal, head dim 128, with and
-            without kv_lens) and the vision tower's (head dim 72: bounded,
-            forced max-tracked, kv_lens), each output row held to its own
-            scale, with scaled_dot_product_attention timed beside it as a
-            yardstick only;
+            at the DiT's shapes (bounded self- and cross-attention, self at
+            T2V-A14B's 40 heads, a forced max-tracked case, a ragged kv_lens
+            case with one fully masked batch row), the Qwen3 prefill's
+            (causal, head dim 128, with and without kv_lens) and the vision
+            tower's (head dim 72: bounded, forced max-tracked, kv_lens, and
+            kv_lens with NaN in the K/V rows past it), each output row held
+            to its own scale; each kernel timed alone at its C entry point
+            and through the wrapper, scaled_dot_product_attention timed
+            beside it as a yardstick only;
   tiny      a small generate() on the card (kernels) against the same
             weights and noise on the CPU (plain versions);
   tiny_vlm  a small Qwen3-VL (vision head dim 72, text head dim 128) on the
@@ -210,6 +213,8 @@ VLM_GRID = (3, 30, 52)  # 6 frames at 832x480 after the (2, 16, 16) patch
 VLM_NEW_TOKENS = 16  # the reference decodes up to 512; only the loop is cut
 SYSTEM_PREFIX = 31  # synthetic system-prompt prefix, dropped from the features
 D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
+KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_causal", "flash_d72", "flash_fwd_lse",
+               "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step")
 
 
 def emit(obj) -> None:
@@ -252,22 +257,37 @@ def pair_ulps(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return (y.float() - ref.float()).abs() / bf16_ulp(r)
 
 
+def kernel_row(name: str):
+    """The port's kernel that a compiled or profiled GPU function is, from its
+    mangled (nvcc's log) or demangled (the profiler's) name, or None. The
+    Hopper forward mainloop `attn_fwd_kernel` serves four rows, told apart by
+    its epilogue policy's type: InferOut<128> row 1, InferOut<72> row
+    3a, LseOut row 3b, RingCarry row 8."""
+    if "attn_fwd_kernel" in name:
+        if "RingCarry" in name:
+            return "ring_step"
+        if "LseOut" in name:
+            return "flash_fwd_lse"
+        m = re.search(r"InferOut(?:ILi|<)(\d+)", name)
+        if m:
+            return {"128": "flash_fwd", "72": "flash_d72"}.get(m.group(1))
+        return None
+    for key, row in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
+                     ("flash_causal_kernel", "flash_causal"), ("qk_prep", "qk_prep"),
+                     ("adaln_kernel", "fused_adaln")):
+        if key in name:
+            return row
+    return None
+
+
 def ptxas_by_kernel(log: str) -> dict:
     """{kernel: {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}
-    for the Hopper kernels (rows 3b, 4, 5 and 8), from nvcc's -Xptxas -v log.
-    Rows 3b and 8 are two instantiations of one mainloop, told apart by their
-    epilogue's type in the mangled name."""
+    for every kernel of the port's table, from nvcc's -Xptxas -v log."""
     out, name = {}, None
-    fwd = {"LseOut": "flash_fwd_lse", "RingCarry": "ring_step"}
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(flash_bwd_dkv|flash_bwd_dq)_kernel", ln)
-        f = re.search(r"Compiling entry function '\w*?attn_fwd_kernel\w*?(LseOut|RingCarry)", ln)
-        if m:
-            name = m.group(1)
-        elif f:
-            name = fwd[f.group(1)]
-        elif "Compiling entry function" in ln:
-            name = None
+        f = re.search(r"Compiling entry function '(\w+)'", ln)
+        if f:
+            name = kernel_row(f.group(1))
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
             out.setdefault(name, {}).update(spill_stores=int(st), spill_loads=int(ld))
@@ -275,6 +295,13 @@ def ptxas_by_kernel(log: str) -> dict:
             out.setdefault(name, {})["registers"] = int(re.search(r"Used (\d+) registers",
                                                                   ln).group(1))
     return out
+
+
+def serialised_wgmma(log: str) -> list:
+    """ptxas's C75xx warnings in nvcc's log: wgmma.mma_async serialised (a
+    wgmma under a runtime branch, spills, a function call inside the
+    pipeline), which costs a Hopper kernel its overlap of products."""
+    return [ln.strip() for ln in log.splitlines() if re.search(r"\bC75\d\d\b", ln)]
 
 
 def phase_device() -> dict:
@@ -287,14 +314,19 @@ def phase_device() -> dict:
     _kernels.library()
     ptxas = [ln.strip() for ln in _kernels.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
+    by_kernel = ptxas_by_kernel(_kernels.build_log)
     info = {"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-            "ptxas_by_kernel": ptxas_by_kernel(_kernels.build_log),
+            "ptxas_by_kernel": by_kernel,
             "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
             "kernel_build_s": _kernels.build_seconds, "ptxas": ptxas}
     emit(info)
+    missing = sorted(set(KERNEL_ROWS) - set(by_kernel))
+    serial = serialised_wgmma(_kernels.build_log)
+    if missing or serial:
+        raise AssertionError(f"device: no ptxas report for {missing}; wgmma serialised: {serial}")
     return info
 
 
@@ -345,18 +377,38 @@ def _normed(B, L, N, D, gen, scale=1.0):
     return (t * scale).to(torch.bfloat16)
 
 
-def _flash_case(name, q, k, v, kv, normalized, causal, forced, reps):
+def _nan_past(t: torch.Tensor, lens) -> torch.Tensor:
+    """A copy of [B, L, ...] `t` with the rows past lens[b] set to NaN."""
+    t = t.clone()
+    for b, n in enumerate(lens):
+        t[b, n:] = float("nan")
+    return t
+
+
+def _flash_case(name, q, k, v, kv, normalized, causal, forced, reps, nan_tail=False):
     """One flash case: kernel vs plain (and, for the bounded cases, the
-    max-tracked kernel), SDPA timed as a yardstick; returns the record."""
+    max-tracked kernel), the kernel timed alone at its C entry point and
+    through the wrapper (which also computes the softmax bound unless given
+    the row norms), SDPA timed as a yardstick; returns the record. With
+    `nan_tail` the K/V rows past kv_len hold NaN (the bound is taken from
+    the rows before it, as qk_prep's row norms would give it)."""
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
     scale = D**-0.5
-    mb = safe = None
+    lens = kv.tolist() if kv is not None else None
+    mb = safe = norms = None
     bounded = False
     if normalized:
-        mb, safe = softmax_bound(q, k, scale)
+        if nan_tail:
+            norms = tuple(t.float().square().sum(-1).amax(dim=1).sqrt() for t in (q, k))
+        mb, safe = softmax_bound(q, k, scale, norms)
         bounded = bool(safe.item())
-    o = flash_attention(q, k, v, kv_lens=kv, assume_normalized=normalized, causal=causal)
+    if nan_tail:
+        k, v = _nan_past(k, lens), _nan_past(v, lens)
+    wrapper = lambda: flash_attention(q, k, v, kv_lens=kv,  # noqa: E731
+                                      assume_normalized=normalized, qk_row_norms=norms,
+                                      causal=causal)
+    o = wrapper()
     op = flash_attention_plain(q, k, v, kv, scale, mb, safe, causal)
     o_max = flash_attention(q, k, v, kv_lens=kv, causal=causal) if normalized else o
     torch.cuda.synchronize()
@@ -364,17 +416,23 @@ def _flash_case(name, q, k, v, kv, normalized, causal, forced, reps):
     ulps = float(row_ulps(o, op).max())
     ulps_modes = float(row_ulps(o_max, op).max())
     ref_max = float(op.float().abs().max())
-    lens = kv.tolist() if kv is not None else None
-    zero_ok = True
+    zero_ok = bool(torch.isfinite(o).all() and torch.isfinite(o_max).all())
     if lens and 0 in lens:
-        zero_ok = bool((o[lens.index(0)] == 0).all() and (o_max[lens.index(0)] == 0).all())
+        zero_ok &= bool((o[lens.index(0)] == 0).all() and (o_max[lens.index(0)] == 0).all())
     if normalized and forced == bounded:
         raise AssertionError(f"flash {name}: guard chose bounded={bounded}, expected {not forced}")
     if ulps > FLASH_ULPS or ulps_modes > FLASH_ULPS or not zero_ok:
         raise AssertionError(f"flash {name}: {ulps} row ulps, max-tracked {ulps_modes} "
-                             f"(limit {FLASH_ULPS}), zero rows ok {zero_ok}")
-    ms = cuda_ms(lambda: flash_attention(q, k, v, kv_lens=kv, assume_normalized=normalized,
-                                         causal=causal), reps)
+                             f"(limit {FLASH_ULPS}), zero rows finite and ok {zero_ok}")
+    # the kernel alone: the same launch the wrapper makes, its operands made once
+    lens_i = kv.to(torch.int32).contiguous() if kv is not None else None
+    out = torch.empty_like(q)
+    args = [t.data_ptr() if t is not None else None for t in (q, k, v, out, lens_i, mb, safe)]
+    args += [B, Lq, Lk, N, D, int(causal), flash_mod._qscale(scale),
+             torch.cuda.current_stream().cuda_stream]
+    lib = _kernels.library()
+    ms = cuda_ms(lambda: _kernels.check(lib.flash_fwd_launch(*args), "flash_fwd_launch"), reps)
+    wrapper_ms = cuda_ms(wrapper, reps)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, kv, scale, mb, safe, causal), 1, 0)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = None
@@ -404,10 +462,11 @@ def _flash_case(name, q, k, v, kv, normalized, causal, forced, reps):
            "bounded": bounded, "max_abs_err": err, "max_row_ulps": ulps,
            "max_row_ulps_max_tracked": ulps_modes, "tolerance_row_ulps": FLASH_ULPS,
            "max_abs_plain": ref_max, "zero_rows_ok": zero_ok,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "nan_past_kv_len": nan_tail, "reps": reps,
+           "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "tflops": flops / ms / 1e9}
+           "share_of_bound": max(t_ops, t_bytes) / ms, "tflops": flops / ms / 1e9}
     emit(rec)
     return rec
 
@@ -416,13 +475,16 @@ def phase_flash(gen: torch.Generator) -> dict:
     """Cases per kernel instantiation; returns {kernel: its main-path case}."""
     main = {}
 
-    def run(name, B, Lq, Lk, N, D, sc, lens, normalized, causal):
+    def run(name, B, Lq, Lk, N, D, sc, lens, normalized, causal, nan_tail=False):
         q = _normed(B, Lq, N, D, gen, sc)
         k = _normed(B, Lk, N, D, gen, sc)
         v = torch.randn(B, Lk, N, D, generator=gen, device="cuda").to(torch.bfloat16)
         kv = torch.tensor(lens, dtype=torch.int32, device="cuda") if lens else None
-        reps = 5 if Lq * Lk > 1e8 else 20
-        rec = _flash_case(name, q, k, v, kv, normalized, causal, sc != 1.0, reps)
+        # launches per timing: a second or more of device time at the DiT's
+        # shapes, and at the VLM's (~0.1 ms each) enough that two runs of one
+        # tree agree within a few per cent
+        reps = 5 if Lq * Lk > 1e8 else 200
+        rec = _flash_case(name, q, k, v, kv, normalized, causal, sc != 1.0, reps, nan_tail)
         main.setdefault(rec["kernel"], rec)
         del q, k, v
 
@@ -431,6 +493,7 @@ def phase_flash(gen: torch.Generator) -> dict:
     run("cross_bounded", 2, SEQ, 6272, 12, 128, 1.0, None, True, False)
     run("max_tracked_forced", 2, 8192, 8192, 12, 128, 4.0, None, True, False)
     run("kv_lens_ragged", 2, 4096, 8190, 12, 128, 1.0, [5001, 0], True, False)
+    run("self_bounded_n40", 2, SEQ, SEQ, 40, 128, 1.0, None, True, False)  # T2V-A14B's heads
     # the Qwen3 text prefill (causal, max-tracked, K/V repeated to 32 heads)
     L = vlm_prompt_len()
     run("causal_prefill", 1, L, L, 32, 128, 1.0, None, False, True)
@@ -440,6 +503,8 @@ def phase_flash(gen: torch.Generator) -> dict:
     run("d72_bounded", t, D72_SEQ, D72_SEQ, 16, 72, 1.0, None, True, False)
     run("d72_max_tracked_forced", t, D72_SEQ, D72_SEQ, 16, 72, 4.0, None, True, False)
     run("d72_kv_lens", t, D72_SEQ, D72_SEQ, 16, 72, 1.0, [D72_SEQ, 999, 0], True, False)
+    run("d72_kv_lens_nan", t, D72_SEQ, D72_SEQ, 16, 72, 1.0, [D72_SEQ, 999, 0], True, False,
+        nan_tail=True)
     return main
 
 
@@ -691,7 +756,7 @@ def _vlm_profile(model, ids, patches, grid) -> dict:
             continue
         busy += ms
         by_name[ev.key] = by_name.get(ev.key, 0.0) + ms
-        if "flash_fwd_kernel<128, true>" in ev.key:
+        if kernel_row(ev.key) == "flash_causal":
             attn += ms
     vision, moe = kernel_ms["qwen3vl.vision"], kernel_ms["qwen3vl.moe"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -1632,15 +1697,9 @@ def phase_train() -> dict:
 
 
 def _kernel_class(name: str) -> str:
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "adaln_kernel"):
-        if kernel in name:
-            return kernel
-    if "attn_fwd_kernel" in name:  # the Hopper forward mainloop: rows 3b and 8
-        return "ring_step" if "RingCarry" in name else "flash_fwd_lse"
-    if "flash_fwd" in name:
-        return "flash_fwd"
-    if "qk_prep" in name:
-        return "qk_prep"
+    row = kernel_row(name)
+    if row is not None:
+        return row
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
         return "gemm"
     if "elementwise" in name or "vectorized" in name or "unrolled" in name:

@@ -1,7 +1,9 @@
-// Device helpers shared by the flash kernels (flash_fwd.cu, flash_train.cu).
+// Device helpers shared by the CUDA kernels: the shared-memory address and
+// bf16 packing every kernel uses, and the mma.sync pieces of the causal
+// prefill kernel (flash_fwd.cu, row 2).
 //
-// A tile is 64 rows of one head (D bf16 values each) staged in shared memory
-// with cp.async and read with ldmatrix; products run on
+// A tile there is 64 rows of one head (128 bf16 values each) staged in
+// shared memory with cp.async and read with ldmatrix; products run on
 // mma.sync.m16n8k16 (bf16 in, f32 accumulators). Each of the 4 warps of a
 // block owns 16 rows of the "A" side; an accumulator fragment float[4] holds
 // rows lane/4 and lane/4 + 8, columns (lane%4)·2 and +1 of an 8-wide n tile,
@@ -21,19 +23,14 @@ constexpr int BK = 64;  // rows per streamed tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
-template <int D>
-struct Tile {
-  static_assert(D % 8 == 0, "a head row is a whole number of 16-byte chunks");
-  static constexpr int kChunks = D / 8;             // 16-byte chunks read per row
-  static constexpr int DP = (D + 15) / 16 * 16;     // padded to the mma k-depth
-  static constexpr bool kSwizzle = D % 64 == 0;     // >= 8 chunks: XOR swizzle
-  static constexpr int LDS = kSwizzle ? D : DP + 8;  // smem row stride, elements
+constexpr int kHead = 128;  // head dim of the mma.sync kernel
 
-  // element offset of 16-byte chunk `chunk` of tile row `row`
-  __device__ static __forceinline__ int off(int row, int chunk) {
-    return kSwizzle ? row * LDS + ((chunk ^ (row & 7)) << 3) : row * LDS + (chunk << 3);
-  }
-};
+// element offset of 16-byte chunk `chunk` of row `row` of a [rows, 128] tile:
+// the chunks of a 256-byte row are XOR-swizzled by row & 7, so the eight
+// rows an ldmatrix reads fall in eight distinct 16-byte bank groups
+__device__ __forceinline__ int tile_off(int row, int chunk) {
+  return row * kHead + ((chunk ^ (row & 7)) << 3);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -82,17 +79,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Stage rows [row0, row0+64) of one head (row stride ld elements) into a
-// [64, D] tile; rows >= nvalid are zero-filled. Pad columns D..DP are not
-// touched here.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                          int row0, int nvalid, int ld) {
-  constexpr int C = Tile<D>::kChunks;
+// [64, 128] tile; rows >= nvalid are zero-filled.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, int row0,
+                                          int nvalid, int ld) {
+  constexpr int C = kHead / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < BK * C; i += kThreads) {
     const int r = i / C, c = i % C;
     const bool ok = row0 + r < nvalid;
     const __nv_bfloat16* src = ok ? g + static_cast<size_t>(row0 + r) * ld + c * 8 : g;
-    cp_async16(s + Tile<D>::off(r, c), src, ok);
+    cp_async16(s + tile_off(r, c), src, ok);
   }
 }
 

@@ -10,11 +10,18 @@
 // 8 rows) and the start address stepped 32 bytes per k16 step; MN-major (the
 // reduction runs down the rows) with SBO = 1024 bytes (the next 8 rows of
 // the reduction), LBO = the panel size (the next 64 columns) and the start
-// stepped 2048 bytes per k16 step.
+// stepped 2048 bytes per k16 step. A 16-column panel (32 bytes a row, the
+// 32-byte swizzle: chunk c of row r at c ^ ((r >> 2) & 1)) is read the same
+// way with the 32-byte mode and SBO = 256 bytes (8 rows): K-major one k16
+// step is the whole row; MN-major the start steps 512 bytes per k16 step.
+// (The PTX ISA's canonical layouts, in 16-byte units T: K-major
+// ((8,m),(T,2k)):((2T|8T, SBO),(1,T)), MN-major ((T,2|8,m),(8,k)):
+// ((1,T,LBO),(2T|8T,SBO)) for the 32- and 128-byte swizzles.)
 //
-// The host encodes one tensor map per operand of the packed [B, L, N, D]
-// layout as a 4-D map (D, N, L, B), so a box that runs past L is zero-filled
-// by the hardware instead of reading the next batch row's tokens.
+// The host encodes one tensor map per operand and panel of the packed
+// [B, L, N, D] layout as a 4-D map (D, N, L, B), so a box that runs past L,
+// or past column D, is zero-filled by the hardware instead of reading the
+// next batch row's tokens or the next head's columns.
 // cuTensorMapEncodeTiled comes from the CUDA driver through the runtime's
 // cudaGetDriverEntryPoint, so the library links without -lcuda.
 
@@ -54,23 +61,30 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A map over one packed bf16 operand [B, L, N, D] (D = 128), box = `rows`
-// rows x 64 columns of one head, 128-byte swizzle, zero fill past L.
-// Returns false if the CUDA driver refuses it (alignment, sizes).
-bool encode_packed_map(CUtensorMap* map, const void* base, int B, int L, int N, int rows) {
+// A map over one packed bf16 operand [B, L, N, D], box = `rows` rows x
+// `cols` columns of one head (128 bytes a row with the 128-byte swizzle, 32
+// with the 32-byte one), zero fill past L and past D. Returns false if the
+// CUDA driver refuses it (alignment, sizes: D·2 must be a multiple of 16).
+bool encode_packed_map(CUtensorMap* map, const void* base, int B, int L, int N, int D, int rows,
+                       int cols, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
-  constexpr int D = 128;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(N) * D * 2;
-  const cuuint64_t strides[3] = {D * 2, row_bytes, row_bytes * static_cast<cuuint64_t>(L)};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row_bytes,
+                                 row_bytes * static_cast<cuuint64_t>(L)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the 128-byte-swizzled map of a 128-wide head (the backward kernels')
+bool encode_packed_map(CUtensorMap* map, const void* base, int B, int L, int N, int rows) {
+  return encode_packed_map(map, base, B, L, N, 128, rows, 64, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---- device: TMA and mbarriers ----------------------------------------------
@@ -162,11 +176,13 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// shared-memory descriptor, 128-byte swizzle (layout type 1), as two
-// halves: the low word holds the start address and LBO, the high word SBO
-// and the layout. A k step adds (bytes >> 4) to the low word only.
-__host__ __device__ constexpr uint32_t wgmma_desc_hi(uint32_t sbo) {
-  return ((sbo >> 4) & 0x3FFF) | (1u << 30);
+// shared-memory descriptor as two halves: the low word holds the start
+// address and LBO, the high word SBO and the layout (1: 128-byte swizzle,
+// 3: 32-byte swizzle). A k step adds (bytes >> 4) to the low word only.
+constexpr uint32_t kSwizzle128 = 1, kSwizzle32 = 3;
+
+__host__ __device__ constexpr uint32_t wgmma_desc_hi(uint32_t sbo, uint32_t layout = kSwizzle128) {
+  return ((sbo >> 4) & 0x3FFF) | (layout << 30);
 }
 
 __device__ __forceinline__ uint32_t wgmma_desc_lo(uint32_t addr, uint32_t lbo) {
@@ -240,6 +256,46 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[O..O+31] (64 x 64, f32) += A·B; A (64 x 16 bf16) from registers, B MN-major in shared memory
+template <int O, int NA>
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[NA], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  static_assert(O + 32 <= NA, "accumulator slice out of range");
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]),
+        "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]), "+f"(d[O + 8]), "+f"(d[O + 9]),
+        "+f"(d[O + 10]), "+f"(d[O + 11]), "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]),
+        "+f"(d[O + 15]), "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]), "+f"(d[O + 24]),
+        "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), "+f"(d[O + 28]), "+f"(d[O + 29]),
+        "+f"(d[O + 30]), "+f"(d[O + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[O..O+7] (64 x 16, f32) += A·B; A (64 x 16 bf16) from registers, B MN-major in shared memory
+template <int O, int NA>
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[NA], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  static_assert(O + 8 <= NA, "accumulator slice out of range");
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]),
+        "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -54,7 +54,6 @@
 
 namespace {
 
-using fwdh::D;
 using fwdh::kRows;
 using fwdh::TileMask;
 
@@ -89,6 +88,8 @@ __device__ __forceinline__ Rel relation(int mode, int q0, int kv0, int my, int s
 
 // Row 8's hooks into the Hopper mainloop.
 struct RingCarry {
+  static constexpr int D = 128;
+  using P = fwdh::Panels<64>;
   float* m_c;
   float* l_c;
   float* acc_c;
@@ -97,6 +98,7 @@ struct RingCarry {
   static constexpr bool kSkipEmpty = true;  // no visible tile: the carry stays as it is
 
   __device__ int kv_len(int b) const { return step_lens != nullptr ? step_lens[b] : Lk; }
+  __device__ bool bounded() const { return false; }  // the carry is max-tracked
 
   // a tile is live when one of its keys is visible to one of the 64 rows at q0
   __device__ bool live(int q0, int j) const {
@@ -183,7 +185,7 @@ extern "C" int ring_step_launch(const void* q, const void* k, const void* v, voi
                                 void* acc, const void* step_lens, int B, int Lq, int Lk, int N,
                                 int head_dim, int mode, int my, int src, int n, int zz,
                                 float qscale, void* stream) {
-  if (head_dim != D || mode < 0 || mode > 4 || (mode == 4 && (zz <= 0 || zz % kRows != 0)))
+  if (head_dim != RingCarry::D || mode < 0 || mode > 4 || (mode == 4 && (zz <= 0 || zz % kRows != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const RingCarry pol{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(acc),
                       static_cast<const int*>(step_lens), Lq, Lk, N, mode, my, src, n, zz};

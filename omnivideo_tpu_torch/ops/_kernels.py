@@ -35,6 +35,7 @@ HEADERS = ("flash_common.cuh", "hopper_common.cuh", "flash_fwd_hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libomnivideo_kernels.so"
+LOG_NAME = "nvcc.log"  # the build's nvcc output, beside the library
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -61,7 +62,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
-build_log: str = ""  # nvcc's output (-Xptxas -v: registers, smem, spills)
+build_log: str = ""  # nvcc's output (-Xptxas -v: registers, smem, spills) of the loaded build
 
 
 def _nvcc() -> str:
@@ -101,6 +102,7 @@ def _build(out_dir: Path) -> Path:
             failed.append(" ".join(cmd) + "\n" + out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    (tmp / LOG_NAME).write_text("".join(logs))
     lib = tmp / LIB_NAME
     cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
            *(str(o) for _, o, _ in procs), "-o", str(lib)]
@@ -118,13 +120,15 @@ def _build(out_dir: Path) -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, build_log
     with _lock:
         if _lib is None:
             out_dir = BUILD_ROOT / _digest()
             path = out_dir / LIB_NAME
             if not path.exists():
                 path = _build(out_dir)
+            elif (out_dir / LOG_NAME).exists():  # built by another process: its nvcc report
+                build_log = (out_dir / LOG_NAME).read_text()
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in _SIGNATURES.items():
                 f = getattr(lib, fn)

@@ -1,4 +1,4 @@
-"""Time the flash-attention kernels of one checkout at the Wan DiT's shapes.
+"""Time the flash-attention kernels of one checkout at the main paths' shapes.
 
     PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
         [--which fwd|bwd|fwd_lse|ring|all]
@@ -6,27 +6,34 @@
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
 a change) on the same card in one sitting; run them as parent, change, change,
-parent. The forward cases are those of `chip_smoke.py`'s flash phase: bounded
-self-attention [2, 32760, 12, 128] and cross-attention over 6,272 keys, bf16,
-q/k with RMS 1. The backward cases are those of its flash_train phase: the
-training backward (rows 4 and 5) at [1, 32760, 12, 128] against 32,760 keys
-(self) and 6,272 keys (cross), timed as the pair through `flash_bwd` and as
-each kernel alone through the library's C entry points (whose arguments every
-checkout shares). `fwd_lse` times the training forward (row 3b) through
-`flash_fwd_lse_launch` at the same two shapes; `ring` times one ring step
-(row 8) through `ring_step_launch`, non-causal, on an empty carry that the
-launches keep updating: the sp phase's step, q [2, 32760, 12, 128] against
-32,760 keys, and a 4-card run's per-rank step, 8,190 q rows against 8,190
-keys. Each case prints one JSON line with the device time per launch (CUDA
-events) of `rounds` rounds of `reps` launches each, and the bound: the
-case's matmul FLOPs over the H100's 989 TFLOP/s. Needs one CUDA device;
-builds the checkout's kernels on first use.
+parent. Every kernel is called through the library's C entry points, whose
+arguments every checkout shares, with its operands made once. `fwd` times
+the inference forward (`flash_fwd_launch`, rows 1, 2 and 3a): bounded
+self-attention [2, 32760, 12, 128] and cross-attention over 6,272 keys at
+12 and 40 heads (T2V-1.3B, T2V-A14B), the Qwen3 prefill [1, 1481, 32, 128]
+causal and max-tracked, and the vision tower [3, 1560, 16, 72] bounded;
+bf16, q/k with RMS 1, the softmax bound computed once beforehand. `bwd`
+times the training backward (rows 4 and 5) at [1, 32760, 12, 128] against
+32,760 keys (self) and 6,272 keys (cross), as the pair through `flash_bwd`
+and as each kernel alone. `fwd_lse` times the training forward (row 3b)
+through `flash_fwd_lse_launch` at the same two shapes; `ring` times one ring
+step (row 8) through `ring_step_launch`, non-causal, on an empty carry that
+the launches keep updating: the sp phase's step, q [2, 32760, 12, 128]
+against 32,760 keys, and a 4-card run's per-rank step, 8,190 q rows against
+8,190 keys. Each case prints one JSON line with the device time per launch
+(CUDA events) of `rounds` rounds of `reps` launches each, and the bound: the
+case's matmul FLOPs over the H100's 989 TFLOP/s. A `fwd` round holds at
+least `reps` launches and at least ROUND_FLOP of work, so the small vision
+and prefill cases launch some hundreds of times a round and their time is
+the kernel's, not the launch overhead's. Needs one CUDA device; builds the
+checkout's kernels on first use.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 
 import torch
@@ -35,16 +42,23 @@ from omnivideo_tpu_torch.ops import _kernels
 from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 
 SEQ = 21 * 30 * 52  # 832x480x81 after the (1, 2, 2) patch
-CASES = (("self_bounded", SEQ), ("cross_bounded", 6272))
+FWD_CASES = (  # (case, B, Lq, Lk, N, D, causal)
+    ("self_bounded", 2, SEQ, SEQ, 12, 128, False),
+    ("cross_bounded", 2, SEQ, 6272, 12, 128, False),
+    ("cross_bounded_n40", 2, SEQ, 6272, 40, 128, False),
+    ("causal_prefill", 1, 1481, 1481, 32, 128, True),
+    ("d72_bounded", 3, 1560, 1560, 16, 72, False),
+)
 BWD_CASES = (("bwd_self", SEQ), ("bwd_cross", 6272))
 LSE_CASES = (("fwd_lse_self", SEQ), ("fwd_lse_cross", 6272))
 RING_CASES = (("ring_sp1", SEQ), ("ring_sp4", SEQ // 4))  # (case, q rows = keys per step)
 N, D = 12, 128
 BF16_FLOPS = 989e12  # the H100 SXM's dense bf16 tensor-core rate
+ROUND_FLOP = 2e13  # least work per `fwd` round: ~20 ms at the bf16 rate
 
 
-def _normed(B, L, gen):
-    t = torch.randn(B, L, N, D, generator=gen, device="cuda")
+def _normed(B, L, gen, n=N, d=D):
+    t = torch.randn(B, L, n, d, generator=gen, device="cuda")
     return (t * torch.rsqrt(t.square().mean(-1, keepdim=True))).to(torch.bfloat16)
 
 
@@ -64,15 +78,25 @@ def _time(fn, reps: int, rounds: int) -> list:
 
 
 def _forward(args, smi, gen) -> None:
-    B = 2
-    for name, Lk in CASES:
-        q, k = _normed(B, SEQ, gen), _normed(B, Lk, gen)
-        v = torch.randn(B, Lk, N, D, generator=gen, device="cuda").to(torch.bfloat16)
-        ms = _time(lambda: flash_mod.flash_attention(q, k, v, assume_normalized=True),
-                   args.reps, args.rounds)
-        print(json.dumps({"case": name, "q": [B, SEQ, N, D], "Lk": Lk, "ms": ms,
-                          "package": flash_mod.__file__, "nvidia_smi": smi}), flush=True)
-        del q, k, v
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, B, Lq, Lk, n, d, causal in FWD_CASES:
+        q, k = _normed(B, Lq, gen, n, d), _normed(B, Lk, gen, n, d)
+        v = torch.randn(B, Lk, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+        o = torch.empty_like(q)
+        mb, safe = (None, None) if causal else flash_mod.softmax_bound(q, k, d**-0.5)
+        ptrs = [t.data_ptr() if t is not None else None for t in (q, k, v, o, None, mb, safe)]
+        flop = 4 * B * n * d * (Lq * (Lq + 1) // 2 if causal else Lq * Lk)
+        reps = max(args.reps, math.ceil(ROUND_FLOP / flop))
+        ms = _time(lambda: _kernels.check(lib.flash_fwd_launch(
+            *ptrs, B, Lq, Lk, n, d, int(causal), flash_mod._qscale(d**-0.5), stream),
+            "flash_fwd_launch"), reps, args.rounds)
+        print(json.dumps({"case": name, "q": [B, Lq, n, d], "Lk": Lk, "causal": causal,
+                          "bounded": bool(safe.item()) if safe is not None else False,
+                          "reps": reps, "ms": ms, "bound_ms": flop / BF16_FLOPS * 1e3,
+                          "gflop": flop / 1e9, "package": flash_mod.__file__,
+                          "nvidia_smi": smi}), flush=True)
+        del q, k, v, o
 
 
 def _backward(args, smi, gen) -> None:

@@ -193,6 +193,86 @@ def test_flash_d72_kernel_matches_plain(cuda, scale, lens):
         assert (out[1] == 0).all() and (tracked[1] == 0).all()
 
 
+INFER_EDGE_CASES = [
+    (2, 1000, 1000, None),      # Lq, Lk not multiples of 64
+    (2, 130, 40, None),         # Lk under one 64-key half tile
+    (1, 40, 300, None),         # Lq under one warpgroup's 64 rows
+    (2, 1050, 700, None),       # Lq % 128 = 26: the last block's second warpgroup has no rows
+    (2, 200, 200, None),        # a 128-key tile whose second half is ragged
+    (3, 260, 400, [150, 0, 65]),  # kv_len inside a first half, none, one key past a half
+]
+
+
+@pytest.mark.parametrize("D", [128, 72])
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("B,Lq,Lk,lens", INFER_EDGE_CASES)
+def test_flash_infer_kernel_edge_tilings(cuda, D, scale, B, Lq, Lk, lens):
+    """Rows 1 (D = 128) and 3a (D = 72) on the Hopper mainloop, bounded
+    (scale 1) and max-tracked (scale 4: the guard fails), at tilings the
+    main paths do not reach: every output row within 4 bf16 ulps of the
+    plain twin's, and a batch row without keys all zeros."""
+    N = 3
+    q, k, v = _qkv(B, Lq, Lk, N, D, Lq + Lk + D, scale, cuda)
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mb, safe = softmax_bound(q, k, D**-0.5)
+    assert bool(safe) == (scale == 1.0)
+    name = "flash_fwd" if D == 128 else "flash_d72"
+    n0 = flash_attention.launches[name]
+    out = flash_attention(q, k, v, kv_lens=kv, assume_normalized=True)
+    assert flash_attention.launches[name] == n0 + 1
+    _assert_flash_close(out, flash_attention_plain(q, k, v, kv, None, mb, safe))
+    for b, n in enumerate(lens or []):
+        if n == 0:
+            assert (out[b] == 0).all()
+
+
+@pytest.mark.parametrize("D", [128, 72])
+@pytest.mark.parametrize("bounded", [True, False])
+def test_flash_infer_kernel_ignores_rows_past_kv_len(cuda, D, bounded):
+    """K and V rows past kv_len hold NaN: the output is finite and equals
+    the plain twin's (a masked key adds exactly 0, not 0·NaN). The bound
+    comes from the rows before kv_len, as qk_prep's row norms give it."""
+    B, Lq, Lk, N, lens = 3, 300, 700, 2, [433, 0, 700 - 64 - 3]
+    q, k, v = _qkv(B, Lq, Lk, N, D, 37 + D, 1.0, cuda)
+    kv = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    norms = tuple(t.float().square().sum(-1).amax(dim=1).sqrt() for t in (q, k))
+    mb, safe = softmax_bound(q, k, D**-0.5, norms)
+    assert bool(safe)
+    kn, vn = _nan_past(k, lens), _nan_past(v, lens)
+    if bounded:
+        out = flash_attention(q, kn, vn, kv_lens=kv, assume_normalized=True, qk_row_norms=norms)
+        ref = flash_attention_plain(q, kn, vn, kv, None, mb, safe)
+    else:
+        out = flash_attention(q, kn, vn, kv_lens=kv)
+        ref = flash_attention_plain(q, kn, vn, kv)
+    assert torch.isfinite(out).all() and torch.isfinite(ref).all()
+    _assert_flash_close(out, ref)
+    assert (out[1] == 0).all()
+
+
+def test_flash_infer_kernel_40_heads(cuda):
+    """Row 1 at T2V-A14B's 40 heads: the tensor maps take their strides
+    from N; bounded self-attention and its max-tracked twin."""
+    B, L, N, D = 2, 777, 40, 128
+    q, k, v = _qkv(B, L, L, N, D, 40, 1.0, cuda)
+    mb, safe = softmax_bound(q, k, D**-0.5)
+    ref = flash_attention_plain(q, k, v, None, None, mb, safe)
+    _assert_flash_close(flash_attention(q, k, v, assume_normalized=True), ref)
+    _assert_flash_close(flash_attention(q, k, v), ref)
+
+
+@pytest.mark.parametrize("D", [128, 72])
+def test_flash_infer_kernel_deterministic(cuda, D):
+    """Each output row is written by one warpgroup, with no atomics: two
+    launches give the same bits, in both softmax modes."""
+    q, k, v = _qkv(2, 700, 900, 4, D, 19, 1.0, cuda)
+    kv = torch.tensor([900, 333], dtype=torch.int32, device=cuda)
+    for normalized in (True, False):
+        o1 = flash_attention(q, k, v, kv_lens=kv, assume_normalized=normalized)
+        o2 = flash_attention(q, k, v, kv_lens=kv, assume_normalized=normalized)
+        assert torch.equal(o1, o2)
+
+
 @pytest.mark.parametrize("D,causal", [(64, False), (72, True), (96, False)])
 def test_flash_kernel_rejects_other_head_dims(cuda, D, causal):
     q = torch.zeros(1, 8, 2, D, device=cuda, dtype=torch.bfloat16)
