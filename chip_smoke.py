@@ -260,21 +260,22 @@ def pair_ulps(y: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 def kernel_row(name: str):
     """The port's kernel that a compiled or profiled GPU function is, from its
     mangled (nvcc's log) or demangled (the profiler's) name, or None. The
-    Hopper forward mainloop `attn_fwd_kernel` serves four rows, told apart by
-    its epilogue policy's type: InferOut<128> row 1, InferOut<72> row
-    3a, LseOut row 3b, RingCarry row 8."""
+    Hopper forward mainloop `attn_fwd_kernel` serves five rows, told apart by
+    its epilogue policy's type: InferOut<128> row 1, CausalOut row 2,
+    InferOut<72> row 3a, LseOut row 3b, RingCarry row 8."""
     if "attn_fwd_kernel" in name:
         if "RingCarry" in name:
             return "ring_step"
         if "LseOut" in name:
             return "flash_fwd_lse"
+        if "CausalOut" in name:
+            return "flash_causal"
         m = re.search(r"InferOut(?:ILi|<)(\d+)", name)
         if m:
             return {"128": "flash_fwd", "72": "flash_d72"}.get(m.group(1))
         return None
     for key, row in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
-                     ("flash_causal_kernel", "flash_causal"), ("qk_prep", "qk_prep"),
-                     ("adaln_kernel", "fused_adaln")):
+                     ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln")):
         if key in name:
             return row
     return None

@@ -13,13 +13,13 @@
 // computed on the device by the wrapper and read by the kernel, so choosing
 // the mode costs no host sync. Three entries of the port's table:
 // - row 1, D = 128, non-causal: the Wan DiT's self- and cross-attention;
+// - row 2, D = 128, CAUSAL: the Qwen3 text prefill, _fa_kernel(causal=True):
+//   col ≤ row (:111-114), kv_lens still applies; the key tiles that start
+//   past a consumer's last row are not loaded, and only the tile that holds
+//   the diagonal is masked;
 // - row 3a, D = 72, non-causal: the Qwen3-VL vision tower. The TPU needed a
 //   head-major transpose for D % 128 ≠ 0 (:308-318, 128-lane tiles); here
-//   the tensor maps read the 144-byte head rows in place;
-// - row 2, D = 128, CAUSAL: the Qwen3 text prefill, _fa_kernel(causal=True):
-//   col ≤ row (:111-114), KV tiles that start past the q tile's last row
-//   skipped, only the tile straddling the diagonal masked; kv_lens still
-//   applies.
+//   the tensor maps read the 144-byte head rows in place.
 // And the training forward (row 3b), _fa_kernel(with_lse=True) via
 // _flash_fwd_impl (pallas_call at :430, reached through the custom-VJP rule
 // _fa_fwd :628): always max-tracked, and it also writes the natural-log row
@@ -27,38 +27,33 @@
 // f32, the residual the backward kernels of flash_train.cu read. A row with
 // no live key keeps m = −1e30, l = 0 and gets o = 0.
 //
-// Rows 1, 3a and 3b run the Hopper forward mainloop of flash_fwd_hopper.cuh
-// (wgmma fed by TMA through an mbarrier ring, one producer and two consumer
+// All four run the Hopper forward mainloop of flash_fwd_hopper.cuh (wgmma
+// fed by TMA through an mbarrier ring, one producer and two consumer
 // warpgroups that take turns, the exponentials of one tile under the
 // products of another), each with this file's epilogue policy: InferOut for
-// rows 1 and 3a (o only; bounded or max-tracked as `safe` says), LseOut for
-// row 3b. Row 3a runs it on an 80-wide tile: a 64-column panel with the
-// 128-byte swizzle and a 16-column panel with the 32-byte swizzle, whose
-// columns 72..79 TMA fills with zeros, so q·kᵀ is five k16 steps instead of
-// eight and P·V an n64 and an n16 product per k16 step (O is 40 f32 a
-// thread). Bound on the H100: operations, 4·B·N·Lq·Lk·D FLOPs on the bf16
-// tensor cores (989 TFLOP/s): row 1's self-attention at [2, 32760, 12, 128]
-// is 13.2 TFLOP, 13.3 ms; its cross-attention over 6,272 keys 2.55 ms; row
-// 3a at [3, 1560, 16, 72] 0.034 ms; row 3b at [1, 32760, 12, 128] 6.7 ms.
-//
-// Row 2 still runs the first design (mma.sync, FA2-style): grid (Lq/64, N,
-// B), 4 warps per block, each warp owns 16 q rows whose bf16 fragments stay
-// in registers; K/V tiles of 64 rows are staged in shared memory,
-// double-buffered with cp.async so the next tile's load overlaps this tile's
-// math; mma.sync.m16n8k16 bf16 with f32 accumulation for both S = q·kᵀ and
-// O += bf16(p)·v; 256-byte rows XOR-swizzled by 16-byte chunk. Its bound is
-// half the logits of row 1's at the same shape.
+// rows 1 and 3a (o only; bounded or max-tracked as `safe` says), CausalOut
+// for row 2 (InferOut's state with the causal visibility, the q tiles with
+// the most key tiles launched first, o staged through shared memory), LseOut
+// for row 3b.
+// Row 3a runs it on an 80-wide tile: a 64-column panel with the 128-byte
+// swizzle and a 16-column panel with the 32-byte swizzle, whose columns
+// 72..79 TMA fills with zeros, so q·kᵀ is five k16 steps instead of eight
+// and P·V an n64 and an n16 product per k16 step (O is 40 f32 a thread).
+// Bound on the H100: operations, 4·B·N·D FLOPs per visible (q row, key)
+// pair on the bf16 tensor cores (989 TFLOP/s): row 1's self-attention at
+// [2, 32760, 12, 128] is 13.2 TFLOP, 13.3 ms; its cross-attention over 6,272
+// keys 2.55 ms; row 2 at [1, 1481, 32, 128] (1481·1482/2 pairs a head)
+// 0.018 ms; row 3a at [3, 1560, 16, 72] 0.034 ms; row 3b at
+// [1, 32760, 12, 128] 6.7 ms.
 //
 // Layout: q/k/v/o are read and written in place as packed [B, L, N·D] — the
 // layout the projection GEMMs produce (a row is N·D elements, a head's slice
 // starts at n·D: 16-byte aligned for D = 72 and 128).
 
-#include "flash_common.cuh"
 #include "flash_fwd_hopper.cuh"
 
 namespace {
 
-constexpr int kTileRows = BQ + 4 * BK;  // the causal kernel's smem rows: q + 2 stages of K and of V
 constexpr float kLn2 = 0.6931471805599453f;
 
 // o = acc / l in bf16 over the head's D columns of rows row_a and row_a + 8
@@ -85,8 +80,46 @@ __device__ __forceinline__ void store_o(__nv_bfloat16* o, const float (&acc)[NA]
   }
 }
 
-// Rows 1 and 3a's hooks into the Hopper mainloop: every key below kv_len,
-// bounded when the device flag `safe` is set (m is the bound mb[b, h] from
+// o = acc / l in bf16 for a consumer warpgroup's 64 rows at head dim 128,
+// staged in its q tile (64 rows of 256 bytes; free once its last product is
+// done): each thread writes its two rows as bf16 pairs, 16-byte chunk c of
+// tile row r at chunk c ^ (r & 7) (a warp's 8 rows × 4 lanes then fall in 32
+// distinct banks), the warpgroup syncs, and each thread stores whole chunks,
+// a warp two full 256-byte rows per store. One reciprocal per row. Rows past
+// Lq are not stored, a row with l = 0 gets 0. Against store_o, whose stores
+// are 4 bytes of 8 rows a warp after an IEEE division per entry, it takes
+// most of the causal prefill's epilogue away (PERF.md).
+__device__ __forceinline__ void store_o_staged(__nv_bfloat16* o, unsigned char* tile,
+                                               const float (&acc)[64], const float (&l)[2], int b,
+                                               int h, int row_a, int lane, int Lq, int N) {
+  const int t = threadIdx.x % 128;
+  const int q0c = row_a - (t / 32) * 16 - lane / 4;  // the warpgroup's first row
+  if (q0c >= Lq) return;  // uniform over the warpgroup
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a - q0c + r * 8;
+    const float inv = l[r] == 0.f ? 1.f : __frcp_rn(l[r]);
+    unsigned char* dst = tile + row * 256 + (lane % 4) * 4;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<uint32_t*>(dst + ((i ^ (row & 7)) << 4)) =
+          pack_bf16(__fmul_rn(acc[4 * i + 2 * r], inv), __fmul_rn(acc[4 * i + 2 * r + 1], inv));
+  }
+  fwdh::consumer_sync();
+  const size_t ld = static_cast<size_t>(N) * 128;
+  __nv_bfloat16* out =
+      o + (static_cast<size_t>(b) * Lq + q0c) * ld + static_cast<size_t>(h) * 128;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int row = (t + 128 * k) / 16, c = t % 16;
+    if (q0c + row < Lq)
+      *reinterpret_cast<uint4*>(out + row * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + row * 256 + ((c ^ (row & 7)) << 4));
+  }
+}
+
+// Rows 1 and 3a's hooks into the Hopper mainloop (and row 2's state, through
+// CausalOut): every key below kv_len, bounded when the device flag `safe` is set (m is the bound mb[b, h] from
 // the first tile on), else max-tracked from −1e30; the epilogue writes o
 // only. kSkipEmpty is false: a batch row with kv_len = 0 still writes its
 // zeros. A head of 72 runs on the 80-wide tile (measured against 72 padded
@@ -101,6 +134,7 @@ struct InferOut {
   const int* safe;
   int Lq, Lk, N;
   static constexpr bool kSkipEmpty = false;
+  static constexpr bool kHeavyFirst = false;
 
   __device__ int kv_len(int b) const { return kv_lens != nullptr ? kv_lens[b] : Lk; }
   __device__ int live_tiles(int, int n_tiles) const { return n_tiles; }
@@ -116,8 +150,34 @@ struct InferOut {
   }
 
   __device__ void store(const float (&acc)[P::kAcc], const float (&)[2], const float (&l)[2],
-                        int b, int h, int row_a, int lane, bool) const {
+                        int b, int h, int row_a, int lane, bool, unsigned char*) const {
     store_o<D>(o, acc, l, b, h, row_a, lane, Lq, N);
+  }
+};
+
+// Row 2's hooks into the Hopper mainloop: InferOut<128>'s state (bounded or
+// max-tracked as `safe` says; a batch row with kv_len = 0 writes zeros) under
+// token causality, col <= row. The 64 rows at q0 see the 64-key halves that
+// start at or before their last row; the mainloop masks only a half whose
+// last key lies past q0, with the triangle (col − kb) + shift <= (row − qb)
+// at qb = kb = shift = 0, which is col <= row (as the ring's token mode has
+// it for its own shard). The q tile j walks j + 1 key tiles: kHeavyFirst
+// launches the heaviest tiles of every head first. A block walks 6.5 key
+// tiles on average at the prefill's 1,481 tokens, so its epilogue weighs:
+// o goes out through store_o_staged.
+struct CausalOut : InferOut<128> {
+  static constexpr bool kHeavyFirst = true;
+
+  __device__ int live_tiles(int q0, int n_tiles) const {
+    return min(n_tiles, q0 / fwdh::kRows + 1);
+  }
+  __device__ fwdh::TileMask mask(int q0, int kv0) const {
+    return {kv0 > q0 + fwdh::kRows - 1, true, 0, 0, 0};
+  }
+
+  __device__ void store(const float (&acc)[64], const float (&)[2], const float (&l)[2], int b,
+                        int h, int row_a, int lane, bool, unsigned char* tile) const {
+    store_o_staged(o, tile, acc, l, b, h, row_a, lane, Lq, N);
   }
 };
 
@@ -132,6 +192,7 @@ struct LseOut {
   const int* kv_lens;
   int Lq, Lk, N;
   static constexpr bool kSkipEmpty = false;
+  static constexpr bool kHeavyFirst = false;
 
   __device__ int kv_len(int b) const { return kv_lens != nullptr ? kv_lens[b] : Lk; }
   __device__ int live_tiles(int, int n_tiles) const { return n_tiles; }
@@ -147,7 +208,7 @@ struct LseOut {
   }
 
   __device__ void store(const float (&acc)[64], const float (&m)[2], const float (&l)[2], int b,
-                        int h, int row_a, int lane, bool) const {
+                        int h, int row_a, int lane, bool, unsigned char*) const {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_a + r * 8;
@@ -158,214 +219,12 @@ struct LseOut {
   }
 };
 
-// Row 2: the causal prefill on mma.sync at head dim 128.
-__global__ void __launch_bounds__(kThreads)
-flash_causal_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    const int* __restrict__ kv_lens, const int* __restrict__ mbound,
-                    const int* __restrict__ safe, int Lq, int Lk, int N, float qscale) {
-  constexpr int D = kHead;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * D;      // 2 stages
-  __nv_bfloat16* sV = sK + 2 * BK * D;  // 2 stages
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ld = N * D;
-  int kv_len = kv_lens != nullptr ? kv_lens[b] : Lk;
-  kv_len = min(max(kv_len, 0), Lk);
-  const bool bounded = safe != nullptr && *safe != 0;
-  const float mb = bounded ? static_cast<float>(mbound[b * N + h]) : 0.f;
-
-  const size_t head_off = static_cast<size_t>(h) * D;
-  const __nv_bfloat16* qg = q + static_cast<size_t>(b) * Lq * ld + head_off;
-  const __nv_bfloat16* kg = k + static_cast<size_t>(b) * Lk * ld + head_off;
-  const __nv_bfloat16* vg = v + static_cast<size_t>(b) * Lk * ld + head_off;
-  const int q0 = blockIdx.x * BQ;
-  // tiles below kv_len with a column <= the q tile's last row
-  const int n_tiles = min((kv_len + BK - 1) / BK, (q0 + BQ + BK - 1) / BK);
-
-  load_tile(sQ, qg + static_cast<size_t>(q0) * ld, 0, Lq - q0, ld);
-  cp_async_commit();
-  if (n_tiles > 0) {
-    load_tile(sK, kg, 0, kv_len, ld);
-    load_tile(sV, vg, 0, kv_len, ld);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();  // the q tile has landed
-  __syncthreads();
-
-  // q fragments (A operand, 16 rows x D) in registers, pre-scaled by
-  // scale·log2(e) in f32 and rounded back to bf16
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qf[kk], sQ + tile_off(warp * 16 + (lane % 16), kk * 2 + lane / 16));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 t = *reinterpret_cast<__nv_bfloat162*>(&qf[kk][i]);
-      float2 f = __bfloat1622float2(t);
-      qf[kk][i] = pack_bf16(__fmul_rn(f.x, qscale), __fmul_rn(f.y, qscale));
-    }
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};  // running max of rows lane/4 and lane/4+8
-  float l_r[2] = {0.f, 0.f};          // this thread's share of the row sums
-  const int row_a = q0 + warp * 16 + lane / 4;  // this thread's first row
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(sK + (st ^ 1) * BK * D, kg, (j + 1) * BK, kv_len, ld);
-      load_tile(sV + (st ^ 1) * BK * D, vg, (j + 1) * BK, kv_len, ld);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed; tile j+1 may be in flight
-    __syncthreads();
-    const __nv_bfloat16* cK = sK + st * BK * D;
-    const __nv_bfloat16* cV = sV + st * BK * D;
-
-    // S = q·kᵀ for this warp's 16 rows x 64 kv columns
-    float s[BK / 8][4];
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, cK + tile_off(np * 16 + (lane / 16) * 8 + (lane % 8),
-                                      kk * 2 + ((lane / 8) & 1)));
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-      }
-    }
-
-    // only the last tile can straddle kv_len or the diagonal
-    const int kv0 = j * BK;
-    if (kv0 + BK > kv_len || kv0 + BK - 1 > q0) {
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + nb * 8 + (lane % 4) * 2 + (e & 1);
-          const int row = row_a + (e >> 1) * 8;
-          if (col >= kv_len || col > row) s[nb][e] = kNegInf;
-        }
-    }
-
-    if (bounded) {
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[nb][e] - mb);
-          l_r[e >> 1] += p;
-          s[nb][e] = p;
-        }
-    } else {
-      float mc[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mc[e >> 1] = fmaxf(mc[e >> 1], s[nb][e]);
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
-        mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
-        const float m_new = fmaxf(m_r[r], mc[r]);
-        alpha[r] = exp2f(m_r[r] - m_new);
-        m_r[r] = m_new;
-        l_r[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        acc[i][0] *= alpha[0];
-        acc[i][1] *= alpha[0];
-        acc[i][2] *= alpha[1];
-        acc[i][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int nb = 0; nb < BK / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[nb][e] - m_r[e >> 1]);
-          l_r[e >> 1] += p;
-          s[nb][e] = p;
-        }
-    }
-
-    // O += bf16(p)·v; the S accumulator layout is the A operand layout
-#pragma unroll
-    for (int kj = 0; kj < BK / 16; ++kj) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kj][0], s[2 * kj][1]),
-                        pack_bf16(s[2 * kj][2], s[2 * kj][3]),
-                        pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
-                        pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, cV + tile_off(kj * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                            dp * 2 + (lane >> 4)));
-        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with stage st before it is refilled
-  }
-
-  float denom[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    denom[r] = l == 0.f ? 1.f : l;  // fully masked rows -> 0
-  }
-  __nv_bfloat16* og = o + static_cast<size_t>(b) * Lq * ld + head_off + (lane % 4) * 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + r * 8;
-    if (row >= Lq) continue;
-    __nv_bfloat16* orow = og + static_cast<size_t>(row) * ld;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) = __floats2bfloat162_rn(
-          __fdiv_rn(acc[i][2 * r], denom[r]), __fdiv_rn(acc[i][2 * r + 1], denom[r]));
-    }
-  }
-}
-
-int launch_causal(const void* q, const void* k, const void* v, void* o, const void* kv_lens,
-                  const void* mbound, const void* safe, int B, int Lq, int Lk, int N,
-                  float qscale, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(__nv_bfloat16) * kTileRows * kHead;
-  // set on every call: the attribute is per device, and the call is cheap
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_causal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lq + BQ - 1) / BQ, N, B);
-  flash_causal_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(mbound),
-      static_cast<const int*>(safe), Lq, Lk, N, qscale);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// InferOut<HD> over flash_fwd_launch's arguments
 template <int HD>
-int launch_infer(const void* q, const void* k, const void* v, void* o, const void* kv_lens,
-                 const void* mbound, const void* safe, int B, int Lq, int Lk, int N,
-                 float qscale, cudaStream_t stream) {
-  const InferOut<HD> pol{static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_lens),
-                            static_cast<const int*>(mbound), static_cast<const int*>(safe),
-                            Lq, Lk, N};
-  return fwdh::launch(q, k, v, pol, B, qscale, stream);
+InferOut<HD> infer_out(void* o, const void* kv_lens, const void* mbound, const void* safe,
+                       int Lq, int Lk, int N) {
+  return {static_cast<__nv_bfloat16*>(o), static_cast<const int*>(kv_lens),
+          static_cast<const int*>(mbound), static_cast<const int*>(safe), Lq, Lk, N};
 }
 
 }  // namespace
@@ -378,12 +237,14 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 int B, int Lq, int Lk, int N, int head_dim, int causal,
                                 float qscale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128 && !causal)
-    return launch_infer<128>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
-  if (head_dim == 128 && causal)
-    return launch_causal(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+  if (head_dim == 128) {
+    const InferOut<128> pol = infer_out<128>(o, kv_lens, mbound, safe, Lq, Lk, N);
+    return causal ? fwdh::launch(q, k, v, CausalOut{pol}, B, qscale, s)
+                  : fwdh::launch(q, k, v, pol, B, qscale, s);
+  }
   if (head_dim == 72 && !causal)
-    return launch_infer<72>(q, k, v, o, kv_lens, mbound, safe, B, Lq, Lk, N, qscale, s);
+    return fwdh::launch(q, k, v, infer_out<72>(o, kv_lens, mbound, safe, Lq, Lk, N), B, qscale,
+                        s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

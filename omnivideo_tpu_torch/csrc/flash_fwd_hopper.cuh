@@ -1,12 +1,16 @@
-// Attention forward for Hopper (sm_90a): the mainloop shared by four
-// kernel rows, each of which gives it its own epilogue policy (and, for the
-// ring, its own visibility rules):
+// Attention forward for Hopper (sm_90a): the mainloop shared by every
+// attention forward of the port, five kernel rows, each of which gives it
+// its own epilogue policy (and, for the causal prefill and the ring, its own
+// visibility rules):
 //
 // - rows 1 and 3a, the inference forward at head dim 128 (the Wan DiT) and
 //   72 (the Qwen3-VL vision tower) (flash_fwd.cu, flash_fwd_launch, policy
 //   InferOut): replace omnivideo_tpu/ops/pallas/flash_attention.py:42
 //   `_fa_kernel` via `_flash_fwd_unpadded` (pallas_call at :328; D = 72 is
 //   its head-major branch, :308-318);
+// - row 2, the Qwen3 text prefill (flash_fwd.cu, flash_fwd_launch with
+//   causal set, CausalOut): `_fa_kernel` with causal=True (col <= row,
+//   :111-114), the same pallas_call;
 // - row 3b, the training forward (flash_fwd.cu, flash_fwd_lse_launch,
 //   LseOut): `_fa_kernel` with with_lse=True, via the pallas_call at :430
 //   (`_flash_fwd_impl`);
@@ -20,7 +24,7 @@
 // the scaling, as the plain twins do), and either the max-tracked online
 // softmax m' = max(m, max_c s), l' = l·2^(m−m') + Σ 2^(s−m'),
 // acc' = acc·2^(m−m') + Σ bf16(2^(s−m'))·v_c, or, where the policy says
-// `bounded` (row 1 and 3a when the device flag `safe` is set), the bounded
+// `bounded` (rows 1, 2 and 3a when the device flag `safe` is set), the bounded
 // softmax of flash_attention.py:116-132: m is the per-(b, h) bound mb from
 // the start and stays, l' = l + Σ 2^(s−mb), acc' = acc + Σ bf16(2^(s−mb))·v_c,
 // with no row max and no rescale of O. The mode is one uniform branch in the
@@ -33,11 +37,13 @@
 // Bound on the H100: operations, 4·B·N·Lq·Lk_seen·D FLOPs on the bf16 tensor
 // cores (989 TFLOP/s) plus one exponential per (q row, key): 13.3 ms for the
 // DiT's self-attention at [2, 32760, 12, 128], 6.7 ms at batch 1, 0.034 ms
-// for the vision tower's [3, 1560, 16, 72].
+// for the vision tower's [3, 1560, 16, 72], 0.018 ms for the causal prefill's
+// [1, 1481, 32, 128].
 //
 // Design (FA3's, from hopper_common.cuh's pieces): a block owns 128 q rows of
 // one (b, head), tile index fastest in launch order so a head's K/V stays in
-// L2; 384 threads: one producer warpgroup (setmaxnreg 40) whose one thread
+// L2 (the causal policy takes the q tiles heaviest first across every head:
+// block_coords); 384 threads: one producer warpgroup (setmaxnreg 40) whose one thread
 // loads the q tile once and keeps K/V tiles of 128 keys in flight by TMA
 // through a ring of kStages stages (full/empty mbarriers; 4-D maps over the
 // packed [B, L, N, D] layout, one per operand and panel, zero fill past L
@@ -65,8 +71,9 @@
 // two stages leave one tile of look-ahead), and the ping-pong gained 2–5%.
 //
 // Visibility is a prefix of the 64-key halves of the key tiles for every 64
-// q rows in every mode the entry points have (kv_len; the ring's block,
-// token, stripe and zigzag rules), and each half keeps its own relation (a
+// q rows in every mode the entry points have (kv_len; the causal prefill's
+// col <= row; the ring's block, token, stripe and zigzag rules), and each
+// half keeps its own relation (a
 // zigzag chunk boundary may split a 128-key tile). Each consumer walks its
 // own prefix of tiles, the producer loads the longer of the two, and a
 // consumer drains (waits, then releases) the stages the other half saw and
@@ -277,10 +284,31 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
 }
 
+// syncs the 128 threads of this consumer warpgroup (named barrier 3 + cw)
+__device__ __forceinline__ void consumer_sync() {
+  named_bar_sync(3 + threadIdx.x / 128 - 1, 128);
+}
+
 template <int NA>
 __device__ __forceinline__ void rescale(float (&acc)[NA], const float (&alpha)[2]) {
 #pragma unroll
   for (int i = 0; i < NA; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+
+// The (q tile, head, batch row) of this block: blockIdx's own, or, heavy
+// first, the q tiles of every (b, h) in decreasing order: block i (launch
+// order) takes tile nx − 1 − i / (N·B) of head-and-row i % (N·B), so that
+// under a causal mask, where tile j walks j + 1 key tiles, the blocks that
+// walk the most start first and the lightest make the last wave.
+template <bool kHeavyFirst>
+__device__ __forceinline__ int3 block_coords() {
+  if constexpr (!kHeavyFirst) {
+    return make_int3(blockIdx.x, blockIdx.y, blockIdx.z);
+  } else {
+    const int hb = gridDim.y * gridDim.z;
+    const int i = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    return make_int3(gridDim.x - 1 - i / hb, (i % hb) % gridDim.y, (i % hb) / gridDim.y);
+  }
 }
 
 // Policy (the hooks an entry point gives the mainloop):
@@ -288,6 +316,7 @@ __device__ __forceinline__ void rescale(float (&acc)[NA], const float (&alpha)[2
 //   using P = Panels<W>;                the tile's panel layout (P::kWidth >= D)
 //   int Lq, Lk, N;                      shapes
 //   static constexpr bool kSkipEmpty;   a block that sees no key returns at once
+//   static constexpr bool kHeavyFirst;  the blocks in decreasing q tile order (block_coords)
 //   int kv_len(b);                      keys of batch row b before any clamp
 //   int live_tiles(q0, n);              the prefix of the n 64-key half tiles
 //                                       below kv_len that the 64 rows at q0 see
@@ -295,13 +324,15 @@ __device__ __forceinline__ void rescale(float (&acc)[NA], const float (&alpha)[2
 //   bool bounded();                     the bounded softmax (uniform over the grid)
 //   void load(acc, m, l, b, h, row_a, lane);          the state before the first tile
 //                                                     (bounded: m = the bound)
-//   void store(acc, m, l, b, h, row_a, lane, seen);   the epilogue (l summed over the quad)
+//   void store(acc, m, l, b, h, row_a, lane, seen, tile);   the epilogue (l summed over the
+//                                     quad; tile: this warpgroup's q tile, free by then)
 template <class Policy>
 __global__ void __launch_bounds__(kThreadsWS, 1)
 attn_fwd_kernel(const __grid_constant__ Maps maps, const Policy pol, float qscale) {
   using P = typename Policy::P;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * kBlockRows;
+  const int3 tile_h_b = block_coords<Policy::kHeavyFirst>();
+  const int h = tile_h_b.y, b = tile_h_b.z;
+  const int q0 = tile_h_b.x * kBlockRows;
   const int kv_len = min(max(pol.kv_len(b), 0), pol.Lk);
   const int n_halves = (kv_len + kRows - 1) / kRows;
   const int n0 = (pol.live_tiles(q0, n_halves) + 1) / 2;  // 128-key tiles
@@ -432,7 +463,7 @@ attn_fwd_kernel(const __grid_constant__ Maps maps, const Policy pol, float qscal
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  pol.store(acc, m, l, b, h, row_a, lane, n > 0);
+  pol.store(acc, m, l, b, h, row_a, lane, n > 0, sm.q(cw));
   for (int j = n; j < n_blk; ++j) {  // the tiles only the other half sees
     const int s = j % kStages;
     mbar_wait(sm.full(s), (j / kStages) & 1);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels:
-// TMA tensor maps and loads, mbarriers, register reallocation and wgmma.
+// TMA tensor maps and loads, mbarriers, register reallocation and wgmma,
+// the shared-memory address and bf16 packing.
 //
 // Operand tiles live in shared memory in the layout a 128-byte-swizzled TMA
 // box writes: a panel of R rows x 64 bf16 (128 bytes a row, 16-byte chunk c
@@ -32,9 +33,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
-
 namespace {
+
+// ---- device: addresses and packing ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // ---- host: tensor maps ------------------------------------------------------
 

@@ -96,6 +96,7 @@ struct RingCarry {
   const int* step_lens;
   int Lq, Lk, N, mode, my, src, n, zz;
   static constexpr bool kSkipEmpty = true;  // no visible tile: the carry stays as it is
+  static constexpr bool kHeavyFirst = false;
 
   __device__ int kv_len(int b) const { return step_lens != nullptr ? step_lens[b] : Lk; }
   __device__ bool bounded() const { return false; }  // the carry is max-tracked
@@ -153,7 +154,7 @@ struct RingCarry {
 
   // carry out, in place, where this warpgroup saw a tile
   __device__ void store(const float (&acc)[64], const float (&m)[2], const float (&l)[2], int b,
-                        int h, int row_a, int lane, bool seen) const {
+                        int h, int row_a, int lane, bool seen, unsigned char*) const {
     if (!seen) return;
     const size_t stat0 = (static_cast<size_t>(b) * N + h) * Lq;
     const size_t ld = static_cast<size_t>(N) * D;

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_train.cu", "adaln.cu", "ring_step.cu")
-HEADERS = ("flash_common.cuh", "hopper_common.cuh", "flash_fwd_hopper.cuh")
+HEADERS = ("hopper_common.cuh", "flash_fwd_hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libomnivideo_kernels.so"

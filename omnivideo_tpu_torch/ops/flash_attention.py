@@ -14,7 +14,8 @@ causality (col ≤ row), the Qwen3 text prefill.
 
 `flash_attention` launches the CUDA kernel `csrc/flash_fwd.cu` for CUDA
 tensors and takes `flash_attention_plain` only for CPU tensors. The kernel
-has three instantiations, each with its own launch count in
+is the Hopper forward mainloop (`csrc/flash_fwd_hopper.cuh`) with one
+epilogue policy per instantiation, each with its own launch count in
 `flash_attention.launches`: "flash_fwd" (head dim 128, the Wan DiT),
 "flash_causal" (head dim 128, causal, the Qwen3 prefill) and "flash_d72"
 (head dim 72, the Qwen3-VL vision tower). Any other head dim or mode raises

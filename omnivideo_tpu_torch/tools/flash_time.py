@@ -1,7 +1,7 @@
 """Time the flash-attention kernels of one checkout at the main paths' shapes.
 
     PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
-        [--which fwd|bwd|fwd_lse|ring|all]
+        [--which fwd|bwd|fwd_lse|ring|all ...]
 
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
@@ -11,7 +11,8 @@ arguments every checkout shares, with its operands made once. `fwd` times
 the inference forward (`flash_fwd_launch`, rows 1, 2 and 3a): bounded
 self-attention [2, 32760, 12, 128] and cross-attention over 6,272 keys at
 12 and 40 heads (T2V-1.3B, T2V-A14B), the Qwen3 prefill [1, 1481, 32, 128]
-causal and max-tracked, and the vision tower [3, 1560, 16, 72] bounded;
+causal and max-tracked, a long prefill [1, 8192, 32, 128] (a grid that
+fills the card), and the vision tower [3, 1560, 16, 72] bounded;
 bf16, q/k with RMS 1, the softmax bound computed once beforehand. `bwd`
 times the training backward (rows 4 and 5) at [1, 32760, 12, 128] against
 32,760 keys (self) and 6,272 keys (cross), as the pair through `flash_bwd`
@@ -21,8 +22,9 @@ step (row 8) through `ring_step_launch`, non-causal, on an empty carry that
 the launches keep updating: the sp phase's step, q [2, 32760, 12, 128]
 against 32,760 keys, and a 4-card run's per-rank step, 8,190 q rows against
 8,190 keys. Each case prints one JSON line with the device time per launch
-(CUDA events) of `rounds` rounds of `reps` launches each, and the bound: the
-case's matmul FLOPs over the H100's 989 TFLOP/s. A `fwd` round holds at
+(CUDA events) of `rounds` rounds of `reps` launches each, after one untimed
+round, and the bound: the case's matmul FLOPs over the H100's 989 TFLOP/s.
+`--cases` picks `fwd` cases by name. A `fwd` round holds at
 least `reps` launches and at least ROUND_FLOP of work, so the small vision
 and prefill cases launch some hundreds of times a round and their time is
 the kernel's, not the launch overhead's. Needs one CUDA device; builds the
@@ -47,6 +49,7 @@ FWD_CASES = (  # (case, B, Lq, Lk, N, D, causal)
     ("cross_bounded", 2, SEQ, 6272, 12, 128, False),
     ("cross_bounded_n40", 2, SEQ, 6272, 40, 128, False),
     ("causal_prefill", 1, 1481, 1481, 32, 128, True),
+    ("causal_prefill_8k", 1, 8192, 8192, 32, 128, True),
     ("d72_bounded", 3, 1560, 1560, 16, 72, False),
 )
 BWD_CASES = (("bwd_self", SEQ), ("bwd_cross", 6272))
@@ -63,7 +66,8 @@ def _normed(B, L, gen, n=N, d=D):
 
 
 def _time(fn, reps: int, rounds: int) -> list:
-    fn()
+    for _ in range(reps):  # one untimed round: the clocks settle after the previous case
+        fn()
     torch.cuda.synchronize()
     ms = []
     for _ in range(rounds):
@@ -81,6 +85,8 @@ def _forward(args, smi, gen) -> None:
     lib = _kernels.library()
     stream = torch.cuda.current_stream().cuda_stream
     for name, B, Lq, Lk, n, d, causal in FWD_CASES:
+        if args.cases and name not in args.cases:
+            continue
         q, k = _normed(B, Lq, gen, n, d), _normed(B, Lk, gen, n, d)
         v = torch.randn(B, Lk, n, d, generator=gen, device="cuda").to(torch.bfloat16)
         o = torch.empty_like(q)
@@ -174,18 +180,21 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--which", choices=("fwd", "bwd", "fwd_lse", "ring", "all"), default="fwd")
+    ap.add_argument("--which", nargs="+", choices=("fwd", "bwd", "fwd_lse", "ring", "all"),
+                    default=["fwd"])
+    ap.add_argument("--cases", nargs="+", choices=[c[0] for c in FWD_CASES],
+                    help="only these `fwd` cases (default: all)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.which in ("fwd", "all"):
+    if {"fwd", "all"} & set(args.which):
         _forward(args, smi, gen)
-    if args.which in ("bwd", "all"):
+    if {"bwd", "all"} & set(args.which):
         _backward(args, smi, gen)
-    if args.which in ("fwd_lse", "all"):
+    if {"fwd_lse", "all"} & set(args.which):
         _fwd_lse(args, smi, gen)
-    if args.which in ("ring", "all"):
+    if {"ring", "all"} & set(args.which):
         _ring(args, smi, gen)
 
 

@@ -4,7 +4,7 @@ The smoke script files every compiled and profiled GPU function under a row
 of the port's kernel table: from nvcc's -Xptxas -v log (mangled names:
 registers, spills, ptxas's wgmma-serialisation warnings) and from the
 profiler (demangled names: device time by class). The Hopper forward
-mainloop `attn_fwd_kernel` serves four rows, told apart only by its epilogue
+mainloop `attn_fwd_kernel` serves five rows, told apart only by its epilogue
 policy's type, so a new policy that the names miss would be filed under
 another row. The names here are ptxas's and the profiler's own spelling of
 this repository's kernels, on synthetic log lines; nothing needs a card.
@@ -26,8 +26,7 @@ MANGLED = {  # row → the entry function as ptxas names it
     "flash_fwd_lse": FWD + "INS_6LseOutEEEvNS0_4MapsET_f",
     "ring_step": "_ZN45_GLOBAL__N__9d0a7f4e_12_ring_step_cu_c53667124fwdh15attn_fwd_kernel"
                  "INS_9RingCarryEEEvNS0_4MapsET_f",
-    "flash_causal": "_ZN45_GLOBAL__N__ef34e349_12_flash_fwd_cu_5326155219flash_causal_kernel"
-                    "EPK13__nv_bfloat16S2_S2_PS0_PKiS5_S5_iiif",
+    "flash_causal": FWD + "INS_9CausalOutEEEvNS0_4MapsET_f",
     "flash_bwd_dq": "_ZN47_GLOBAL__N__73e51205_14_flash_train_cu_c35d950c19flash_bwd_dq_kernel"
                     "E14CUtensorMap_stS0_S0_S0_PKfS2_PfPKiiiif",
     "flash_bwd_dkv": "_ZN47_GLOBAL__N__73e51205_14_flash_train_cu_c35d950c20flash_bwd_dkv_kernel"
@@ -47,9 +46,8 @@ DEMANGLED = {  # row → the kernel as the profiler names it
                      f"{_NS}LseOut, float)",
     "ring_step": f"void {_NS}fwdh::attn_fwd_kernel<{_NS}RingCarry>({_NS}fwdh::Maps, "
                  f"{_NS}RingCarry, float)",
-    "flash_causal": f"{_NS}flash_causal_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, "
-                    "__nv_bfloat16 const*, __nv_bfloat16*, int const*, int const*, int const*, "
-                    "int, int, int, float)",
+    "flash_causal": f"void {_NS}fwdh::attn_fwd_kernel<{_NS}CausalOut>({_NS}fwdh::Maps, "
+                    f"{_NS}CausalOut, float)",
     "flash_bwd_dq": f"{_NS}flash_bwd_dq_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
                     "CUtensorMap_st, float const*, float const*, float*, int const*, int, int, "
                     "int, float)",

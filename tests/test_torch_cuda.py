@@ -154,20 +154,39 @@ def test_flash_kernel_matches_plain(cuda, Lq, Lk, scale, lens):
         assert (out[1] == 0).all() and (tracked[1] == 0).all()
 
 
-@pytest.mark.parametrize("L,lens", [(300, None), (1000, None), (700, [433, 0])])
-def test_flash_causal_kernel_matches_plain(cuda, L, lens):
-    """Causal prefill at head dim 128: ragged diagonal tiles, kv_lens with a
-    fully masked batch row, max-tracked softmax (as the text prefill runs)."""
-    B, N, D = 2, 8, 128
+@pytest.mark.parametrize("B,L,N,lens,bounded,nan_tail", [
+    (2, 300, 8, None, False, False),
+    (2, 1000, 8, None, False, False),
+    (2, 700, 8, [433, 0], False, False),
+    (1, 1481, 32, None, False, False),        # the Qwen3-VL prefill's shape
+    (2, 1481, 8, [1481, 700], False, False),  # kv_len below L
+    (2, 1481, 8, [433, 0], False, False),     # and a fully masked batch row
+    (2, 1481, 8, [1481, 700], True, False),   # bounded (assume_normalized)
+    (2, 1481, 8, [1481, 700], False, True),   # NaN in K and V past kv_len
+    (1, 4096, 8, None, False, False),
+])
+def test_flash_causal_kernel_matches_plain(cuda, B, L, N, lens, bounded, nan_tail):
+    """Causal prefill at head dim 128 on the Hopper mainloop: ragged diagonal
+    tiles (L % 128 ≠ 0), kv_lens below L with a fully masked batch row, the
+    max-tracked softmax the text prefill runs and the bounded one, NaN in the
+    K/V rows past kv_len (finite output, equal to the plain twin's on the
+    same rows zeroed)."""
+    D = 128
     q, k, v = _qkv(B, L, L, N, D, L, 1.0, cuda)
     kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mb = safe = None
+    if bounded:
+        mb, safe = softmax_bound(q, k, D**-0.5)
+        assert bool(safe)
+    kk, vv = (_nan_past(k, lens), _nan_past(v, lens)) if nan_tail else (k, v)
     n0 = dict(flash_attention.launches)
-    out = flash_attention(q, k, v, kv_lens=kv, causal=True)
+    out = flash_attention(q, kk, vv, kv_lens=kv, assume_normalized=bounded, causal=True)
     assert flash_attention.launches["flash_causal"] == n0["flash_causal"] + 1
     assert flash_attention.launches["flash_fwd"] == n0["flash_fwd"]
-    _assert_flash_close(out, flash_attention_plain(q, k, v, kv, None, causal=True))
-    if lens is not None:
-        assert (out[1] == 0).all()
+    assert torch.isfinite(out).all()
+    _assert_flash_close(out, flash_attention_plain(q, k, v, kv, None, mb, safe, causal=True))
+    if lens is not None and 0 in lens:
+        assert (out[lens.index(0)] == 0).all()
 
 
 @pytest.mark.parametrize("scale,lens", [
