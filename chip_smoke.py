@@ -36,12 +36,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             frames_to_patches (grid 3x30x52, 1,170 visual tokens), synthetic
             ids (L ~ 1.5k), the feature forward, a 16-token greedy decode,
             launch counts asserted, the top-8-of-128 grouped MoE of layer 0
-            against its all-experts oracle, and a profile of one feature
-            forward; the model is freed before the e2e phase;
+            against its all-experts oracle, a profile of one feature
+            forward; then the engine (Qwen3VLEngine.from_model with a
+            stand-in tokenizer) on a seeded 1280x720, 48-frame, 24 fps clip
+            file: source caption (grid 3x44x80 at 704x1280), target caption
+            (text only), features (grid 3x2x2 at 32x32), each pass's
+            launches (27 flash_d72 with a clip, 48 flash_causal), grids and
+            feature shape asserted; the model is freed before the e2e phase;
   e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
             the kernels' launch counts asserted;
+  load      the e2e phase's expert written in the diffusers layout
+            (safetensors by write_safetensors, companions as .bin) and read
+            back by load_expert onto the card: every tensor bit-equal, load
+            seconds, GB/s and the host's resident-set rise;
+  cli       the generate CLI in-process (tools/generate.py `run`): one V2V
+            row from the 720p clip file, T2V-1.3B random weights at
+            832x480x81, 2 steps, kernel launches asserted, the written file
+            read back as [81, 480, 832, 3] uint8, stage seconds;
   ring      the ring-step CUDA kernel (row 8) over in-process shards against
             the same driver with ring_step_plain (per output row, bf16 ulps)
             and against the flash kernel over the whole sequence: the sp
@@ -101,10 +114,14 @@ import dataclasses
 import gc
 import json
 import re
+import resource
+import shutil
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -121,15 +138,22 @@ from omnivideo_tpu_torch.configs.base import (
     VAEConfig,
     WanDiTConfig,
 )
+from omnivideo_tpu_torch.configs.prompts import FEATURE_EXTRACTION_SYSTEM_PROMPT
 from omnivideo_tpu_torch.configs.qwen3vl import (
     QWEN3_VL_30B_A3B,
+    SPECIAL_TOKEN_IDS,
     Qwen3TextConfig,
     Qwen3VLConfig,
     Qwen3VLVisionConfig,
 )
 from omnivideo_tpu_torch.models.qwen3vl import full_model as vlm_full
 from omnivideo_tpu_torch.models.qwen3vl import text_model as vlm_text
-from omnivideo_tpu_torch.models.qwen3vl.engine import extract_features
+from omnivideo_tpu_torch.models.qwen3vl.engine import (
+    Qwen3VLEngine,
+    VLMConfig,
+    compute_system_prompt_drop_idx,
+    extract_features,
+)
 from omnivideo_tpu_torch.models.qwen3vl.full_model import (
     Qwen3VLModel,
     qwen3vl_forward,
@@ -166,8 +190,10 @@ from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain, row_tiles
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from omnivideo_tpu_torch.parallel.mesh import create_mesh
+from omnivideo_tpu_torch.pipelines.loading import load_expert
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
+from omnivideo_tpu_torch.tools import generate as generate_cli
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
     init_train_state,
@@ -176,6 +202,7 @@ from omnivideo_tpu_torch.training.trainer import (
     make_unified_train_step,
     sample_draws,
 )
+from omnivideo_tpu_torch.utils.video import read_video_frames
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -212,6 +239,11 @@ VLM_FRAMES = 6  # the reference's video_nframes for the VLM stage
 VLM_GRID = (3, 30, 52)  # 6 frames at 832x480 after the (2, 16, 16) patch
 VLM_NEW_TOKENS = 16  # the reference decodes up to 512; only the loop is cut
 SYSTEM_PREFIX = 31  # synthetic system-prompt prefix, dropped from the features
+CLIP_SHAPE = (48, 720, 1280, 3)  # the engine's and the CLI's source clip: 2 s of 720p
+CLIP_FPS = 24
+EDIT_PROMPT = "Replace the dog with a gray rabbit."
+ENGINE_GRIDS = {"caption": (3, 44, 80), "features": (3, 2, 2)}  # 720p after smart_resize:
+# 704x1280 at 480²…4·480² pixels, 32x32 at 480…1,920 (the JAX engine's budgets)
 D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
 KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_causal", "flash_d72", "flash_fwd_lse",
                "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step")
@@ -569,6 +601,70 @@ def vlm_prompt_len() -> int:
     return vlm_prompt_ids(QWEN3_VL_30B_A3B, VLM_GRID).shape[1]
 
 
+class StandInTokenizer:
+    """The FastTokenizer API without the `tokenizers` package (this machine
+    may lack it): the Qwen chat and vision specials split out at their real
+    ids (configs/qwen3vl.py), every other UTF-8 byte b as the id b. Ids it
+    has no text for decode as "?"."""
+
+    SPECIALS = ("<|im_start|>", "<|im_end|>", "<|vision_start|>", "<|vision_end|>",
+                "<|video_pad|>")
+
+    def __init__(self):
+        self.ids = {t: SPECIAL_TOKEN_IDS[t] for t in self.SPECIALS}
+        self.text = {i: t for t, i in self.ids.items()}
+        self.eos_token_id = self.ids["<|im_end|>"]
+        self._split = "(" + "|".join(re.escape(t) for t in self.SPECIALS) + ")"
+
+    def __call__(self, text: str, add_special_tokens: bool = True):
+        ids = []
+        for part in re.split(self._split, text):
+            ids.extend([self.ids[part]] if part in self.ids else part.encode())
+        return {"input_ids": ids}
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        out = []
+        for i in (int(i) for i in ids):
+            if i < 256:
+                out.append(bytes([i]))
+            elif i in self.text:
+                out.append(b"" if skip_special_tokens else self.text[i].encode())
+            else:
+                out.append(b"?")
+        return b"".join(out).decode("utf-8", errors="replace")
+
+
+ST_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.int64: "I64", torch.int32: "I32", torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """A safetensors file from the format (this machine may lack the
+    package): the 8-byte header length, the JSON header padded to 8 bytes,
+    the tensors' bytes in order. Returns the bytes written."""
+    header, offset, blobs = {}, 0, []
+    for name, t in tensors.items():
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        offset += len(raw)
+        blobs.append(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for raw in blobs:
+            f.write(raw)
+    return 8 + len(head) + offset
+
+
+def write_clip(path: Path) -> Path:
+    """The seeded 720p source clip, uint8 frames at CLIP_FPS, as .npz."""
+    frames = np.random.default_rng(11).integers(0, 256, CLIP_SHAPE, dtype=np.uint8)
+    np.savez(path, frames=frames, fps=CLIP_FPS)
+    return path
+
+
 def _reset_launches() -> None:
     qk_prep.launches = 0
     fused_adaln.launches = 0
@@ -793,11 +889,73 @@ def _vlm_moe_check(model: Qwen3VLModel, L: int) -> dict:
     return rec
 
 
-def phase_vlm() -> dict:
+def _engine_pass(model: Qwen3VLModel, clip: Path) -> dict:
+    """The Qwen3-VL engine on the same model and the 720p clip file, through
+    the stand-in tokenizer: source caption, target caption and features as
+    `generate_caption_and_extract_features` runs them, VLM_NEW_TOKENS new
+    tokens a caption. Launches, prompt length and grid are read per pass."""
+    cfg = model.cfg
+    engine = Qwen3VLEngine.from_model(model, VLMConfig(max_new_tokens=VLM_NEW_TOKENS),
+                                      StandInTokenizer())
+    passes, inputs = {}, []
+    native = engine._native_inputs
+
+    def spy_inputs(*args, **kw):
+        ids, patches, grid = native(*args, **kw)
+        inputs.append((int(ids.shape[1]), grid))
+        return ids, patches, grid
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            _reset_launches()
+            out = fn(*args, **kw)
+            passes[name] = {"launches": _launches(), "seq_len": inputs[-1][0],
+                            "grid": list(inputs[-1][1]) if inputs[-1][1] else None}
+            return out
+        return run
+
+    engine._native_inputs = spy_inputs
+    for name in ("generate_source_video_caption", "predict_target_video_caption",
+                 "extract_features"):
+        setattr(engine, name, counted(name, getattr(engine, name)))
+    torch.cuda.reset_peak_memory_stats()
+    feats = engine.generate_caption_and_extract_features(str(clip), EDIT_PROMPT)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vc = cfg.vision
+    f = vc.patch_size * vc.spatial_merge_size
+    sizes = {"caption": smart_resize(CLIP_SHAPE[1], CLIP_SHAPE[2], f, 480 * 480, 4 * 480 * 480),
+             "features": smart_resize(CLIP_SHAPE[1], CLIP_SHAPE[2], f, 480, 1920)}
+    want = {"generate_source_video_caption": (vc.depth, ENGINE_GRIDS["caption"]),
+            "predict_target_video_caption": (0, None),
+            "extract_features": (vc.depth, ENGINE_GRIDS["features"])}
+    h = feats["vlm_last_hidden_states"]
+    drop = compute_system_prompt_drop_idx(engine.tokenizer, FEATURE_EXTRACTION_SYSTEM_PROMPT)
+    expect_shape = (passes["extract_features"]["seq_len"] - drop, cfg.text.hidden_size)
+    rec = {"clip": list(CLIP_SHAPE), "clip_fps": CLIP_FPS, "resized_to": sizes,
+           "passes": passes, "source_caption_s": engine.timings["source_caption_s"],
+           "target_caption_s": engine.timings["target_caption_s"],
+           "features_s": engine.timings["features_s"], "drop_idx": drop,
+           "features_shape": list(h.shape), "max_memory_allocated_gb": peak_gb,
+           "source_caption_chars": len(feats["source_caption"]),
+           "target_caption_chars": len(feats["target_caption"])}
+    bad = [name for name, (d72, grid) in want.items()
+           if passes[name]["launches"] != {**{k: 0 for k in _launches()}, "flash_d72": d72,
+                                           "flash_causal": cfg.text.num_hidden_layers}
+           or passes[name]["grid"] != (list(grid) if grid else None)]
+    if (bad or tuple(h.shape) != expect_shape or not torch.isfinite(h).all()
+            or any((s[0] // vc.patch_size, s[1] // vc.patch_size) != ENGINE_GRIDS[k][1:]
+                   for k, s in sizes.items())):
+        raise AssertionError(f"vlm engine: passes {bad} off, {rec}")
+    del feats, h
+    return rec
+
+
+def phase_vlm(clip: Path) -> dict:
     """Qwen3-VL-30B-A3B at full width and depth: feature forward and a
-    16-token greedy caption on 6 frames of 832x480. Returns the record with
-    the features ([L − system prefix, 2048] f32 on the card) under
-    "features"; the model is freed before returning."""
+    16-token greedy caption on 6 frames of 832x480, then the engine on the
+    720p clip file (`_engine_pass`). Returns the record with the features
+    ([L − system prefix, 2048] f32 on the card) under "features"; the model
+    is freed before returning."""
     cfg = QWEN3_VL_30B_A3B
     vc = cfg.vision
     torch.cuda.reset_peak_memory_stats()
@@ -860,6 +1018,7 @@ def phase_vlm() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     moe_check = _vlm_moe_check(model, L)
     profile = _vlm_profile(model, ids, patches, grid)
+    engine = _engine_pass(model, clip)
     steps = timings["decode_steps"]
     rec = {"phase": "vlm", "config": "QWEN3_VL_30B_A3B", "text_layers": cfg.text.num_hidden_layers,
            "experts": cfg.text.num_experts, "vision_depth": vc.depth, "grid": list(grid),
@@ -873,7 +1032,7 @@ def phase_vlm() -> dict:
            "d72_guard": {"bounded_blocks": int(safe.sum()),
                          "max_tracked_blocks": int((safe == 0).sum())},
            "launches_per_pass": per_pass, "launches": total, "moe_check": moe_check,
-           "profile": profile}
+           "profile": profile, "engine": engine}
     emit(rec)
     rec["features"] = h
     del model, feats, patches
@@ -926,6 +1085,154 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
     rec.update(pipe=pipe, ctx=ctx)
+    return rec
+
+
+def _host_rss_gb() -> float:
+    """The process's resident set now (/proc/self/status VmRSS), GB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssSampler:
+    """The largest resident set seen while the `with` block runs, sampled
+    every `period` seconds by a thread (VmHWM holds the whole run's peak,
+    and a process may not be allowed to reset it)."""
+
+    def __init__(self, period: float = 0.005):
+        self.period, self.peak_gb = period, 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while True:
+            self.peak_gb = max(self.peak_gb, _host_rss_gb())
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self) -> "RssSampler":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak_gb = max(self.peak_gb, _host_rss_gb())
+
+
+def _companion_state_dicts(comp: dict) -> dict:
+    """The port's companion params (JAX layout, kernels [in, out]) → the
+    reference's `{name}_pytorch_model.bin` state dicts."""
+    lin = lambda p: {"weight": p["kernel"].T.contiguous(), "bias": p["bias"]}  # noqa: E731
+    out = {"vlm_norm": {"weight": comp["vlm_norm"]}, "vlm_proj": lin(comp["vlm_proj"])}
+    if "visual_context_adapter" in comp:
+        a = comp["visual_context_adapter"]
+        out["visual_context_adapter"] = {
+            **{f"patch_embedding.{k}": v for k, v in lin(a["patch_embedding"]).items()},
+            **{f"projection.{k}": v for k, v in lin(a["projection"]).items()}}
+    return {k: {n: t.detach().cpu() for n, t in sd.items()} for k, sd in out.items()}
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                               8: torch.int64}[t.element_size()])
+
+
+def phase_load(expert, tmp: Path) -> dict:
+    """The seeded T2V-1.3B expert (the e2e phase's) written in the diffusers
+    layout (`low_noise_model/wan_model/diffusion_pytorch_model.safetensors`
+    by `write_safetensors`, the companions as `.bin` pickles), then
+    `load_expert` onto the card: every tensor bit-equal to its source; the
+    load's seconds and GB/s, and how far the host's resident set rose
+    during it (each tensor is read once through a pinned staging buffer of
+    `STAGING_BYTES`, so it should stay far below the file's size)."""
+    root = tmp / "ckpt_1_3b"
+    sub = root / T2V_1_3B.low_noise_checkpoint
+    (sub / "wan_model").mkdir(parents=True)
+    t0 = time.perf_counter()
+    nbytes = write_safetensors(sub / "wan_model" / "diffusion_pytorch_model.safetensors",
+                               dict(expert.wan.named_parameters()))
+    for name, sd in _companion_state_dicts(expert.companions).items():
+        torch.save(sd, sub / f"{name}_pytorch_model.bin")
+    write_s = time.perf_counter() - t0
+    gc.collect()
+    rss0 = _host_rss_gb()
+    torch.cuda.synchronize()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        loaded = load_expert(T2V_1_3B, str(root), T2V_1_3B.low_noise_checkpoint,
+                             torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    src = dict(expert.wan.named_parameters())
+    got = dict(loaded.wan.named_parameters())
+    differ = [k for k in src if src[k].dtype != got[k].dtype
+              or not torch.equal(_bits(src[k]), _bits(got[k]))]
+    c_src, c_got = _flat(expert.companions), _flat(loaded.companions)
+    differ += [k for k in c_src if k not in c_got or not torch.equal(c_src[k], c_got[k])]
+    rec = {"phase": "load", "config": "T2V_1_3B", "layout": "diffusers (safetensors + .bin)",
+           "tensors": len(src), "companions": sorted(c_src), "gb": nbytes / 1e9,
+           "write_s": write_s, "load_s": load_s, "gb_per_s": nbytes / 1e9 / load_s,
+           "host_rss_before_gb": rss0, "host_rss_peak_during_load_gb": rss.peak_gb,
+           "host_rss_rise_gb": rss.peak_gb - rss0,
+           "host_peak_rss_gb_process": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+           "bit_equal": not differ}
+    emit(rec)
+    del loaded, got
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ or set(c_src) != set(c_got):
+        raise AssertionError(f"load: {len(differ)} tensors differ from their source: {differ[:8]}")
+    return rec
+
+
+def phase_cli(clip: Path, tmp: Path) -> dict:
+    """The generate CLI in-process at full width: one V2V row from the 720p
+    24 fps clip file, T2V-1.3B random weights, 832x480x81, 2 steps (sampling
+    to 16 fps, resize and normalise on the card, VAE encode, two DiT steps
+    with their kernel launches asserted, decode, save_video); the file it
+    wrote must hold [81, 480, 832, 3] uint8."""
+    rows = tmp / "cli_rows.jsonl"
+    rows.write_text(json.dumps({"id": "v2v_0", "source_clip_path": str(clip),
+                                "edit_prompt": EDIT_PROMPT}) + "\n")
+    argv = ["--task", "t2v-1.3B", "--random_weights", "--sample_steps", str(STEPS),
+            "--size", f"{SIZE[0]}*{SIZE[1]}", "--frame_num", str(FRAMES), "--input", str(rows),
+            "--output_dir", str(tmp / "cli_out"), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    (res,) = generate_cli.run(generate_cli.parse_args(argv))
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    path = Path(res["path"])
+    frames, fps = read_video_frames(str(path)) if path.exists() else (np.zeros(0), 0.0)
+    layers = T2V_1_3B.dit.num_layers  # per layer and CFG forward: 2 qk_prep, 1 flash_fwd
+    expect = {**{k: 0 for k in launches}, "qk_prep": 4 * layers * STEPS,
+              "flash_fwd": 2 * layers * STEPS}
+    t = res["timings"]
+    rec = {"phase": "cli", "argv": argv, "written": path.name, "frames_shape": list(frames.shape),
+           "frames_dtype": str(frames.dtype), "fps": fps, "wall_s": wall_s,
+           **{k: t.get(k) for k in ("read_s", "transform_s", "encode_s", "denoise_step_s",
+                                    "decode_s", "save_s")},
+           "launches": launches, "max_memory_allocated_gb": peak_gb}
+    emit(rec)
+    if (launches != expect or tuple(frames.shape) != (FRAMES, SIZE[1], SIZE[0], 3)
+            or frames.dtype != np.uint8):
+        raise AssertionError(f"cli: launches {launches} (expected {expect}), {rec}")
+    shutil.rmtree(tmp / "cli_out")
+    gc.collect()
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1754,6 +2061,15 @@ def main(argv) -> int:
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile' or 'sp')")
     dev = phase_device()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        return _all_phases(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _all_phases(dev: dict, tmp: Path) -> int:
+    """Every phase in order, then the kernel summary and the last line."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     qk = phase_qk_prep(gen)
     fl = phase_flash(gen)
@@ -1761,10 +2077,13 @@ def main(argv) -> int:
     phase_tiny()
     phase_tiny_vlm()
     phase_tiny_train()
-    vlm = phase_vlm()
+    clip = write_clip(tmp / "clip_720p.npz")
+    vlm = phase_vlm(clip)
     features = vlm.pop("features")
     e2e_rec = phase_e2e(features)
     e2e = e2e_rec["launches"]
+    phase_load(e2e_rec["pipe"].low_noise, tmp)
+    phase_cli(clip, tmp)
     ring = phase_ring(gen)
     sp = phase_sp(e2e_rec.pop("pipe"), e2e_rec.pop("ctx"), features)
     del e2e_rec

@@ -78,6 +78,15 @@ class Qwen3VLConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The chat and vision special tokens at their ids in the Qwen3-VL vocabulary
+# (the checkpoints' tokenizer.json): the engine's prompts are built from them.
+SPECIAL_TOKEN_IDS = {
+    "<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645,
+    "<|vision_start|>": 151652, "<|vision_end|>": 151653, "<|image_pad|>": 151655,
+    "<|video_pad|>": 151656,
+}
+
+
 # Qwen3-VL-30B-A3B, the reference pipeline's VLM (omnivideo/vllm_model.py:30-31
 # of the reference; the widths of bench.py:715-719): 48 MoE text layers of
 # 128 experts (top-8), interleaved MRoPE (24, 20, 20), a 27-block vision

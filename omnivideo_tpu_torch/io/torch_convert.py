@@ -22,7 +22,7 @@ The VAE and umT5 names map in their modules (`models/vae2_1.py`,
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Iterable, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,20 +72,27 @@ def split_unified_state_dict(sd: Mapping[str, Any]):
 
 
 @torch.no_grad()
-def load_strict(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
+def load_strict(model: nn.Module,
+                sd: Union[Mapping[str, Any], Iterable[Tuple[str, Any]]]) -> nn.Module:
     """Copy arrays into the parameters of the same names, reshaping where
     only the layout differs and casting to each parameter's dtype; every
-    parameter must be present and every key used."""
+    parameter must be filled and every name used. `sd` is a mapping, or
+    (name, array) pairs that arrive one at a time (a safetensors file read
+    tensor by tensor): each is copied as it comes, so loading holds the
+    model and one tensor more."""
     params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(sd))
-    unexpected = sorted(set(sd) - set(params))
-    if missing or unexpected:
-        raise KeyError(f"state dict mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
-    for name, p in params.items():
-        src = as_tensor(sd[name])
+    seen = set()
+    for name, value in (sd.items() if isinstance(sd, Mapping) else sd):
+        if name not in params:
+            raise KeyError(f"state dict mismatch: unexpected {name!r}")
+        src, p = as_tensor(value), params[name]
         if src.numel() != p.numel():
             raise ValueError(f"{name}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
         p.copy_(src.reshape(p.shape))
+        seen.add(name)
+    missing = sorted(set(params) - seen)
+    if missing:
+        raise KeyError(f"state dict mismatch: missing {missing[:8]}")
     return model
 
 

@@ -12,15 +12,19 @@ Attention is plain einsum matmuls + softmax, as the JAX module's is: there
 is no Pallas kernel on this module. Parameter names are the reference
 state dict's (`blocks.{i}.attn.q.weight`, `blocks.{i}.ffn.gate.0.weight`,
 `blocks.{i}.pos_embedding.embedding.weight`, ...), so a reference `.pth`
-loads with `t5_state_dict_to_params`. `T5EncoderModel` encodes token ids
-and masks; the umT5 tokenizer waits for its files (`google/umt5-xxl/`).
+loads with `t5_state_dict_to_params`. `HuggingfaceTokenizer` makes
+fixed-length ids and masks from strings (the reference's umT5 tokenizer
+wrapper); `T5EncoderModel` encodes strings through it, or ids and masks.
 """
 
 from __future__ import annotations
 
 import functools
+import json
 import math
-from typing import List, Mapping, Optional
+import re
+from pathlib import Path
+from typing import List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -209,21 +213,81 @@ def init_t5(cfg: T5Config, dtype: torch.dtype = torch.bfloat16, device="cuda",
     return T5Encoder(cfg, dtype, dev, torch.Generator(device=dev).manual_seed(seed))
 
 
-class T5EncoderModel:
-    """Encode token ids; returns per-text [len_i, dim] f32 tensors stripped
-    to the true lengths (the mask's sums). The tokenizer that makes ids
-    from strings waits for the umT5 tokenizer files."""
+def _special_token(d: Path, key: str, default: str) -> str:
+    """A special token's string from tokenizer_config.json or
+    special_tokens_map.json (a string or {"content": ...})."""
+    for name in ("tokenizer_config.json", "special_tokens_map.json"):
+        f = d / name
+        if f.exists():
+            tok = json.loads(f.read_text()).get(key)
+            if isinstance(tok, dict):
+                tok = tok.get("content")
+            if tok:
+                return tok
+    return default
 
-    def __init__(self, encoder: T5Encoder):
+
+class HuggingfaceTokenizer:
+    """The umT5 tokenizer wrapper (reference modules/tokenizers.py:36-81, JAX
+    models/t5.py `HuggingfaceTokenizer`): whitespace cleaning, then ids and
+    attention mask padded to `seq_len` and truncated to it with the `</s>`
+    of the post-processor kept, as transformers' `padding="max_length",
+    truncation=True, add_special_tokens=True` gives them.
+
+    Reads `tokenizer.json` with the `tokenizers` package (imported when one
+    is built). A dir with only `spiece.model` is converted first
+    (utils/spm_convert.py, which needs `transformers`)."""
+
+    def __init__(self, name: Union[str, Path], seq_len: int = 512):
+        from tokenizers import Tokenizer
+
+        d = Path(name)
+        fast = d / "tokenizer.json"
+        if not fast.exists():
+            from ..utils.spm_convert import ensure_fast_tokenizer
+
+            fast = ensure_fast_tokenizer(d)
+            if fast is None:
+                raise FileNotFoundError(f"{d}: neither tokenizer.json nor spiece.model")
+        self.tokenizer = Tokenizer.from_file(str(fast))
+        pad = _special_token(d, "pad_token", "<pad>")
+        pad_id = self.tokenizer.token_to_id(pad)
+        if pad_id is None:
+            raise ValueError(f"{d}: the pad token {pad!r} is not in the vocabulary")
+        self.tokenizer.enable_truncation(max_length=seq_len)
+        self.tokenizer.enable_padding(length=seq_len, pad_id=pad_id, pad_token=pad)
+        self.seq_len = seq_len
+
+    def __call__(self, texts: List[str], return_mask: bool = True):
+        """texts → ids [B, seq_len] int64 (and the mask [B, seq_len] int64),
+        each text's whitespace runs cleaned to one space first."""
+        enc = self.tokenizer.encode_batch([re.sub(r"\s+", " ", t).strip() for t in texts],
+                                          add_special_tokens=True)
+        ids = torch.tensor([e.ids for e in enc], dtype=torch.int64)
+        mask = torch.tensor([e.attention_mask for e in enc], dtype=torch.int64)
+        return (ids, mask) if return_mask else ids
+
+
+class T5EncoderModel:
+    """Tokenize and encode; returns per-text [len_i, dim] f32 tensors
+    stripped to the true lengths (the mask's sums), reference t5.py:505-512."""
+
+    def __init__(self, encoder: T5Encoder, tokenizer: Optional[HuggingfaceTokenizer] = None,
+                 tokenizer_path: Optional[str] = None):
         self.encoder = encoder
         self.cfg = encoder.cfg
+        if tokenizer is None and tokenizer_path:
+            tokenizer = HuggingfaceTokenizer(tokenizer_path, seq_len=self.cfg.text_len)
+        self.tokenizer = tokenizer
 
     def encode_ids(self, ids: torch.Tensor, mask: torch.Tensor) -> List[torch.Tensor]:
         ctx = self.encoder(ids, mask)
         lens = mask.sum(dim=1).tolist()
         return [ctx[i, : int(n)] for i, n in enumerate(lens)]
 
-    def __call__(self, texts: List[str]):
-        raise NotImplementedError(
-            "T5EncoderModel has no tokenizer yet (it waits for the google/umt5-xxl "
-            "tokenizer files); encode token ids with encode_ids(ids, mask)")
+    def __call__(self, texts: List[str]) -> List[torch.Tensor]:
+        if self.tokenizer is None:
+            raise RuntimeError("T5EncoderModel has no tokenizer (the checkpoint dir has no "
+                               "google/umt5-xxl/); encode token ids with encode_ids(ids, mask)")
+        ids, mask = self.tokenizer(texts)
+        return self.encode_ids(ids, mask)

@@ -8,6 +8,8 @@ mainloop `attn_fwd_kernel` serves five rows, told apart only by its epilogue
 policy's type, so a new policy that the names miss would be filed under
 another row. The names here are ptxas's and the profiler's own spelling of
 this repository's kernels, on synthetic log lines; nothing needs a card.
+The script's stand-in tokenizer and safetensors writer, which stand in for
+packages the card's machine may lack, are checked here too.
 """
 
 import subprocess
@@ -15,6 +17,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import chip_smoke
 
@@ -133,3 +136,43 @@ def test_import_starts_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          check=True, timeout=300).stdout.split()
     assert out == ["1", "0", "False"]
+
+
+def test_stand_in_tokenizer_splits_the_qwen_specials():
+    """chip_smoke's tokenizer for the engine pass (the card's machine may
+    lack `tokenizers`): the chat and vision specials at their Qwen3-VL ids,
+    every other byte as its value, and the chat layout the engine builds
+    with it holds one <|video_pad|> per merged visual token."""
+    from omnivideo_tpu_torch.models.qwen3vl.preprocess import build_chat_ids
+
+    tok = chip_smoke.StandInTokenizer()
+    ids = tok("<|im_start|>user\nhé<|video_pad|><|im_end|>")["input_ids"]
+    assert ids == [151644, *b"user\n", *"hé".encode(), 151656, 151645]
+    assert tok.decode(ids) == "user\nhé" and tok.eos_token_id == 151645
+    assert (tok.decode(ids, skip_special_tokens=False)
+            == "<|im_start|>user\nhé<|video_pad|><|im_end|>")
+    assert tok.decode([151000, 65]) == "?A"
+    chat = build_chat_ids(tok, "edit", "sys", grid=(3, 44, 80), timestamps=[0.5, 1.0, 1.5])
+    assert int((chat == 151656).sum()) == 3 * 44 * 80 // 4
+    assert int((chat == 151652).sum()) == int((chat == 151653).sum()) == 3
+
+
+def test_safetensors_writer_reads_back(tmp_path):
+    """chip_smoke's safetensors writer (the card's machine may lack the
+    package): the `safetensors` package and the port's reader read every
+    tensor back bit for bit."""
+    from safetensors.torch import load_file
+
+    from omnivideo_tpu_torch.io.safetensors import load_safetensors
+
+    g = torch.Generator().manual_seed(0)
+    src = {"w.bf16": torch.randn(3, 5, generator=g).to(torch.bfloat16),
+           "w.f32": torch.randn(7, generator=g), "i.i64": torch.arange(4),
+           "m.bool": torch.tensor([True, False, True]), "s.f32": torch.tensor(1.5)}
+    n = chip_smoke.write_safetensors(tmp_path / "w.safetensors", src)
+    assert n == (tmp_path / "w.safetensors").stat().st_size
+    for got in (load_file(str(tmp_path / "w.safetensors")),
+                load_safetensors(tmp_path / "w.safetensors", device="cpu")):
+        assert set(got) == set(src)
+        for k, v in src.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k

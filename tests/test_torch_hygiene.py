@@ -4,6 +4,10 @@
   omnivideo_tpu;
 - no module of it imports them, calls a library attention or
   torch.compile (AST scan);
+- importing the host side of the main path (the generate CLI, the Qwen3-VL
+  engine, the loader, the readers and the video IO) loads none of
+  tokenizers, transformers, safetensors, PIL or imageio, which the card's
+  machine may lack: they are imported inside the functions that need them;
 - its entry points default to CUDA and raise without a CUDA device unless
   the caller asks for the CPU;
 - every CUDA source and header is in the kernel build's digest.
@@ -53,6 +57,23 @@ def test_import_and_forward_load_no_jax():
                          cwd=PKG.parent, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "BAD []" in res.stdout
+
+
+def test_host_modules_import_no_optional_packages():
+    optional = ("tokenizers", "transformers", "safetensors", "PIL", "imageio")
+    code = (
+        "import sys\n"
+        "import omnivideo_tpu_torch.tools.generate, omnivideo_tpu_torch.models.qwen3vl.engine\n"
+        "import omnivideo_tpu_torch.pipelines.loading, omnivideo_tpu_torch.utils.video\n"
+        "import omnivideo_tpu_torch.io.hf_reader, omnivideo_tpu_torch.io.safetensors\n"
+        "import omnivideo_tpu_torch.models.t5, omnivideo_tpu_torch.utils.spm_convert\n"
+        "import omnivideo_tpu_torch.models.qwen3vl.preprocess, omnivideo_tpu_torch.utils.avi\n"
+        f"bad = [k for k in sys.modules if k.split('.')[0] in {optional + FORBIDDEN_MODULES!r}]\n"
+        "print('BAD', bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout, res.stdout
 
 
 def _py_files():

@@ -1,5 +1,7 @@
 """The port's checkpoint loader (`pipelines/loading.py`) on the reference
-bundle `tests/golden/bundle_tiny/` against the JAX `load_pipeline`, and the
+bundle `tests/golden/bundle_tiny/` against the JAX `load_pipeline`, the
+bundle's expert rewritten in the diffusers layout (sharded f32 safetensors
+and companion `.bin` files) against the JAX `load_expert`, and the
 dual-expert boundary split, on the CPU.
 
 The bundle was written by the reference torch implementation: both unified
@@ -23,10 +25,12 @@ from omnivideo_tpu.configs.base import T5Config as JaxT5Config
 from omnivideo_tpu.configs.base import VAEConfig as JaxVAEConfig
 from omnivideo_tpu.configs.base import WanDiTConfig as JaxDiTConfig
 from omnivideo_tpu.models.t5 import t5_encode
+from omnivideo_tpu.pipelines.loading import load_expert as jax_load_expert
 from omnivideo_tpu.pipelines.loading import load_pipeline as jax_load_pipeline
 from omnivideo_tpu_torch.configs.base import PipelineConfig, T5Config, VAEConfig, WanDiTConfig
 from omnivideo_tpu_torch.io.jax_bridge import wan_params_to_state_dict
-from omnivideo_tpu_torch.pipelines.loading import load_expert, load_pipeline
+from omnivideo_tpu_torch.io.torch_convert import load_torch_file, split_unified_state_dict
+from omnivideo_tpu_torch.pipelines.loading import COMPANIONS, load_expert, load_pipeline
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
 
@@ -79,19 +83,23 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _assert_expert_equal(j_exp, t_exp):
+    ref = wan_params_to_state_dict(_np(j_exp.wan))
+    got = {k: v.detach().numpy() for k, v in t_exp.wan.named_parameters()}
+    assert set(ref) == set(got)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k].reshape(got[k].shape), err_msg=k)
+    jc, tc = _flat(_np(j_exp.companions)), _flat(t_exp.companions)
+    assert set(jc) == set(tc) and jc
+    for k in jc:
+        np.testing.assert_array_equal(tc[k], jc[k], err_msg=k)
+
+
 def test_loaded_params_equal_jax(pipes):
     jpipe, tpipe = pipes
     assert tpipe.high_noise is not tpipe.low_noise
     for j_exp, t_exp in ((jpipe.low_noise, tpipe.low_noise), (jpipe.high_noise, tpipe.high_noise)):
-        ref = wan_params_to_state_dict(_np(j_exp.wan))
-        got = {k: v.detach().numpy() for k, v in t_exp.wan.named_parameters()}
-        assert set(ref) == set(got)
-        for k in ref:
-            np.testing.assert_array_equal(got[k], ref[k].reshape(got[k].shape), err_msg=k)
-        jc, tc = _flat(_np(j_exp.companions)), _flat(t_exp.companions)
-        assert set(jc) == set(tc)
-        for k in jc:
-            np.testing.assert_array_equal(tc[k], jc[k], err_msg=k)
+        _assert_expert_equal(j_exp, t_exp)
     jv, tv = _flat(_np(jpipe.vae.params)), _flat(tpipe.vae.params)
     assert set(jv) == set(tv) and all(np.array_equal(tv[k], jv[k]) for k in jv)
     assert set(tpipe.special_tokens) == set(jpipe.special_tokens)
@@ -160,9 +168,43 @@ def test_dual_expert_boundary_split():
     assert bool(torch.isfinite(pipe.generate(**dict(kw, guide_scale=(3.0, 4.0)))).all())
 
 
+@pytest.mark.parametrize("flat", [False, True])
+def test_diffusers_layout_loads_as_jax(tmp_path, flat):
+    """The bundle's low-noise expert as `wan_model/` (or the subfolder
+    itself) holding two f32 safetensors shards, plus the three companion
+    `.bin` files (their keys with and without the companion's prefix):
+    the same params as JAX's load_expert, and as the model.pt it came from."""
+    from safetensors.torch import save_file
+
+    wan, comp = split_unified_state_dict(load_torch_file(BUNDLE / "low_noise_model" / "model.pt"))
+    sub = tmp_path / "low_noise_model"
+    wan_dir = sub if flat else sub / "wan_model"
+    wan_dir.mkdir(parents=True)
+    names = sorted(wan)
+    for i, part in enumerate((names[::2], names[1::2])):
+        save_file({k: wan[k].float().contiguous() for k in part},
+                  str(wan_dir / f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors"))
+    (wan_dir / "config.json").write_text("{}")
+    for j, name in enumerate(COMPANIONS):
+        part = {k: v for k, v in comp.items() if k.startswith(name + ".")}
+        assert part, name
+        if j % 2:
+            part = {k[len(name) + 1:]: v for k, v in part.items()}
+        torch.save(part, sub / f"{name}_pytorch_model.bin")
+    jcfg, cfg = _cfgs()
+    got = load_expert(cfg, str(tmp_path), "low_noise_model", torch.float32, device="cpu")
+    _assert_expert_equal(jax_load_expert(jcfg, str(tmp_path), "low_noise_model", jnp.float32),
+                         got)
+    pt = load_expert(cfg, str(BUNDLE), "low_noise_model", torch.float32, device="cpu")
+    for (k, a), (_, b) in zip(got.wan.named_parameters(), pt.wan.named_parameters()):
+        assert torch.equal(a, b), k
+
+
 def test_diffusers_layout_raises(tmp_path):
+    """A diffusers-layout subfolder without weights (config.json only)
+    raises, naming the formats it looked for."""
     (tmp_path / "low_noise_model").mkdir()
     (tmp_path / "low_noise_model" / "config.json").write_text("{}")
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="diffusers layout"):
+    with pytest.raises(FileNotFoundError, match="safetensors"):
         load_expert(cfg, str(tmp_path), "low_noise_model", device="cpu")

@@ -2,12 +2,15 @@
 T2V-1.3B, `--sp_size 4 --sp_mode ring --ring_impl pallas`, f32 residual. Rank
 0 alone writes the frames, which match the single-process CLI's within 2
 uint8 levels (measured: equal; bf16 weights, so a bf16 rounding may flip
-with the summation order of the sharded attention). Also the
+with the summation order of the sharded attention). Both runs hide Pillow
+and imageio, so `save_video` writes the exact frames as `<id>.npz` (its
+last resort) rather than as JPEG frames in an AVI. Also the
 flags that raise: the hybrid mode (its Ulysses axis is 'fsdp'), --tp_size,
 --fsdp_size, and --sp_size without the processes.
 """
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -28,13 +31,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def test_sp_cli_matches_single_process(tmp_path):
+def test_sp_cli_matches_single_process(tmp_path, monkeypatch):
     rows = tmp_path / "in.jsonl"
     rows.write_text(json.dumps({"sample_id": "a", "prompt": "a red kite"}) + "\n")
     sp_dir, ref_dir = tmp_path / "sp", tmp_path / "ref"
     spawn(cli_worker, tmp_path, ARGS + ["--input", str(rows), "--output_dir", str(sp_dir),
                                         "--sp_size", str(WORLD), "--sp_mode", "ring",
                                         "--ring_impl", "pallas"])
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "imageio", None)
     assert generate.main(ARGS + ["--input", str(rows), "--output_dir", str(ref_dir)]) == 0
     assert sorted(p.name for p in sp_dir.iterdir()) == ["a.npz"]
     got, ref = (np.load(d / "a.npz")["frames"].astype(np.int32) for d in (sp_dir, ref_dir))

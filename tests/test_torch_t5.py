@@ -131,5 +131,5 @@ def test_encoder_model_strips_to_mask_lengths():
     ids2 = ids.clone()
     ids2[0, 5:] = 0
     torch.testing.assert_close(enc(ids2, mask2)[0, :5], full[0, :5])
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+    with pytest.raises(RuntimeError, match="tokenizer"):  # none attached
         T5EncoderModel(enc)(["a prompt"])

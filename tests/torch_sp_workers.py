@@ -8,6 +8,7 @@
 without JAX.
 """
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -155,7 +156,9 @@ def sp_dit_worker(rank, tmp, cfg_kw, pipe_kw, gen_kw):
 
 def cli_worker(rank, tmp, argv):
     """The generate CLI on the group this rank already joined (`--sp_size`
-    equals the world); rank 0 writes the outputs."""
+    equals the world); rank 0 writes the outputs. Pillow and imageio are
+    hidden, so `save_video` writes the exact frames as `.npz`."""
     from omnivideo_tpu_torch.tools import generate
 
+    sys.modules.update(PIL=None, imageio=None)
     generate.main(list(argv))
