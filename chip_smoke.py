@@ -6,6 +6,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py profile    # device time by kernel class, one DiT forward
     python3 chip_smoke.py sp         # the sp phase alone (VLM features seeded): on a
                                      # machine with 2+ cards its multi-card half runs
+    python3 chip_smoke.py sp_train   # the train phase (its reference), then sp_train:
+                                     # with 2+ cards its multi-card part runs
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -46,7 +48,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
-            the kernels' launch counts asserted;
+            the kernels' launch counts asserted; the decode again with
+            vae_dtype=bf16, timed beside the f32 one, its frames within
+            VAE_BF16_MAX_LEVELS (and on average VAE_BF16_MEAN_LEVELS) uint8
+            levels of the f32 ones;
   load      the e2e phase's expert written in the diffusers layout
             (safetensors by write_safetensors, companions as .bin) and read
             back by load_expert onto the card: every tensor bit-equal, load
@@ -103,7 +108,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             master params, batch 1 at 832x480x81 (32,760 tokens, the mixed
             context cut to 6,272), remat, AdamW: 3 steps on one batch and one
             set of draws (the loss must fall), launch counts per step
-            asserted, train_step_s and peak memory, then one profiled step.
+            asserted, train_step_s and peak memory, then one profiled step;
+  sp_train  training across cards: (a) the ring backward (rows 4 and 5 per
+            ring step) over 4 in-process shards of [1, 8190, 12, 128] (no
+            padding, 8 pad keys, the last shard all padding) against
+            flash_bwd over the whole sequence and against the same loop
+            with flash_bwd_plain, per head within 1e-2 of its norm, and the
+            block and token layouts at [1, 4096, 32, 128] against the plain
+            loop, launches per ring backward asserted, ms per rank; (b) on
+            this card in a NCCL group of world 1, the train phase's step
+            under SPConfig ring, Ulysses and shard_params (FSDP2), 2 steps
+            each, loss within 2e-3 and grad_norm within 1e-2 of the train
+            phase's single-card step, every leaf's step-1 grad within 1e-2 of
+            its norm (step 2's reported), launches per step,
+            train_step_s and peak memory; (c) with 2+ cards, min(4, count)
+            spawned NCCL ranks run sp ring, sp Ulysses, fsdp, tp (where the
+            heads and FFN divide) and on 4 cards dp2 x fsdp2 the same way,
+            then generate under fsdp and tp against the non-SP generate
+            (SP_TOL of scale); with one card a line says why (c) did not run.
 The line before the last is the kernel summary; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -129,6 +151,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.tensor import DTensor
 
 from omnivideo_tpu_torch.configs.base import (
     T2V_1_3B,
@@ -181,8 +204,10 @@ from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
     ring_flash_attention_shards,
+    ring_flash_backward_shards,
     ring_step,
     ring_step_plain,
+    step_lens_for,
     stripe_order,
     zigzag_order,
 )
@@ -190,8 +215,9 @@ from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain, row_tiles
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from omnivideo_tpu_torch.parallel.mesh import create_mesh
+from omnivideo_tpu_torch.parallel.sharding import shard_params
 from omnivideo_tpu_torch.pipelines.loading import load_expert
-from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+from omnivideo_tpu_torch.pipelines.x2x import ExpertParams, OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
 from omnivideo_tpu_torch.tools import generate as generate_cli
 from omnivideo_tpu_torch.training.trainer import (
@@ -229,6 +255,8 @@ ENCODE_TOL = 1e-3  # VAE encode, card vs CPU, of the latent scale: f32 convoluti
 # summed in other orders by cuDNN and oneDNN
 A14B_STEPS = 3  # at the A14B shift 12: t = 999, 959 (high-noise expert), 856 (low-noise)
 T5_IDS = 512  # umT5's text_len: the prompt and the negative are encoded at full length
+VAE_BF16_MAX_LEVELS = 8  # uint8 frames, vae_dtype=bf16 vs f32: the decoders differ only in z's
+VAE_BF16_MEAN_LEVELS = 0.5  # rounding to bf16 (the f32 scale promotes it back, as in JAX)
 CTX_LEN = 512  # PadSpec text_len and vlm_len
 STEPS = 2
 FRAMES = 81
@@ -1066,11 +1094,24 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     _reset_launches()
-    frames = pipe.generate(
+    latents = pipe.generate(
         precomputed_context=ctx, precomputed_context_null=torch.zeros_like(ctx),
         ar_vision_input=ar_vision, size=SIZE, frame_num=FRAMES, sampling_steps=STEPS,
-        guide_scale=5.0, output_uint8=True, generator=gen)
+        guide_scale=5.0, decode=False, generator=gen)
     launches = _launches()
+    timings = dict(pipe.timings)
+    frames = pipe.decode(latents, output_uint8=True)
+    timings["decode_s"] = pipe.timings["decode_s"]
+    frames_bf16 = pipe.decode(latents, output_uint8=True, vae_dtype=torch.bfloat16)
+    timings["decode_s_bf16"] = pipe.timings["decode_s"]
+    diff = (frames_bf16.int() - frames.int()).abs()
+    vae_bf16 = {"max_levels": int(diff.max()), "mean_levels": float(diff.float().mean()),
+                "tolerance_max_levels": VAE_BF16_MAX_LEVELS,
+                "tolerance_mean_levels": VAE_BF16_MEAN_LEVELS}
+    del frames_bf16, diff
+    if (vae_bf16["max_levels"] > VAE_BF16_MAX_LEVELS
+            or vae_bf16["mean_levels"] > VAE_BF16_MEAN_LEVELS):
+        raise AssertionError(f"e2e: the bf16 VAE decode strays from the f32 one: {vae_bf16}")
     expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS, "flash_causal": 0, "flash_d72": 0,
               "fused_adaln": 0, "ring_step": 0}
     shape = tuple(frames.shape)
@@ -1079,8 +1120,8 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
     rec = {"phase": "e2e", "config": "T2V_1_3B", "layers": T2V_1_3B.dit.num_layers,
            "dim": T2V_1_3B.dit.dim, "seq_len": SEQ, "size": list(SIZE), "frames": FRAMES,
            "steps": STEPS, "residual_dtype": "bfloat16", "init_s": t_init,
-           "ar_vision_input": list(ar_vision.shape),
-           **{k: v for k, v in pipe.timings.items()}, "launches": launches,
+           "ar_vision_input": list(ar_vision.shape), **timings, "vae_bf16_vs_f32": vae_bf16,
+           "launches": launches,
            "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
@@ -1940,29 +1981,75 @@ def _profile(fn) -> dict:
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
-def phase_train() -> dict:
-    """make_unified_train_step on T2V_1_3B at full width and depth."""
-    gc.collect()
-    torch.cuda.empty_cache()
+def _train_setup(device="cuda"):
+    """The train phase's T2V_1_3B model, config and data, from fixed seeds:
+    (cfg, tc, params, batch, draws)."""
     cfg = T2V_1_3B
     # the JAX CLI's learning rate, 3e-6: Adam's first step moves every param by ~lr,
     # and 1e-4 on all 1.43B params overshoots (loss 2.87 → 17.6 on this batch)
     tc = TrainConfig(warmup_steps=0, total_steps=1000, remat=True)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_unified_params(cfg, seed=0, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_unified_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
     with torch.no_grad():  # init zero-fills the head: every block gradient would be 0
         params.wan.head.head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
     lat = (1, cfg.dit.in_dim, GRID[0], GRID[1] * 2, GRID[2] * 2)
-    batch = {"latents": torch.randn(lat, generator=gen, device="cuda"),
-             "context": torch.randn(1, CTX_LEN, cfg.dit.text_dim, generator=gen, device="cuda"),
-             "vlm": torch.randn(1, CTX_LEN, cfg.vlm_in_dim, generator=gen, device="cuda"),
-             "visual_emb": torch.randn(lat, generator=gen, device="cuda")}
-    draws = sample_draws(gen, lat, tc)
+    batch = {"latents": torch.randn(lat, generator=gen, device=device),
+             "context": torch.randn(1, CTX_LEN, cfg.dit.text_dim, generator=gen, device=device),
+             "vlm": torch.randn(1, CTX_LEN, cfg.vlm_in_dim, generator=gen, device=device),
+             "visual_emb": torch.randn(lat, generator=gen, device=device)}
+    return cfg, tc, params, batch, sample_draws(gen, lat, tc)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+class GradSpy:
+    """Wraps tx.update: per call, the grads the optimizer gets, either kept
+    on the host ("capture") or held leaf by leaf to captured ones
+    ("compare": ‖g − g_ref‖/‖g_ref‖). `seconds` is its own time, which the
+    step times leave out."""
+
+    def __init__(self, tx, ref=None, keep: int = 2):
+        self.update, self.ref, self.keep = tx.update, ref, keep
+        self.grads, self.worst, self.seconds, self.calls = [], [], 0.0, 0
+        tx.update = self
+
+    def __call__(self, model, grads, opt_state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.calls < (self.keep if self.ref is None else min(self.keep, len(self.ref))):
+            if self.ref is None:
+                self.grads.append({n: _full(g).detach().to("cpu", copy=True)
+                                   for n, g in grads.items()})
+            else:
+                worst = (0.0, "")
+                for n, g in grads.items():
+                    r = self.ref[self.calls][n].to(g.device, non_blocking=True)
+                    g = _full(g).float()
+                    rel = float((g - r).norm() / r.norm().clamp_min(1e-30))
+                    worst = max(worst, (rel, n))
+                self.worst.append(worst)
+        self.calls += 1
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return self.update(model, grads, opt_state)
+
+
+def phase_train() -> dict:
+    """make_unified_train_step on T2V_1_3B at full width and depth; the
+    record keeps the first two steps' grads ("ref_grads", on the host) for
+    the sp_train phase."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, tc, params, batch, draws = _train_setup()
+    lat = tuple(batch["latents"].shape)
     tx = make_optimizer(tc, params)
     state = init_train_state(params, tx)
     step = make_unified_train_step(cfg, tc, tx)
+    spy = GradSpy(tx)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
@@ -1971,11 +2058,11 @@ def phase_train() -> dict:
         _reset_launches()
         _reset_train_launches()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, spy_s = time.perf_counter(), spy.seconds
         state, m = step(state, batch, draws)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
+        step_s.append(time.perf_counter() - t0 - (spy.seconds - spy_s))
         rows.append((loss, gnorm))
         per_step.append({**_train_launches(), **_launches()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2001,7 +2088,302 @@ def phase_train() -> dict:
     del state, params, step, batch
     gc.collect()
     torch.cuda.empty_cache()
+    rec["ref"] = {"loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
+                  "grads": spy.grads}
     return rec
+
+
+SP_TRAIN_STEPS = 2
+SP_LOSS_TOL = 2e-3  # rel, a mesh step's loss vs the single-card step's: the same kernels on
+# the same tokens, sums over ranks in another order (the tiny train's card-vs-CPU limit)
+SP_GNORM_TOL = 1e-2  # rel, grad_norm; and per leaf ‖g − g_ref‖/‖g_ref‖ (the flash_train
+# limit: the ring's backward recomputes p from its own LSE, bf16 p and ds at other points)
+
+
+def _ring_bwd_case(name, q, k, v, do, n, kv=None, causal=None, reps=3) -> dict:
+    """The ring backward over n in-process shards (ring_flash_backward_shards,
+    rows 4 and 5 per step) from the ring forward's outputs and LSEs, held
+    per (batch row, head) to the same loop with flash_bwd_plain and, for
+    the non-causal cases, to flash_bwd over the whole sequence (row 3b's
+    LSE); row 4 and row 5 launches per ring backward asserted."""
+    B, L, N, D = q.shape
+    qs, ks, vs, dos = (_shards(t, n) for t in (q, k, v, do))
+    fwd = ring_flash_attention_shards(qs, ks, vs, kv_lens=kv, causal=causal, return_lse=True)
+    outs, lses = [f[0] for f in fwd], [f[1] for f in fwd]
+    _reset_train_launches()
+    grads = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, kv, causal)
+    torch.cuda.synchronize()
+    launches = _train_launches()
+    steps = {None: n * n, "block": n * (n + 1) // 2, "token": n * (n - 1) // 2}[causal]
+    plain = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, kv, causal,
+                                       bwd=flash_bwd_plain)
+    cat = lambda gs, i: torch.cat([g[i] for g in gs], 1)  # noqa: E731
+    err_plain = {t: float(_grad_rel(cat(grads, i), cat(plain, i)).max())
+                 for i, t in enumerate(("dq", "dk", "dv"))}
+    err_whole = None
+    if causal is None:
+        o_w, lse_w = flash_fwd_lse(q, k, v, kv)
+        whole = flash_bwd(q, k, v, do, lse_w, flash_delta(do, o_w), kv)
+        err_whole = {t: float(_grad_rel(cat(grads, i), whole[i]).max())
+                     for i, t in enumerate(("dq", "dk", "dv"))}
+        del o_w, lse_w, whole
+    rec = {"phase": "sp_train", "part": "ring_backward", "case": name, "q": [B, L, N, D],
+           "shards": n, "kv_lens": kv.tolist() if kv is not None else None, "causal": causal,
+           "launches": {k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
+           "launches_expected": steps, "max_rel_err_per_head_vs_plain": err_plain,
+           "max_rel_err_per_head_vs_whole": err_whole, "tolerance": GRAD_TOL,
+           "max_abs_err": max(float((cat(grads, i) - cat(plain, i)).abs().max())
+                              for i in range(3))}
+    bad = (max(err_plain.values()) > GRAD_TOL
+           or (err_whole is not None and max(err_whole.values()) > GRAD_TOL)
+           or launches["flash_bwd_dq"] != steps or launches["flash_bwd_dkv"] != steps
+           or not all(torch.isfinite(g).all() for gs in grads for g in gs))
+    if bad:
+        raise AssertionError(f"sp_train ring backward {name}: {rec}")
+    del plain
+    rec["ms_per_rank"] = cuda_ms(lambda: ring_flash_backward_shards(
+        qs, ks, vs, outs, lses, dos, kv, causal), reps) / n
+    rec["plain_ms_per_rank"] = cuda_ms(lambda: ring_flash_backward_shards(
+        qs, ks, vs, outs, lses, dos, kv, causal, bwd=flash_bwd_plain), 1, 0) / n
+    # bound per rank from this run's data: the kernels' steps (the token mode's own-shard
+    # step is plain torch), each operand read once per step
+    Ls = L // n
+    pairs = 0
+    for r in range(n):
+        for s in range(n):
+            src = (r - s) % n
+            if (causal == "block" and src > r) or (causal == "token" and src >= r):
+                continue
+            live = Ls if kv is None else int(step_lens_for(kv, src, Ls, n).sum()) // B
+            pairs += B * Ls * live
+    row = N * D
+    stat = B * N * Ls * 4
+    nbytes = steps * ((4 * B * Ls) * row * 2 + 2 * stat + 3 * B * Ls * row * 4)
+    t_ops = 14 * N * D * pairs / BF16_FLOPS * 1e3 / n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3 / n
+    rec.update(bound_ms_per_rank=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit(rec)
+    del grads
+    return rec
+
+
+def _sp_train_ring_backward(gen: torch.Generator) -> dict:
+    """(a): the ring backward at a 4-card run's per-rank shapes."""
+    recs = {}
+
+    def dit(name, L, lens):
+        q, k = _normed(1, L, 12, 128, gen), _normed(1, L, 12, 128, gen)
+        v = torch.randn(1, L, 12, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(1, L, 12, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        kv = None
+        if lens is not None:  # padded query rows' outputs are dropped: no grad reaches them
+            kv = torch.tensor([lens], dtype=torch.int32, device="cuda")
+            do[:, lens:] = 0
+        recs[name] = _ring_bwd_case(name, q, k, v, do, RING_N, kv)
+
+    dit("sp4", SEQ, None)  # 4 shards of 8,190
+    dit("sp4_pad8", 32768, 32760)  # the last shard ends in 8 pad keys
+    dit("sp4_empty_shard", 32768, 24576)  # the last shard is all padding
+    B, L, N, D = CAUSAL_Q
+    q, k = _normed(B, L, N, D, gen), _normed(B, L, N, D, gen)
+    v = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    for causal in ("block", "token"):
+        recs[causal] = _ring_bwd_case(causal, q, k, v, do, RING_N, causal=causal)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _mode_mesh(mode: str, world: int, device: str):
+    """(mesh, SPConfig or None, shard the params?) of a train/generate mode."""
+    if mode in ("ring", "ulysses"):
+        mesh = create_mesh(sp=world, device=device)
+        return mesh, SPConfig(mesh, mode), False
+    if mode == "fsdp":
+        return create_mesh(fsdp=world, device=device), None, True
+    if mode == "tp":
+        mesh = create_mesh(tp=world, device=device)
+        return mesh, SPConfig(mesh, "tp"), True
+    if mode == "dp2_fsdp2":
+        return create_mesh(dp=2, fsdp=world // 2, device=device), None, True
+    raise ValueError(mode)
+
+
+def _train_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
+    """SP_TRAIN_STEPS steps of the train phase's step under `mode` on a
+    `world`-rank mesh, each held to the single-card step's loss and
+    grad_norm, and step 1 to its per-leaf grads (`ref`); under dp2_fsdp2
+    the global batch is the train batch twice with the same draws, so its
+    numbers are one row's."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tc, params, batch, draws = _train_setup(device)
+    mesh, sp, shard = _mode_mesh(mode, world, device)
+    if shard:
+        shard_params(params, mesh)
+    tx = make_optimizer(tc, params)
+    state = init_train_state(params, tx)
+    step = make_unified_train_step(cfg, tc, tx, mesh=mesh, sp=sp)
+    spy = GradSpy(tx, ref=ref["grads"], keep=SP_TRAIN_STEPS)
+    if mode == "dp2_fsdp2":
+        draws = tuple(None if d is None else torch.cat([d, d]) for d in draws)
+    rows, step_s, per_step = [], [], []
+    for _ in range(SP_TRAIN_STEPS):
+        _reset_launches()
+        _reset_train_launches()
+        torch.cuda.synchronize()
+        t0, spy_s = time.perf_counter(), spy.seconds
+        state, m = step(state, batch, draws)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0 - (spy.seconds - spy_s))
+        rows.append((loss, gnorm))
+        per_step.append({**_train_launches(), **_launches()})
+    layers, n = cfg.dit.num_layers, world if mode == "ring" else 1
+    ring = mode == "ring"
+    expect = {"flash_fwd_lse": (2 if ring else 4) * layers,
+              "flash_bwd_dq": (1 + n if ring else 2) * layers,
+              "flash_bwd_dkv": (1 + n if ring else 2) * layers,
+              "ring_step": 2 * n * layers if ring else 0,
+              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0}
+    rec = {"mode": mode, "world": world, "loss": [r[0] for r in rows],
+           "grad_norm": [r[1] for r in rows], "step_s": step_s, "train_step_s": step_s[-1],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": per_step, "launches_expected": expect,
+           "loss_rel_err": [abs(r[0] / ref["loss"][i] - 1) for i, r in enumerate(rows)],
+           "grad_norm_rel_err": [abs(r[1] / ref["grad_norm"][i] - 1) for i, r in enumerate(rows)],
+           "worst_leaf_grad_rel_err": spy.worst}
+    # per-leaf grads are held at step 1, from the same params: Adam's first update moves
+    # each element by ~lr whatever its grad's size, so an element whose grad is nearly 0
+    # (the self-attention k bias: the softmax all but ignores it) may step either way
+    # under a last-bit difference, and step 2's leaf then differs by more (reported)
+    rec["ok"] = (max(rec["loss_rel_err"]) <= SP_LOSS_TOL
+                 and max(rec["grad_norm_rel_err"]) <= SP_GNORM_TOL
+                 and spy.worst[0][0] <= SP_GNORM_TOL
+                 and all(p == expect for p in per_step))
+    del state, params, step, batch, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sp_train_rank(rank, world, port, tmp, modes, gen_modes):
+    """One rank of sp_train's multi-card part: the train modes on this card,
+    then the generate modes; rank 0 writes the records and latents."""
+    maybe_initialize_distributed(f"localhost:{port}", world, rank, device="cuda", local_rank=rank)
+    try:
+        ref = torch.load(Path(tmp) / "ref.pt", mmap=True)
+        recs = {m: _train_mode(m, world, ref) for m in modes}
+        lats = {}
+        if gen_modes:
+            base, ctx, _ = t2v_pipeline(T2V_1_3B, "cuda", with_vae=False)
+            features = torch.load(Path(tmp) / "features.pt").to(ctx.device)
+        for mode in gen_modes:
+            mesh, sp, shard = _mode_mesh(mode, world, "cuda")
+            wan = base.low_noise.wan  # a fresh copy of the seeded expert, to shard
+            expert = ExpertParams(wan=type(wan)(wan.cfg, wan.param_dtype, "cuda"),
+                                  companions=base.low_noise.companions)
+            expert.wan.load_state_dict(wan.state_dict())
+            pipe = OmniVideoX2XUnified(T2V_1_3B, expert, residual_dtype="bfloat16",
+                                       qk_impl="unfused", sp=sp)
+            if shard:
+                pipe.shard(mesh)
+            _sp_generate(pipe, ctx, features, SIZE, FRAMES, steps=1)  # warm-up
+            lat, step_s, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
+            lats[mode] = lat.cpu()
+            recs["generate_" + mode] = {"denoise_step_s": step_s,
+                                        "max_memory_allocated_gb":
+                                            torch.cuda.max_memory_allocated() / 1e9}
+            del pipe, expert
+            gc.collect()
+            torch.cuda.empty_cache()
+        if rank == 0:
+            torch.save(lats, Path(tmp) / "latents.pt")
+            (Path(tmp) / "records.json").write_text(json.dumps(recs))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_train_multi_card(world: int, ref: dict) -> dict:
+    """(c): spawn `world` NCCL ranks, one card each: the train modes (sp
+    ring, sp Ulysses, fsdp, tp where the heads and FFN divide, dp2×fsdp2 on
+    4 cards) held to the single-card step, then generate under fsdp and tp
+    held to the non-SP generate (SP_TOL of scale)."""
+    cfg = T2V_1_3B
+    modes = ["ring", "ulysses", "fsdp"]
+    if cfg.dit.num_heads % world == 0 and cfg.dit.ffn_dim % world == 0:
+        modes.append("tp")
+    if world == 4:
+        modes.append("dp2_fsdp2")
+    gen_modes = ["fsdp"] + (["tp"] if "tp" in modes else [])
+    pipe, ctx, gen = t2v_pipeline(cfg, "cuda", with_vae=False, qk_impl="unfused")
+    features = torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen, device="cuda")
+    lat_ref, _, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
+    lat_ref = lat_ref.float().cpu()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_train"))
+    try:
+        torch.save(features.cpu(), tmp / "features.pt")
+        torch.save(dict(ref, grads=ref["grads"][:1]), tmp / "ref.pt")  # leaves: step 1
+        mp.spawn(_sp_train_rank, args=(world, _free_port(), str(tmp), modes, gen_modes),
+                 nprocs=world)
+        lats = torch.load(tmp / "latents.pt")
+        recs = json.loads((tmp / "records.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for mode in gen_modes:
+        rec = recs["generate_" + mode]
+        rec["latent_rel_err"] = float((lats[mode] - lat_ref).abs().max() / lat_ref.abs().max())
+        rec["ok"] = rec["latent_rel_err"] <= SP_TOL
+    return recs
+
+
+def phase_sp_train(ref: dict, gen: torch.Generator) -> dict:
+    """Training across cards. (a) the ring backward over 4 in-process shards
+    of [1, 8190, 12, 128] (no padding, 8 pad keys, the last shard all
+    padding) and the block and token layouts at [1, 4096, 32, 128]; (b) on
+    this card, a NCCL group of world 1: the train phase's step under the
+    ring, Ulysses and shard_params (FSDP2), two steps each, held to the
+    single-card step (`ref`: phase_train's loss, grad_norm and grads of its
+    first two steps); (c) with 2+ cards, min(4, count) spawned ranks."""
+    ring_bwd = _sp_train_ring_backward(gen)
+    recs = {}
+    maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        for mode in ("ring", "ulysses", "fsdp"):
+            recs[mode] = _train_mode(mode, 1, ref)
+    finally:
+        dist.destroy_process_group()
+    count = torch.cuda.device_count()
+    multi = None
+    if count >= 2:
+        multi = _sp_train_multi_card(min(4, count), ref)
+    else:
+        print(f"sp_train: the multi-card part did not run: this machine has {count} CUDA device "
+              "(it needs 2 or more, one per rank)", flush=True)
+    rec = {"phase": "sp_train", "config": "T2V_1_3B", "seq_len": SEQ, "steps": SP_TRAIN_STEPS,
+           "tolerance": {"loss_rel": SP_LOSS_TOL, "grad_norm_rel": SP_GNORM_TOL,
+                         "leaf_grad_rel": SP_GNORM_TOL},
+           "single_card": {"loss": ref["loss"][:SP_TRAIN_STEPS],
+                           "grad_norm": ref["grad_norm"][:SP_TRAIN_STEPS]},
+           "world1": recs, "multi_card": multi}
+    emit(rec)
+    bad = [m for m, r in {**recs, **(multi or {})}.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"sp_train: modes {bad} failed: {rec}")
+    return {"ring_backward": ring_bwd, **rec}
+
+
+def _sp_train_alone() -> int:
+    """`chip_smoke.py sp_train`: the train phase for its reference, then sp_train."""
+    phase_device()
+    ref = phase_train().pop("ref")
+    phase_sp_train(ref, torch.Generator(device="cuda").manual_seed(0))
+    return 0
 
 
 def _kernel_class(name: str) -> str:
@@ -2058,8 +2440,11 @@ def main(argv) -> int:
         phase_sp(pipe, ctx, torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size,
                                         generator=gen, device="cuda"))
         return 0
+    if argv[:1] == ["sp_train"]:
+        return _sp_train_alone()
     if argv:
-        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile' or 'sp')")
+        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp' or "
+                         "'sp_train')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -2094,6 +2479,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     a14b = phase_a14b(features)
     del features
     train = phase_train()
+    phase_sp_train(train.pop("ref"), gen)
     launches = {"qk_prep": e2e["qk_prep"], "flash_fwd": e2e["flash_fwd"],
                 "flash_causal": vlm["launches"]["flash_causal"],
                 "flash_d72": vlm["launches"]["flash_d72"],

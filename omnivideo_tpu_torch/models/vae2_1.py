@@ -230,12 +230,15 @@ def decoder_chunk(params, cfg: VAEConfig, z, cache: Dict[str, Any], first: bool)
 
 @torch.inference_mode()
 def vae_encode(params, cfg: VAEConfig, videos: torch.Tensor,
-               scale: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+               scale: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Video [B, 3, T, H, W] in [-1, 1], T = 1+4k → the latent mean
-    [B, z, 1+k, H/8, W/8] f32, normalized with (mean, 1/std) `scale`."""
+    [B, z, 1+k, H/8, W/8] f32, normalized with (mean, 1/std) `scale`. The
+    convolutions run in `dtype` (norms and attention logits in f32), as
+    JAX's `dtype`."""
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False, allow_tf32=False):
-        x = videos.float()
+        x = videos.to(dtype)
         T = x.shape[2]
         if (T - 1) % 4:
             raise ValueError(f"vae_encode: frame count {T} is not 4n+1")
@@ -256,11 +259,16 @@ def vae_encode(params, cfg: VAEConfig, videos: torch.Tensor,
 
 @torch.inference_mode()
 def vae_decode(params, cfg: VAEConfig, z: torch.Tensor,
-               scale: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """Latents [B, z, t, h, w] → video [B, 3, 1+4(t−1), 8h, 8w] f32 in [-1, 1]."""
+               scale: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Latents [B, z, t, h, w] → video [B, 3, 1+4(t−1), 8h, 8w] f32 in [-1, 1].
+    z is rounded to `dtype` first, as JAX's `dtype`; the un-normalization
+    by the f32 `scale` then promotes it to f32, in torch as in JAX, so with
+    a scale the decoder runs in f32 whatever `dtype` (without one, in
+    `dtype`)."""
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                     deterministic=False, allow_tf32=False):
-        z = z.float()
+        z = z.to(dtype)
         if scale is not None:
             mean, inv_std = scale
             z = z / inv_std.reshape(1, -1, 1, 1, 1) + mean.reshape(1, -1, 1, 1, 1)
@@ -420,8 +428,8 @@ class Wan21VAE:
             mean=torch.tensor(WAN21_LATENT_MEAN[: cfg.z_dim], device=dev),
             inv_std=torch.tensor(1.0 / WAN21_LATENT_STD[: cfg.z_dim], device=dev))
 
-    def encode(self, videos: torch.Tensor) -> torch.Tensor:
-        return vae_encode(self.params, self.cfg, videos, (self.mean, self.inv_std))
+    def encode(self, videos: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return vae_encode(self.params, self.cfg, videos, (self.mean, self.inv_std), dtype)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return vae_decode(self.params, self.cfg, z, (self.mean, self.inv_std))
+    def decode(self, z: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return vae_decode(self.params, self.cfg, z, (self.mean, self.inv_std), dtype)

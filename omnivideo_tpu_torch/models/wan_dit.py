@@ -40,8 +40,15 @@ positions) through the blocks; self-attention goes through Ulysses, the
 ring or the hybrid of both (`parallel/`); cross-attention takes the rank's
 q shard against the whole context with no communication; the head's output
 shards are all-gathered, the pad dropped and the result unpatchified on
-every rank. Under SP `qk_impl` and `ew_impl` are "unfused", as JAX forces.
-Left out: the i2v k_img/img_emb branch, tensor parallelism, LoRA.
+every rank (`SPConfig.gather`, differentiable: its backward hands each
+rank its own slice of the grad, since every rank computes the same loss
+from the gathered output). `SPConfig(mode="tp")` is tensor parallelism
+instead: the sequence stays whole, the blocks' weights are the Megatron
+split of parallel/sharding.py (`dense` runs them through
+parallel/tp.py's `tp_dense`), q and k are RMS-normed over the whole dim
+across the 'tensor' ranks, and each rank attends its N/tp heads. Under SP
+and TP `qk_impl` and `ew_impl` are "unfused", as JAX forces. Left out: the
+i2v k_img/img_emb branch, LoRA.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import WanDiTConfig
@@ -66,14 +74,18 @@ from ..ops.norms import layer_norm, rms_norm
 from ..ops.qk_prep import qk_prep
 from ..ops.rope import apply_rope, rope_3d_tables
 from ..parallel.ring import RING_IMPLS, hybrid_attention, ring_attention
+from ..parallel.tp import TP_AXIS, tp_dense, tp_head_attention, tp_rms_norm
 from ..parallel.ulysses import ulysses_attention
 
 
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ Wᵀ, then + b in the product's dtype (two roundings, as the JAX
-    `_dense`). Mixed dtypes promote as in JAX; `dtype` casts both first."""
+    `_dense`). Mixed dtypes promote as in JAX; `dtype` casts both first. A
+    tensor-parallel weight (a DTensor) runs through `tp_dense`."""
     w = lin.weight
     dt = dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
+    if isinstance(w, DTensor):
+        return tp_dense(lin, x, dt)
     y = F.linear(x.to(dt), w.to(dt))
     return y + lin.bias.to(dt)
 
@@ -118,7 +130,23 @@ QK_IMPLS = ("kernel", "unfused")
 EW_IMPLS = ("kernel", "unfused")
 
 
-SP_MODES = ("ulysses", "ring", "hybrid")
+SP_MODES = ("ulysses", "ring", "hybrid", "tp")
+
+
+class _GatherSeq(torch.autograd.Function):
+    """all_gather along dim 1 in rank order; backward: this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        ctx.rank, ctx.n = dist.get_rank(group), n
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, 1)[ctx.rank], None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,20 +157,19 @@ class SPConfig:
     (all-to-all head scatter over `seq_axis`), "ring" (K/V rotation over
     `seq_axis`, `ring_impl` "ppermute" or "pallas": JAX's two names, both
     running the ring-step kernel with each transfer posted before the
-    launch) or "hybrid" (Ulysses over `ulysses_axis` inside, the
-    ring over `seq_axis` outside). Rank (u, r) of the hybrid holds token
-    shard u·n_seq + r."""
+    launch), "hybrid" (Ulysses over `ulysses_axis` inside, the
+    ring over `seq_axis` outside; rank (u, r) holds token shard u·n_seq +
+    r) or "tp" (no token shards: heads over `tp_axis`, the weights split by
+    parallel/sharding.py `shard_params`; sp_size 1)."""
 
     mesh: Any
     mode: str = "ulysses"
     seq_axis: str = "seq"
     ulysses_axis: str = "fsdp"
     ring_impl: str = "ppermute"
+    tp_axis: str = TP_AXIS
 
     def __post_init__(self):
-        if self.mode == "tp":
-            raise NotImplementedError("SPConfig(mode='tp'): tensor parallelism is not ported; it "
-                                      "comes with the FSDP/TP slice (ROADMAP §1)")
         if self.mode not in SP_MODES:
             raise ValueError(f"sp mode {self.mode!r} not in {SP_MODES}")
         if self.ring_impl not in RING_IMPLS:
@@ -150,7 +177,14 @@ class SPConfig:
 
     def _axes(self) -> Tuple[str, ...]:
         """Mesh axes the token shards span, outer first."""
+        if self.mode == "tp":
+            return ()
         return (self.ulysses_axis, self.seq_axis) if self.mode == "hybrid" else (self.seq_axis,)
+
+    @property
+    def tp_group(self):
+        """The 'tensor' process group under mode "tp", else None."""
+        return self.mesh.get_group(self.tp_axis) if self.mode == "tp" else None
 
     @property
     def sp_size(self) -> int:
@@ -165,6 +199,9 @@ class SPConfig:
 
     def attention(self, q, k, v, kv_lens, assume_normalized: bool) -> torch.Tensor:
         """Self-attention of this rank's token shards; kv_lens is global."""
+        if self.mode == "tp":
+            return tp_head_attention(q, k, v, kv_lens=kv_lens,
+                                     assume_normalized=assume_normalized)
         seq = self.mesh.get_group(self.seq_axis)
         if self.mode == "ulysses":
             return ulysses_attention(q, k, v, seq, kv_lens=kv_lens,
@@ -175,12 +212,11 @@ class SPConfig:
                                 ring_impl=self.ring_impl, kv_lens=kv_lens)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, L/n, ...] shards → [B, L, ...] in shard order, on every rank."""
+        """[B, L/n, ...] shards → [B, L, ...] in shard order, on every rank.
+        Differentiable: the backward is this rank's slice of the grad (not a
+        sum over the ranks: each computes the same loss from the output)."""
         for a in reversed(self._axes()):  # inner axis first
-            g = self.mesh.get_group(a)
-            parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-            dist.all_gather(parts, x.contiguous(), group=g)
-            x = torch.cat(parts, 1)
+            x = _GatherSeq.apply(x, self.mesh.get_group(a))
         return x
 
 
@@ -252,9 +288,17 @@ class WanBlock(nn.Module):
         return flash_attention(q, k, v, kv_lens=kv_lens, assume_normalized=True,
                                qk_row_norms=(qn, kn))
 
+    def _norm(self, x: torch.Tensor, gain: torch.Tensor, tp) -> torch.Tensor:
+        """q/k RMS norm: over the local dim, or under TP (`tp`: the 'tensor'
+        group) over the whole dim with the local slice of the gain."""
+        if tp is None:
+            return rms_norm(x, gain, self.cfg.eps)
+        return tp_rms_norm(x, gain, self.cfg.eps, tp)
+
     def forward(self, x: torch.Tensor, aux: WanAux, qk_impl: str = "kernel",
                 ew_impl: str = "unfused") -> torch.Tensor:
         cfg = self.cfg
+        tp = aux.sp.tp_group if aux.sp is not None else None
         B, L, d = x.shape
         N, hd = cfg.num_heads, cfg.head_dim
         pdtype = self.self_attn.q.weight.dtype
@@ -283,16 +327,18 @@ class WanBlock(nn.Module):
                                  dense(sa.k, y), sa.norm_k.weight, True,
                                  dense(sa.v, y), aux.kv_lens)
         else:
-            q = rms_norm(dense(sa.q, y), sa.norm_q.weight, cfg.eps).view(B, L, N, hd)
-            k = rms_norm(dense(sa.k, y), sa.norm_k.weight, cfg.eps).view(B, L, N, hd)
-            v = dense(sa.v, y).view(B, L, N, hd)
+            q = self._norm(dense(sa.q, y), sa.norm_q.weight, tp)
+            n_loc = q.shape[-1] // hd  # N, or N/tp under TP
+            q = q.view(B, L, n_loc, hd)
+            k = self._norm(dense(sa.k, y), sa.norm_k.weight, tp).view(B, L, n_loc, hd)
+            v = dense(sa.v, y).view(B, L, n_loc, hd)
             q = apply_rope(q, aux.rope_cos, aux.rope_sin)
             k = apply_rope(k, aux.rope_cos, aux.rope_sin)
             if aux.sp is None:
                 o = attention(q, k, v, kv_lens=aux.kv_lens, assume_normalized=cfg.qk_norm)
             else:
                 o = aux.sp.attention(q, k, v, aux.kv_lens, cfg.qk_norm)
-        o = dense(sa.o, o.reshape(B, L, d))
+        o = dense(sa.o, o.reshape(B, L, -1))
 
         # --- cross attention over the full padded context
         if fused and self.norm3 is not None:
@@ -313,11 +359,13 @@ class WanBlock(nn.Module):
                                  dense(ca.k, ctx), ca.norm_k.weight, False,
                                  dense(ca.v, ctx), None)
         else:
-            q = rms_norm(dense(ca.q, xq), ca.norm_q.weight, cfg.eps).view(B, L, N, hd)
-            k = rms_norm(dense(ca.k, ctx), ca.norm_k.weight, cfg.eps).view(B, Lc, N, hd)
-            v = dense(ca.v, ctx).view(B, Lc, N, hd)
+            q = self._norm(dense(ca.q, xq), ca.norm_q.weight, tp)
+            n_loc = q.shape[-1] // hd
+            q = q.view(B, L, n_loc, hd)
+            k = self._norm(dense(ca.k, ctx), ca.norm_k.weight, tp).view(B, Lc, n_loc, hd)
+            v = dense(ca.v, ctx).view(B, Lc, n_loc, hd)
             o = attention(q, k, v, kv_lens=None, assume_normalized=cfg.qk_norm)
-        o = dense(ca.o, o.reshape(B, L, d))
+        o = dense(ca.o, o.reshape(B, L, -1))
 
         # --- ffn
         if fused:

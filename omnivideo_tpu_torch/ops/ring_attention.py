@@ -7,7 +7,7 @@ softmax state. `ring_step` launches the CUDA kernel `csrc/ring_step.cu` for
 CUDA tensors and updates the carry in place; for CPU tensors it returns the
 plain twin `ring_step_plain`'s new carry. Its launches are counted in
 `ring_step.launches`. On CUDA it raises under grad mode with an input that
-requires grad: the ring backward is not ported.
+requires grad: only `ring_flash_attention_trainable` calls it there.
 
 The carry, in the port's own terms: m and l are [B, N, Lq] f32 (no 128-lane
 broadcast), acc is [B, Lq, N, D] f32, packed like q. m is kept in log2
@@ -35,6 +35,22 @@ The transfer for step s + 1 is posted before step s's launch into a second
 K/V buffer and waited on after it. `ring_flash_attention_shards` computes
 what n ranks compute, in one process, over a list of shards: one card (or
 the CPU tests) can hold the kernel at the real per-rank shapes.
+
+The backward (`ring_flash_attention_trainable`, a torch.autograd.Function;
+JAX `ring_flash_attention_trainable`): the forward keeps the global LSE,
+and the backward runs n steps of the flash backward kernels (`flash_bwd`,
+rows 4 and 5) driven by that LSE and delta = rowsum(dO·O). dq accumulates
+here in f32; the visiting shard's dk/dv (f32) travel with its K/V and are
+home after the n-th transfer. Each K/V transfer is posted before the step's
+launch; each dk/dv transfer after it, and is waited on after the next
+step's launch. "block" skips the steps whose shard is invisible; "token"
+runs the own-shard step as the dense triangular backward in plain torch (as
+JAX's `_dense_causal_bwd_step`), skips the later shards and runs the kernels
+on the earlier ones. With `kv_lens` (non-causal only) each step's keys are
+`step_lens_for` the visiting shard, and a query row at or past its batch
+row's length gets LSE +1e9, so its p = exp(s − LSE) is 0: zero dq and no
+dk/dv share, as JAX's padded rows. `ring_flash_backward_shards` is the
+in-process twin of the backward, over lists of shards.
 """
 
 from __future__ import annotations
@@ -45,7 +61,7 @@ import torch
 import torch.distributed as dist
 
 from . import _kernels
-from .flash_attention import LN2, NEG_INF, PLAIN_LOGITS_BUDGET, _qscale
+from .flash_attention import LN2, NEG_INF, PLAIN_LOGITS_BUDGET, _qscale, flash_bwd, flash_delta
 
 CAUSAL_MODES = {None: 0, "block": 1, "token": 2, "stripe": 3, "zigzag": 4}
 Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -282,6 +298,203 @@ def ring_flash_attention_shard(
                 w.wait()
             kv = tuple(nxt)
     return ring_finish(*carry, q.dtype, return_lse)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+TRAINABLE_CAUSAL = (None, "block", "token")
+PAD_LSE = 1e9  # LSE of a padded query row: p = exp(s − 1e9) is 0
+
+
+def _row_positions(Lq: int, my: int, n: int, chunks: int, device) -> torch.Tensor:
+    """Global token position of each of this ring rank's Lq query rows: the
+    shard is `chunks` global chunks, chunk u·n + my for u < chunks."""
+    Lc = Lq // chunks
+    i = torch.arange(Lq, device=device)
+    return ((i // Lc) * n + my) * Lc + i % Lc
+
+
+def padded_lse(lse: torch.Tensor, kv_lens: Optional[torch.Tensor], my: int, n: int,
+               chunks: int = 1) -> torch.Tensor:
+    """lse [B, N, Lq] with the rows at or past their batch row's kv_lens set
+    to PAD_LSE (unchanged without kv_lens)."""
+    if kv_lens is None:
+        return lse
+    pos = _row_positions(lse.shape[2], my, n, chunks, lse.device)
+    pad = pos[None, :] >= kv_lens.to(lse.device)[:, None]  # [B, Lq]
+    return lse.masked_fill(pad[:, None, :], PAD_LSE)
+
+
+def dense_causal_bwd_step(q, k, v, do, lse, delta, scale: float):
+    """The own-shard step of the token-causal ring backward in plain torch
+    (JAX `_dense_causal_bwd_step`): p = exp(s − LSE) under the col <= row
+    triangle, f32 throughout; chunked over q rows. Returns f32 (dq, dk, dv)."""
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    cols = torch.arange(Lk, device=q.device)
+    chunk = max(1, PLAIN_LOGITS_BUDGET // max(1, B * N * Lk))
+    for i0 in range(0, Lq, chunk):
+        sl = slice(i0, i0 + chunk)
+        rows = torch.arange(i0, min(i0 + chunk, Lq), device=q.device)
+        s = torch.einsum("bind,bjnd->bnij", qf[:, sl], kf) * scale
+        p = torch.exp(s - lse[:, :, sl, None]).masked_fill(cols[None, :] > rows[:, None], 0.0)
+        dp = torch.einsum("bind,bjnd->bnij", dof[:, sl], vf)
+        ds = p * (dp - delta[:, :, sl, None])
+        dq[:, sl] = torch.einsum("bnij,bjnd->bind", ds, kf) * scale
+        dk += torch.einsum("bnij,bind->bjnd", ds, qf[:, sl]) * scale
+        dv += torch.einsum("bnij,bind->bjnd", p, dof[:, sl])
+    return dq, dk, dv
+
+
+def _bwd_step(q, k, v, do, lse, delta, lens, causal, my, src, scale, bwd):
+    """One backward step's (dq, dk, dv) f32, or None when the shard is invisible."""
+    if causal == "block" and src > my:
+        return None
+    if causal == "token":
+        if src > my:
+            return None
+        if src == my:
+            return dense_causal_bwd_step(q, k, v, do, lse, delta, scale)
+    return bwd(q, k, v, do, lse, delta, lens, scale)
+
+
+def _check_trainable(causal, kv_lens) -> None:
+    if causal not in TRAINABLE_CAUSAL:
+        raise ValueError(f"the ring backward takes causal in {TRAINABLE_CAUSAL}, got {causal!r} "
+                         "(stripe and zigzag are forward-only, as in JAX)")
+    if kv_lens is not None and causal is not None:
+        raise ValueError("the ring backward takes kv_lens on the non-causal path only (as JAX)")
+
+
+def ring_flash_backward_shards(
+    qs: Sequence[torch.Tensor],
+    ks: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    outs: Sequence[torch.Tensor],
+    lses: Sequence[torch.Tensor],
+    dos: Sequence[torch.Tensor],
+    kv_lens: Optional[torch.Tensor] = None,
+    causal: Optional[str] = None,
+    softmax_scale: Optional[float] = None,
+    bwd: Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = flash_bwd,
+) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """What n ranks' ring backward computes, in one process: shard r's
+    queries against every shard in ring order, from the forward's outputs
+    and global LSEs (`ring_flash_attention_shards(..., return_lse=True)`).
+    Returns the n (dq, dk, dv) f32 triples; dk/dv sum every rank's share."""
+    _check_trainable(causal, kv_lens)
+    n = len(qs)
+    D = qs[0].shape[-1]
+    scale = softmax_scale if softmax_scale is not None else D**-0.5
+    dqs = [torch.zeros(q.shape, dtype=torch.float32, device=q.device) for q in qs]
+    dks = [torch.zeros(k.shape, dtype=torch.float32, device=k.device) for k in ks]
+    dvs = [torch.zeros(v.shape, dtype=torch.float32, device=v.device) for v in vs]
+    for r in range(n):
+        lse = padded_lse(lses[r], kv_lens, r, n)
+        delta = flash_delta(dos[r], outs[r])
+        for s in range(n):
+            src = (r - s) % n
+            lens = None if kv_lens is None else step_lens_for(kv_lens, src, ks[src].shape[1], n)
+            g = _bwd_step(qs[r], ks[src], vs[src], dos[r], lse, delta, lens, causal, r, src,
+                          scale, bwd)
+            if g is not None:
+                dqs[r] += g[0]
+                dks[src] += g[1]
+                dvs[src] += g[2]
+    return list(zip(dqs, dks, dvs))
+
+
+def ring_flash_backward_shard(q, k, v, out, lse, do, group=None, kv_lens=None, causal=None,
+                              softmax_scale: Optional[float] = None, chunks: int = 1):
+    """The ring backward on this rank: (dq, dk, dv) f32 for its shards, from
+    the forward's out and global LSE [B, N, Lq] and the output grad do."""
+    _check_trainable(causal, kv_lens)
+    n, my = dist.get_world_size(group), dist.get_rank(group)
+    D = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else D**-0.5
+    lse = padded_lse(lse, kv_lens, my, n, chunks).contiguous()
+    delta = flash_delta(do, out)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    kv = (k.contiguous(), v.contiguous())
+    dkv = None  # the visiting shard's dk/dv accumulated by the ranks before this one
+    pending = None  # (works, received, sent: kept alive) of the dk/dv transfer in flight
+    for s in range(n):
+        src = (my - s) % n
+        lens = None if kv_lens is None else step_lens_for(kv_lens, src, k.shape[1], n, chunks)
+        if s < n - 1:
+            kv_works, kv_next = exchange(kv, group)
+        g = _bwd_step(q, *kv, do, lse, delta, lens, causal, my, src, scale, flash_bwd)
+        if pending is not None:
+            for w in pending[0]:
+                w.wait()
+            dkv = pending[1]
+        if g is None:  # an invisible shard: its dk/dv pass on unchanged
+            mine = dkv if dkv is not None else [torch.zeros(kv[0].shape, dtype=torch.float32,
+                                                            device=q.device)] * 2
+        else:
+            dq += g[0]
+            mine = [g[1], g[2]] if dkv is None else [dkv[0] + g[1], dkv[1] + g[2]]
+        if n == 1:  # the own shard's dk/dv are home already
+            return dq, mine[0], mine[1]
+        works, recv = exchange(mine, group)
+        pending = (works, recv, mine)
+        if s < n - 1:
+            for w in kv_works:
+                w.wait()
+            kv = tuple(kv_next)
+    for w in pending[0]:
+        w.wait()
+    dk, dv = pending[1]
+    return dq, dk, dv
+
+
+class _RingFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, group, causal, scale, chunks):
+        dtypes = (q.dtype, k.dtype, v.dtype)
+        if q.is_cuda:  # the kernels read bf16 operands
+            q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+        out, lse = ring_flash_attention_shard(q, k, v, group, kv_lens=kv_lens, causal=causal,
+                                              softmax_scale=scale, return_lse=True,
+                                              chunks=chunks)
+        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+        ctx.group, ctx.causal, ctx.scale, ctx.chunks, ctx.dtypes = (group, causal, scale, chunks,
+                                                                     dtypes)
+        return out.to(dtypes[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        do = g.to(q.dtype).contiguous()
+        dq, dk, dv = ring_flash_backward_shard(q, k, v, out, lse, do, ctx.group, kv_lens,
+                                               ctx.causal, ctx.scale, ctx.chunks)
+        return (dq.to(ctx.dtypes[0]), dk.to(ctx.dtypes[1]), dv.to(ctx.dtypes[2]),
+                None, None, None, None, None)
+
+
+def ring_flash_attention_trainable(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    group=None,
+    kv_lens: Optional[torch.Tensor] = None,
+    causal: Optional[str] = None,
+    softmax_scale: Optional[float] = None,
+    chunks: int = 1,
+) -> torch.Tensor:
+    """Differentiable ring attention on this rank's shards (arguments as
+    `ring_flash_attention_shard`; causal None, "block" or "token", kv_lens
+    only with None). On CUDA q/k/v enter the kernels in bf16; the output and
+    the gradients come back in the callers' dtypes."""
+    _check_trainable(causal, kv_lens)
+    scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
+    return _RingFlash.apply(q, k, v, kv_lens, group, causal, float(scale), chunks)
 
 
 def zigzag_order(L: int, n: int) -> torch.Tensor:

@@ -13,6 +13,13 @@ shard's valid keys
 `zigzag_ring_attention` and `stripe_ring_attention` take the whole sequence
 on every rank, run the load-balanced causal layouts through the kernel and
 return the whole output on every rank.
+
+Under autograd (grad mode on and an input that requires grad)
+`ring_attention` and `hybrid_attention` run the differentiable ring,
+`ops.ring_attention.ring_flash_attention_trainable`: the same forward with
+the LSE kept, and the ring backward on the flash backward kernels (rows 4
+and 5). Ulysses' all-to-alls are differentiable (`parallel/ulysses.py`).
+The zigzag and stripe layouts are forward-only, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +29,12 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.ring_attention import ring_flash_attention_shard, stripe_order, zigzag_order
+from ..ops.ring_attention import (
+    ring_flash_attention_shard,
+    ring_flash_attention_trainable,
+    stripe_order,
+    zigzag_order,
+)
 from .ulysses import _a2a_gather_heads, _a2a_scatter_heads
 
 RING_IMPLS = ("ppermute", "pallas")
@@ -33,6 +45,15 @@ def _mode(causal) -> Optional[str]:
     if isinstance(causal, bool):
         return "block" if causal else None
     return causal
+
+
+def _ring(q, k, v, group, kv_lens, causal, softmax_scale, chunks=1):
+    """The trainable ring under autograd, else the forward-only ring."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return ring_flash_attention_trainable(q, k, v, group, kv_lens=kv_lens, causal=causal,
+                                              softmax_scale=softmax_scale, chunks=chunks)
+    return ring_flash_attention_shard(q, k, v, group, kv_lens=kv_lens, causal=causal,
+                                      softmax_scale=softmax_scale, chunks=chunks)
 
 
 def ring_attention(
@@ -50,8 +71,7 @@ def ring_attention(
     (contiguous end padding)."""
     if impl not in RING_IMPLS:
         raise ValueError(f"ring impl {impl!r} not in {RING_IMPLS}")
-    return ring_flash_attention_shard(q, k, v, group, kv_lens=kv_lens, causal=_mode(causal),
-                                      softmax_scale=softmax_scale)
+    return _ring(q, k, v, group, kv_lens, _mode(causal), softmax_scale)
 
 
 def hybrid_attention(
@@ -74,8 +94,7 @@ def hybrid_attention(
     if q.shape[2] % nu:
         raise ValueError(f"hybrid needs num_heads % ulysses size == 0: {q.shape[2]} over {nu}")
     q2, k2, v2 = (_a2a_scatter_heads(t, ulysses_group) for t in (q, k, v))
-    o = ring_flash_attention_shard(q2, k2, v2, ring_group, kv_lens=kv_lens, causal=_mode(causal),
-                                   chunks=nu)
+    o = _ring(q2, k2, v2, ring_group, kv_lens, _mode(causal), None, chunks=nu)
     return _a2a_gather_heads(o, ulysses_group)
 
 

@@ -4,8 +4,12 @@ Each rank of the group holds a contiguous sequence shard [B, L/n, N, D]
 (rank order). An all-to-all trades it for the whole sequence of N/n heads,
 attention runs on that, and a second all-to-all trades back. The
 all-to-alls are `dist.all_to_all_single` on the tensors where they lie (the
-card under NCCL). Attention is the port's `ops.attention.attention`: on the
-card the flash kernel (row 1), on the CPU its plain twin. The JAX package's
+card under NCCL), inside an autograd Function whose backward is the same
+all-to-all: the exchange is its own inverse (slice j of rank i trades
+places with slice i of rank j), as the reference's `distributed/util.py`
+all-to-all backward. Attention is the port's `ops.attention.attention`: on
+the card the flash kernel (row 1), or under autograd the training path
+(rows 3b, 4 and 5); on the CPU their plain twins. The JAX package's
 `comm_dtype` is left out: the DiT hands q/k/v in the param dtype already.
 """
 
@@ -19,12 +23,27 @@ import torch.distributed as dist
 from ..ops.attention import attention
 
 
-def _a2a(x: torch.Tensor, group) -> torch.Tensor:
-    """all_to_all over dim 0 (one slice per rank)."""
+def _a2a_raw(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a_raw(g, ctx.group), None
+
+
+def _a2a(x: torch.Tensor, group) -> torch.Tensor:
+    """all_to_all over dim 0 (one slice per rank), differentiable."""
+    return _AllToAll.apply(x, group)
 
 
 def _a2a_scatter_heads(x: torch.Tensor, group=None) -> torch.Tensor:

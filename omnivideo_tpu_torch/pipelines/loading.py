@@ -42,6 +42,7 @@ from ..models.t5 import T5Encoder, T5EncoderModel, t5_state_dict_to_params
 from ..models.unified import load_special_tokens_pkl
 from ..models.vae2_1 import Wan21VAE, vae_state_dict_to_params
 from ..models.wan_dit import WanDiT
+from ..parallel.sharding import shard_params
 from .x2x import ExpertParams, OmniVideoX2XUnified
 
 COMPANIONS = ("vlm_norm", "vlm_proj", "visual_context_adapter")
@@ -90,19 +91,27 @@ def _load_pickled_weights(folder: Path) -> dict:
 
 
 def load_pipeline(cfg: PipelineConfig, ckpt_dir: str, dtype: torch.dtype = torch.bfloat16,
-                  device="cuda", **pipe_kwargs) -> OmniVideoX2XUnified:
+                  device="cuda", mesh=None, **pipe_kwargs) -> OmniVideoX2XUnified:
     """The x2x pipeline from a reference checkpoint dir, on `device`: the
     low-noise expert (and the high-noise one for dual-expert configs), the
     VAE, the umT5 encoder as `text_encoder` (with the tokenizer of
     `<ckpt_dir>/<cfg.t5_tokenizer>` where that dir exists) and the special
     tokens, each where its file exists.
     `pipe_kwargs` go to OmniVideoX2XUnified (qk_impl, ew_impl,
-    residual_dtype)."""
+    residual_dtype, sp). With a `mesh` each expert's DiT is sharded
+    (parallel/sharding.py `shard_params`) as soon as it is loaded, before
+    the next one is read (JAX `load_pipeline(mesh=...)`)."""
     dev = resolve_device(device)
     root = Path(ckpt_dir)
-    low = load_expert(cfg, ckpt_dir, cfg.low_noise_checkpoint, dtype, dev)
-    high = load_expert(cfg, ckpt_dir, cfg.high_noise_checkpoint, dtype, dev) \
-        if cfg.dual_expert else low
+
+    def expert(subfolder):
+        e = load_expert(cfg, ckpt_dir, subfolder, dtype, dev)
+        if mesh is not None:
+            shard_params(e.wan, mesh)
+        return e
+
+    low = expert(cfg.low_noise_checkpoint)
+    high = expert(cfg.high_noise_checkpoint) if cfg.dual_expert else low
 
     vae = None
     path = root / cfg.vae_checkpoint

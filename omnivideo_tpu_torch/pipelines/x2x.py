@@ -26,6 +26,12 @@ shard per rank and gathers the velocity, and every rank steps the same
 solver on the same latents. An unseeded SP run (no `noise`, no `generator`)
 draws its seed on rank 0 and broadcasts it, so every rank draws the same
 noise. The decode runs on every rank; callers use rank 0's result.
+
+`shard(mesh)` shards the experts with parallel/sharding.py `shard_params`
+(FSDP2 over 'fsdp': each block all-gathered for its forward; the Megatron
+split over 'tensor', run with `sp=SPConfig(mesh, "tp")`), as JAX's
+`load_pipeline(mesh=...)` places them. `vae_dtype` (generate, decode) runs
+the VAE decoder's convolutions in that dtype (JAX `vae_dtype`).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..device import resolve_device
 from ..models.unified import build_mixed_context, init_unified_companions, null_ar_vision
 from ..models.vae2_1 import Wan21VAE, init_vae
 from ..models.wan_dit import SPConfig, WanDiT
+from ..parallel.sharding import gathered, shard_params
 from ..schedulers.fm_dpm import FlowDPMSolver, get_sampling_sigmas
 from ..schedulers.unipc import FlowUniPC
 
@@ -152,6 +159,12 @@ class OmniVideoX2XUnified:
                                         num_train_timesteps=self.num_train_timesteps)
         raise NotImplementedError(f"unsupported solver {sample_solver}")
 
+    def shard(self, mesh) -> "OmniVideoX2XUnified":
+        """Shard each expert's DiT over `mesh` (shard_params); returns self."""
+        for expert in {id(e): e for e in (self.low_noise, self.high_noise)}.values():
+            shard_params(expert.wan, mesh)
+        return self
+
     def free_experts(self) -> None:
         """Drop both experts and return their memory to the device (the
         A14B order: denoise, free, decode)."""
@@ -160,7 +173,7 @@ class OmniVideoX2XUnified:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    @torch.inference_mode()
+    @torch.no_grad()  # not inference_mode: FSDP2's gathered parameters track versions
     def generate(
         self,
         input_prompt: str = "",
@@ -183,6 +196,7 @@ class OmniVideoX2XUnified:
         output_uint8: bool = False,
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        vae_dtype: Optional[torch.dtype] = None,
     ):
         """Generate a video. The text context is `precomputed_context`
         [L, text_dim], or `input_prompt` through the text encoder; the
@@ -190,8 +204,9 @@ class OmniVideoX2XUnified:
         reference's negative prompt) through the text encoder, or zeros.
         Returns the decoded video [3, frame_num, H, W] f32 in [-1, 1], or
         [frame_num, H, W, 3] uint8 frames with output_uint8, or the latents
-        [1, C, F, h, w] with decode=False. Stage wall times land in
-        `self.timings` (seconds, synchronized)."""
+        [1, C, F, h, w] with decode=False. vae_dtype: the decoder's dtype
+        (None: f32). Stage wall times land in `self.timings` (seconds,
+        synchronized)."""
         if self.low_noise is None:
             raise ValueError("the experts were freed (free_experts)")
         cfg = self.config
@@ -259,7 +274,8 @@ class OmniVideoX2XUnified:
             pdtype = dit.param_dtype
             mixed2 = torch.stack([mixed(context, ar_vision_input, expert.companions),
                                   mixed(context_null, ar_null, expert.companions)])
-            ctx_emb2 = dit.embed_context(mixed2.to(pdtype))
+            with gathered(dit):  # the root's parameters, outside its forward
+                ctx_emb2 = dit.embed_context(mixed2.to(pdtype))
             for i in range(a, b):
                 x2 = torch.cat([state.x, state.x]).to(pdtype)
                 t2 = torch.full((2,), float(solver.coeffs["timestep"][i]), device=dev)
@@ -277,18 +293,19 @@ class OmniVideoX2XUnified:
         latents = state.x
         if not decode:
             return latents
-        return self.decode(latents, output_uint8)
+        return self.decode(latents, output_uint8, vae_dtype)
 
     @torch.inference_mode()
-    def decode(self, latents: torch.Tensor, output_uint8: bool = False) -> torch.Tensor:
+    def decode(self, latents: torch.Tensor, output_uint8: bool = False,
+               vae_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """VAE-decode [1, C, F, h, w] latents → [3, T, H, W] f32 in [-1, 1],
-        or [T, H, W, 3] uint8 frames; its wall time lands in
-        `timings["decode_s"]`."""
+        or [T, H, W, 3] uint8 frames; the decoder runs in `vae_dtype` (None:
+        f32); its wall time lands in `timings["decode_s"]`."""
         if self.vae is None:
             raise ValueError("no VAE attached")
         self._sync()
         t_dec = time.perf_counter()
-        video = self.vae.decode(latents.to(self.device))[0]
+        video = self.vae.decode(latents.to(self.device), vae_dtype or torch.float32)[0]
         if not bool(torch.isfinite(video).all()):
             raise FloatingPointError("non-finite video from the VAE decode")
         out = video_to_uint8_frames(video) if output_uint8 else video

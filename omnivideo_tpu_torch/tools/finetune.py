@@ -1,4 +1,4 @@
-"""Single-card flow-matching fine-tuning CLI (port of tools/finetune.py).
+"""Flow-matching fine-tuning CLI (port of tools/finetune.py).
 
 Per-task datasets of precomputed features, a round-robin loop in which every
 task takes one train step per step (its loss weighted in the log), the
@@ -11,8 +11,27 @@ checkpoint-and-exit on SIGTERM or before `--walltime`.
     python -m omnivideo_tpu_torch.tools.finetune --dummy_data --tiny --total_steps 3 --device cpu
 
 The device defaults to cuda (kernels); `--device cpu` runs the plain twins.
-Flags of the JAX CLI that this port does not run yet raise
-NotImplementedError naming the ROADMAP item that brings them.
+
+`--dp/--fsdp/--sp/--tp` train on a (data, fsdp, seq, tensor) mesh of one
+process per card, started by torchrun or by the
+`--coordinator/--num_processes/--process_id` flags (NCCL on the card, gloo
+with `--device cpu`):
+
+    torchrun --nproc_per_node 4 -m omnivideo_tpu_torch.tools.finetune --dummy_data \
+        --fsdp 2 --sp 2 --total_steps 3 --output_dir outputs/ft
+
+`--batch_size` is the global batch: it splits over `--dp` (each data index
+reads its own rows). `--fsdp` shards the parameters (FSDP2, parallel/
+sharding.py), `--tp` splits heads and FFN columns (Megatron), `--sp` runs
+Ulysses when the heads divide by it, else the ring (JAX's CLI has no mode
+flag; its GSPMD sequence sharding gives the same values); `--sp` and `--tp`
+exclude each other, as in JAX's SPConfig. The numbers are one process's
+(training/trainer.py). Only rank 0 writes metrics, logs and the run config;
+checkpoints hold the full state and resume under any mesh. `--task` takes
+every config of `configs.WAN_CONFIGS`; a dual-expert task (t2v-A14B) trains
+its low-noise expert, as the JAX CLI loads it. Flags of the JAX CLI that
+this port does not run yet raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -24,10 +43,19 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
-from omnivideo_tpu_torch.configs.base import T2V_1_3B, PipelineConfig
+from omnivideo_tpu_torch.configs import WAN_CONFIGS
+from omnivideo_tpu_torch.configs.base import PipelineConfig
 from omnivideo_tpu_torch.device import resolve_device
 from omnivideo_tpu_torch.models.unified import Companions, init_unified_companions
+from omnivideo_tpu_torch.models.wan_dit import SPConfig
+from omnivideo_tpu_torch.parallel.distributed import (
+    add_distributed_args,
+    maybe_initialize_distributed,
+)
+from omnivideo_tpu_torch.parallel.mesh import axis_index, create_mesh
+from omnivideo_tpu_torch.parallel.sharding import shard_params
 from omnivideo_tpu_torch.pipelines.loading import load_expert
 from omnivideo_tpu_torch.training.checkpoint import CheckpointManager
 from omnivideo_tpu_torch.training.dataset import (
@@ -51,7 +79,6 @@ from omnivideo_tpu_torch.utils.observability import (
     TimeoutGuard,
 )
 
-CONFIGS = {"t2v-1.3B": T2V_1_3B}
 # flag → (value meaning "off", the ROADMAP §1 item that brings it)
 NOT_PORTED = {
     "config": (None, "§1 item 3: the YAML run config (utils/run_config.py)"),
@@ -63,17 +90,13 @@ NOT_PORTED = {
     "layer_stream": (False, "§1 item 6: the streamed trainers (training/streaming.py)"),
     "stream_quant": (None, "§1 item 6: the streamed trainers with ops/quant.py"),
     "optimizer": ("adamw", "§1 item 3: adafactor and _lr_scaled_decay"),
-    "dp": (1, "§1 item 2: training under SP, FSDP2 and TP"),
-    "fsdp": (1, "§1 item 2: training under SP, FSDP2 and TP"),
-    "sp": (1, "§1 item 2: training under SP (the ring backward from rows 4 and 5)"),
-    "tp": (1, "§1 item 2: training under SP, FSDP2 and TP"),
 }
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config", default=None, help="YAML training config (not ported)")
-    p.add_argument("--task", default="t2v-1.3B", choices=sorted(CONFIGS))
+    p.add_argument("--task", default="t2v-1.3B", choices=sorted(WAN_CONFIGS))
     p.add_argument("--data_dirs", nargs="*", default=[],
                    help="task=path pairs, e.g. t2v=/data/t2v i2i=/data/i2i")
     p.add_argument("--task_weights", nargs="*", default=[], help="task=weight pairs")
@@ -103,10 +126,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--lora_targets", nargs="*", default=None)
     p.add_argument("--lora_export", default=None)
     p.add_argument("--lora_adapter_export", default=None)
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--fsdp", type=int, default=1)
-    p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1, help="data-parallel degree ('data')")
+    p.add_argument("--fsdp", type=int, default=1, help="parameter-sharding degree ('fsdp')")
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel degree ('seq')")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel degree ('tensor')")
     p.add_argument("--ckpt_dir", default=None,
                    help="start from <ckpt_dir>/<low_noise_checkpoint>/model.pt (reference layout)")
     p.add_argument("--walltime", type=float, default=None,
@@ -118,15 +141,44 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="dummy data includes v1 aligned_emb features")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
+    add_distributed_args(p)
     args = p.parse_args(argv)
     for flag, (off, item) in NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+    if args.sp > 1 and args.tp > 1:
+        p.error("--sp and --tp exclude each other (one SPConfig mode)")
+    if args.batch_size % args.dp:
+        p.error(f"--batch_size {args.batch_size} (the global batch) must divide by --dp {args.dp}")
     return args
 
 
+def setup_mesh(args: argparse.Namespace):
+    """(mesh, SPConfig or None) of `--dp/--fsdp/--sp/--tp`, or (None, None)
+    for one process. Joins the process group first unless one is running."""
+    n = args.dp * args.fsdp * args.sp * args.tp
+    if n == 1:
+        return None, None
+    if not dist.is_initialized():
+        maybe_initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                     device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(f"--dp {args.dp} --fsdp {args.fsdp} --sp {args.sp} --tp {args.tp} needs "
+                         f"{n} processes, one per card (torchrun --nproc_per_node {n}); this run "
+                         f"has {world}")
+    mesh = create_mesh(args.dp, args.fsdp, args.sp, args.tp, device=args.device)
+    sp = None
+    if args.sp > 1:
+        heads = task_config(args).dit.num_heads
+        sp = SPConfig(mesh, "ulysses" if heads % args.sp == 0 else "ring")
+    elif args.tp > 1:
+        sp = SPConfig(mesh, "tp")
+    return mesh, sp
+
+
 def task_config(args: argparse.Namespace) -> PipelineConfig:
-    cfg = CONFIGS[args.task]
+    cfg = WAN_CONFIGS[args.task]
     if args.tiny:
         cfg = cfg.replace(
             dit=cfg.dit.replace(dim=64, ffn_dim=128, num_heads=4, num_layers=2, freq_dim=32,
@@ -149,11 +201,15 @@ def initial_params(cfg: PipelineConfig, args: argparse.Namespace, device) -> Uni
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    mesh, sp = setup_mesh(args)
+    rank0 = mesh is None or dist.get_rank() == 0
+    logging.basicConfig(level=logging.INFO if rank0 else logging.WARNING,
+                        format="%(asctime)s %(message)s")
     device = resolve_device(args.device)
     out = Path(args.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "run_config.json").write_text(json.dumps(vars(args), indent=1, sort_keys=True))
+    if rank0:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "run_config.json").write_text(json.dumps(vars(args), indent=1, sort_keys=True))
     cfg = task_config(args)
 
     tc = TrainConfig(
@@ -171,10 +227,14 @@ def main(argv=None) -> int:
                   aligned_len=8 if args.tiny else 256)
     tasks = {}
     if args.dummy_data:
-        root = make_dummy_dataset(out / "dummy_data", n=8, text_len=8, vlm_len=6,
-                                  latent_shape=(cfg.dit.in_dim, 3, 8, 8),
-                                  text_dim=cfg.dit.text_dim, vlm_dim=cfg.vlm_in_dim,
-                                  with_aligned=args.with_aligned)
+        root = out / "dummy_data"
+        if rank0:
+            make_dummy_dataset(root, n=8, text_len=8, vlm_len=6,
+                               latent_shape=(cfg.dit.in_dim, 3, 8, 8),
+                               text_dim=cfg.dit.text_dim, vlm_dim=cfg.vlm_in_dim,
+                               with_aligned=args.with_aligned)
+        if mesh is not None:
+            dist.barrier()
         tasks["t2v"] = (OmniVideoDataset(str(root)), 1.0)
     else:
         weights = dict(w.split("=") for w in args.task_weights)
@@ -186,27 +246,41 @@ def main(argv=None) -> int:
 
     # ---- params, optimizer, step ---------------------------------------------
     params = initial_params(cfg, args, device)
+    if mesh is not None and (args.fsdp > 1 or args.tp > 1):
+        shard_params(params, mesh)
     tx = make_optimizer(tc, params)
     state = init_train_state(params, tx)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    train_step = make_unified_train_step(cfg, tc, tx, generator=gen)
+    train_step = make_unified_train_step(cfg, tc, tx, generator=gen, mesh=mesh, sp=sp)
 
     ckpt = CheckpointManager(str(out / "checkpoints"))
     if args.resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         logging.info("resumed from step %d", state.step)
 
-    loaders = {name: PrefetchLoader(data_loader(ds, args.batch_size, pad, seed=args.seed))
+    # each data index reads its own rows of the global batch
+    loaders = {name: PrefetchLoader(data_loader(ds, args.batch_size // args.dp, pad,
+                                                seed=args.seed,
+                                                host_id=axis_index(mesh, "data"),
+                                                num_hosts=args.dp))
                for name, (ds, _) in tasks.items()}
     task_w = {name: w for name, (_, w) in tasks.items()}
-    metrics = MetricsLogger(str(out))
+    metrics = MetricsLogger(str(out)) if rank0 else None
     preempt = PreemptionGuard()
     timeout = TimeoutGuard(args.walltime)
+
+    def should_stop() -> bool:  # every process stops at the same step
+        stop = preempt.should_stop() or timeout.should_stop()
+        if mesh is None:
+            return stop
+        flag = torch.tensor([int(stop)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     step = state.step
     t0 = time.time()
     while step < args.total_steps:
-        if preempt.should_stop() or timeout.should_stop():
+        if should_stop():
             ckpt.save(step, state, {"step": step, "preempted": True})
             logging.warning("preemption/walltime stop at step %d (checkpointed)", step)
             return 0
@@ -216,13 +290,14 @@ def main(argv=None) -> int:
             state, m = train_step(state, batch)
             losses[name] = float(m["loss"]) * task_w[name]
         step = state.step
-        if step % args.log_interval == 0 or step == args.total_steps:
+        if rank0 and (step % args.log_interval == 0 or step == args.total_steps):
             metrics.log(step, **{f"loss/{k}": v for k, v in losses.items()})
             logging.info("step %d (%.1fs) %s", step, time.time() - t0, losses)
         if step % args.save_interval == 0 or step == args.total_steps:
             ckpt.save(step, state, {"step": step})
             logging.info("saved checkpoint at step %d", step)
-    metrics.close()
+    if rank0:
+        metrics.close()
     logging.info("done at step %d", step)
     return 0
 

@@ -35,14 +35,23 @@ the JAX CLI's row-by-row order.
         --input samples/t2v_example.jsonl --output_dir outputs/gen --device cpu
 
 `--sp_size N` denoises sequence-parallel over N processes, one card each
-(`--sp_mode ulysses|ring`, `--ring_impl ppermute|pallas`: JAX's names,
-both running the ring-step kernel), started by torchrun or by the
-`--coordinator/--num_processes/--process_id` flags; every rank runs every
-row and rank 0 writes the outputs:
+(`--sp_mode ulysses|ring|hybrid`, `--ring_impl ppermute|pallas`: JAX's
+names, both running the ring-step kernel; the hybrid takes the 'fsdp' axis
+as its Ulysses axis), `--fsdp_size` shards the experts' parameters (FSDP2:
+each block all-gathered for its forward) and `--tp_size` splits their heads
+and FFN columns (Megatron; without `--sp_size`), on a (1, fsdp, sp, tp)
+mesh as JAX's CLI builds it. The processes are started by torchrun or by
+the `--coordinator/--num_processes/--process_id` flags; every rank runs
+every row and rank 0 writes the outputs:
 
     torchrun --nproc_per_node 4 -m omnivideo_tpu_torch.tools.generate --sp_size 4 \\
         --sp_mode ring --ring_impl pallas --task t2v-1.3B --random_weights \\
         --input samples/t2v_example.jsonl --output_dir outputs/gen
+
+`--dp_rank/--dp_world_size` split the JSONL rows between independent runs
+(row i goes to dp_rank i % dp_world_size), by default the mesh's data index
+and size, so the ranks of one mesh never split rows. `--vae_dtype bfloat16`
+runs the VAE decoder in bf16.
 
 `--random_weights` runs seeded random params with a deterministic
 pseudo-context per prompt (no checkpoint, no text encoder); `--tiny` shrinks
@@ -74,7 +83,7 @@ from omnivideo_tpu_torch.device import resolve_device
 from omnivideo_tpu_torch.models.qwen3vl.engine import Qwen3VLEngine, VLMConfig
 from omnivideo_tpu_torch.models.wan_dit import SPConfig
 from omnivideo_tpu_torch.parallel.distributed import add_distributed_args, maybe_initialize_distributed
-from omnivideo_tpu_torch.parallel.mesh import create_mesh
+from omnivideo_tpu_torch.parallel.mesh import axis_index, axis_size, create_mesh
 from omnivideo_tpu_torch.pipelines.loading import load_pipeline
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
 from omnivideo_tpu_torch.utils.video import (
@@ -86,12 +95,10 @@ from omnivideo_tpu_torch.utils.video import (
 
 # flag → (value meaning "off", why it is not ported)
 NOT_PORTED = {
-    "tp_size": (1, "tensor parallelism comes with the FSDP/TP slice, ROADMAP §1"),
-    "fsdp_size": (1, "parameter sharding comes with the FSDP/TP slice, ROADMAP §1"),
     "layer_stream": (False, "it comes with the streaming slice, ROADMAP §1"),
     "stream_quant": (None, "it comes with the streaming slice, ROADMAP §1"),
     "lora_adapters": (None, "it comes with LoRA, ROADMAP §1 training follow-ups"),
-    "vlm_fsdp": (1, "VLM parameter sharding comes with the FSDP slice, ROADMAP §1"),
+    "vlm_fsdp": (1, "FSDP2 over the Qwen3-VL MoE waits for ROADMAP §1 item 4"),
     "max_steps_per_call": (None, "a TPU dispatch-time workaround the card does not need"),
 }
 
@@ -146,6 +153,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="jax: the native engine (JAX's name for it); hf is not ported")
     p.add_argument("--vlm_fsdp", type=int, default=1)
     p.add_argument("--max_steps_per_call", type=int, default=None)
+    p.add_argument("--dp_rank", type=int, default=None,
+                   help="this run's share of the rows: row i when i %% dp_world_size == "
+                        "dp_rank (default: the mesh's data index, else 0)")
+    p.add_argument("--dp_world_size", type=int, default=None,
+                   help="runs the rows are split between (default: the mesh's data size, else 1)")
+    p.add_argument("--vae_dtype", default=None, choices=[None, "float32", "bfloat16"],
+                   help="the VAE decoder's dtype (default float32)")
     add_distributed_args(p)
     args = p.parse_args(argv)
     for flag, (off, what) in NOT_PORTED.items():
@@ -154,10 +168,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.vlm_backend == "hf":
         raise NotImplementedError("--vlm_backend hf is not ported (transformers' own torch "
                                   "model); --vlm_backend jax runs the native engine")
-    if args.sp_mode == "hybrid":
-        raise NotImplementedError("--sp_mode hybrid takes the 'fsdp' axis as its Ulysses axis, "
-                                  "as the JAX CLI does, and --fsdp_size comes with the FSDP/TP "
-                                  "slice (ROADMAP §1); the API runs it (SPConfig on a 2-D mesh)")
+    if args.sp_size > 1 and args.sp_mode == "hybrid" and args.fsdp_size == 1:
+        p.error("--sp_mode hybrid takes the 'fsdp' axis as its Ulysses axis: give --fsdp_size")
+    if args.sp_size > 1 and args.tp_size > 1:
+        p.error("--sp_size and --tp_size exclude each other (one SPConfig mode)")
     if not args.random_weights and not args.ckpt_dir:
         p.error("--ckpt_dir is required without --random_weights")
     return args
@@ -223,20 +237,30 @@ def _features(features_dir, sample_id):
 
 
 def run(args: argparse.Namespace) -> List[dict]:
-    """Generate every row of `args.input`; returns, per row, {"id", "path"
-    (the file written, rank 0 only), "timings"}."""
+    """Generate this run's rows of `args.input`; returns, per row, {"id",
+    "path" (the file written, rank 0 only), "timings", "latents" (on the
+    host)}."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    sp = None
-    if args.sp_size > 1:
-        maybe_initialize_distributed(args.coordinator, args.num_processes, args.process_id,
-                                     device=args.device)
+    sp = mesh = None
+    n = args.fsdp_size * args.sp_size * args.tp_size
+    joined = False  # whether this run started the process group (and so ends it)
+    if n > 1:
+        if not dist.is_initialized():
+            joined = maybe_initialize_distributed(args.coordinator, args.num_processes,
+                                                  args.process_id, device=args.device)
         world = dist.get_world_size() if dist.is_initialized() else 1
-        if world != args.sp_size:
-            raise ValueError(f"--sp_size {args.sp_size} needs {args.sp_size} processes, one per "
-                             f"card (torchrun --nproc_per_node {args.sp_size}); this run has {world}")
-        sp = SPConfig(create_mesh(sp=args.sp_size, device=args.device), args.sp_mode,
-                      ring_impl=args.ring_impl)
+        if world != n:
+            raise ValueError(f"--fsdp_size {args.fsdp_size} --sp_size {args.sp_size} --tp_size "
+                             f"{args.tp_size} needs {n} processes, one per card (torchrun "
+                             f"--nproc_per_node {n}); this run has {world}")
+        mesh = create_mesh(1, args.fsdp_size, args.sp_size, args.tp_size, device=args.device)
+        if args.sp_size > 1:
+            sp = SPConfig(mesh, args.sp_mode, ring_impl=args.ring_impl)
+        elif args.tp_size > 1:
+            sp = SPConfig(mesh, "tp")
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    dp_rank = args.dp_rank if args.dp_rank is not None else axis_index(mesh, "data")
+    dp_world = args.dp_world_size if args.dp_world_size is not None else axis_size(mesh, "data")
     device = resolve_device(args.device)
     cfg = WAN_CONFIGS[args.task]
     if args.max_context_len:
@@ -261,22 +285,28 @@ def run(args: argparse.Namespace) -> List[dict]:
     rows = [json.loads(line) for line in Path(args.input).read_text().splitlines()
             if line.strip()]
     ids = [Path(str(row.get("sample_id", row.get("id", i)))).name for i, row in enumerate(rows)]
+    # this run's rows, with their indices in the file (the seed is base_seed + index)
+    mine = [i for i in range(len(rows)) if i % dp_world == dp_rank]
+    rows, ids = [rows[i] for i in mine], [ids[i] for i in mine]
     vlm = vlm_stage(args, rows, ids, device) if args.vlm_path else {}
 
     impl = dict(qk_impl=args.qk_impl, ew_impl=args.ew_impl, residual_dtype=args.residual_dtype,
                 sp=sp)
+    shard = mesh if args.fsdp_size > 1 or args.tp_size > 1 else None
     if args.random_weights:
         pipe = OmniVideoX2XUnified.random_init(cfg, device=device, **impl)
+        if shard is not None:
+            pipe.shard(shard)
     else:
         pipe = load_pipeline(cfg, args.ckpt_dir, dtype=cfg.torch_param_dtype, device=device,
-                             **impl)
+                             mesh=shard, **impl)
     out_dir = Path(args.output_dir)
     if rank0:
         out_dir.mkdir(parents=True, exist_ok=True)
 
     # denoise every row, then (dual expert) free the experts, then decode
     done = []
-    for idx, (sample_id, row) in enumerate(zip(ids, rows)):
+    for idx, sample_id, row in zip(mine, ids, rows):
         prompt = row.get("prompt", row.get("edit_prompt", ""))
         timings: Dict[str, float] = {}
         if sample_id in vlm:
@@ -315,7 +345,8 @@ def run(args: argparse.Namespace) -> List[dict]:
         pipe.free_experts()
     results = []
     for sample_id, latents, timings in done:
-        frames = pipe.decode(latents, output_uint8=True)  # every rank decodes
+        frames = pipe.decode(latents, output_uint8=True,  # every rank decodes
+                             vae_dtype=getattr(torch, args.vae_dtype or "float32"))
         timings["decode_s"] = pipe.timings["decode_s"]
         path = None
         if rank0:
@@ -327,8 +358,8 @@ def run(args: argparse.Namespace) -> List[dict]:
                                   fps=args.fps or cfg.sample_fps)
             timings["save_s"] = time.perf_counter() - t0
             logging.info("sample %s -> %s %s", sample_id, path, json.dumps(timings))
-        results.append({"id": sample_id, "path": path, "timings": timings})
-    if dist.is_initialized():
+        results.append({"id": sample_id, "path": path, "timings": timings, "latents": latents})
+    if joined:
         dist.destroy_process_group()
     return results
 

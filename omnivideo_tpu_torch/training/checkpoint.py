@@ -6,6 +6,13 @@ state and the step; `meta.json` beside it the caller's metadata. A step is
 written to a temporary directory and renamed into place, so a crash never
 leaves a half-written step for `latest_step` to find; the newest
 `max_to_keep` steps are kept.
+
+Under a process group of more than one process the file holds the full,
+unsharded state whatever the mesh: every process joins the gather (`get_model_state_dict` with full-state options;
+the optimizer's sharded tensors through `full_tensor`), rank 0 alone writes,
+and the others wait at a barrier. Every process restores from the full
+file and re-shards it onto its own parameters (`set_model_state_dict`), so
+a step written under one mesh resumes under another, or in one process.
 """
 
 from __future__ import annotations
@@ -16,8 +23,60 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.checkpoint.state_dict import (
+    StateDictOptions,
+    get_model_state_dict,
+    set_model_state_dict,
+)
+from torch.distributed.tensor import DTensor
 
 from .trainer import TrainState
+
+_OPT_TENSORS = ("mu", "nu", "acc")
+
+
+def _sharded(module) -> bool:
+    return any(isinstance(p, DTensor) for p in module.parameters())
+
+
+def _full_opt_state(opt_state: dict) -> dict:
+    """The optimizer state with every DTensor gathered, on the host (a
+    collective where the state is sharded: every process calls it)."""
+    out = {}
+    for k, v in opt_state.items():
+        if k in _OPT_TENSORS:
+            out[k] = {n: (t.full_tensor() if isinstance(t, DTensor) else t).cpu()
+                      for n, t in v.items()}
+        else:
+            out[k] = v
+    return out
+
+
+@torch.no_grad()
+def _load_sharded(model, full_params: dict, opt_like: dict, full_opt: dict) -> dict:
+    """Re-shard a full state onto `model` (sharded) and an optimizer state
+    shaped like `opt_like`: each optimizer tree is loaded into the
+    parameters by set_model_state_dict and copied out of their shards,
+    then the parameters themselves are loaded."""
+    opts = StateDictOptions(full_state_dict=True, strict=False)
+    params = dict(model.named_parameters())
+    out = dict(full_opt)
+    for k in _OPT_TENSORS:
+        if k not in opt_like:
+            continue
+        set_model_state_dict(model, full_opt[k], options=opts)
+        out[k] = {}
+        for n, t in opt_like[k].items():
+            src = params[n]
+            dst = torch.empty_like(t)
+            if isinstance(dst, DTensor):
+                dst.to_local().copy_(src.to_local())
+            else:
+                dst.copy_(src)
+            out[k][n] = dst
+    set_model_state_dict(model, full_params, options=opts)
+    return out
 
 
 class CheckpointManager:
@@ -37,11 +96,23 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metadata: Optional[dict] = None) -> Path:
         final = self.dir / str(step)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            params = get_model_state_dict(
+                state.params, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
+            opt_state = _full_opt_state(state.opt_state)
+            if dist.get_rank() == 0:
+                self._write(final, step, params, opt_state, state.step, metadata)
+            dist.barrier()
+            return final
+        return self._write(final, step, state.params.state_dict(), state.opt_state, state.step,
+                           metadata)
+
+    def _write(self, final: Path, step: int, params: dict, opt_state: dict, at: int,
+               metadata: Optional[dict]) -> Path:
         tmp = self.dir / f".{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
-        torch.save({"params": state.params.state_dict(), "opt_state": state.opt_state,
-                    "step": state.step}, tmp / "state.pt")
+        torch.save({"params": params, "opt_state": opt_state, "step": at}, tmp / "state.pt")
         (tmp / "meta.json").write_text(json.dumps(metadata or {}))
         shutil.rmtree(final, ignore_errors=True)
         tmp.rename(final)
@@ -58,7 +129,11 @@ class CheckpointManager:
         dev = next(state_like.params.parameters()).device
         blob = torch.load(self.dir / str(step) / "state.pt", map_location=dev,
                           weights_only=True)
-        state_like.params.load_state_dict(blob["params"])
-        state_like.opt_state = blob["opt_state"]  # map_location put its tensors on dev
+        if _sharded(state_like.params):
+            state_like.opt_state = _load_sharded(state_like.params, blob["params"],
+                                                 state_like.opt_state, blob["opt_state"])
+        else:
+            state_like.params.load_state_dict(blob["params"])
+            state_like.opt_state = blob["opt_state"]  # map_location put its tensors on dev
         state_like.step = int(blob["step"])
         return state_like

@@ -176,3 +176,45 @@ def test_safetensors_writer_reads_back(tmp_path):
         assert set(got) == set(src)
         for k, v in src.items():
             assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("phase,entry", [("profile", "phase_profile"), ("sp", "phase_sp"),
+                                         ("sp_train", "_sp_train_alone")])
+def test_phase_commands(monkeypatch, phase, entry):
+    """`python3 chip_smoke.py <phase>` runs that phase alone; any other
+    argument is refused with the list of names."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for name in ("phase_device", "phase_profile", "phase_sp", "_sp_train_alone", "t2v_pipeline"):
+        monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name, **k: calls.append(_n) or (
+            (None, torch.zeros(1), torch.Generator()) if _n == "t2v_pipeline" else 0))
+    monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.zeros(1))
+    assert chip_smoke.main([phase]) == 0
+    assert entry in calls
+    with pytest.raises(SystemExit, match="sp_train"):
+        chip_smoke.main(["bogus"])
+
+
+def test_grad_spy_captures_then_compares(monkeypatch):
+    """sp_train's GradSpy: kept grads on the host, then each later run's
+    worst leaf as ‖g − g_ref‖/‖g_ref‖; the optimizer update still runs."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+    class Tx:
+        def __init__(self):
+            self.calls = 0
+
+        def update(self, model, grads, state):
+            self.calls += 1
+            return True
+
+    g = {"a": torch.ones(4), "b": torch.full((2,), 2.0)}
+    tx = Tx()
+    spy = chip_smoke.GradSpy(tx, keep=1)
+    assert tx.update(None, g, None) and tx.update(None, g, None)
+    assert len(spy.grads) == 1 and torch.equal(spy.grads[0]["b"], g["b"])
+    tx2 = Tx()
+    cmp = chip_smoke.GradSpy(tx2, ref=spy.grads, keep=1)
+    tx2.update(None, {"a": torch.ones(4), "b": torch.tensor([2.0, 2.2])}, None)
+    rel, name = cmp.worst[0]
+    assert name == "b" and abs(rel - 0.2 / (8.0 ** 0.5)) < 1e-6

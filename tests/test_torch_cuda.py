@@ -26,7 +26,8 @@ PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
 1e-5 of it (f32 out): the row mean and variance sum in another order.
 ring_step: the finished output within 4 bf16 ulps of each row's max, as
 flash; the carried m within 1e-4 (log2 units) and l within 1e-4 relative of
-the plain twin's (f32 sums in another order). Where K/V rows past kv_len
+the plain twin's (f32 sums in another order); the ring backward's dq/dk/dv
+as the training kernels'. Where K/V rows past kv_len
 (or a ring step's step_lens) hold NaN, the forward kernels' outputs are
 finite and held to the plain twin on the same inputs with those rows zeroed.
 """
@@ -52,6 +53,7 @@ from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
     ring_finish,
     ring_flash_attention_shards,
+    ring_flash_backward_shards,
     ring_step,
     ring_step_plain,
     stripe_order,
@@ -666,3 +668,46 @@ def test_ring_step_kernel_refuses_grad_and_bad_operands(cuda):
         with pytest.raises(ValueError, match="zigzag"):
             x = torch.zeros(B, 96, N, D, device=cuda, dtype=torch.bfloat16)
             ring_step(x, x, x, *ring_carry(B, 96, N, D, cuda), causal="zigzag", n=2)
+
+
+RING_BWD_CASES = [  # (causal, shard length, kv_lens)
+    (None, 200, None),
+    (None, 200, [730, 0]),     # the last shard ends in pad keys; a batch row with none
+    (None, 256, [520, 1024]),  # shards 2 and 3 all padding for batch row 0: step_lens 0
+    ("block", 200, None),
+    ("token", 200, None),
+]
+
+
+@pytest.mark.parametrize("causal,Ls,lens", RING_BWD_CASES)
+def test_ring_backward_kernels_match_plain(cuda, causal, Ls, lens):
+    """The ring backward over four in-process shards (rows 4 and 5 per
+    visible step, the token mode's own-shard step in plain torch) against
+    the same loop with flash_bwd_plain, from the ring forward's outputs
+    and global LSEs; a padded query row gets no gradient."""
+    n, B, N, D = 4, 2, 2, 128
+    q, k, v = _qkv(B, n * Ls, n * Ls, N, D, Ls + 1, 1.0, cuda)
+    do = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(Ls))
+    do = do.bfloat16()
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    qs, ks, vs, dos = ([s_.contiguous() for s_ in t.chunk(n, 1)] for t in (q, k, v, do))
+    fwd = ring_flash_attention_shards(qs, ks, vs, kv_lens=kv, causal=causal, return_lse=True)
+    outs, lses = [f[0] for f in fwd], [f[1] for f in fwd]
+    n0 = dict(flash_attention_train.launches)
+    got = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, kv, causal)
+    steps = {None: n * n, "block": n * (n + 1) // 2, "token": n * (n - 1) // 2}[causal]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert flash_attention_train.launches[name] - n0[name] == steps
+    ref = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, kv, causal,
+                                     bwd=flash_bwd_plain)
+    for i in range(3):
+        g, r = (torch.cat([x[i] for x in t], 1) for t in (got, ref))
+        assert torch.isfinite(g).all()
+        live = [b for b in range(B) if r[b].abs().max() > 0]
+        assert float(_grad_rel(g[live], r[live]).max()) < 1e-2
+        for b in set(range(B)) - set(live):
+            assert (g[b] == 0).all()
+    if lens is not None:  # padded query rows: no dq
+        dq = torch.cat([x[0] for x in got], 1)
+        for b, n_b in enumerate(lens):
+            assert (dq[b, n_b:] == 0).all()

@@ -109,3 +109,35 @@ def test_random_init_decodes_in_range():
     out = vae_decode(params, cfg, torch.randn(1, 4, 2, 2, 2))
     assert out.shape == (1, 3, 5, 16, 16)
     assert float(out.abs().max()) <= 1.0 and bool(torch.isfinite(out).all())
+
+
+def test_bf16_encode_and_decode_match_jax():
+    """dtype=bf16 (JAX `vae_dtype`), seeded params, against JAX's bf16
+    encode and decode. Both encoders convolve in bf16: latents within 1e-2
+    of their scale (bf16 roundings after every layer, in another order;
+    measured 2.4e-3). Both decoders round z to bf16 and un-normalize it to
+    f32 (the f32 scale promotes it), so they convolve in f32: frames within
+    1e-4 absolute, the f32 tolerance (measured 4.8e-6), and within 3e-2 of
+    the f32 decode (measured 9.3e-3: z's rounding)."""
+    kw = dict(TINY, attn_scales=(0.5,))
+    tparams = init_vae(VAEConfig(**kw), device="cpu", generator=torch.Generator().manual_seed(4))
+    _shift_attn_proj(tparams)
+    jparams = jax.tree_util.tree_map(lambda a: jnp.asarray(a.numpy()), tparams)
+    jvae, tvae = JaxVAE.create(jparams, JaxVAEConfig(**kw)), Wan21VAE.create(tparams,
+                                                                              VAEConfig(**kw))
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, (1, 3, 5, 16, 24)).astype(np.float32)
+    ref = np.asarray(jvae.encode(jnp.asarray(x), dtype=jnp.bfloat16))
+    out = tvae.encode(torch.tensor(x), torch.bfloat16).numpy()
+    f32 = tvae.encode(torch.tensor(x)).numpy()
+    assert out.dtype == np.float32 and out.shape == ref.shape
+    scale = np.abs(f32).max()
+    assert np.abs(out - ref).max() / scale < 1e-2
+    assert 0 < np.abs(out - f32).max() / scale < 2e-2  # the bf16 path ran
+    z = rng.standard_normal((1, 4, 2, 2, 3)).astype(np.float32)
+    ref = np.asarray(jvae.decode(jnp.asarray(z), dtype=jnp.bfloat16))
+    out = tvae.decode(torch.tensor(z), torch.bfloat16).numpy()
+    f32 = tvae.decode(torch.tensor(z)).numpy()
+    assert out.dtype == np.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+    assert 0 < np.abs(out - f32).max() < 3e-2

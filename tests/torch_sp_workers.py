@@ -162,3 +162,252 @@ def cli_worker(rank, tmp, argv):
 
     sys.modules.update(PIL=None, imageio=None)
     generate.main(list(argv))
+
+
+def _grad_case(fn, q, k, v, w):
+    """fn on fresh leaves q/k/v; (out, dq, dk, dv) of sum(fn(q, k, v)·w)."""
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    (out * w).sum().backward()
+    return [out.detach(), q.grad, k.grad, v.grad]
+
+
+def attention_grad_worker(rank, tmp):
+    """Gradients through Ulysses, the ring (non-causal, block, token, and
+    kv_lens whose last shard is all padding) and the hybrid on this rank's
+    shards of grad_inputs.npz (q, k, v, w [B, L, N, D], lens [B]); the
+    output grad is w. Writes grad_<rank>.npz: out, dq, dk, dv per case."""
+    from omnivideo_tpu_torch.parallel.mesh import create_mesh
+    from omnivideo_tpu_torch.parallel.ring import hybrid_attention, ring_attention
+    from omnivideo_tpu_torch.parallel.ulysses import ulysses_attention
+
+    data = load(tmp, "grad_inputs")
+    q, k, v, w = (torch.from_numpy(data[n]) for n in ("q", "k", "v", "w"))
+    lens = torch.from_numpy(data["lens"])
+    flat = create_mesh(sp=WORLD)
+    grid = create_mesh(fsdp=2, sp=2)
+    seq = flat.get_group("seq")
+    sh = [_shard(t, rank, WORLD) for t in (q, k, v, w)]
+    i = grid.get_local_rank("fsdp") * 2 + grid.get_local_rank("seq")
+    hy = [_shard(t, i, WORLD) for t in (q, k, v, w)]
+    cases = {
+        "ulysses": (lambda a, b, c: ulysses_attention(a, b, c, seq), sh),
+        "ulysses_lens": (lambda a, b, c: ulysses_attention(a, b, c, seq, kv_lens=lens), sh),
+        "ring": (lambda a, b, c: ring_attention(a, b, c, seq), sh),
+        "ring_block": (lambda a, b, c: ring_attention(a, b, c, seq, causal="block"), sh),
+        "ring_token": (lambda a, b, c: ring_attention(a, b, c, seq, causal="token",
+                                                      impl="pallas"), sh),
+        "ring_lens": (lambda a, b, c: ring_attention(a, b, c, seq, kv_lens=lens), sh),
+        "hybrid": (lambda a, b, c: hybrid_attention(a, b, c, grid.get_group("fsdp"),
+                                                    grid.get_group("seq")), hy),
+        "hybrid_lens": (lambda a, b, c: hybrid_attention(
+            a, b, c, grid.get_group("fsdp"), grid.get_group("seq"), ring_impl="pallas",
+            kv_lens=lens), hy),
+    }
+    out = {"hybrid_shard": np.array(i)}
+    for name, (fn, (qs, ks, vs, ws)) in cases.items():
+        for tag, t in zip(("out", "dq", "dk", "dv"), _grad_case(fn, qs, ks, vs, ws)):
+            out[f"{name}_{tag}"] = t.numpy()
+    _save(tmp, f"grad_{rank}", **out)
+
+
+def dit_grad_worker(rank, tmp, cfg_kw):
+    """The SP DiT's parameter grads (Ulysses, ring, hybrid) of sum(v·w),
+    summed over the ranks as the trainer reduces them, beside the same
+    model's single-process grads on this rank. Writes dgrad_<rank>.npz."""
+    from omnivideo_tpu_torch.configs.base import WanDiTConfig
+    from omnivideo_tpu_torch.io.jax_bridge import load_wan_state_dict
+    from omnivideo_tpu_torch.models.wan_dit import SPConfig, WanDiT
+    from omnivideo_tpu_torch.parallel.mesh import create_mesh
+
+    model = load_wan_state_dict(WanDiT(WanDiTConfig(**cfg_kw), torch.float32, device="cpu"),
+                                load(tmp, "sd"))
+    data = {n: torch.from_numpy(a) for n, a in load(tmp, "inputs").items()}
+    flat, grid = create_mesh(sp=WORLD), create_mesh(fsdp=2, sp=2)
+    modes = {"ulysses": SPConfig(flat, "ulysses"), "ring": SPConfig(flat, "ring"),
+             "hybrid": SPConfig(grid, "hybrid")}
+    out = {}
+
+    def grads(sp):
+        model.zero_grad()
+        v = model(data["xp"], data["t"], data["ctx"], seq_len=48, qk_impl="unfused", sp=sp)
+        (v * data["w"]).sum().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    for n, g in grads(None).items():
+        out["single/" + n] = g.numpy()
+    for name, sp in modes.items():
+        for n, g in grads(sp).items():
+            dist.all_reduce(g)  # every rank holds a token shard: the sum
+            out[f"{name}/{n}"] = g.numpy()
+    _save(tmp, f"dgrad_{rank}", **out)
+
+
+def _full(t: torch.Tensor) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach().float().numpy().copy()
+
+
+def _train_mesh(mesh_kw, cfg, tc, sd, batch, draws, steps, seq_len=None, ckpt=None,
+                resume=None):
+    """`steps` unified train steps on a mesh (None: one process); returns
+    per step {"loss", "grad_norm", "grads" {name: full}, "params" {name:
+    full}}. ckpt=(dir, step): save after that step; resume=dir: start from
+    its latest step."""
+    from omnivideo_tpu_torch.models.wan_dit import SPConfig
+    from omnivideo_tpu_torch.parallel.mesh import batch_slice, create_mesh
+    from omnivideo_tpu_torch.parallel.sharding import shard_params
+    from omnivideo_tpu_torch.training import trainer
+    from omnivideo_tpu_torch.training.checkpoint import CheckpointManager
+
+    mesh, sp = None, None
+    if mesh_kw is not None:
+        mode = mesh_kw.pop("mode", None)
+        mesh = create_mesh(**mesh_kw)
+        if mode is not None:
+            sp = SPConfig(mesh, mode)
+    model = trainer.init_unified_params(cfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    if mesh_kw is not None and (mesh_kw.get("fsdp", 1) > 1 or mesh_kw.get("tp", 1) > 1):
+        shard_params(model, mesh)
+    tx = trainer.make_optimizer(tc, model)
+    state = trainer.init_train_state(model, tx)
+    if resume is not None:
+        state = CheckpointManager(resume).restore(state)
+    step = trainer.make_unified_train_step(cfg, tc, tx, mesh=mesh, sp=sp, seq_len=seq_len)
+    rows = slice(*batch_slice(mesh, batch["latents"].shape[0]))
+    local = {k: torch.from_numpy(v[rows]) for k, v in batch.items()}
+    seen = {}
+    update = tx.update
+
+    def spy(model_, grads, opt_state):
+        seen["grads"] = {n: _full(g) for n, g in grads.items()}
+        return update(model_, grads, opt_state)
+
+    tx.update = spy
+    recs = []
+    for s in range(state.step, steps):
+        d = tuple(None if a is None else torch.from_numpy(a[s]) for a in draws)
+        state, m = step(state, local, d)
+        recs.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "grads": seen["grads"],
+                     "params": {n: _full(p) for n, p in state.params.named_parameters()}})
+        if ckpt is not None and s + 1 == ckpt[1]:
+            CheckpointManager(ckpt[0]).save(s + 1, state, {"step": s + 1})
+    return recs
+
+
+TRAIN_MESHES = {  # name → create_mesh kwargs (+ the SPConfig mode), and a seq_len
+    "dp2_fsdp2": (dict(dp=2, fsdp=2), None),
+    "fsdp2_sp2_ulysses": (dict(fsdp=2, sp=2, mode="ulysses"), None),
+    "sp4_ring_padded": (dict(sp=4, mode="ring"), 52),
+    "fsdp2_sp2_hybrid": (dict(fsdp=2, sp=2, mode="hybrid"), None),
+    "tp2_fsdp2": (dict(fsdp=2, tp=2, mode="tp"), None),
+    "tp4": (dict(tp=4, mode="tp"), None),
+}
+
+
+def parallel_train_worker(rank, tmp, cfg_kw, tc_kw, steps):
+    """Every mesh of TRAIN_MESHES for `steps` steps from train_inputs.npz
+    (the port state dict "sd/<name>", the global batch "batch/<key>", the
+    draws per step "tid", "noise", "drop"); then the checkpoint round trips:
+    fsdp2×sp2 Ulysses saves after step 2 of 3, and the same mesh, dp2×tp2
+    and (rank 0) one process resume from it; sp4 resumes the one-process
+    checkpoint `ckpt_one`. Rank 0 writes ptrain.npz."""
+    from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.training import trainer
+
+    data = load(tmp, "train_inputs")
+    sd = {k[3:]: v for k, v in data.items() if k.startswith("sd/")}
+    batch = {k[6:]: v for k, v in data.items() if k.startswith("batch/")}
+    draws = (data["tid"], data["noise"], data["drop"])
+    cfg = PipelineConfig(dit=WanDiTConfig(**cfg_kw["dit"]), vae=VAEConfig(z_dim=4),
+                         **cfg_kw["pipe"])
+    tc = trainer.TrainConfig(**tc_kw)
+    out = {}
+
+    def keep(name, recs):
+        for s, r in enumerate(recs):
+            out[f"{name}/{s}/loss"] = np.array(r["loss"])
+            out[f"{name}/{s}/grad_norm"] = np.array(r["grad_norm"])
+            for n, g in r["grads"].items():
+                out[f"{name}/{s}/grad/{n}"] = g
+            for n, p in r["params"].items():
+                out[f"{name}/{s}/param/{n}"] = p
+
+    for name, (mesh_kw, seq_len) in TRAIN_MESHES.items():
+        keep(name, _train_mesh(dict(mesh_kw), cfg, tc, sd, batch, draws, steps, seq_len))
+    ck = str(Path(tmp) / "ckpt")
+    writer = _train_mesh(dict(fsdp=2, sp=2, mode="ulysses"), cfg, tc, sd, batch, draws, steps,
+                         ckpt=(ck, 2))
+    out["ckpt/writer"] = np.array([r["loss"] for r in writer])
+    dist.barrier()
+    same = _train_mesh(dict(fsdp=2, sp=2, mode="ulysses"), cfg, tc, sd, batch, draws, steps,
+                       resume=ck)
+    out["ckpt/same_mesh"] = np.array([r["loss"] for r in same])
+    out["ckpt/same_mesh_params_equal"] = np.array(all(
+        np.array_equal(p, same[-1]["params"][n]) for n, p in writer[-1]["params"].items()))
+    recs = _train_mesh(dict(dp=2, tp=2, mode="tp"), cfg, tc, sd, batch, draws, steps, resume=ck)
+    out["ckpt/dp2_tp2"] = np.array([r["loss"] for r in recs])
+    # a checkpoint the one-process run wrote (tests/test_torch_parallel_train.py), under sp 4
+    recs = _train_mesh(dict(sp=4, mode="ring"), cfg, tc, sd, batch, draws, steps,
+                       resume=str(Path(tmp) / "ckpt_one"))
+    out["ckpt/one_to_sp4"] = np.array([r["loss"] for r in recs])
+    if rank == 0:
+        recs = _train_mesh(None, cfg, tc, sd, batch, draws, steps, resume=ck)
+        out["ckpt/one"] = np.array([r["loss"] for r in recs])
+        _save(tmp, "ptrain", **out)
+
+
+def parallel_train_all_worker(rank, tmp, cfg_kw, tc_kw, steps, argv):
+    """shardings_worker, parallel_train_worker, then the finetune CLI
+    (`argv`) on the group this rank already joined."""
+    from omnivideo_tpu_torch.tools import finetune
+
+    shardings_worker(rank, tmp, cfg_kw)
+    parallel_train_worker(rank, tmp, cfg_kw, tc_kw, steps)
+    finetune.main(list(argv))
+
+
+def sp_train_worker(rank, tmp, cfg_kw):
+    """attention_grad_worker, then dit_grad_worker."""
+    attention_grad_worker(rank, tmp)
+    dit_grad_worker(rank, tmp, cfg_kw)
+
+
+def shardings_worker(rank, tmp, cfg_kw):
+    """params_shardings' plan and the placements shard_params leaves on a
+    tp2×fsdp2 mesh; rank 0 writes shardings.json."""
+    import json
+
+    from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.parallel.mesh import create_mesh
+    from omnivideo_tpu_torch.parallel.sharding import params_shardings, placements, shard_params
+    from omnivideo_tpu_torch.training import trainer
+
+    cfg = PipelineConfig(dit=WanDiTConfig(**cfg_kw["dit"]), vae=VAEConfig(z_dim=4),
+                         **cfg_kw["pipe"])
+    mesh = create_mesh(fsdp=2, tp=2)
+    model = trainer.init_unified_params(cfg, device="cpu")
+    big = sum(p.numel() >= 1024 for p in model.parameters())
+    plan = params_shardings(model, mesh)
+    held = placements(shard_params(model, mesh))
+    if rank == 0:
+        (Path(tmp) / "shardings.json").write_text(json.dumps(
+            {"plan": plan, "placements": held, "numel_at_least_1024": int(big)}))
+
+
+def cli_runs_worker(rank, tmp, runs):
+    """The generate CLI once per (name, argv) of `runs` on the group this
+    rank already joined; rank 0 writes cli_latents.npz ({name/row id:
+    latents}). Pillow and imageio are hidden, as cli_worker does."""
+    from omnivideo_tpu_torch.tools import generate
+
+    sys.modules.update(PIL=None, imageio=None)
+    out = {}
+    for name, argv in runs:
+        for r in generate.run(generate.parse_args(list(argv))):
+            out[f"{name}/{r['id']}"] = r["latents"].numpy()
+    if rank == 0:
+        _save(tmp, "cli_latents", **out)
