@@ -8,6 +8,9 @@ Run from the repository root on a machine with an NVIDIA H100:
                                      # machine with 2+ cards its multi-card half runs
     python3 chip_smoke.py sp_train   # the train phase (its reference), then sp_train:
                                      # with 2+ cards its multi-card part runs
+    python3 chip_smoke.py lora       # the train phase (AdamW's yardstick), then lora
+    python3 chip_smoke.py adafactor  # the train phase, then adafactor
+    python3 chip_smoke.py qwen3_sp   # the vlm phase, with its text-only pass and qwen3_sp
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -44,7 +47,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             file: source caption (grid 3x44x80 at 704x1280), target caption
             (text only), features (grid 3x2x2 at 32x32), each pass's
             launches (27 flash_d72 with a clip, 48 flash_causal), grids and
-            feature shape asserted; the model is freed before the e2e phase;
+            feature shape asserted; then the text-only pass (text_only
+            below) on its text stack; the model is freed before the e2e phase;
+  text_only the vlm model's text stack as a text-only Qwen3 (qwen3_forward
+            on the prompt's 1,481 ids, a 16-token qwen3_greedy_decode, 48
+            flash_causal launches a pass): base, rank-16 bare adapters with
+            B = 0 (logits and tokens bit-equal), B perturbed, merged
+            (MERGE_TOL of scale against the adapters); then the vision tower
+            once with VISION_BARE_NAMES adapters (27 flash_d72 launches);
+  qwen3_sp  qwen3_forward_sp on a NCCL group of world 1 (48 token-causal
+            ring_step launches) against qwen3_forward on the same weights,
+            SP_TOL of scale (run from the text-only pass);
   e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
@@ -126,7 +139,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             heads and FFN divide) and on 4 cards dp2 x fsdp2 the same way,
             then generate under fsdp and tp against the non-SP generate
             (SP_TOL of scale); with one card a line says why (c) did not run.
-The line before the last is the kernel summary; the last line is
+  lora      the train phase's T2V-1.3B step with rank-16 LoRA on the
+            attention and FFN projections, the base frozen, AdamW on the
+            adapters: 3 steps, launches per step asserted, step time, peak
+            memory and optimizer-state bytes beside the train phase's, the
+            adapters moved and the base bit-equal (a fingerprint of every
+            frozen tensor); the adapters (B perturbed) exported as .npz:
+            2-step 832x480x81 latents merged against unmerged (MERGE_TOL) and
+            against none, merged weights at three sites within FOLD_ULPS of
+            the f64 fold, the generate CLI with --lora_adapters (rows 1 and
+            6 counted), and the finetune CLI from a YAML --config (LoRA with
+            adafactor, 2 steps at full width on its dummy data);
+  adafactor the same step with the adafactor optimizer on every parameter:
+            3 steps, step time, peak memory and state bytes beside AdamW's,
+            step 2's update of three JAX leaves (factored across the
+            layers, unfactored across the layers, one factored kernel)
+            within UPDATE_TOL of an f64 reference of the same rule.
+The line before the last is the kernel summary (each row's launches per
+path, each path's count reset just before it); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 
@@ -220,14 +250,37 @@ from omnivideo_tpu_torch.pipelines.loading import load_expert
 from omnivideo_tpu_torch.pipelines.x2x import ExpertParams, OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
 from omnivideo_tpu_torch.tools import generate as generate_cli
+from omnivideo_tpu_torch.models.qwen3vl.text_model import (
+    qwen3_forward,
+    qwen3_forward_sp,
+    qwen3_greedy_decode,
+)
+from omnivideo_tpu_torch.ops.lora import has_lora
+from omnivideo_tpu_torch.training.lora import (
+    DEFAULT_TARGETS,
+    LORA_FILTERS,
+    VISION_BARE_NAMES,
+    apply_lora_state,
+    count_lora_params,
+    freeze_base,
+    inject_lora,
+    inject_lora_bare,
+    load_adapters_npz,
+    merge_lora,
+    save_adapters_npz,
+)
+from omnivideo_tpu_torch.training.lora import sites as lora_sites
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
+    global_norm,
     init_train_state,
     init_unified_params,
+    jax_path,
     make_optimizer,
     make_unified_train_step,
     sample_draws,
 )
+from omnivideo_tpu_torch.utils.run_config import write_yaml
 from omnivideo_tpu_torch.utils.video import read_video_frames
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
@@ -1047,6 +1100,7 @@ def phase_vlm(clip: Path) -> dict:
     moe_check = _vlm_moe_check(model, L)
     profile = _vlm_profile(model, ids, patches, grid)
     engine = _engine_pass(model, clip)
+    text = phase_text_only(model, ids, patches, grid)
     steps = timings["decode_steps"]
     rec = {"phase": "vlm", "config": "QWEN3_VL_30B_A3B", "text_layers": cfg.text.num_hidden_layers,
            "experts": cfg.text.num_experts, "vision_depth": vc.depth, "grid": list(grid),
@@ -1060,8 +1114,11 @@ def phase_vlm(clip: Path) -> dict:
            "d72_guard": {"bounded_blocks": int(safe.sum()),
                          "max_tracked_blocks": int((safe == 0).sum())},
            "launches_per_pass": per_pass, "launches": total, "moe_check": moe_check,
-           "profile": profile, "engine": engine}
+           "profile": profile, "engine": engine,
+           "text_only_launches": text["launches"],
+           "qwen3_sp_launches": text["qwen3_sp"]["launches"]}
     emit(rec)
+    rec["text_only"] = text
     rec["features"] = h
     del model, feats, patches
     gc.collect()
@@ -2066,10 +2123,9 @@ def phase_train() -> dict:
         rows.append((loss, gnorm))
         per_step.append({**_train_launches(), **_launches()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_attn = 2 * cfg.dit.num_layers
-    expect = {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
-              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0,
-              "ring_step": 0}
+    state_bytes = sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                      for t in state.opt_state[k].values())
+    expect = _train_expect(cfg)
     profile = _profile(lambda: step(state, batch, draws))
     rec = {"phase": "train", "config": "T2V_1_3B", "layers": cfg.dit.num_layers,
            "dim": cfg.dit.dim, "params": n_params, "latents": list(lat), "seq_len": SEQ,
@@ -2077,8 +2133,8 @@ def phase_train() -> dict:
            "lr": tc.learning_rate, "tid": int(draws[0][0]), "cfg_drop": bool(draws[2][0]),
            "init_s": init_s, "loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
            "step_s": step_s, "train_step_s": sum(step_s[1:]) / (len(step_s) - 1),
-           "max_memory_allocated_gb": peak_gb, "launches_per_step": per_step,
-           "profile_one_step": profile}
+           "max_memory_allocated_gb": peak_gb, "optimizer_state_bytes": state_bytes,
+           "launches_per_step": per_step, "profile_one_step": profile}
     emit(rec)
     finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows)
     if (not finite or not rows[-1][0] < rows[0][0] or any(p != expect for p in per_step)
@@ -2378,6 +2434,435 @@ def phase_sp_train(ref: dict, gen: torch.Generator) -> dict:
     return {"ring_backward": ring_bwd, **rec}
 
 
+
+# --- LoRA, adafactor, the text-only Qwen3 ---------------------------------
+
+LORA_RANK = 16
+LORA_LR = 1e-4  # a LoRA finetune's usual rate (the base is frozen)
+ADAFACTOR_LR = 1e-3  # adafactor's step is relative (lr · the leaf's RMS): 3e-6 would move
+# a leaf by ~6e-8, under a 0.02-sized f32 parameter's ulp resolution for the update check
+BUMP = 0.02  # B += BUMP · N(0, 1), seeded, where a check needs adapters that act
+MERGE_TOL = 5e-2  # merged vs adapter, of scale: the merged weight rounds W + scale·AB to
+# bf16 once, the adapter path adds an f32 delta to a bf16 product (SP_TOL's limit)
+UPDATE_TOL = 1e-3  # adafactor's update vs the f64 reference: f32 statistics and sums, the
+# update read back as p_after − p_before from f32 parameters (~1e-4 of it)
+FOLD_ULPS = 1.0  # a merged weight vs the f32 fold on the host (JAX `_fold`), in bf16 ulps
+# of the tensor's largest |value|: the two f32 products of A·B sum in other orders
+
+
+def _bump_b(model: torch.nn.Module, seed: int) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if has_lora(m):
+                m.lora_b.add_(BUMP * torch.randn(m.lora_b.shape, generator=gen, device="cuda"))
+
+
+def _fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """Three sums of a tensor's bits: any change of any element changes them."""
+    b = _bits(t.detach()).long()
+    return torch.stack([b.sum(), (b & 0xFFFF).square().sum(), (b >> 16).square().sum()])
+
+
+def _scale_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def _timed_steps(step, state, batch, draws, n):
+    """n train steps: (state, [(loss, grad_norm)], step seconds, launches per step)."""
+    rows, step_s, per_step = [], [], []
+    for _ in range(n):
+        _reset_launches()
+        _reset_train_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({**_train_launches(), **_launches()})
+    return state, rows, step_s, per_step
+
+
+def _train_expect(cfg) -> dict:
+    n_attn = 2 * cfg.dit.num_layers
+    return {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
+            "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0,
+            "ring_step": 0}
+
+
+def phase_lora(adamw: dict, tmp: Path) -> dict:
+    """The train phase's T2V-1.3B step with rank-16 LoRA on DEFAULT_TARGETS
+    (the base frozen, AdamW on the adapters alone, lr LORA_LR), 3 steps:
+    step time, peak memory and optimizer-state bytes beside the train
+    phase's AdamW step (`adamw`, same call); the adapters moved, the base
+    bit-equal. Then the adapters (B perturbed) through generate: latents
+    merged against unmerged (the delta in `dense`, ahead of rows 6 and 1)
+    and against none, the merged weights held to the f64 fold, the generate
+    CLI's `run` with --lora_adapters (rows 1 and 6 counted) and a short
+    finetune CLI run from a YAML --config (LoRA, adafactor)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tc, params, batch, draws = _train_setup()
+    tc = dataclasses.replace(tc, learning_rate=LORA_LR, trainable_filters=LORA_FILTERS)
+    inject_lora(params.wan, LORA_RANK, generator=torch.Generator(device="cuda").manual_seed(7))
+    trained = freeze_base(params)
+    base = {n: _fingerprint(p) for n, p in params.named_parameters() if n not in trained}
+    start = {n: p.detach().clone() for n, p in params.named_parameters() if n in trained}
+    tx = make_optimizer(tc, params)
+    state = init_train_state(params, tx)
+    step = make_unified_train_step(cfg, tc, tx)
+    state, rows, step_s, per_step = _timed_steps(step, state, batch, draws, TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_bytes = sum(t.numel() * t.element_size() for k in ("mu", "nu")
+                      for t in state.opt_state[k].values())
+    named = dict(params.named_parameters())
+    moved = sum(not torch.equal(named[n], t) for n, t in start.items())
+    base_equal = all(torch.equal(_fingerprint(named[n]), f) for n, f in base.items())
+    n_adapter = count_lora_params(params.wan)
+    _bump_b(params.wan, 11)
+    ad_path = tmp / "lora_adapters.npz"
+    save_adapters_npz(params.wan, ad_path)
+    adapters = load_adapters_npz(ad_path)
+    del state, params, step, batch, tx, start, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = _train_expect(cfg)
+    rec = {"phase": "lora", "config": "T2V_1_3B", "rank": LORA_RANK, "targets": DEFAULT_TARGETS,
+           "lr": LORA_LR, "adapter_params": n_adapter, "trainable_tensors": len(trained),
+           "loss": [r[0] for r in rows], "grad_norm_adapters": [r[1] for r in rows],
+           "step_s": step_s, "train_step_s": sum(step_s[1:]) / (len(step_s) - 1),
+           "adamw_train_step_s": adamw["train_step_s"], "max_memory_allocated_gb": peak_gb,
+           "adamw_max_memory_allocated_gb": adamw["max_memory_allocated_gb"],
+           "optimizer_state_bytes": state_bytes,
+           "adamw_optimizer_state_bytes": adamw["optimizer_state_bytes"],
+           "adapters_moved": moved, "base_bit_equal": base_equal,
+           "launches_per_step": per_step}
+    emit(rec)
+    finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows)
+    if (not finite or not base_equal or moved == 0 or any(p != expect for p in per_step)
+            or peak_gb >= 80.0):
+        raise AssertionError(f"lora: {rec} (launches expected {expect} per step)")
+    rec["launches"] = {k: sum(p[k] for p in per_step) for k in flash_attention_train.launches}
+    rec["generate"] = _lora_generate(adapters, ad_path, tmp)
+    rec["finetune_cli"] = _lora_finetune_cli(tmp)
+    return rec
+
+
+def _lora_generate(adapters: dict, ad_path: Path, tmp: Path) -> dict:
+    """2 steps of the 1.3B generate at 832x480x81 with no adapters, with the
+    adapters grafted (unmerged) and merged; the merged weights at three
+    sites against the f64 fold; then the CLI with --lora_adapters."""
+    pipe, ctx, gen = t2v_pipeline(T2V_1_3B, "cuda")
+    features = torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen, device="cuda")
+    wan = pipe.low_noise.wan
+    _sp_generate(pipe, ctx, features, SIZE, FRAMES, steps=1)  # warm-up
+    lat_none, step_none, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
+    apply_lora_state(wan, adapters)
+    _reset_launches()
+    lat_unmerged, step_unmerged, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
+    unmerged_launches = _launches()
+    last = len(wan.blocks) - 1
+    sites = ("blocks.0.self_attn.q", f"blocks.{last // 2}.cross_attn.o", f"blocks.{last}.ffn.2")
+    refs = {}
+    for name in sites:  # JAX's `_fold` in numpy f32 on the host
+        lin = wan.get_submodule(name)
+        a, b, w = (t.detach().float().cpu().numpy() for t in (lin.lora_a, lin.lora_b, lin.weight))
+        fold = w + ((a @ b) * np.float32(lin.lora_scale.item())).T
+        refs[name] = torch.from_numpy(fold).to(torch.bfloat16).float()
+    merge_lora(wan)
+    fold_ulps = max(float((wan.get_submodule(n).weight.float().cpu() - r).abs().max()
+                          / bf16_ulp(r.abs().max())) for n, r in refs.items())
+    lat_merged, step_merged, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
+    del pipe, wan, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = tmp / "lora_rows.jsonl"
+    rows.write_text(json.dumps({"sample_id": "t2v_lora", "prompt": EDIT_PROMPT}) + "\n")
+    argv = ["--task", "t2v-1.3B", "--random_weights", "--sample_steps", str(STEPS),
+            "--size", f"{SIZE[0]}*{SIZE[1]}", "--frame_num", str(FRAMES), "--input", str(rows),
+            "--output_dir", str(tmp / "lora_out"), "--device", "cuda",
+            "--lora_adapters", str(ad_path)]
+    _reset_launches()
+    t0 = time.perf_counter()
+    (res,) = generate_cli.run(generate_cli.parse_args(argv))
+    wall_s = time.perf_counter() - t0
+    cli_launches = _launches()
+    shutil.rmtree(tmp / "lora_out", ignore_errors=True)
+    layers = T2V_1_3B.dit.num_layers
+    expect = {**{k: 0 for k in cli_launches}, "qk_prep": 4 * layers * STEPS,
+              "flash_fwd": 2 * layers * STEPS}
+    rec = {"phase": "lora_generate", "sites": len(adapters),
+           "merged_vs_unmerged_rel": _scale_rel(lat_merged, lat_unmerged),
+           "merged_vs_none_rel": _scale_rel(lat_merged, lat_none), "tolerance_rel": MERGE_TOL,
+           "fold_max_bf16_ulps": fold_ulps, "fold_tolerance_ulps": FOLD_ULPS,
+           "denoise_step_s": {"none": step_none, "unmerged": step_unmerged,
+                              "merged": step_merged},
+           "unmerged_launches": unmerged_launches, "cli_wall_s": wall_s,
+           "cli_timings": {k: res["timings"].get(k) for k in ("denoise_step_s", "decode_s")},
+           "cli_launches": cli_launches}
+    emit(rec)
+    finite = all(bool(torch.isfinite(t).all()) for t in (lat_none, lat_unmerged, lat_merged))
+    if (not finite or rec["merged_vs_unmerged_rel"] > MERGE_TOL or fold_ulps > FOLD_ULPS
+            or cli_launches != expect or unmerged_launches != expect):
+        raise AssertionError(f"lora generate: {rec} (launches expected {expect})")
+    return rec
+
+
+def _lora_finetune_cli(tmp: Path) -> dict:
+    """tools/finetune.py main from a YAML --config: T2V-1.3B at full width
+    on its dummy data (its latents are 21 × 8 × 8), LoRA rank 16 with
+    adafactor, 2 steps, the adapters exported."""
+    from omnivideo_tpu_torch.tools import finetune as finetune_cli
+
+    out = tmp / "ft"
+    yml = tmp / "run.yaml"
+    yml.write_text(write_yaml({"task": "t2v-1.3B", "lora_rank": LORA_RANK,
+                               "optimizer": "adafactor", "total_steps": 2, "log_interval": 1,
+                               "save_interval": 1000, "output_dir": str(out),
+                               "lora_adapter_export": str(out / "ad.npz"), "device": "cuda"}))
+    _reset_train_launches()
+    t0 = time.perf_counter()
+    rc = finetune_cli.main(["--config", str(yml), "--dummy_data"])
+    wall_s = time.perf_counter() - t0
+    launches = _train_launches()
+    losses = [json.loads(x)["loss/t2v"] for x in (out / "metrics.jsonl").read_text().splitlines()]
+    ad = load_adapters_npz(out / "ad.npz")
+    written = (out / "run_config.yaml").exists()
+    shutil.rmtree(out, ignore_errors=True)
+    rec = {"phase": "lora_finetune_cli", "rc": rc, "wall_s": wall_s, "losses": losses,
+           "adapter_sites": len(ad), "run_config_yaml": written, "launches": launches}
+    emit(rec)
+    if (rc != 0 or len(losses) != 2 or not all(np.isfinite(losses)) or not written
+            or len(ad) != 10 or min(launches.values()) == 0):
+        raise AssertionError(f"lora finetune CLI: {rec}")
+    return rec
+
+
+def _adafactor_reference(names, p0, g, st, count, gscale, lr, wd) -> torch.Tensor:
+    """optax.adafactor's update (defaults) then the lr-scaled decay, in f64,
+    written on JAX's leaf: the layers stacked, Linear weights as [d_in,
+    d_out] kernels. `g` are the raw grads and gscale the global clip's
+    factor. Returns the update in that layout."""
+    def jax_view(n, t):
+        return t.double().T if n.endswith(".weight") and t.ndim == 2 else t.double()
+
+    stack = (lambda ts: torch.stack(ts)) if len(names) > 1 else (lambda ts: ts[0])
+    P = stack([jax_view(n, p0[n]) for n in names])
+    G = stack([jax_view(n, g[n]) for n in names]) * gscale
+    dims = None
+    order = np.argsort(P.shape)
+    if len(P.shape) >= 2 and P.shape[order[-2]] >= 128:
+        dims = int(order[-2]), int(order[-1])
+    dr = 1.0 - (count + 1.0) ** -0.8
+    g2 = G.square() + 1e-30
+    if dims is None:
+        V = dr * stack([jax_view(n, st["v"][n]) for n in names])
+        V = V + (1 - dr) * g2
+        U = G * V.pow(-0.5)
+    else:
+        d1, d0 = dims
+        VR = dr * stack([st["v_row"][n].double() for n in names]) + (1 - dr) * g2.mean(d0)
+        VC = dr * stack([st["v_col"][n].double() for n in names]) + (1 - dr) * g2.mean(d1)
+        rcm = VR.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+        U = G * (VR / rcm).pow(-0.5).unsqueeze(d0) * VC.pow(-0.5).unsqueeze(d1)
+    U = U / max(1.0, float(U.square().mean().sqrt()))
+    rms = float(P.square().mean().sqrt())
+    return -(U * lr) * (rms if rms > 1e-3 else 1e-3) - lr * wd * P
+
+
+def phase_adafactor(adamw: dict) -> dict:
+    """The train phase's step with --optimizer adafactor (every parameter,
+    lr ADAFACTOR_LR), 3 steps: step time, peak memory and optimizer-state
+    bytes beside AdamW's (`adamw`, same call); step 2's update of three JAX
+    leaves (factored across the 30 layers, unfactored across the layers,
+    one factored unstacked kernel) against the f64 reference of the same
+    rule on the same grads and state."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tc, params, batch, draws = _train_setup()
+    tc = dataclasses.replace(tc, optimizer="adafactor", learning_rate=ADAFACTOR_LR)
+    tx = make_optimizer(tc, params)
+    state = init_train_state(params, tx)
+    step = make_unified_train_step(cfg, tc, tx)
+    chosen = {"factored_stacked": "wan/blocks/cross_attn/k/kernel",
+              "unfactored_stacked": "wan/blocks/ffn/fc1/bias",
+              "factored_single": "wan/text_embedding/fc1/kernel"}
+    members = {k: [n for n, _ in params.named_parameters() if jax_path(n) == path]
+               for k, path in chosen.items()}
+    watched = [n for ns in members.values() for n in ns]
+    named = dict(params.named_parameters())
+    seen = {}
+    update = tx.update
+
+    def spy(model, grads, opt_state):
+        second = opt_state["count"] == 1  # the second update: decayed statistics
+        if second:
+            seen["g"] = {n: grads[n].detach().clone() for n in watched}
+            seen["p0"] = {n: named[n].detach().clone() for n in watched}
+            seen["st"] = {k: {n: t.detach().clone() for n, t in opt_state[k].items()
+                              if n in watched} for k in ("v", "v_row", "v_col")}
+            seen["gnorm"] = float(global_norm(grads.values()))
+        moved = update(model, grads, opt_state)
+        if second:
+            seen["p1"] = {n: named[n].detach().clone() for n in watched}
+        return moved
+
+    tx.update = spy
+    state, rows, step_s, per_step = _timed_steps(step, state, batch, draws, TRAIN_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state_bytes = sum(t.numel() * t.element_size() for k in ("v", "v_row", "v_col")
+                      for t in state.opt_state[k].values())
+    factored = len(state.opt_state["factored"])
+    gscale = min(1.0, tc.grad_clip / seen["gnorm"]) if tc.grad_clip else 1.0
+    lr = tx.sched(1)
+    checks = {}
+    with torch.no_grad():
+        for label, ns in members.items():
+            ref = _adafactor_reference(ns, seen["p0"], seen["g"], seen["st"], 1, gscale, lr,
+                                       tc.weight_decay)
+            got = torch.stack([(seen["p1"][n].double() - seen["p0"][n].double()).T
+                               if n.endswith(".weight") else
+                               seen["p1"][n].double() - seen["p0"][n].double() for n in ns])
+            got = got if len(ns) > 1 else got[0]
+            checks[label] = {"path": chosen[label], "layers": len(ns),
+                             "factored": any(n in state.opt_state["factored"] for n in ns),
+                             "update_rel_err": _scale_rel(got, ref),
+                             "update_rms": float(ref.square().mean().sqrt())}
+    del state, params, step, batch, tx, named, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = _train_expect(cfg)
+    rec = {"phase": "adafactor", "config": "T2V_1_3B", "lr": ADAFACTOR_LR,
+           "loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows], "step_s": step_s,
+           "train_step_s": sum(step_s[1:]) / (len(step_s) - 1),
+           "adamw_train_step_s": adamw["train_step_s"], "max_memory_allocated_gb": peak_gb,
+           "adamw_max_memory_allocated_gb": adamw["max_memory_allocated_gb"],
+           "optimizer_state_bytes": state_bytes,
+           "adamw_optimizer_state_bytes": adamw["optimizer_state_bytes"],
+           "factored_tensors": factored, "update_checks": checks, "tolerance_rel": UPDATE_TOL,
+           "launches_per_step": per_step}
+    emit(rec)
+    finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in rows)
+    wrong = [k for k, c in checks.items() if not c["update_rel_err"] <= UPDATE_TOL]
+    if (not finite or wrong or any(p != expect for p in per_step) or peak_gb >= 80.0
+            or not checks["factored_stacked"]["factored"]
+            or checks["unfactored_stacked"]["factored"]):
+        raise AssertionError(f"adafactor: {rec} (launches expected {expect} per step)")
+    rec["launches"] = {k: sum(p[k] for p in per_step) for k in flash_attention_train.launches}
+    return rec
+
+
+def phase_text_only(model: Qwen3VLModel, ids: np.ndarray, patches: torch.Tensor, grid) -> dict:
+    """The text-only Qwen3 on the vlm phase's text stack (48 layers): the
+    causal forward on the prompt's L ids and a 16-token greedy decode, base
+    and with rank-16 bare adapters (q k v o: the MoE layers' router and
+    experts are never adapted): B = 0 bit-equal, B perturbed, merged
+    against the adapters; row 2 counted per pass; qwen3_forward_sp on a
+    world-1 NCCL group against the adapter forward (`phase_qwen3_sp`);
+    then the vision tower once with VISION_BARE_NAMES adapters (row 3a).
+    Leaves the model's text weights merged."""
+    layers = model.cfg.text.num_hidden_layers
+    ids_t = torch.as_tensor(ids, device="cuda")
+    per = {"flash_causal": layers, "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0,
+           "flash_d72": 0, "ring_step": 0}
+    counts, out = [], {}
+
+    def run(tag):
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = qwen3_forward(model, ids_t)[1]
+        torch.cuda.synchronize()
+        out[f"{tag}_forward_s"] = time.perf_counter() - t0
+        counts.append(_launches())
+        _reset_launches()
+        t0 = time.perf_counter()
+        toks = qwen3_greedy_decode(model, ids_t, VLM_NEW_TOKENS)
+        torch.cuda.synchronize()
+        out[f"{tag}_decode_s"] = time.perf_counter() - t0
+        counts.append(_launches())
+        return logits, toks
+
+    logits0, toks0 = run("base")
+    again, toks_again = run("base_again")  # the forward is repeatable bit for bit
+    repeatable = torch.equal(again, logits0) and torch.equal(toks_again, toks0)
+    del again
+    inject_lora_bare(model, LORA_RANK, generator=torch.Generator(device="cuda").manual_seed(9))
+    sites = sum(1 for s in lora_sites(model) if has_lora(s.lin))
+    logits_b0, toks_b0 = run("b0")
+    b0_equal = torch.equal(logits_b0, logits0) and torch.equal(toks_b0, toks0)
+    del logits_b0
+    _bump_b(model, 13)
+    logits_ad, toks_ad = run("adapters")
+    sp = phase_qwen3_sp(model, ids_t, logits_ad)
+    merge_lora(model)
+    logits_m, toks_m = run("merged")
+    rel_m, rel_ad = _scale_rel(logits_m, logits_ad), _scale_rel(logits_ad, logits0)
+    del logits0, logits_m
+    with torch.inference_mode():
+        y0, _ = model.visual(patches, grid)
+        inject_lora_bare(model.visual, LORA_RANK, names=VISION_BARE_NAMES,
+                         generator=torch.Generator(device="cuda").manual_seed(15))
+        _bump_b(model.visual, 17)
+        _reset_launches()
+        y_ad, _ = model.visual(patches, grid)
+        vis_launches = _launches()
+    vis_rel = _scale_rel(y_ad, y0)
+    rec = {"phase": "text_only", "config": "QWEN3_VL_30B_A3B (text stack)", "seq_len": ids.shape[1],
+           "layers": layers, "rank": LORA_RANK, "adapted_sites": sites,
+           "base_repeatable": repeatable, "b0_bit_equal": b0_equal, "merged_vs_adapters_rel": rel_m,
+           "adapters_vs_base_rel": rel_ad, "tolerance_rel": MERGE_TOL,
+           "tokens_base": toks0[0].tolist(), "tokens_adapters": toks_ad[0].tolist(),
+           "tokens_merged": toks_m[0].tolist(), **out, "launches_per_pass": counts,
+           "vision_adapter_rel": vis_rel, "vision_launches": vis_launches}
+    emit(rec)
+    rec["qwen3_sp"] = sp
+    vis_expect = {**per, "flash_causal": 0, "flash_d72": model.cfg.vision.depth}
+    if (not repeatable or not b0_equal or rel_m > MERGE_TOL or any(c != per for c in counts)
+            or vis_launches != vis_expect or not torch.isfinite(y_ad).all()):
+        raise AssertionError(f"text_only: {rec} (launches expected {per} per pass)")
+    rec["launches"] = {"flash_causal": sum(c["flash_causal"] for c in counts),
+                       "flash_d72": vis_launches["flash_d72"]}
+    return rec
+
+
+def phase_qwen3_sp(model, ids_t: torch.Tensor, ref_logits: torch.Tensor) -> dict:
+    """qwen3_forward_sp on a NCCL group of world 1 (the token-causal ring
+    step, row 8, one step a layer) against `ref_logits`, qwen3_forward on
+    the same weights (row 2)."""
+    layers = model.language_model.cfg.num_hidden_layers
+    maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = create_mesh(sp=1, device="cuda")
+        qwen3_forward_sp(model, ids_t, mesh)  # warm-up: NCCL's communicator
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits = qwen3_forward_sp(model, ids_t, mesh)
+        torch.cuda.synchronize()
+        sp_s = time.perf_counter() - t0
+        launches = _launches()
+    finally:
+        dist.destroy_process_group()
+    rel = _scale_rel(logits, ref_logits)
+    expect = {"ring_step": layers, "flash_causal": 0, "flash_fwd": 0, "qk_prep": 0,
+              "flash_d72": 0, "fused_adaln": 0}
+    count = torch.cuda.device_count()
+    rec = {"phase": "qwen3_sp", "world": 1, "seq_len": int(ids_t.shape[1]), "forward_s": sp_s,
+           "logits_rel_err": rel, "tolerance_rel": SP_TOL, "launches": launches,
+           "multi_card": None}
+    if count >= 2:
+        print(f"qwen3_sp: the {min(4, count)}-rank run is not part of this script (ROADMAP "
+              "§1 item 4); the CPU tests hold the ring of 4 and ring × Ulysses", flush=True)
+    emit(rec)
+    if launches != expect or rel > SP_TOL or not torch.isfinite(logits).all():
+        raise AssertionError(f"qwen3_sp: {rec} (launches expected {expect})")
+    return rec
+
+
 def _sp_train_alone() -> int:
     """`chip_smoke.py sp_train`: the train phase for its reference, then sp_train."""
     phase_device()
@@ -2442,9 +2927,24 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
+    if argv[:1] in (["lora"], ["adafactor"], ["qwen3_sp"]):
+        phase_device()
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            if argv[0] == "qwen3_sp":  # the vlm phase: its text-only pass runs qwen3_sp
+                phase_vlm(write_clip(tmp / "clip_720p.npz"))
+            else:
+                train = phase_train()
+                if argv[0] == "lora":
+                    phase_lora(train, tmp)
+                else:
+                    phase_adafactor(train)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return 0
     if argv:
-        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp' or "
-                         "'sp_train')")
+        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
+                         "'sp_train', 'lora', 'adafactor' or 'qwen3_sp')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -2480,12 +2980,25 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     del features
     train = phase_train()
     phase_sp_train(train.pop("ref"), gen)
-    launches = {"qk_prep": e2e["qk_prep"], "flash_fwd": e2e["flash_fwd"],
-                "flash_causal": vlm["launches"]["flash_causal"],
-                "flash_d72": vlm["launches"]["flash_d72"],
-                "fused_adaln": a14b["launches"]["fused_adaln"],
-                **{k: sum(p[k] for p in train["launches_per_step"])
-                   for k in flash_attention_train.launches}}
+    lora = phase_lora(train, tmp)
+    ada = phase_adafactor(train)
+    text = vlm["text_only"]
+    gen_cli = lora["generate"]["cli_launches"]
+    train_rows = {k: sum(p[k] for p in train["launches_per_step"])
+                  for k in flash_attention_train.launches}
+    by_path = {  # each path's own count: reset just before it, read just after
+        "qk_prep": {"e2e": e2e["qk_prep"], "lora_generate_cli": gen_cli["qk_prep"]},
+        "flash_fwd": {"e2e": e2e["flash_fwd"], "lora_generate_cli": gen_cli["flash_fwd"]},
+        "flash_causal": {"vlm": vlm["launches"]["flash_causal"],
+                         "text_only": text["launches"]["flash_causal"]},
+        "flash_d72": {"vlm": vlm["launches"]["flash_d72"],
+                      "vision_lora": text["launches"]["flash_d72"]},
+        "fused_adaln": {"a14b": a14b["launches"]["fused_adaln"]},
+        "ring_step": {"sp": sp["launches"]["ring_step"],
+                      "qwen3_sp": text["qwen3_sp"]["launches"]["ring_step"]},
+        **{k: {"train": train_rows[k], "lora": lora["launches"][k], "adafactor": ada["launches"][k]}
+           for k in flash_attention_train.launches}}
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
     kernels = [
         {"name": "qk_prep", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/qk_prep.cu",
          "replaces": "omnivideo_tpu/ops/pallas/qk_prep.py:41",
@@ -2525,12 +3038,15 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     kernels.append(
         {"name": "ring_step", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/ring_step.cu",
          "replaces": "omnivideo_tpu/ops/pallas/ring_attention.py:36",
-         "launches": sp["launches"]["ring_step"], "max_abs_err": main_ring["max_abs_err"],
+         "launches": launches["ring_step"], "max_abs_err": main_ring["max_abs_err"],
          "ms": main_ring["ms"], "plain_ms": main_ring["plain_ms"],
          "bound_ms": main_ring["bound_ms"], "bound_by": main_ring["bound_by"],
          "library_ms": main_ring["library_ms"]})
-    if any(k["launches"] == 0 for k in kernels):
-        raise AssertionError(f"a kernel of the main paths never launched: {launches}")
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
+    idle = {(k["name"], p) for k in kernels for p, n in k["launches_by_path"].items() if n == 0}
+    if idle:
+        raise AssertionError(f"kernels that a path never launched: {sorted(idle)}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -18,7 +18,11 @@ pytree (stacked `layers`), and `pipeline_from_jax` assembles an x2x pipeline
 port's UnifiedParams names. `qwen3vl_params_to_state_dict` / `load_qwen3vl`
 do the same for the Qwen3-VL param tree of `qwen3vl_hf_to_params` (scanned
 `blocks`/`layers` stacks split per layer, `lm_head` and the deepstack
-mergers carried).
+mergers carried), `qwen3_params_to_state_dict` for the text-only Qwen3
+tree. LoRA adapters (training/lora.py) ride along in both layouts: a dense
+site's stacked `lora_a/lora_b/lora_scale` leaves and the bare `{name}_lora_*`
+siblings become each layer's `<linear>.lora_a/.lora_b/.lora_scale` (JAX's
+orientation kept), and the loaders attach the adapters they name.
 """
 
 from __future__ import annotations
@@ -37,7 +41,11 @@ from ..models.t5 import T5Encoder, t5_state_dict_to_params
 from ..models.vae2_1 import Wan21VAE
 from ..models.wan_dit import WanDiT
 from ..pipelines.x2x import ExpertParams, OmniVideoX2XUnified
+from ..ops.lora import has_lora
+from ..training.lora import set_adapter
 from .torch_convert import load_strict, unwrap_state_dict
+
+_ADAPTER_KEYS = ("lora_a", "lora_b", "lora_scale")
 
 
 def _np(a) -> np.ndarray:
@@ -61,6 +69,9 @@ def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
     def lin(name, p):
         sd[f"{name}.weight"] = _np(p["kernel"]).T
         sd[f"{name}.bias"] = _np(p["bias"])
+        for k in _ADAPTER_KEYS:
+            if k in p:
+                sd[f"{name}.{k}"] = _np(p[k])
 
     lin("patch_embedding", params["patch_embedding"])
     lin("text_embedding.0", params["text_embedding"]["fc1"])
@@ -72,30 +83,76 @@ def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
     sd["head.modulation"] = _np(params["head"]["modulation"])
     blocks = params["blocks"]
     n_layers = _np(blocks["modulation"]).shape[0]
+
+    def blin(name, site, i):
+        sd[f"{name}.weight"] = _np(site["kernel"])[i].T
+        sd[f"{name}.bias"] = _np(site["bias"])[i]
+        for k in _ADAPTER_KEYS:  # LoRA (training/lora.py): stacked, JAX's orientation kept
+            if k in site:
+                sd[f"{name}.{k}"] = _np(site[k])[i]
+
     for i in range(n_layers):
         p = f"blocks.{i}"
         sd[f"{p}.modulation"] = _np(blocks["modulation"])[i]
         for part in ("self_attn", "cross_attn"):
             a = blocks[part]
             for proj in ("q", "k", "v", "o"):
-                sd[f"{p}.{part}.{proj}.weight"] = _np(a[proj]["kernel"])[i].T
-                sd[f"{p}.{part}.{proj}.bias"] = _np(a[proj]["bias"])[i]
+                blin(f"{p}.{part}.{proj}", a[proj], i)
             sd[f"{p}.{part}.norm_q.weight"] = _np(a["norm_q"])[i]
             sd[f"{p}.{part}.norm_k.weight"] = _np(a["norm_k"])[i]
-        sd[f"{p}.ffn.0.weight"] = _np(blocks["ffn"]["fc1"]["kernel"])[i].T
-        sd[f"{p}.ffn.0.bias"] = _np(blocks["ffn"]["fc1"]["bias"])[i]
-        sd[f"{p}.ffn.2.weight"] = _np(blocks["ffn"]["fc2"]["kernel"])[i].T
-        sd[f"{p}.ffn.2.bias"] = _np(blocks["ffn"]["fc2"]["bias"])[i]
+        blin(f"{p}.ffn.0", blocks["ffn"]["fc1"], i)
+        blin(f"{p}.ffn.2", blocks["ffn"]["fc2"], i)
         if "norm3" in blocks:
             sd[f"{p}.norm3.weight"] = _np(blocks["norm3"]["scale"])[i]
             sd[f"{p}.norm3.bias"] = _np(blocks["norm3"]["bias"])[i]
     return sd
 
 
+def with_adapters(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
+    """Give every Linear that `sd` names a LoRA adapter for (`<name>.lora_a`)
+    an adapter of the right shapes to load into (training/lora.py)."""
+    for key, a in sd.items():
+        if key.endswith(".lora_a"):
+            name = key[: -len(".lora_a")]
+            lin = model.get_submodule(name)
+            if not has_lora(lin):
+                b = sd[f"{name}.lora_b"]
+                set_adapter(lin, torch.zeros(tuple(a.shape)), torch.zeros(tuple(b.shape)),
+                            torch.zeros(()))
+    return model
+
+
+def wan_state_dict_to_jax(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of `wan_params_to_state_dict`, flat: a WanDiT state dict →
+    {"/"-joined JAX param path: array} with the blocks stacked over the
+    layers, Linear weights as [in, out] kernels and the modulation tables in
+    JAX's shapes (the JAX finetune CLI's `--lora_export` file)."""
+    from ..training.trainer import jax_path
+
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    out: Dict[str, np.ndarray] = {}
+    for name, v in sd.items():
+        a = _np(v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+        path = jax_path(name)
+        if path.endswith("/kernel"):
+            a = a.T
+        elif path.endswith("modulation"):
+            a = a.reshape(a.shape[1:])  # [1, k, d] per layer → JAX's [k, d]
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            layers.setdefault(path, {})[int(parts[1])] = a
+        else:
+            out[path] = a
+    for path, by_layer in layers.items():
+        out[path] = np.stack([by_layer[i] for i in sorted(by_layer)])
+    return out
+
+
 def load_wan_state_dict(model: WanDiT, sd: Mapping[str, Any]) -> WanDiT:
     """Copy a reference-named state dict into `model`; every parameter must
-    be present and every key used."""
-    return load_strict(model, unwrap_state_dict(sd))
+    be present and every key used (LoRA keys attach their adapters)."""
+    sd = unwrap_state_dict(sd)
+    return load_strict(with_adapters(model, sd), sd)
 
 
 def t5_params_to_state_dict(params) -> Dict[str, np.ndarray]:
@@ -166,8 +223,9 @@ def unified_params_to_state_dict(params) -> Dict[str, np.ndarray]:
 
 def load_unified(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
     """Copy `unified_params_to_state_dict`'s arrays into a UnifiedParams;
-    every parameter must be present and every key used."""
-    return load_strict(model, sd)
+    every parameter must be present and every key used (LoRA keys attach
+    their adapters)."""
+    return load_strict(with_adapters(model, sd), sd)
 
 
 def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
@@ -175,10 +233,15 @@ def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
     the port's parameter names (HF names; Linear weights [out, in])."""
     sd: Dict[str, np.ndarray] = {}
 
-    def lin(name, kernel, bias=None):
+    def lin(name, kernel, bias=None, tree=None, key=None, i=None):
+        """A Linear; with `tree` and `key`, the bare LoRA siblings
+        tree[key + '_lora_a' ...] (stacked: layer i) too."""
         sd[f"{name}.weight"] = _np(kernel).T
         if bias is not None:
             sd[f"{name}.bias"] = _np(bias)
+        for k in _ADAPTER_KEYS:
+            if tree is not None and f"{key}_{k}" in tree:
+                sd[f"{name}.{k}"] = _np(tree[f"{key}_{k}"])[i]
 
     def norm(name, p):
         sd[f"{name}.weight"] = _np(p["weight"])
@@ -200,12 +263,31 @@ def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
         p = f"visual.blocks.{i}"
         for n in ("norm1", "norm2"):
             norm(f"{p}.{n}", {k: _np(v)[i] for k, v in blocks[n].items()})
-        lin(f"{p}.attn.qkv", blocks["qkv_w"][i], blocks["qkv_b"][i])
-        lin(f"{p}.attn.proj", blocks["proj_w"][i], blocks["proj_b"][i])
-        lin(f"{p}.mlp.linear_fc1", blocks["mlp_fc1_w"][i], blocks["mlp_fc1_b"][i])
-        lin(f"{p}.mlp.linear_fc2", blocks["mlp_fc2_w"][i], blocks["mlp_fc2_b"][i])
+        for port, key in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
+                          ("mlp.linear_fc1", "mlp_fc1"), ("mlp.linear_fc2", "mlp_fc2")):
+            lin(f"{p}.{port}", blocks[f"{key}_w"][i], blocks[f"{key}_b"][i], blocks, f"{key}_w", i)
+    _qwen3_text(params["text"], sd, lin)
+    return sd
 
-    txt = params["text"]
+
+def qwen3_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """The text-only JAX Qwen3 tree ({'embed', 'layers', 'norm',
+    'lm_head'}, JAX `hf_to_params`) → the names of text_model.Qwen3LM."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def lin(name, kernel, bias=None, tree=None, key=None, i=None):
+        sd[f"{name}.weight"] = _np(kernel).T
+        for k in _ADAPTER_KEYS:
+            if tree is not None and f"{key}_{k}" in tree:
+                sd[f"{name}.{k}"] = _np(tree[f"{key}_{k}"])[i]
+
+    _qwen3_text(params, sd, lin)
+    return sd
+
+
+def _qwen3_text(txt, sd: Dict[str, np.ndarray], lin) -> None:
+    """The Qwen3 text tree into `sd` under the port's names (`lin` writes
+    a Linear and its bare LoRA siblings)."""
     sd["language_model.embed_tokens.weight"] = _np(txt["embed"])
     sd["language_model.norm.weight"] = _np(txt["norm"])
     if "lm_head" in txt:
@@ -217,7 +299,7 @@ def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
         sd[f"{p}.input_layernorm.weight"] = _np(layers["ln1"])[i]
         sd[f"{p}.post_attention_layernorm.weight"] = _np(layers["ln2"])[i]
         for proj in ("q", "k", "v", "o"):
-            lin(f"{p}.self_attn.{proj}_proj", _np(a[proj])[i])
+            lin(f"{p}.self_attn.{proj}_proj", _np(a[proj])[i], None, a, proj, i)
         sd[f"{p}.self_attn.q_norm.weight"] = _np(a["q_norm"])[i]
         sd[f"{p}.self_attn.k_norm.weight"] = _np(a["k_norm"])[i]
         if "experts" in mlp:
@@ -226,11 +308,12 @@ def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
                 sd[f"{p}.mlp.experts_{part}"] = _np(mlp["experts"][part])[i]
         else:
             for part in ("gate", "up", "down"):
-                lin(f"{p}.mlp.{part}_proj", _np(mlp[part])[i])
-    return sd
+                lin(f"{p}.mlp.{part}_proj", _np(mlp[part])[i], None, mlp, part, i)
 
 
 def load_qwen3vl(model: Qwen3VLModel, sd: Mapping[str, Any]) -> Qwen3VLModel:
-    """Copy a port-named Qwen3-VL state dict (qwen3vl_params_to_state_dict)
-    into `model`; every parameter must be present and every key used."""
-    return load_strict(model, sd)
+    """Copy a port-named Qwen3-VL state dict (qwen3vl_params_to_state_dict,
+    or qwen3_params_to_state_dict into a text_model.Qwen3LM) into `model`;
+    every parameter must be present and every key used (LoRA keys attach
+    their adapters)."""
+    return load_strict(with_adapters(model, sd), sd)

@@ -76,16 +76,18 @@ def load_strict(model: nn.Module,
                 sd: Union[Mapping[str, Any], Iterable[Tuple[str, Any]]]) -> nn.Module:
     """Copy arrays into the parameters of the same names, reshaping where
     only the layout differs and casting to each parameter's dtype; every
-    parameter must be filled and every name used. `sd` is a mapping, or
+    parameter must be filled and every name used (a name may also be a
+    buffer's, such as an adapter's `lora_scale`). `sd` is a mapping, or
     (name, array) pairs that arrive one at a time (a safetensors file read
     tensor by tensor): each is copied as it comes, so loading holds the
     model and one tensor more."""
     params = dict(model.named_parameters())
+    targets = {**dict(model.named_buffers()), **params}
     seen = set()
     for name, value in (sd.items() if isinstance(sd, Mapping) else sd):
-        if name not in params:
+        if name not in targets:
             raise KeyError(f"state dict mismatch: unexpected {name!r}")
-        src, p = as_tensor(value), params[name]
+        src, p = as_tensor(value), targets[name]
         if src.numel() != p.numel():
             raise ValueError(f"{name}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
         p.copy_(src.reshape(p.shape))

@@ -27,15 +27,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...configs.qwen3vl import Qwen3VLConfig
 from ...device import resolve_device
 from ...ops.flash_attention import flash_attention
 from ..wan_dit import AffineNorm, Gain
-from .text_model import (Qwen3MoE, Qwen3TextModel, cached_attention, lm_logits, mlp_block,
-                         qkv_rope, rms)
+from .text_model import (Qwen3MoE, Qwen3TextModel, cached_attention, lin, lm_logits,
+                         mlp_block, qkv_rope, rms)
 from .vision_model import Qwen3VLVision
 
 INIT_STD = 0.02  # HF initializer_range of the Qwen3-VL configs
@@ -207,7 +206,7 @@ def _prefill(model: Qwen3VLModel, ids: np.ndarray, pixel_patches, grid_thw,
             cache[1][i, :, :L] = v.float()
         o = flash_attention(q, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2),
                             causal=True)
-        x = x + F.linear(o.reshape(B, L, -1), attn.o_proj.weight)
+        x = x + lin(attn.o_proj, o.reshape(B, L, -1))
         x = mlp_block(layer, x, eps)
         if vis is not None and i < len(deepstack):
             x[0, vis] = x[0, vis] + deepstack[i].to(x.dtype)
@@ -305,7 +304,7 @@ def qwen3vl_greedy_decode(
             kc[j, :, length] = k[:, 0].float()
             vc[j, :, length] = v[:, 0].float()
             o = cached_attention(q, kc[j, :, :length + 1], vc[j, :, :length + 1], h.dtype)
-            h = mlp_block(layer, h + F.linear(o, attn.o_proj.weight), eps)
+            h = mlp_block(layer, h + lin(attn.o_proj, o), eps)
         logits = lm_logits(model.lm_head, lm.embed_tokens, rms(h, lm.norm.weight, eps))
         tok = sample_token(logits[0, -1], temperature, top_p, generator)
     clock("decode_s")

@@ -6,8 +6,10 @@ top-k MoE (HF Qwen3MoeSparseMoeBlock semantics). `moe` sorts the
 (token, slot) pairs by expert, runs each expert's three products on its
 contiguous row segment with `torch.matmul`, and scatter-adds the weighted
 outputs back: O(k·T·D·M) work, E/k× less than the dense mixture. The
-segment bounds come to the host once per layer (one sync). `moe_dense`,
-every expert on every token, stays as the exact oracle the tests use.
+segment bounds come to the host once per layer (one sync); each token's k
+weighted outputs are summed in slot order, so a forward is bitwise
+repeatable on the card. `moe_dense`, every expert on every token, stays as
+the exact oracle the tests use.
 
 Parameter names follow the HF checkpoint's `model.language_model.*`; the
 stacked expert weights keep the JAX layout ([E, D, M] for gate/up, [E, M, D]
@@ -18,12 +20,24 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...configs.qwen3vl import Qwen3TextConfig
+from ...ops.lora import has_lora, lora_delta
 from ..wan_dit import Gain
+
+
+def lin(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ Wᵀ of a bias-free projection, plus its LoRA delta when it is
+    adapted (the JAX `_lin`: x, A and B promote, the delta cast to the
+    product's dtype; ops/lora.py)."""
+    y = F.linear(x, linear.weight)
+    if has_lora(linear):
+        y = y + lora_delta(linear, x, y.dtype, cast=False)
+    return y
 
 
 def rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -65,8 +79,7 @@ class Qwen3MLP(nn.Module):
         self.down_proj = nn.Linear(M, D, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(F.silu(F.linear(x, self.gate_proj.weight)) * F.linear(x, self.up_proj.weight),
-                        self.down_proj.weight)
+        return lin(self.down_proj, F.silu(lin(self.gate_proj, x)) * lin(self.up_proj, x))
 
 
 class Qwen3MoE(nn.Module):
@@ -118,8 +131,12 @@ def moe(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
             o[start:start + n] = h @ mlp.experts_down[e]
             start += n
     o = o * topv.reshape(-1)[order][:, None].to(o.dtype)
-    y = torch.zeros_like(xt).index_add_(0, tok_of, o)
-    return y.reshape(B, L, D)
+    # back to (token, slot) order, then each token's k outputs summed in slot
+    # order: deterministic, where an index_add_ on the card sums in whatever
+    # order its atomics land
+    slots = torch.empty_like(o)
+    slots[order] = o
+    return slots.view(B * L, k, D).sum(1).reshape(B, L, D)
 
 
 def moe_dense(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
@@ -164,9 +181,9 @@ def qkv_rope(attn: Qwen3Attention, hn: torch.Tensor, cos: torch.Tensor, sin: tor
     rotate-half RoPE in f32 with cos/sin [L or 1, hd] f32."""
     B, L, _ = hn.shape
     N, K, hd, eps = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.rms_norm_eps
-    q = rms(F.linear(hn, attn.q_proj.weight).view(B, L, N, hd), attn.q_norm.weight, eps)
-    k = rms(F.linear(hn, attn.k_proj.weight).view(B, L, K, hd), attn.k_norm.weight, eps)
-    v = F.linear(hn, attn.v_proj.weight).view(B, L, K, hd)
+    q = rms(lin(attn.q_proj, hn).view(B, L, N, hd), attn.q_norm.weight, eps)
+    k = rms(lin(attn.k_proj, hn).view(B, L, K, hd), attn.k_norm.weight, eps)
+    v = lin(attn.v_proj, hn).view(B, L, K, hd)
     c, s = cos[None, :, None, :], sin[None, :, None, :]
     qf, kf = q.float(), k.float()
     q = (qf * c + rotate_half(qf) * s).to(hn.dtype)
@@ -180,14 +197,19 @@ def mlp_block(layer: Qwen3DecoderLayer, x: torch.Tensor, eps: float) -> torch.Te
 
 
 def cached_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
-                     out_dtype: torch.dtype) -> torch.Tensor:
-    """Dense decode attention over the live cache rows: q [B, 1, N, hd];
-    k_all/v_all [B, S, K, hd] f32, repeated to N heads and cast to q's dtype
-    (lossless: the cache holds the bf16 values); f32 logits and softmax."""
+                     out_dtype: torch.dtype, bias: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Dense attention (the decode's over the live cache rows): q [B, Lq,
+    N, hd]; k_all/v_all [B, S, K, hd] (the decode's f32 cache), repeated to
+    N heads and cast to q's dtype (lossless: the cache holds the bf16
+    values); f32 logits plus `bias` ([B or 1, 1, Lq, S] f32, JAX's additive
+    mask) and softmax."""
     N, K, hd = q.shape[2], k_all.shape[2], q.shape[3]
     kr = k_all.repeat_interleave(N // K, dim=2).to(q.dtype)
     vr = v_all.repeat_interleave(N // K, dim=2).to(q.dtype)
     lo = torch.einsum("bind,bjnd->bnij", q.float(), kr.float()) * hd**-0.5
+    if bias is not None:
+        lo = lo + bias
     pr = torch.softmax(lo, dim=-1).to(vr.dtype)
     o = torch.einsum("bnij,bjnd->bind", pr.float(), vr.float())
     return o.to(out_dtype).reshape(q.shape[0], q.shape[1], N * hd)
@@ -199,3 +221,209 @@ def lm_logits(model_head: Optional[nn.Linear], embed: nn.Embedding, hidden: torc
     tied)."""
     w = model_head.weight if model_head is not None else embed.weight
     return F.linear(hidden, w).float()
+
+
+# --- the text-only Qwen3 (JAX qwen3_forward, qwen3_greedy_decode, qwen3_forward_sp)
+
+
+class Qwen3LM(nn.Module):
+    """The text-only Qwen3 causal LM (JAX's {'embed', 'layers', 'norm',
+    'lm_head'} tree): `language_model` and `lm_head` (None when tied), the
+    attribute names of `Qwen3VLModel`, so the functions below take either.
+    Seeded normal(0.02) weights, unit gains."""
+
+    def __init__(self, cfg: Qwen3TextConfig, dtype: torch.dtype = torch.bfloat16,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from ...device import resolve_device
+
+        dev = resolve_device(device)
+        self.language_model = Qwen3TextModel(cfg, dtype, dev)
+        self.lm_head = (None if cfg.tie_word_embeddings else
+                        nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype,
+                                  device=dev))
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Linear, nn.Embedding)):
+                    m.weight.normal_(0.0, 0.02, generator=generator)
+                elif isinstance(m, Qwen3MoE):
+                    for p in (m.experts_gate, m.experts_up, m.experts_down):
+                        p.normal_(0.0, 0.02, generator=generator)
+                elif isinstance(m, Gain):
+                    m.weight.fill_(1.0)
+
+
+def rope_1d(pos: torch.Tensor, cfg: Qwen3TextConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX `_rope` tables for positions [L]: cos/sin [L, head_dim] f32
+    (f32 p·inv with inv rounded from f64, halves repeated for rotate-half)."""
+    hd = cfg.head_dim
+    inv = torch.tensor(1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2) / hd)), dtype=torch.float32,
+                       device=pos.device)
+    ang = pos.float()[:, None] * inv[None]
+    c, s = torch.cos(ang), torch.sin(ang)
+    return torch.cat([c, c], -1), torch.cat([s, s], -1)
+
+
+def _text_cfg(model: nn.Module) -> Qwen3TextConfig:
+    return model.language_model.cfg
+
+
+def _head(model: nn.Module, hidden: torch.Tensor) -> torch.Tensor:
+    return lm_logits(model.lm_head, model.language_model.embed_tokens, hidden)
+
+
+def _causal_layers(model: nn.Module, x: torch.Tensor, cos, sin, attend, cache=None):
+    """The decoder layers over x [B, L, D]: `attend(q, k, v)` with K/V at
+    the KV heads; `cache` (k, v) [layers, B, S, K, hd] f32 gets each
+    layer's post-RoPE K/V in rows [0, L)."""
+    cfg = _text_cfg(model)
+    eps = cfg.rms_norm_eps
+    B, L, _ = x.shape
+    for i, layer in enumerate(model.language_model.layers):
+        attn = layer.self_attn
+        q, k, v = qkv_rope(attn, rms(x, layer.input_layernorm.weight, eps), cos, sin, cfg)
+        if cache is not None:
+            cache[0][i, :, :L] = k.float()
+            cache[1][i, :, :L] = v.float()
+        x = x + lin(attn.o_proj, attend(q, k, v).reshape(B, L, -1))
+        x = mlp_block(layer, x, eps)
+    return x
+
+
+def _flash_causal(q, k, v):
+    from ...ops.flash_attention import flash_attention
+
+    rep = q.shape[2] // k.shape[2]
+    return flash_attention(q, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2),
+                           causal=True)
+
+
+@torch.inference_mode()
+def qwen3_forward(model: nn.Module, ids: torch.Tensor,
+                  attn_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full causal forward (JAX `qwen3_forward`) → (final-normed hidden
+    [B, L, D], logits [B, L, V] f32). ids [B, L] on the model's device. With
+    no mask the attention is pure causal, the flash kernel's causal mode
+    (row 2) on the card; `attn_mask` [B, L] (> 0: a real key) takes the
+    dense path with JAX's additive bias (causal and key terms of −3.4e38
+    each)."""
+    cfg = _text_cfg(model)
+    emb = model.language_model.embed_tokens
+    ids = ids.to(emb.weight.device)
+    B, L = ids.shape
+    cos, sin = rope_1d(torch.arange(L, device=ids.device), cfg)
+    if attn_mask is None:
+        attend = _flash_causal
+    else:
+        big = torch.tensor(-3.4e38, dtype=torch.float32, device=ids.device)
+        zero = torch.zeros((), dtype=torch.float32, device=ids.device)
+        tri = torch.ones(L, L, dtype=torch.bool, device=ids.device).tril()
+        bias = (torch.where(tri, zero, big)[None, None]
+                + torch.where(attn_mask.to(ids.device)[:, None, None, :] > 0, zero, big))
+
+        def attend(q, k, v):
+            return cached_attention(q, k, v, q.dtype, bias).view(q.shape)
+
+    x = _causal_layers(model, emb(ids), cos, sin, attend)
+    hidden = rms(x, model.language_model.norm.weight, cfg.rms_norm_eps)
+    return hidden, _head(model, hidden)
+
+
+@torch.inference_mode()
+def qwen3_greedy_decode(model: nn.Module, prompt_ids: torch.Tensor, max_new_tokens: int,
+                        eos_token_id: Optional[int] = None) -> torch.Tensor:
+    """Greedy decoding (JAX `qwen3_greedy_decode`) → [1, max_new_tokens]
+    int64, eos-padded after the stop. The prefill is the causal forward
+    (row 2 on the card) writing post-RoPE K/V into an f32 cache; each step
+    is one cached pass over the layers with dense attention over the live
+    rows. The step whose token would never be returned is skipped."""
+    cfg = _text_cfg(model)
+    lm = model.language_model
+    ids = prompt_ids.to(lm.embed_tokens.weight.device)
+    B, Lp = ids.shape
+    if B != 1:
+        raise ValueError("qwen3_greedy_decode takes one sample")
+    dev = ids.device
+    shape = (cfg.num_hidden_layers, B, Lp + max_new_tokens, cfg.num_key_value_heads,
+             cfg.head_dim)
+    kc = torch.zeros(shape, dtype=torch.float32, device=dev)
+    vc = torch.zeros_like(kc)
+    cos, sin = rope_1d(torch.arange(Lp, device=dev), cfg)
+    x = _causal_layers(model, lm.embed_tokens(ids), cos, sin, _flash_causal, cache=(kc, vc))
+    eps = cfg.rms_norm_eps
+    tok = int(torch.argmax(_head(model, rms(x[:, -1:], lm.norm.weight, eps))[0, -1]))
+    out = torch.full((1, max_new_tokens), eos_token_id if eos_token_id is not None else 0,
+                     dtype=torch.int64)
+    for i in range(max_new_tokens):
+        out[0, i] = tok
+        if i == max_new_tokens - 1 or (eos_token_id is not None and tok == eos_token_id):
+            break
+        length = Lp + i
+        c1, s1 = rope_1d(torch.tensor([length], device=dev), cfg)
+        h = lm.embed_tokens(torch.tensor([[tok]], device=dev))
+        for j, layer in enumerate(lm.layers):
+            attn = layer.self_attn
+            q, k, v = qkv_rope(attn, rms(h, layer.input_layernorm.weight, eps), c1, s1, cfg)
+            kc[j, :, length] = k[:, 0].float()
+            vc[j, :, length] = v[:, 0].float()
+            o = cached_attention(q, kc[j, :, :length + 1], vc[j, :, :length + 1], h.dtype)
+            h = mlp_block(layer, h + lin(attn.o_proj, o), eps)
+        tok = int(torch.argmax(_head(model, rms(h, lm.norm.weight, eps))[0, -1]))
+    return out
+
+
+def _gather_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, 1)
+
+
+@torch.inference_mode()
+def qwen3_forward_sp(model: nn.Module, ids: torch.Tensor, mesh, seq_axis: str = "seq",
+                     ulysses_axis: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal forward sequence-parallel (JAX `qwen3_forward_sp`): every
+    rank passes the same ids [B, L]; tokens are sharded over `seq_axis`
+    (the ring), or with `ulysses_axis` over ulysses × ring in JAX's
+    ring-major order (rank (ring i, ulysses u) holds shard i·nu + u, so the
+    Ulysses all-to-all leaves ring rank i one contiguous superblock). GQA
+    K/V are expanded to every head before the ring, which runs the
+    token-causal ring step (row 8 on the card). Returns the global (hidden,
+    logits), gathered on every rank. L % (n·nu) == 0."""
+    from ...parallel.ring import ring_attention
+    from ...parallel.ulysses import _a2a_gather_heads, _a2a_scatter_heads
+
+    cfg = _text_cfg(model)
+    ring = mesh.get_group(seq_axis)
+    n, i = mesh.size(mesh.mesh_dim_names.index(seq_axis)), mesh.get_local_rank(seq_axis)
+    ug, nu, iu = None, 1, 0
+    if ulysses_axis is not None:
+        ug = mesh.get_group(ulysses_axis)
+        nu = mesh.size(mesh.mesh_dim_names.index(ulysses_axis))
+        iu = mesh.get_local_rank(ulysses_axis)
+    emb = model.language_model.embed_tokens
+    ids = ids.to(emb.weight.device)
+    B, L = ids.shape
+    if L % (n * nu):
+        raise ValueError(f"L {L} not divisible by the {n * nu} token shards")
+    if cfg.num_attention_heads % nu:
+        raise ValueError(f"{cfg.num_attention_heads} heads over a Ulysses group of {nu}")
+    Ll = L // (n * nu)
+    start = (i * nu + iu) * Ll
+    cos, sin = rope_1d(torch.arange(start, start + Ll, device=ids.device), cfg)
+
+    def attend(q, k, v):
+        rep = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        if ug is not None:
+            q, k, v = (_a2a_scatter_heads(t, ug) for t in (q, k, v))
+        o = ring_attention(q, k, v, ring, causal="token")
+        return _a2a_gather_heads(o, ug) if ug is not None else o
+
+    x = _causal_layers(model, emb(ids[:, start:start + Ll]), cos, sin, attend)
+    hidden = rms(x, model.language_model.norm.weight, cfg.rms_norm_eps)
+    logits = _head(model, hidden)
+    for grp in ([ug] if ug is not None else []) + [ring]:  # ulysses (inner) first
+        hidden, logits = _gather_tokens(hidden, grp), _gather_tokens(logits, grp)
+    return hidden, logits

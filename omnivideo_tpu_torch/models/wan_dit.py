@@ -70,6 +70,7 @@ from ..device import resolve_device
 from ..ops.attention import attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_adaln import fused_adaln
+from ..ops.lora import has_lora, lora_delta
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.qk_prep import qk_prep
 from ..ops.rope import apply_rope, rope_3d_tables
@@ -80,13 +81,18 @@ from ..parallel.ulysses import ulysses_attention
 
 def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ Wᵀ, then + b in the product's dtype (two roundings, as the JAX
-    `_dense`). Mixed dtypes promote as in JAX; `dtype` casts both first. A
-    tensor-parallel weight (a DTensor) runs through `tp_dense`."""
+    `_dense`). Mixed dtypes promote as in JAX; `dtype` casts both first. An
+    adapted Linear adds its LoRA delta before the bias (ops/lora.py, A and
+    B in x's dtype). A tensor-parallel weight (a DTensor) runs through
+    `tp_dense`."""
     w = lin.weight
     dt = dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
     if isinstance(w, DTensor):
         return tp_dense(lin, x, dt)
-    y = F.linear(x.to(dt), w.to(dt))
+    x = x.to(dt)
+    y = F.linear(x, w.to(dt))
+    if has_lora(lin):
+        y = y + lora_delta(lin, x, y.dtype)
     return y + lin.bias.to(dt)
 
 

@@ -17,7 +17,9 @@ collectives; the port applies the same two rules with torch's own:
   ffn.0 column-parallel (weight and bias sharded on dim 0, the output
   features), o and ffn.2 row-parallel (weight on dim 1, bias replicated).
   The RMS-norm gains of q and k are sharded on dim 0 like q and k, where
-  GSPMD would slice a replicated gain. The DiT's `dense` reads these
+  GSPMD would slice a replicated gain. A LoRA adapter follows its site:
+  column-parallel, A [d_in, r] replicated and B [r, d_out] sharded on dim
+  1; row-parallel, A sharded on dim 0 and B replicated. The DiT's `dense` reads these
   weights itself (parallel/tp.py `tp_dense`), so the module hooks
   `parallelize_module` installs never run. FSDP2 then shards the TP
   DTensors over 'fsdp' (2-D placements).
@@ -38,9 +40,10 @@ import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import FSDPModule, fully_shard
-from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
 
+from ..ops.lora import has_lora
 from .mesh import axis_size
 
 FSDP_MIN_NUMEL = 1024
@@ -60,9 +63,9 @@ def _tp_rule(local_name: str) -> Optional[int]:
     local_name is relative to the block, e.g. 'self_attn.q.weight'."""
     mod, _, leaf = local_name.rpartition(".")
     if mod in TP_COL:
-        return 0
+        return {"lora_a": None, "lora_b": 1}.get(leaf, 0)
     if mod in TP_ROW:
-        return 1 if leaf == "weight" else None
+        return {"weight": 1, "lora_a": 0}.get(leaf)
     if mod in TP_GAINS:
         return 0
     return None
@@ -109,10 +112,24 @@ def apply_tp(module: nn.Module, mesh: DeviceMesh) -> None:
     _check_tp(dit, tp_mesh.size())
     plan = {**{n: ColwiseParallel() for n in TP_COL}, **{n: RowwiseParallel() for n in TP_ROW}}
     for blk in dit.blocks:
+        adapters = {}  # placed here: ColwiseParallel would shard every parameter on dim 0,
+        for name in TP_COL + TP_ROW:  # and the scale stays a plain buffer
+            lin = blk.get_submodule(name)
+            if has_lora(lin):
+                adapters[name] = (lin._parameters.pop("lora_a"), lin._parameters.pop("lora_b"),
+                                  lin._buffers.pop("lora_scale"))
         parallelize_module(blk, tp_mesh, plan)
         for name in TP_GAINS:
             gain = blk.get_submodule(name)
             gain.weight = nn.Parameter(distribute_tensor(gain.weight.data, tp_mesh, [Shard(0)]))
+        for name, (a, b, scale) in adapters.items():
+            lin = blk.get_submodule(name)
+            lin.register_buffer("lora_scale", scale)
+            for leaf, t in (("lora_a", a), ("lora_b", b)):
+                dim = _tp_rule(f"{name}.{leaf}")
+                pl = [Replicate()] if dim is None else [Shard(dim)]
+                lin.register_parameter(leaf, nn.Parameter(
+                    distribute_tensor(t.data, tp_mesh, pl), requires_grad=t.requires_grad))
 
 
 def shard_params(module: nn.Module, mesh: DeviceMesh) -> nn.Module:

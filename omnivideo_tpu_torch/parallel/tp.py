@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Shard
 
 from ..ops.attention import attention
+from ..ops.lora import has_lora, scaled
 
 TP_AXIS = "tensor"
 
@@ -95,15 +96,31 @@ def _local(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def tp_dense(lin, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """x @ Wᵀ + b for a column- or row-parallel nn.Linear, in `dt`."""
+    """x @ Wᵀ + b for a column- or row-parallel nn.Linear, in `dt`, with its
+    LoRA delta when it is adapted (the adapter split as parallel/sharding.py
+    places it): on a column-parallel site A is replicated and B holds this
+    rank's output columns, and x @ A passes `copy_to_tp` so A's grad sums
+    the ranks' shares; on a row-parallel site A holds this rank's input
+    rows, the partial x @ A is summed by `reduce_from_tp` (so B, replicated,
+    gets the whole grad on every rank) and the delta joins the reduced
+    product before the bias."""
     kind, group = tp_split(lin.weight)
     w, b = _local(lin.weight), _local(lin.bias)
-    if kind == "col":
-        x = copy_to_tp(x, group)
-    y = F.linear(x.to(dt), w.to(dt))
+    x = x.to(dt)
+    xc = copy_to_tp(x, group) if kind == "col" else x
+    y = F.linear(xc, w.to(dt))
     if kind == "row":
         y = reduce_from_tp(y, group)
+    if has_lora(lin):
+        y = y + _tp_lora_delta(lin, x, kind, group, y.dtype)
     return y + b.to(dt)
+
+
+def _tp_lora_delta(lin, x: torch.Tensor, kind: str, group, out_dtype) -> torch.Tensor:
+    a, bb, s = _local(lin.lora_a).to(x.dtype), _local(lin.lora_b).to(x.dtype), lin.lora_scale
+    h = x @ a
+    h = copy_to_tp(h, group) if kind == "col" else reduce_from_tp(h, group)
+    return scaled(h @ bb, s, out_dtype)
 
 
 def tp_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, group) -> torch.Tensor:

@@ -90,22 +90,34 @@ def _load_pickled_weights(folder: Path) -> dict:
     return sd
 
 
+def merge_adapters(wan, adapters) -> None:
+    """Graft LoRA adapters ({path: {key: array}}, training/lora.py
+    `load_adapters_npz`) onto a DiT and fold them into its weights."""
+    from ..training.lora import apply_lora_state, merge_lora
+
+    merge_lora(apply_lora_state(wan, adapters))
+
+
 def load_pipeline(cfg: PipelineConfig, ckpt_dir: str, dtype: torch.dtype = torch.bfloat16,
-                  device="cuda", mesh=None, **pipe_kwargs) -> OmniVideoX2XUnified:
+                  device="cuda", mesh=None, adapters=None, **pipe_kwargs) -> OmniVideoX2XUnified:
     """The x2x pipeline from a reference checkpoint dir, on `device`: the
     low-noise expert (and the high-noise one for dual-expert configs), the
     VAE, the umT5 encoder as `text_encoder` (with the tokenizer of
     `<ckpt_dir>/<cfg.t5_tokenizer>` where that dir exists) and the special
     tokens, each where its file exists.
     `pipe_kwargs` go to OmniVideoX2XUnified (qk_impl, ew_impl,
-    residual_dtype, sp). With a `mesh` each expert's DiT is sharded
-    (parallel/sharding.py `shard_params`) as soon as it is loaded, before
-    the next one is read (JAX `load_pipeline(mesh=...)`)."""
+    residual_dtype, sp). `adapters` (LoRA, {path: {key: array}}) are merged
+    into each expert as it is loaded (JAX's generate merges them into both).
+    With a `mesh` each expert's DiT is then sharded (parallel/sharding.py
+    `shard_params`) before the next one is read (JAX
+    `load_pipeline(mesh=...)`)."""
     dev = resolve_device(device)
     root = Path(ckpt_dir)
 
     def expert(subfolder):
         e = load_expert(cfg, ckpt_dir, subfolder, dtype, dev)
+        if adapters is not None:
+            merge_adapters(e.wan, adapters)
         if mesh is not None:
             shard_params(e.wan, mesh)
         return e

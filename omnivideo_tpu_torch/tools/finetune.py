@@ -3,10 +3,20 @@
 Per-task datasets of precomputed features, a round-robin loop in which every
 task takes one train step per step (its loss weighted in the log), the
 unified train step (training/trainer.py: flow-matching loss, CFG dropout,
-AdamW with warmup-cosine, clipping, freezing, accumulation, per-block
-remat), checkpoints every `--save_interval` steps and at the end,
-`--resume` from the latest, metrics in `<output_dir>/metrics.jsonl`, and a
-checkpoint-and-exit on SIGTERM or before `--walltime`.
+AdamW or `--optimizer adafactor` with warmup-cosine, clipping, freezing,
+accumulation, per-block remat), checkpoints every `--save_interval` steps
+and at the end, `--resume` from the latest (the data and the draws continue
+where they stopped, so a resumed run takes the steps an uninterrupted one
+would), metrics in `<output_dir>/metrics.jsonl`, and a checkpoint-and-exit
+on SIGTERM or before `--walltime`. `--config run.yaml` sets flags from a
+YAML file (flags typed on the command line win; utils/run_config.py), and
+the merged flags are written to `<output_dir>/run_config.yaml`.
+
+`--lora_rank r` trains LoRA adapters (training/lora.py) on the DiT's
+`--lora_targets` (default: attention and FFN projections) with the base
+frozen; `--lora_adapter_export` writes the adapters (generate
+`--lora_adapters` reads them, as does JAX's), `--lora_export` the merged
+DiT params under their JAX paths.
 
     python -m omnivideo_tpu_torch.tools.finetune --dummy_data --tiny --total_steps 3 --device cpu
 
@@ -37,17 +47,20 @@ item that brings them.
 from __future__ import annotations
 
 import argparse
-import json
+import dataclasses
 import logging
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.checkpoint.state_dict import StateDictOptions, get_model_state_dict
 
 from omnivideo_tpu_torch.configs import WAN_CONFIGS
 from omnivideo_tpu_torch.configs.base import PipelineConfig
 from omnivideo_tpu_torch.device import resolve_device
+from omnivideo_tpu_torch.io.jax_bridge import wan_state_dict_to_jax
 from omnivideo_tpu_torch.models.unified import Companions, init_unified_companions
 from omnivideo_tpu_torch.models.wan_dit import SPConfig
 from omnivideo_tpu_torch.parallel.distributed import (
@@ -65,6 +78,16 @@ from omnivideo_tpu_torch.training.dataset import (
     data_loader,
     make_dummy_dataset,
 )
+from omnivideo_tpu_torch.training.lora import (
+    DEFAULT_TARGETS,
+    LORA_FILTERS,
+    count_lora_params,
+    extract_lora,
+    freeze_base,
+    inject_lora,
+    merge_lora_state_dict,
+    write_adapters_npz,
+)
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
     UnifiedParams,
@@ -78,24 +101,19 @@ from omnivideo_tpu_torch.utils.observability import (
     PreemptionGuard,
     TimeoutGuard,
 )
+from omnivideo_tpu_torch.utils.run_config import apply_yaml_config, dump_run_config
 
 # flag → (value meaning "off", the ROADMAP §1 item that brings it)
 NOT_PORTED = {
-    "config": (None, "§1 item 3: the YAML run config (utils/run_config.py)"),
-    "lora_rank": (0, "§1 item 3: LoRA (training/lora.py)"),
-    "lora_alpha": (None, "§1 item 3: LoRA (training/lora.py)"),
-    "lora_targets": (None, "§1 item 3: LoRA (training/lora.py)"),
-    "lora_export": (None, "§1 item 3: LoRA (training/lora.py)"),
-    "lora_adapter_export": (None, "§1 item 3: LoRA (training/lora.py)"),
     "layer_stream": (False, "§1 item 6: the streamed trainers (training/streaming.py)"),
     "stream_quant": (None, "§1 item 6: the streamed trainers with ops/quant.py"),
-    "optimizer": ("adamw", "§1 item 3: adafactor and _lr_scaled_decay"),
 }
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--config", default=None, help="YAML training config (not ported)")
+    p.add_argument("--config", default=None,
+                   help="YAML run config: flag names as keys; flags typed here win")
     p.add_argument("--task", default="t2v-1.3B", choices=sorted(WAN_CONFIGS))
     p.add_argument("--data_dirs", nargs="*", default=[],
                    help="task=path pairs, e.g. t2v=/data/t2v i2i=/data/i2i")
@@ -121,11 +139,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trainable", nargs="*", default=[],
                    help="JAX param-path substrings to train (empty = all); e.g. wan companions")
-    p.add_argument("--lora_rank", type=int, default=0)
-    p.add_argument("--lora_alpha", type=float, default=None)
-    p.add_argument("--lora_targets", nargs="*", default=None)
-    p.add_argument("--lora_export", default=None)
-    p.add_argument("--lora_adapter_export", default=None)
+    p.add_argument("--lora_rank", type=int, default=0,
+                   help="LoRA rank over the DiT's projections (0: full finetune); trains only "
+                        "the adapters")
+    p.add_argument("--lora_alpha", type=float, default=None,
+                   help="scale = alpha/rank (default: rank)")
+    p.add_argument("--lora_targets", nargs="*", default=None,
+                   help="dense-site path substrings to adapt (default: attention + ffn)")
+    p.add_argument("--lora_export", default=None,
+                   help="after training, the LoRA-merged DiT params (JAX paths) to this .npz")
+    p.add_argument("--lora_adapter_export", default=None,
+                   help="after training, the adapters alone to this .npz (generate "
+                        "--lora_adapters reads it)")
     p.add_argument("--dp", type=int, default=1, help="data-parallel degree ('data')")
     p.add_argument("--fsdp", type=int, default=1, help="parameter-sharding degree ('fsdp')")
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel degree ('seq')")
@@ -142,7 +167,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
     add_distributed_args(p)
-    args = p.parse_args(argv)
+    args = apply_yaml_config(p.parse_args(argv), p, argv)
     for flag, (off, item) in NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
@@ -208,8 +233,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     out = Path(args.output_dir)
     if rank0:
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "run_config.json").write_text(json.dumps(vars(args), indent=1, sort_keys=True))
+        dump_run_config(args, out)  # provenance: what this run ran with
     cfg = task_config(args)
 
     tc = TrainConfig(
@@ -246,8 +270,17 @@ def main(argv=None) -> int:
 
     # ---- params, optimizer, step ---------------------------------------------
     params = initial_params(cfg, args, device)
+    if args.lora_rank > 0:
+        targets = tuple(args.lora_targets) if args.lora_targets else DEFAULT_TARGETS
+        inject_lora(params.wan, args.lora_rank, alpha=args.lora_alpha, targets=targets,
+                    generator=torch.Generator(device=device).manual_seed(args.seed + 7))
+        tc = dataclasses.replace(tc, trainable_filters=LORA_FILTERS)
+        logging.info("LoRA rank %d over %s: %d adapter params trainable", args.lora_rank,
+                     ",".join(targets), count_lora_params(params.wan))
     if mesh is not None and (args.fsdp > 1 or args.tp > 1):
         shard_params(params, mesh)
+    if args.lora_rank > 0:
+        freeze_base(params)  # after sharding, which makes new parameters
     tx = make_optimizer(tc, params)
     state = init_train_state(params, tx)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
@@ -258,11 +291,13 @@ def main(argv=None) -> int:
         state = ckpt.restore(state)
         logging.info("resumed from step %d", state.step)
 
-    # each data index reads its own rows of the global batch
+    # each data index reads its own rows of the global batch; a resumed run
+    # skips the batches its steps took (one per task per step)
     loaders = {name: PrefetchLoader(data_loader(ds, args.batch_size // args.dp, pad,
                                                 seed=args.seed,
                                                 host_id=axis_index(mesh, "data"),
-                                                num_hosts=args.dp))
+                                                num_hosts=args.dp,
+                                                start=state.step // len(tasks)))
                for name, (ds, _) in tasks.items()}
     task_w = {name: w for name, (_, w) in tasks.items()}
     metrics = MetricsLogger(str(out)) if rank0 else None
@@ -287,6 +322,7 @@ def main(argv=None) -> int:
         losses = {}
         for name, loader in loaders.items():
             batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
+            gen.manual_seed(args.seed + 1 + state.step)  # the step's draws, resumed or not
             state, m = train_step(state, batch)
             losses[name] = float(m["loss"]) * task_w[name]
         step = state.step
@@ -298,8 +334,31 @@ def main(argv=None) -> int:
             logging.info("saved checkpoint at step %d", step)
     if rank0:
         metrics.close()
+    if args.lora_rank > 0:
+        export_lora(args, params.wan, rank0)
     logging.info("done at step %d", step)
     return 0
+
+
+def export_lora(args: argparse.Namespace, wan, rank0: bool) -> None:
+    """--lora_adapter_export: the adapters alone (JAX's `save_adapters_npz`
+    format); --lora_export: the merged DiT params under their JAX paths
+    (the JAX CLI's file). Every process joins the gathers; rank 0 writes."""
+    if args.lora_adapter_export:
+        state = extract_lora(wan)
+        if rank0:
+            Path(args.lora_adapter_export).parent.mkdir(parents=True, exist_ok=True)
+            n = write_adapters_npz(state, args.lora_adapter_export)
+            logging.info("LoRA adapters exported to %s (%d arrays)", args.lora_adapter_export, n)
+    if args.lora_export:
+        sd = get_model_state_dict(wan, options=StateDictOptions(full_state_dict=True,
+                                                                cpu_offload=True))
+        if rank0:
+            flat = wan_state_dict_to_jax(merge_lora_state_dict(sd))
+            Path(args.lora_export).parent.mkdir(parents=True, exist_ok=True)
+            np.savez(args.lora_export, **flat)
+            logging.info("LoRA-merged wan params exported to %s (%d arrays)", args.lora_export,
+                         len(flat))
 
 
 if __name__ == "__main__":

@@ -48,6 +48,10 @@ every row and rank 0 writes the outputs:
         --sp_mode ring --ring_impl pallas --task t2v-1.3B --random_weights \\
         --input samples/t2v_example.jsonl --output_dir outputs/gen
 
+`--lora_adapters <npz>` merges LoRA adapters (finetune
+`--lora_adapter_export`, or a file JAX's CLI wrote) into every distinct
+expert before any sharding, so the denoise runs plain weights.
+
 `--dp_rank/--dp_world_size` split the JSONL rows between independent runs
 (row i goes to dp_rank i % dp_world_size), by default the mesh's data index
 and size, so the ranks of one mesh never split rows. `--vae_dtype bfloat16`
@@ -84,8 +88,9 @@ from omnivideo_tpu_torch.models.qwen3vl.engine import Qwen3VLEngine, VLMConfig
 from omnivideo_tpu_torch.models.wan_dit import SPConfig
 from omnivideo_tpu_torch.parallel.distributed import add_distributed_args, maybe_initialize_distributed
 from omnivideo_tpu_torch.parallel.mesh import axis_index, axis_size, create_mesh
-from omnivideo_tpu_torch.pipelines.loading import load_pipeline
+from omnivideo_tpu_torch.pipelines.loading import load_pipeline, merge_adapters
 from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+from omnivideo_tpu_torch.training.lora import load_adapters_npz
 from omnivideo_tpu_torch.utils.video import (
     read_video_frames,
     sample_and_transform_frames,
@@ -97,7 +102,6 @@ from omnivideo_tpu_torch.utils.video import (
 NOT_PORTED = {
     "layer_stream": (False, "it comes with the streaming slice, ROADMAP §1"),
     "stream_quant": (None, "it comes with the streaming slice, ROADMAP §1"),
-    "lora_adapters": (None, "it comes with LoRA, ROADMAP §1 training follow-ups"),
     "vlm_fsdp": (1, "FSDP2 over the Qwen3-VL MoE waits for ROADMAP §1 item 4"),
     "max_steps_per_call": (None, "a TPU dispatch-time workaround the card does not need"),
 }
@@ -146,7 +150,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fsdp_size", type=int, default=1)
     p.add_argument("--layer_stream", action="store_true")
     p.add_argument("--stream_quant", default=None, choices=[None, "int8"])
-    p.add_argument("--lora_adapters", default=None)
+    p.add_argument("--lora_adapters", default=None,
+                   help="adapter .npz (finetune --lora_adapter_export, or JAX's): merged into "
+                        "every expert's weights at load")
     p.add_argument("--vlm_path", default=None,
                    help="Qwen3-VL HF checkpoint dir: caption expansion + feature extraction")
     p.add_argument("--vlm_backend", default="jax", choices=["hf", "jax"],
@@ -293,13 +299,20 @@ def run(args: argparse.Namespace) -> List[dict]:
     impl = dict(qk_impl=args.qk_impl, ew_impl=args.ew_impl, residual_dtype=args.residual_dtype,
                 sp=sp)
     shard = mesh if args.fsdp_size > 1 or args.tp_size > 1 else None
+    adapters = load_adapters_npz(args.lora_adapters) if args.lora_adapters else None
     if args.random_weights:
         pipe = OmniVideoX2XUnified.random_init(cfg, device=device, **impl)
+        if adapters is not None:
+            for expert in {id(e): e for e in (pipe.low_noise, pipe.high_noise)}.values():
+                merge_adapters(expert.wan, adapters)
         if shard is not None:
             pipe.shard(shard)
     else:
         pipe = load_pipeline(cfg, args.ckpt_dir, dtype=cfg.torch_param_dtype, device=device,
-                             mesh=shard, **impl)
+                             mesh=shard, adapters=adapters, **impl)
+    if adapters is not None:
+        logging.info("LoRA adapters merged from %s (%d sites)", args.lora_adapters,
+                     len(adapters))
     out_dir = Path(args.output_dir)
     if rank0:
         out_dir.mkdir(parents=True, exist_ok=True)

@@ -8,7 +8,7 @@ from .dataset import (
     make_dummy_dataset,
 )
 from .trainer import (
-    AdamW,
+    Optimizer,
     TrainConfig,
     TrainState,
     UnifiedParams,
@@ -21,7 +21,7 @@ from .trainer import (
 )
 
 __all__ = [
-    "AdamW",
+    "Optimizer",
     "TrainConfig",
     "TrainState",
     "UnifiedParams",

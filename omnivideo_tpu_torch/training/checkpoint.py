@@ -1,8 +1,10 @@
 """Training checkpoint save/resume (port of omnivideo_tpu/training/
 checkpoint.py, which uses orbax; here `torch.save`).
 
-`directory/<step>/state.pt` holds the parameters' state dict, the optimizer
-state and the step; `meta.json` beside it the caller's metadata. A step is
+`directory/<step>/state.pt` holds the parameters' state dict (LoRA adapters
+and their scale buffers included), the optimizer state (AdamW's moments or
+adafactor's statistics, the count, MultiSteps' accumulator) and the step;
+`meta.json` beside it the caller's metadata. A step is
 written to a temporary directory and renamed into place, so a crash never
 leaves a half-written step for `latest_step` to find; the newest
 `max_to_keep` steps are kept.
@@ -13,6 +15,8 @@ the optimizer's sharded tensors through `full_tensor`), rank 0 alone writes,
 and the others wait at a barrier. Every process restores from the full
 file and re-shards it onto its own parameters (`set_model_state_dict`), so
 a step written under one mesh resumes under another, or in one process.
+Adafactor's row and column statistics, which lack one of their parameter's
+dims, are spread along it for the re-sharding and sliced back.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from torch.distributed.tensor import DTensor
 
 from .trainer import TrainState
 
-_OPT_TENSORS = ("mu", "nu", "acc")
+_OPT_TENSORS = ("mu", "nu", "acc", "v", "v_row", "v_col")  # AdamW, MultiSteps, adafactor
+_REDUCED = {"v_row": 1, "v_col": 0}  # the index in opt_state["factored"][name] of the dim dropped
 
 
 def _sharded(module) -> bool:
@@ -65,15 +70,20 @@ def _load_sharded(model, full_params: dict, opt_like: dict, full_opt: dict) -> d
     for k in _OPT_TENSORS:
         if k not in opt_like:
             continue
-        set_model_state_dict(model, full_opt[k], options=opts)
+        full, dropped = dict(full_opt[k]), {}
+        if k in _REDUCED:  # adafactor's row/column statistics: spread over the dim they reduce
+            for n, t in full.items():
+                d = full_opt["factored"][n][_REDUCED[k]]
+                dropped[n] = d
+                full[n] = t.unsqueeze(d).expand(params[n].shape)
+        set_model_state_dict(model, full, options=opts)
         out[k] = {}
         for n, t in opt_like[k].items():
-            src = params[n]
+            src = params[n].to_local() if isinstance(params[n], DTensor) else params[n]
+            if n in dropped:
+                src = src.select(dropped[n], 0)
             dst = torch.empty_like(t)
-            if isinstance(dst, DTensor):
-                dst.to_local().copy_(src.to_local())
-            else:
-                dst.copy_(src)
+            (dst.to_local() if isinstance(dst, DTensor) else dst).copy_(src)
             out[k][n] = dst
     set_model_state_dict(model, full_params, options=opts)
     return out

@@ -173,18 +173,21 @@ def data_loader(
     host_id: int = 0,
     num_hosts: int = 1,
     epochs: Optional[int] = None,
+    start: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Host-sharded, seeded-permutation loader (reference DistributedSampler,
-    omnivideo_dataset_patched.py:235)."""
-    epoch = 0
+    omnivideo_dataset_patched.py:235). `start` skips that many batches
+    without reading them (a resumed run continues where it stopped)."""
+    per_epoch = len(range(host_id, len(dataset), num_hosts)) // batch_size
+    epoch, skip = divmod(start, per_epoch) if per_epoch else (0, 0)
     while epochs is None or epoch < epochs:
         rng = np.random.default_rng(seed + epoch)
         order = rng.permutation(len(dataset))
         order = order[host_id::num_hosts]
-        for i in range(0, len(order) - batch_size + 1, batch_size):
+        for i in range(skip * batch_size, len(order) - batch_size + 1, batch_size):
             idxs = order[i : i + batch_size]
             yield collate([dataset[int(j)] for j in idxs], pad)
-        epoch += 1
+        epoch, skip = epoch + 1, 0
 
 
 def make_dummy_dataset(

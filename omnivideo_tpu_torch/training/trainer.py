@@ -10,15 +10,21 @@ unfused attention chain, so attention is the differentiable flash path
 The optimizer reproduces optax's, not torch.optim's defaults:
 clip_by_global_norm (g·max/‖g‖ only when ‖g‖ ≥ max; grad_clip = 0 disables
 it) → adamw (b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments, decoupled
-decay lr·wd·p on every leaf) with warmup_cosine_decay_schedule(0, lr,
+decay lr·wd·p on every leaf) or adafactor (optax's defaults, grouped over
+JAX's stacked leaves, then the lr-scaled decay lr·wd·p: `_AdafactorRule`;
+torch.optim.Adafactor is another algorithm) with
+warmup_cosine_decay_schedule(0, lr,
 warmup = min(warmup_steps, total − 1), decay = max(total, warmup + 1))
 evaluated at the update count before it increments (so with warmup ≥ 1 the
 first update has lr 0); optax.masked freezing (only the trainable leaves
 are clipped, moved and carry moments); optax.MultiSteps accumulation (the
 running mean of k micro-batch grads applied on every k-th call, zero updates
 between; the inner count advances only on apply). grad_norm is the global
-norm of ALL grads, as JAX differentiates every param. Parameters and
-moments update in place.
+norm of the grads of every parameter that requires one: all of them, as
+JAX differentiates every param, unless the caller froze some
+(`training/lora.py` `freeze_base`: under LoRA only the adapters get grads,
+where JAX's grad_norm also counts the frozen base's). Parameters and
+optimizer state update in place.
 
 JAX's threefry draws cannot be reproduced in torch: the loss takes explicit
 optional draws (tid, noise, drop), and the train step draws them from its
@@ -46,18 +52,19 @@ runs the step on its own rows, and the numbers are one process's:
   this module all-reduces itself. Over 'tensor' nothing is reduced: the
   Megatron split's collectives (parallel/tp.py) leave each rank its
   shards' whole grads and identical grads of the replicated leaves.
-- grad_norm, clipping and the AdamW update read sharded (DTensor) grads and
+- grad_norm, clipping and the update read sharded (DTensor) grads and
   params through their local shards; the norm sums each shard's squares
-  over the axes it is sharded on, so it is the global one. The reported
-  loss is averaged over 'data'.
-Left for later (ROADMAP §1): adafactor and `_lr_scaled_decay`, LoRA, the
-streamed trainers.
+  over the axes it is sharded on, so it is the global one, and adafactor
+  reduces its leaf sums and its means along sharded dims the same way. The
+  reported loss is averaged over 'data'.
+Left for later (ROADMAP §1 item 6): the streamed trainers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -65,7 +72,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.fsdp import FSDPModule
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import PipelineConfig
 from ..device import resolve_device
@@ -95,7 +102,7 @@ class TrainConfig:
     num_train_timesteps: int = 1000
     remat: bool = True
     grad_accum_steps: int = 1
-    optimizer: str = "adamw"  # "adafactor" is not ported
+    optimizer: str = "adamw"  # | "adafactor" (factored second moment, lr-scaled decay)
     carry_dtype: str = "float32"  # | "bfloat16": the inter-block carry / remat checkpoints
     timestep_sampling: str = "uniform"  # | "logit_normal" | "mode"
     logit_mean: float = 0.0
@@ -207,11 +214,8 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
         return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
     by_groups: Dict[tuple, list] = {}
     for t in tensors:
-        groups = ()
-        if isinstance(t, DTensor):
-            groups = tuple(t.device_mesh.get_group(i) for i, pl in enumerate(t.placements)
-                           if shard_dim(pl) is not None)
-        by_groups.setdefault(groups, []).append(_local(t).float().square().sum())
+        by_groups.setdefault(tuple(_sharded_groups(t)), []).append(
+            _local(t).float().square().sum())
     total = []
     for groups, sq in by_groups.items():
         part = torch.stack(sq).sum()
@@ -221,31 +225,231 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack(total).sum().sqrt()
 
 
-class AdamW:
-    """The port's `make_optimizer`: clip → adamw, masked to the trainable
-    leaves, inside MultiSteps when grad_accum_steps > 1 (see the module
-    docstring). `init` builds the state, `update` applies one call's grads
-    to the parameters in place."""
+class _AdamWRule:
+    """optax.adamw (b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments,
+    decoupled decay lr·wd·p) on each trainable leaf."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
+    def __init__(self, tc: TrainConfig, sched: Callable[[int], float]):
+        self.wd, self.sched = tc.weight_decay, sched
+
+    def init(self, leaves) -> Dict[str, Any]:
+        return {"mu": {n: torch.zeros_like(p) for n, p in leaves},
+                "nu": {n: torch.zeros_like(p) for n, p in leaves}}
+
+    def apply(self, leaves, g: Dict[str, torch.Tensor], state: Dict[str, Any], count: int) -> None:
+        t = np.float32(count + 1)
+        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
+        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
+        neg_lr = -self.sched(count)
+        for n, p in leaves:
+            mu, nu, p = _local(state["mu"][n]), _local(state["nu"][n]), _local(p)
+            mu.copy_((1 - self.b1) * g[n] + self.b1 * mu)
+            nu.copy_((1 - self.b2) * g[n].square() + self.b2 * nu)
+            u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps) + self.wd * p
+            p.copy_(p + neg_lr * u)
+
+
+def _shard_groups(t: torch.Tensor, dim: int) -> list:
+    """The process groups over which tensor dim `dim` of `t` is sharded
+    (none for a plain tensor or a replicated dim)."""
+    if not isinstance(t, DTensor):
+        return []
+    return [t.device_mesh.get_group(i) for i, pl in enumerate(t.placements)
+            if shard_dim(pl) == dim]
+
+
+def _sharded_groups(t: torch.Tensor) -> list:
+    """The process groups over which any dim of `t` is sharded."""
+    if not isinstance(t, DTensor):
+        return []
+    return [t.device_mesh.get_group(i) for i, pl in enumerate(t.placements)
+            if shard_dim(pl) is not None]
+
+
+def _all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    for grp in groups:
+        dist.all_reduce(x, group=grp)
+    return x
+
+
+def _mean(x: torch.Tensor, dim: int, like: torch.Tensor, like_dim: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """mean of the local x over `dim`, which is dim `like_dim` of `like`
+    (a possibly sharded tensor): the local sums are all-reduced over the
+    groups that shard it and divided by its global size."""
+    groups = _shard_groups(like, like_dim)
+    if not groups:
+        return x.mean(dim, keepdim=keepdim)
+    return _all_reduce(x.sum(dim, keepdim=keepdim), groups) / like.shape[like_dim]
+
+
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's `_factored_dims` (min_dim_size_to_factor 128): the second
+    largest and the largest axis, or None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _drop_placement(pl, d: int):
+    """A placement of a tensor with dim `d` removed (Replicate where `d` was
+    the sharded dim)."""
+    sd = shard_dim(pl)
+    if sd is None or sd < d:
+        return pl
+    if sd == d:
+        return Replicate()
+    return Shard(sd - 1)
+
+
+def _zeros_without(p: torch.Tensor, d: int) -> torch.Tensor:
+    """f32 zeros of p's shape with dim `d` removed, sharded as p is on the
+    other dims (a DTensor when p is one)."""
+    loc = _local(p)
+    z = torch.zeros(loc.shape[:d] + loc.shape[d + 1:], dtype=torch.float32, device=loc.device)
+    if not isinstance(p, DTensor):
+        return z
+    shape = p.shape[:d] + p.shape[d + 1:]
+    return DTensor.from_local(z, p.device_mesh, [_drop_placement(pl, d) for pl in p.placements],
+                              run_check=False, shape=shape, stride=torch.empty(shape).stride())
+
+
+class _AdafactorRule:
+    """optax.adafactor(learning_rate=sched) with its defaults (factored
+    second moment: min_dim_size_to_factor 128, decay_rate 0.8, offset 0,
+    eps 1e-30; clip_by_block_rms(1.0); multiply_by_parameter_scale with
+    min_scale 1e-3; no momentum), then JAX's `_lr_scaled_decay`
+    (u − sched(count)·wd·p) when weight_decay is set.
+
+    optax works on JAX's leaves, whose block leaves stack the layers ([L,
+    d_in, d_out]); the port holds one parameter per layer as [d_out, d_in].
+    Leaves are grouped by `jax_path` (which drops the layer index): the
+    parameter RMS, the update's block RMS and the choice of factored dims
+    are taken over the group, in JAX's orientation; the factored row and
+    column statistics stay per layer (the layer axis is kept in JAX too).
+    A sharded parameter (FSDP2, the Megatron split) has every sum over its
+    elements and every mean along a sharded dim all-reduced over the
+    groups that shard it, so the update is the single-process one."""
+
+    decay_rate, eps, clip, min_scale = 0.8, 1e-30, 1.0, 1e-3
+
+    def __init__(self, tc: TrainConfig, sched: Callable[[int], float]):
+        self.wd, self.sched = tc.weight_decay, sched
+
+    def _plan(self, leaves) -> Dict[str, list]:
+        """{group path: [(name, param, dims)]}: dims is optax's (d1, d0) as
+        the port parameter's axes (v_row drops d0, v_col d1), or None."""
+        groups: Dict[str, list] = {}
+        for n, p in leaves:
+            groups.setdefault(jax_path(n), []).append((n, p))
+        plan = {}
+        for path, members in groups.items():
+            p0 = members[0][1]
+            transposed = path.endswith("/kernel") and p0.ndim == 2
+            shape = tuple(reversed(p0.shape)) if transposed else tuple(p0.shape)
+            stacked = re.search(r"(^|\.)(blocks|layers)\.\d+\.", members[0][0]) is not None
+            if stacked:
+                shape = (len(members),) + shape
+            dims = _factored_dims(shape)
+            if dims is not None and stacked:
+                if 0 in dims:
+                    raise NotImplementedError(
+                        f"adafactor would factor {path} across its {len(members)} layers: "
+                        "the port keeps its statistics per layer (ROADMAP §3, adafactor)")
+                dims = tuple(d - 1 for d in dims)
+            if dims is not None and transposed:
+                dims = tuple(1 - d for d in dims)
+            plan[path] = [(n, p, dims) for n, p in members]
+        return plan
+
+    def init(self, leaves) -> Dict[str, Any]:
+        state: Dict[str, Any] = {"v": {}, "v_row": {}, "v_col": {}, "factored": {}}
+        for members in self._plan(leaves).values():
+            for n, p, dims in members:
+                if dims is None:
+                    state["v"][n] = torch.zeros_like(p)
+                else:
+                    d1, d0 = dims
+                    state["v_row"][n] = _zeros_without(p, d0)
+                    state["v_col"][n] = _zeros_without(p, d1)
+                    state["factored"][n] = list(dims)
+        return state
+
+    def _scaled(self, n, p, g, dims, state, dr: float) -> torch.Tensor:
+        """scale_by_factored_rms for one layer's leaf: the new statistics
+        into `state`, the scaled update returned (local)."""
+        one_m = float(np.float32(1.0) - np.float32(dr))
+        g2 = g.square() + self.eps
+        if dims is None:
+            v = _local(state["v"][n])
+            v.copy_(dr * v + one_m * g2)
+            return g * v.pow(-0.5)
+        d1, d0 = dims
+        vr, vc = _local(state["v_row"][n]), _local(state["v_col"][n])
+        vr.copy_(dr * vr + one_m * _mean(g2, d0, p, d0))
+        vc.copy_(dr * vc + one_m * _mean(g2, d1, p, d1))
+        red = d1 - 1 if d1 > d0 else d1  # d1's axis in v_row
+        rcm = _mean(vr, red, p, d1, keepdim=True)
+        return g * (vr / rcm).pow(-0.5).unsqueeze(d0) * vc.pow(-0.5).unsqueeze(d1)
+
+    def apply(self, leaves, g: Dict[str, torch.Tensor], state: Dict[str, Any], count: int) -> None:
+        t = np.float32(count + 1)
+        dr = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
+        lr = self.sched(count)
+        lr_wd = float(np.float32(lr) * np.float32(self.wd))
+        for members in self._plan(leaves).values():
+            groups = _sharded_groups(members[0][1])
+            numel = sum(p.numel() for _, p, _ in members)
+            us = [self._scaled(n, p, g[n], dims, state, dr) for n, p, dims in members]
+            sums = torch.stack([torch.stack([u.square().sum() for u in us]).sum(),
+                                torch.stack([_local(p).float().square().sum()
+                                             for _, p, _ in members]).sum()])
+            u_ms, p_ms = _all_reduce(sums, groups) / numel
+            denom = torch.clamp_min(u_ms.sqrt() / self.clip, 1.0)
+            p_rms = p_ms.sqrt()
+            scale = torch.where(p_rms <= self.min_scale, self.min_scale, p_rms)
+            for (n, p, _), u in zip(members, us):
+                p = _local(p)
+                u = -(((u / denom) * lr) * scale)
+                if self.wd:
+                    u = u - lr_wd * p
+                p.copy_(p + u)
+
+
+class Optimizer:
+    """The port's `make_optimizer`: clip_by_global_norm → the inner rule
+    (`tc.optimizer`: "adamw", or "adafactor" with the lr-scaled decay),
+    masked to the trainable leaves, inside MultiSteps when
+    grad_accum_steps > 1 (see the module docstring). The clip, the mask
+    and the accumulation are shared; the count advances once per applied
+    update and every schedule reads it before it increments. `init` builds
+    the state, `update` applies one call's grads to the parameters in
+    place."""
+
+    RULES = ("adamw", "adafactor")
+
     def __init__(self, tc: TrainConfig, trainable: Optional[set] = None):
-        if tc.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {tc.optimizer!r}: only adamw is ported (adafactor and "
-                "_lr_scaled_decay: ROADMAP §1, training follow-ups)")
+        if tc.optimizer not in self.RULES:
+            raise ValueError(f"optimizer {tc.optimizer!r} not in {self.RULES}")
         self.tc = tc
         self.trainable = trainable
         self.sched = lr_schedule(tc)
+        self.rule = (_AdamWRule(tc, self.sched) if tc.optimizer == "adamw" else
+                     _AdafactorRule(tc, self.sched))
 
     def _leaves(self, model: nn.Module):
+        """The trainable leaves: in `trainable` (all when None) and not frozen."""
         return [(n, p) for n, p in model.named_parameters()
-                if self.trainable is None or n in self.trainable]
+                if p.requires_grad and (self.trainable is None or n in self.trainable)]
 
     def init(self, model: nn.Module) -> Dict[str, Any]:
         leaves = self._leaves(model)
-        state = {"count": 0, "mu": {n: torch.zeros_like(p) for n, p in leaves},
-                 "nu": {n: torch.zeros_like(p) for n, p in leaves}}
+        state = {"count": 0, **self.rule.init(leaves)}
         if self.tc.grad_accum_steps > 1:
             state.update(mini_step=0, acc={n: torch.zeros_like(p) for n, p in leaves})
         return state
@@ -253,8 +457,9 @@ class AdamW:
     @torch.no_grad()
     def update(self, model: nn.Module, grads: Dict[str, torch.Tensor],
                state: Dict[str, Any]) -> bool:
-        """Apply grads (name → tensor, every parameter). Returns whether the
-        parameters moved (False between MultiSteps applies)."""
+        """Apply grads (name → tensor, at least every trainable parameter).
+        Returns whether the parameters moved (False between MultiSteps
+        applies)."""
         leaves = self._leaves(model)
         g = {n: _local(grads[n]) for n, _ in leaves}
         k = self.tc.grad_accum_steps
@@ -272,35 +477,24 @@ class AdamW:
             norm = global_norm([state["acc"][n] if k > 1 else grads[n] for n, _ in leaves])
             if float(norm) >= self.tc.grad_clip:
                 g = {n: (t / norm) * self.tc.grad_clip for n, t in g.items()}
-        count = state["count"]
-        t = np.float32(count + 1)
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** t)
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
-        neg_lr = -self.sched(count)
-        wd = self.tc.weight_decay
-        for n, p in leaves:
-            mu, nu, p = _local(state["mu"][n]), _local(state["nu"][n]), _local(p)
-            mu.copy_((1 - self.b1) * g[n] + self.b1 * mu)
-            nu.copy_((1 - self.b2) * g[n].square() + self.b2 * nu)
-            u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps) + wd * p
-            p.copy_(p + neg_lr * u)
-        state["count"] = count + 1
+        self.rule.apply(leaves, g, state, state["count"])
+        state["count"] += 1
         if k > 1:
             for acc in state["acc"].values():
                 _local(acc).zero_()
         return True
 
 
-def make_optimizer(tc: TrainConfig, params: Optional[nn.Module] = None) -> AdamW:
+def make_optimizer(tc: TrainConfig, params: Optional[nn.Module] = None) -> Optimizer:
     """As JAX's: the freezing mask applies when params are given and
     trainable_filters is non-empty."""
     trainable = None
     if params is not None and tc.trainable_filters:
         trainable = trainable_names(params, tc.trainable_filters)
-    return AdamW(tc, trainable)
+    return Optimizer(tc, trainable)
 
 
-def init_train_state(params: nn.Module, tx: AdamW) -> TrainState:
+def init_train_state(params: nn.Module, tx: Optimizer) -> TrainState:
     return TrainState(params=params, opt_state=tx.init(params), step=0)
 
 
@@ -453,7 +647,7 @@ def _slice_draws(draws: Draws, rows: Tuple[int, int], n_global: int) -> Draws:
     return tuple(None if d is None else d[sl] for d in draws)
 
 
-def _make_step(loss_fn, tc: TrainConfig, tx: AdamW, generator: Optional[torch.Generator],
+def _make_step(loss_fn, tc: TrainConfig, tx: Optimizer, generator: Optional[torch.Generator],
                mesh=None, sp: Optional[SPConfig] = None):
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     dp = axis_size(mesh, "data")
@@ -476,7 +670,7 @@ def _make_step(loss_fn, tc: TrainConfig, tx: AdamW, generator: Optional[torch.Ge
         if mesh is not None:
             reduce_gradients(model, mesh, sp)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in model.named_parameters()}
+                 for n, p in model.named_parameters() if p.requires_grad}
         gnorm = global_norm(grads.values())
         tx.update(model, grads, state.opt_state)
         model.zero_grad(set_to_none=True)
@@ -490,7 +684,7 @@ def _make_step(loss_fn, tc: TrainConfig, tx: AdamW, generator: Optional[torch.Ge
     return train_step
 
 
-def make_unified_train_step(cfg: PipelineConfig, tc: TrainConfig, tx: AdamW,
+def make_unified_train_step(cfg: PipelineConfig, tc: TrainConfig, tx: Optimizer,
                             special_tokens: Optional[Dict[str, torch.Tensor]] = None,
                             generator: Optional[torch.Generator] = None, mesh=None,
                             sp: Optional[SPConfig] = None, seq_len: Optional[int] = None):
@@ -504,7 +698,7 @@ def make_unified_train_step(cfg: PipelineConfig, tc: TrainConfig, tx: AdamW,
                       generator, mesh, sp)
 
 
-def make_train_step(cfg: PipelineConfig, tc: TrainConfig, tx: AdamW,
+def make_train_step(cfg: PipelineConfig, tc: TrainConfig, tx: Optimizer,
                     generator: Optional[torch.Generator] = None, mesh=None,
                     sp: Optional[SPConfig] = None, seq_len: Optional[int] = None):
     """The plain flow-matching step over the DiT alone (state.params: WanDiT).

@@ -179,13 +179,18 @@ def test_safetensors_writer_reads_back(tmp_path):
 
 
 @pytest.mark.parametrize("phase,entry", [("profile", "phase_profile"), ("sp", "phase_sp"),
-                                         ("sp_train", "_sp_train_alone")])
+                                         ("sp_train", "_sp_train_alone"), ("lora", "phase_lora"),
+                                         ("adafactor", "phase_adafactor"),
+                                         ("qwen3_sp", "phase_vlm")])
 def test_phase_commands(monkeypatch, phase, entry):
-    """`python3 chip_smoke.py <phase>` runs that phase alone; any other
-    argument is refused with the list of names."""
+    """`python3 chip_smoke.py <phase>` runs that phase alone (lora and
+    adafactor after the train phase, their AdamW yardstick; qwen3_sp inside
+    the vlm phase, whose text stack it runs); any other argument is refused
+    with the list of names."""
     calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for name in ("phase_device", "phase_profile", "phase_sp", "_sp_train_alone", "t2v_pipeline"):
+    for name in ("phase_device", "phase_profile", "phase_sp", "_sp_train_alone", "t2v_pipeline",
+                 "phase_train", "phase_lora", "phase_adafactor", "phase_vlm", "write_clip"):
         monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name, **k: calls.append(_n) or (
             (None, torch.zeros(1), torch.Generator()) if _n == "t2v_pipeline" else 0))
     monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.zeros(1))
@@ -218,3 +223,50 @@ def test_grad_spy_captures_then_compares(monkeypatch):
     tx2.update(None, {"a": torch.ones(4), "b": torch.tensor([2.0, 2.2])}, None)
     rel, name = cmp.worst[0]
     assert name == "b" and abs(rel - 0.2 / (8.0 ** 0.5)) < 1e-6
+
+
+def test_adafactor_reference_matches_optax():
+    """The adafactor phase's f64 reference (`_adafactor_reference`, on the
+    port's per-layer [d_out, d_in] parameters) against optax.adafactor and
+    JAX's lr-scaled decay on the stacked leaf, second update: a factored
+    [2, 128, 256] kernel and an unfactored [2, 64] bias."""
+    jax = pytest.importorskip("jax")
+    import numpy as np
+    import optax
+
+    from omnivideo_tpu.training.trainer import _lr_scaled_decay
+
+    rng = np.random.default_rng(0)
+    lr, wd = 1e-3, 0.01
+    for shape, weight in (((2, 128, 256), True), ((2, 64), False)):
+        p = rng.standard_normal(shape).astype(np.float32) * 0.02
+        g0, g1 = (rng.standard_normal(shape).astype(np.float32) * 1e-3 for _ in range(2))
+        tx = optax.chain(optax.adafactor(learning_rate=lr), _lr_scaled_decay(wd, lambda c: lr))
+        st = tx.init(p)
+        up, st = tx.update(g0, st, p)
+        p1 = np.asarray(optax.apply_updates(p, up))
+        fac = st[0][0]
+        up, _ = tx.update(g1, st, p1)
+        want = np.asarray(up, np.float64)
+        names = [f"blocks.{i}.x.weight" if weight else f"blocks.{i}.x.bias" for i in range(2)]
+        port = (lambda a: torch.tensor(a).T) if weight else torch.tensor
+        p0 = {n: port(p1[i]) for i, n in enumerate(names)}
+        g = {n: port(g1[i]) for i, n in enumerate(names)}
+        if weight:
+            state = {k: {n: torch.tensor(np.asarray(getattr(fac, k))[i])
+                         for i, n in enumerate(names)} for k in ("v_row", "v_col")}
+        else:
+            state = {"v": {n: torch.tensor(np.asarray(fac.v)[i]) for i, n in enumerate(names)}}
+        got = chip_smoke._adafactor_reference(names, p0, g, state, 1, 1.0, lr, wd).numpy()
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5, shape
+
+
+def test_fingerprint_sees_one_element():
+    """The lora phase's base check: one flipped element, even in its low
+    bits, changes the fingerprint."""
+    t = torch.randn(1000)
+    f = chip_smoke._fingerprint(t)
+    u = t.clone()
+    u[517] = torch.nextafter(u[517], torch.tensor(float("inf")))
+    assert torch.equal(chip_smoke._fingerprint(t.clone()), f)
+    assert not torch.equal(chip_smoke._fingerprint(u), f)

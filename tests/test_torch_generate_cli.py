@@ -89,7 +89,7 @@ def test_read_clip_samples_and_pads(tmp_path):
                                                                                          4)
 
 
-@pytest.mark.parametrize("flag", [["--lora_adapters", "a.npz"], ["--layer_stream"],
+@pytest.mark.parametrize("flag", [["--stream_quant", "int8"], ["--layer_stream"],
                                   ["--max_steps_per_call", "3"], ["--vlm_backend", "hf"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -8,6 +8,7 @@
 without JAX.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -250,16 +251,19 @@ def _full(t: torch.Tensor) -> np.ndarray:
 
 
 def _train_mesh(mesh_kw, cfg, tc, sd, batch, draws, steps, seq_len=None, ckpt=None,
-                resume=None):
+                resume=None, lora=False):
     """`steps` unified train steps on a mesh (None: one process); returns
     per step {"loss", "grad_norm", "grads" {name: full}, "params" {name:
     full}}. ckpt=(dir, step): save after that step; resume=dir: start from
-    its latest step."""
+    its latest step. The LoRA adapters `sd` names are attached; lora: train
+    them alone (the base frozen after sharding, as the finetune CLI)."""
+    from omnivideo_tpu_torch.io.jax_bridge import with_adapters
     from omnivideo_tpu_torch.models.wan_dit import SPConfig
     from omnivideo_tpu_torch.parallel.mesh import batch_slice, create_mesh
     from omnivideo_tpu_torch.parallel.sharding import shard_params
     from omnivideo_tpu_torch.training import trainer
     from omnivideo_tpu_torch.training.checkpoint import CheckpointManager
+    from omnivideo_tpu_torch.training.lora import freeze_base
 
     mesh, sp = None, None
     if mesh_kw is not None:
@@ -268,9 +272,12 @@ def _train_mesh(mesh_kw, cfg, tc, sd, batch, draws, steps, seq_len=None, ckpt=No
         if mode is not None:
             sp = SPConfig(mesh, mode)
     model = trainer.init_unified_params(cfg, device="cpu")
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    tensors = {k: torch.from_numpy(v) for k, v in sd.items()}
+    with_adapters(model, tensors).load_state_dict(tensors)
     if mesh_kw is not None and (mesh_kw.get("fsdp", 1) > 1 or mesh_kw.get("tp", 1) > 1):
         shard_params(model, mesh)
+    if lora:
+        freeze_base(model)
     tx = trainer.make_optimizer(tc, model)
     state = trainer.init_train_state(model, tx)
     if resume is not None:
@@ -411,3 +418,72 @@ def cli_runs_worker(rank, tmp, runs):
             out[f"{name}/{r['id']}"] = r["latents"].numpy()
     if rank == 0:
         _save(tmp, "cli_latents", **out)
+
+
+LORA_MESHES = {  # name → create_mesh kwargs (+ the SPConfig mode)
+    "dp2_fsdp2": dict(dp=2, fsdp=2),
+    "dp2_tp2": dict(dp=2, tp=2, mode="tp"),
+    "tp2_fsdp2": dict(fsdp=2, tp=2, mode="tp"),
+}
+QWEN_MESHES = {  # name → (create_mesh kwargs, the Ulysses axis)
+    "ring4": (dict(sp=4), None),
+    "ring2": (dict(dp=2, sp=2), None),
+    "ring2_ulysses2": (dict(fsdp=2, sp=2), "fsdp"),
+}
+
+
+def lora_mesh_worker(rank, tmp, cases, steps):
+    """From lora_inputs.npz: each (name, cfg_kw, tc_kw, lora) of `cases`
+    (its state dict "<name>/sd/...", batch "batch/...", draws "tid",
+    "noise", "drop") on every mesh of LORA_MESHES for `steps` steps; then
+    the last case saved under tp2×fsdp2 after step 1 and resumed under
+    dp2×fsdp2 and (rank 0) in one process; then qwen3_forward_sp of the
+    text-only Qwen3 ("qwen/sd/...", "qwen/ids", config "qwen/cfg") on
+    QWEN_MESHES. Rank 0 writes lora_mesh.npz."""
+    from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.configs.qwen3vl import Qwen3TextConfig
+    from omnivideo_tpu_torch.io.jax_bridge import load_qwen3vl
+    from omnivideo_tpu_torch.models.qwen3vl.text_model import Qwen3LM, qwen3_forward_sp
+    from omnivideo_tpu_torch.parallel.mesh import create_mesh
+    from omnivideo_tpu_torch.training import trainer
+
+    data = load(tmp, "lora_inputs")
+    batch = {k[6:]: v for k, v in data.items() if k.startswith("batch/")}
+    draws = (data["tid"], data["noise"], data["drop"])
+    out = {}
+
+    def keep(name, recs):
+        for s, r in enumerate(recs):
+            out[f"{name}/{s}/loss"] = np.array(r["loss"])
+            for n, p in r["params"].items():
+                out[f"{name}/{s}/param/{n}"] = p
+
+    for name, cfg_kw, tc_kw, lora in cases:
+        sd = {k[len(name) + 4:]: v for k, v in data.items() if k.startswith(f"{name}/sd/")}
+        cfg = PipelineConfig(dit=WanDiTConfig(**cfg_kw["dit"]), vae=VAEConfig(z_dim=4),
+                             **cfg_kw["pipe"])
+        tc = trainer.TrainConfig(**tc_kw)
+        for mname, mesh_kw in LORA_MESHES.items():
+            keep(f"{name}/{mname}", _train_mesh(dict(mesh_kw), cfg, tc, sd, batch, draws, steps,
+                                                lora=lora))
+    ck = str(Path(tmp) / "ckpt")
+    _train_mesh(dict(LORA_MESHES["tp2_fsdp2"]), cfg, tc, sd, batch, draws, 1, ckpt=(ck, 1),
+                lora=lora)
+    dist.barrier()
+    keep(f"{name}/resumed_dp2_fsdp2", _train_mesh(dict(LORA_MESHES["dp2_fsdp2"]), cfg, tc, sd,
+                                                   batch, draws, steps, resume=ck, lora=lora))
+    if rank == 0:
+        keep(f"{name}/resumed_one", _train_mesh(None, cfg, tc, sd, batch, draws, steps,
+                                                resume=ck, lora=lora))
+
+    qcfg = Qwen3TextConfig(**json.loads(str(data["qwen/cfg"])))
+    model = Qwen3LM(qcfg, torch.float32, device="cpu")
+    load_qwen3vl(model, {k[8:]: torch.from_numpy(v) for k, v in data.items()
+                         if k.startswith("qwen/sd/")})
+    ids = torch.from_numpy(data["qwen/ids"])
+    for qname, (mesh_kw, ulysses) in QWEN_MESHES.items():
+        hidden, logits = qwen3_forward_sp(model, ids, create_mesh(**mesh_kw),
+                                          ulysses_axis=ulysses)
+        out[f"qwen/{qname}/hidden"], out[f"qwen/{qname}/logits"] = hidden.numpy(), logits.numpy()
+    if rank == 0:
+        _save(tmp, "lora_mesh", **out)
