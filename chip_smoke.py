@@ -11,6 +11,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py lora       # the train phase (AdamW's yardstick), then lora
     python3 chip_smoke.py adafactor  # the train phase, then adafactor
     python3 chip_smoke.py qwen3_sp   # the vlm phase, with its text-only pass and qwen3_sp
+    python3 chip_smoke.py sft        # tiny_sft, then sft
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -36,7 +37,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             card against the same weights on the CPU: features and greedy
             tokens with every token routed to all experts, and features at
             top-2 of 8 experts with the CPU's routing replayed on the card;
-  vlm       Qwen3-VL-30B-A3B at full width and depth from seeded random
+  tiny_sft  the sft_vlm CLI's --tiny SFT (its Qwen3 and alignment chain) on
+            the card against the CPU from the same weights and batch, 3
+            steps each of LM-only, combined (align_weight 1) and bare LoRA
+            rank 4: loss and grad_norm within SFT_TOL;
+  vlm       first stage 1 of the data pipeline: vae_feature_extract
+            --random_weights on the seeded 720p clip file at 832x480x81 (the
+            file's keys and latent shape); then
+            Qwen3-VL-30B-A3B at full width and depth from seeded random
             weights (~62 GB bf16, on the card): 6 seeded 832x480 frames →
             frames_to_patches (grid 3x30x52, 1,170 visual tokens), synthetic
             ids (L ~ 1.5k), the feature forward, a 16-token greedy decode,
@@ -47,8 +55,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             file: source caption (grid 3x44x80 at 704x1280), target caption
             (text only), features (grid 3x2x2 at 32x32), each pass's
             launches (27 flash_d72 with a clip, 48 flash_causal), grids and
-            feature shape asserted; then the text-only pass (text_only
-            below) on its text stack; the model is freed before the e2e phase;
+            feature shape asserted; the image path: the engine's image
+            message on a seeded 1280x720 PNG still (grid 1x44x80, 880
+            <|image_pad|> tokens, 27 flash_d72 and 48 flash_causal launches)
+            and its features; stage 2: ar_feature_extract's per-row
+            function with that engine on the stage-1 file (54 flash_d72 and
+            144 flash_causal launches); then the text-only pass (text_only
+            below) on its text stack; the model is freed, and one T2V-1.3B
+            train step (the train phase's settings) reads the extracted
+            file through training/dataset.py (its launches asserted);
   text_only the vlm model's text stack as a text-only Qwen3 (qwen3_forward
             on the prompt's 1,481 ids, a 16-token qwen3_greedy_decode, 48
             flash_causal launches a pass): base, rank-16 bare adapters with
@@ -139,6 +154,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             heads and FFN divide) and on 4 cards dp2 x fsdp2 the same way,
             then generate under fsdp and tp against the non-SP generate
             (SP_TOL of scale); with one card a line says why (c) did not run.
+            The VLM's SFT beside it: the token-causal ring backward over 4
+            in-process shards of [1, 2048, 32, 128] (rows 4 and 5 on the
+            earlier shards) against the plain loop and, per head within
+            GRAD_TOL, the dense causal backward; the SFT step on the full-
+            width 2-layer, 16-expert Qwen3 (batch 2 × 2048, rows of unequal
+            target counts) under --sp at world 1 (NCCL, row 8) and on 2+
+            cards under --sp, --fsdp and (4 cards) --dp 2 --fsdp 2, held to
+            the single-card step as the train modes are; the f32 LM's ring
+            runs the f32 step kernel (csrc/ring_step_f32.cu), held to
+            ring_step_plain at the world-1 step's shape [2, 2048, 32, 128]
+            (own shard, token-causal) within RING_F32_TOL of scale;
   lora      the train phase's T2V-1.3B step with rank-16 LoRA on the
             attention and FFN projections, the base frozen, AdamW on the
             adapters: 3 steps, launches per step asserted, step time, peak
@@ -154,7 +180,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             3 steps, step time, peak memory and state bytes beside AdamW's,
             step 2's update of three JAX leaves (factored across the
             layers, unfactored across the layers, one factored kernel)
-            within UPDATE_TOL of an f64 reference of the same rule.
+            within UPDATE_TOL of an f64 reference of the same rule;
+  sft       the VLM's SFT at full width: Qwen3-VL-30B-A3B's text stack with
+            4 of 48 layers (3.1B parameters, f32 params, grads and AdamW
+            moments), batch 1 × 2048, SFTConfig's defaults but warmup 0, 3
+            steps on one seeded batch (a third of it prompt) then a
+            profiled one: the full finetune, bare LoRA rank 16 on q/k/v/o
+            and the combined loss (the CLI's alignment chain); the loss
+            must fall, peak under 80 GB, no kernel launched (the masked
+            attention is the dense path, as in JAX); then sft_tokenize
+            through the stand-in tokenizer (ChatML) and the sft_vlm CLI
+            from a YAML --config on that --data_dir, 3 steps.
 The line before the last is the kernel summary (each row's launches per
 path, each path's count reset just before it); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -233,6 +269,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
+    ring_finish,
     ring_flash_attention_shards,
     ring_flash_backward_shards,
     ring_step,
@@ -282,6 +319,25 @@ from omnivideo_tpu_torch.training.trainer import (
 )
 from omnivideo_tpu_torch.utils.run_config import write_yaml
 from omnivideo_tpu_torch.utils.video import read_video_frames
+from omnivideo_tpu_torch.models.qwen3vl.preprocess import build_chat_ids, preprocess_image
+from omnivideo_tpu_torch.models.qwen3vl.text_model import Qwen3LM
+from omnivideo_tpu_torch.tools import sft_vlm
+from omnivideo_tpu_torch.tools.data_prepare import (
+    ar_feature_extract,
+    sft_tokenize,
+    vae_feature_extract,
+)
+from omnivideo_tpu_torch.training.conversation import ConversationDataset
+from omnivideo_tpu_torch.training.dataset import OmniVideoDataset, PadSpec, collate
+from omnivideo_tpu_torch.training.sft import (
+    SFTConfig,
+    SFTParams,
+    init_sft_state,
+    make_sft_optimizer,
+    make_sft_step,
+    sft_collate,
+)
+from omnivideo_tpu_torch.utils.png import write_png
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -327,7 +383,7 @@ ENGINE_GRIDS = {"caption": (3, 44, 80), "features": (3, 2, 2)}  # 720p after sma
 # 704x1280 at 480²…4·480² pixels, 32x32 at 480…1,920 (the JAX engine's budgets)
 D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
 KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_causal", "flash_d72", "flash_fwd_lse",
-               "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step")
+               "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step", "ring_step_f32")
 
 
 def emit(obj) -> None:
@@ -388,7 +444,8 @@ def kernel_row(name: str):
             return {"128": "flash_fwd", "72": "flash_d72"}.get(m.group(1))
         return None
     for key, row in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
-                     ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln")):
+                     ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln"),
+                     ("ring_step_f32", "ring_step_f32")):
         if key in name:
             return row
     return None
@@ -750,6 +807,7 @@ def _reset_launches() -> None:
     qk_prep.launches = 0
     fused_adaln.launches = 0
     ring_step.launches = 0
+    ring_step.launches_f32 = 0
     for name in flash_attention.launches:
         flash_attention.launches[name] = 0
 
@@ -1032,13 +1090,17 @@ def _engine_pass(model: Qwen3VLModel, clip: Path) -> dict:
 
 
 def phase_vlm(clip: Path) -> dict:
-    """Qwen3-VL-30B-A3B at full width and depth: feature forward and a
-    16-token greedy caption on 6 frames of 832x480, then the engine on the
-    720p clip file (`_engine_pass`). Returns the record with the features
-    ([L − system prefix, 2048] f32 on the card) under "features"; the model
-    is freed before returning."""
+    """Stage 1 of the data pipeline (`_vae_extract`) on the 720p clip file,
+    then Qwen3-VL-30B-A3B at full width and depth: feature forward and a
+    16-token greedy caption on 6 frames of 832x480, the engine on the clip
+    (`_engine_pass`), the image path (`_image_pass`) and stage 2
+    (`_ar_extract`); the model is freed, and one finetune step reads the
+    extracted files (`_pipeline_train_step`). Returns the record with the
+    features ([L − system prefix, 2048] f32 on the card) under
+    "features"."""
     cfg = QWEN3_VL_30B_A3B
     vc = cfg.vision
+    vae = _vae_extract(clip, clip.parent)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Qwen3VLModel.random_init(cfg, seed=0, device="cuda")
@@ -1100,6 +1162,8 @@ def phase_vlm(clip: Path) -> dict:
     moe_check = _vlm_moe_check(model, L)
     profile = _vlm_profile(model, ids, patches, grid)
     engine = _engine_pass(model, clip)
+    image = _image_pass(model, clip.parent)
+    ar = _ar_extract(model, vae)
     text = phase_text_only(model, ids, patches, grid)
     steps = timings["decode_steps"]
     rec = {"phase": "vlm", "config": "QWEN3_VL_30B_A3B", "text_layers": cfg.text.num_hidden_layers,
@@ -1114,8 +1178,9 @@ def phase_vlm(clip: Path) -> dict:
            "d72_guard": {"bounded_blocks": int(safe.sum()),
                          "max_tracked_blocks": int((safe == 0).sum())},
            "launches_per_pass": per_pass, "launches": total, "moe_check": moe_check,
-           "profile": profile, "engine": engine,
-           "text_only_launches": text["launches"],
+           "profile": profile, "engine": engine, "image": image,
+           "vae_feature_extract": {k: v for k, v in vae.items() if k not in ("dir", "manifest")},
+           "ar_feature_extract": ar, "text_only_launches": text["launches"],
            "qwen3_sp_launches": text["qwen3_sp"]["launches"]}
     emit(rec)
     rec["text_only"] = text
@@ -1123,6 +1188,8 @@ def phase_vlm(clip: Path) -> dict:
     del model, feats, patches
     gc.collect()
     torch.cuda.empty_cache()
+    rec["pipeline_train"] = _pipeline_train_step(vae["dir"])
+    emit({"phase": "vlm", "part": "pipeline_train", **rec["pipeline_train"]})
     return rec
 
 
@@ -2325,13 +2392,16 @@ def _train_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
     return rec
 
 
-def _sp_train_rank(rank, world, port, tmp, modes, gen_modes):
+def _sp_train_rank(rank, world, port, tmp, modes, gen_modes, sft_modes):
     """One rank of sp_train's multi-card part: the train modes on this card,
-    then the generate modes; rank 0 writes the records and latents."""
+    then the SFT modes, then the generate modes; rank 0 writes the records
+    and latents."""
     maybe_initialize_distributed(f"localhost:{port}", world, rank, device="cuda", local_rank=rank)
     try:
         ref = torch.load(Path(tmp) / "ref.pt", mmap=True)
         recs = {m: _train_mode(m, world, ref) for m in modes}
+        sft_ref = torch.load(Path(tmp) / "sft_ref.pt", mmap=True)
+        recs.update({"sft_" + m: _sft_mode(m, world, sft_ref) for m in sft_modes})
         lats = {}
         if gen_modes:
             base, ctx, _ = t2v_pipeline(T2V_1_3B, "cuda", with_vae=False)
@@ -2362,11 +2432,12 @@ def _sp_train_rank(rank, world, port, tmp, modes, gen_modes):
         dist.destroy_process_group()
 
 
-def _sp_train_multi_card(world: int, ref: dict) -> dict:
+def _sp_train_multi_card(world: int, ref: dict, sft_ref: dict) -> dict:
     """(c): spawn `world` NCCL ranks, one card each: the train modes (sp
     ring, sp Ulysses, fsdp, tp where the heads and FFN divide, dp2×fsdp2 on
-    4 cards) held to the single-card step, then generate under fsdp and tp
-    held to the non-SP generate (SP_TOL of scale)."""
+    4 cards) held to the single-card step, the SFT modes (sp, fsdp,
+    dp2×fsdp2 on 4 cards) held to the single-card SFT step, then generate
+    under fsdp and tp held to the non-SP generate (SP_TOL of scale)."""
     cfg = T2V_1_3B
     modes = ["ring", "ulysses", "fsdp"]
     if cfg.dit.num_heads % world == 0 and cfg.dit.ffn_dim % world == 0:
@@ -2374,6 +2445,7 @@ def _sp_train_multi_card(world: int, ref: dict) -> dict:
     if world == 4:
         modes.append("dp2_fsdp2")
     gen_modes = ["fsdp"] + (["tp"] if "tp" in modes else [])
+    sft_modes = ["sp", "fsdp"] + (["dp2_fsdp2"] if world == 4 else [])
     pipe, ctx, gen = t2v_pipeline(cfg, "cuda", with_vae=False, qk_impl="unfused")
     features = torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen, device="cuda")
     lat_ref, _, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
@@ -2385,8 +2457,9 @@ def _sp_train_multi_card(world: int, ref: dict) -> dict:
     try:
         torch.save(features.cpu(), tmp / "features.pt")
         torch.save(dict(ref, grads=ref["grads"][:1]), tmp / "ref.pt")  # leaves: step 1
-        mp.spawn(_sp_train_rank, args=(world, _free_port(), str(tmp), modes, gen_modes),
-                 nprocs=world)
+        torch.save(sft_ref, tmp / "sft_ref.pt")
+        mp.spawn(_sp_train_rank, args=(world, _free_port(), str(tmp), modes, gen_modes,
+                                       sft_modes), nprocs=world)
         lats = torch.load(tmp / "latents.pt")
         recs = json.loads((tmp / "records.json").read_text())
     finally:
@@ -2407,21 +2480,27 @@ def phase_sp_train(ref: dict, gen: torch.Generator) -> dict:
     single-card step (`ref`: phase_train's loss, grad_norm and grads of its
     first two steps); (c) with 2+ cards, min(4, count) spawned ranks."""
     ring_bwd = _sp_train_ring_backward(gen)
+    ring_bwd["sft_token"] = _sft_ring_backward(gen)
+    ring_f32 = _ring_f32_case(gen)
+    sft_ref = _sft_reference()
     recs = {}
     maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
     try:
         for mode in ("ring", "ulysses", "fsdp"):
             recs[mode] = _train_mode(mode, 1, ref)
+        recs["sft_sp"] = _sft_mode("sp", 1, sft_ref)
     finally:
         dist.destroy_process_group()
     count = torch.cuda.device_count()
     multi = None
     if count >= 2:
-        multi = _sp_train_multi_card(min(4, count), ref)
+        multi = _sp_train_multi_card(min(4, count), ref, sft_ref)
     else:
         print(f"sp_train: the multi-card part did not run: this machine has {count} CUDA device "
               "(it needs 2 or more, one per rank)", flush=True)
     rec = {"phase": "sp_train", "config": "T2V_1_3B", "seq_len": SEQ, "steps": SP_TRAIN_STEPS,
+           "sft_config": "QWEN3_VL_30B_A3B.text, 2 layers, 16 experts", "sft_seq_len": SFT_SEQ,
+           "sft_single_card": {"loss": sft_ref["loss"], "grad_norm": sft_ref["grad_norm"]},
            "tolerance": {"loss_rel": SP_LOSS_TOL, "grad_norm_rel": SP_GNORM_TOL,
                          "leaf_grad_rel": SP_GNORM_TOL},
            "single_card": {"loss": ref["loss"][:SP_TRAIN_STEPS],
@@ -2431,7 +2510,7 @@ def phase_sp_train(ref: dict, gen: torch.Generator) -> dict:
     bad = [m for m, r in {**recs, **(multi or {})}.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"sp_train: modes {bad} failed: {rec}")
-    return {"ring_backward": ring_bwd, **rec}
+    return {"ring_backward": ring_bwd, "ring_step_f32": ring_f32, **rec}
 
 
 
@@ -2863,6 +2942,523 @@ def phase_qwen3_sp(model, ids_t: torch.Tensor, ref_logits: torch.Tensor) -> dict
     return rec
 
 
+# --- the VLM's SFT, the image path and the data pipeline -------------------
+
+SFT_STEPS = 3
+SFT_TOL = 2e-3  # tiny SFT, card vs CPU, relative loss and grad_norm gaps: f32 both sides
+# (TF32 off), the MoE-free dense attention summed in other orders
+SFT_SEQ = 2048
+SFT_CFG = dataclasses.replace(QWEN3_VL_30B_A3B.text, num_hidden_layers=4)  # 4 of 48 layers
+# the sp_train SFT model: full width but 2 layers of 16 experts, so every rank also
+# holds the single-card reference's grads cheaply
+SFT_MESH_CFG = dataclasses.replace(QWEN3_VL_30B_A3B.text, num_hidden_layers=2, num_experts=16)
+SFT_LORA_NAMES = ("q", "k", "v", "o")
+SFT_RING_Q = (1, 2048, 32, 128)  # a 2,048-token SFT batch's attention, 4 ring shards of 512
+STILL_SHAPE = (720, 1280, 3)  # the engine's seeded still image
+
+
+def _sft_counts(model) -> dict:
+    n = sum(p.numel() for p in model.parameters())
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    return {"params": n, "trainable": trainable,
+            "f32_state_gb": (4 * n + 12 * trainable) / 1e9}  # params; grads, mu, nu
+
+
+def _sft_batch(cfg, B: int, L: int, seed: int, lens=None, align: bool = False,
+               device="cuda") -> dict:
+    """A fixed seeded batch through sft_collate: row b holds lens[b] tokens
+    (default L), the first third of each masked as prompt; with `align` the
+    tiny chain's VLM features and targets."""
+    rng = np.random.default_rng(seed)
+    lens = lens or [L] * B
+    samples = [{"ids": rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                "prompt_len": np.array(n // 3)} for n in lens]
+    if align:
+        for s_ in samples:
+            s_["vlm"] = rng.standard_normal((sft_vlm.DUMMY_VLM_LEN, cfg.hidden_size)
+                                            ).astype(np.float32)
+            s_["target"] = (0.1 * rng.standard_normal((sft_vlm.CHAIN_QUERIES,
+                                                       sft_vlm.CHAIN_OUT))).astype(np.float32)
+    return {k: v.to(device) for k, v in sft_collate(samples, L).items()}
+
+
+def _sft_model(cfg, seed: int, lora: int = 0, align: float = 0.0, device="cuda") -> SFTParams:
+    """Seeded f32 SFT params: the Qwen3 (N(0, 0.02²)), bare LoRA on q/k/v/o
+    with the base frozen when `lora`, the CLI's alignment chain when `align`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lm = Qwen3LM(cfg, torch.float32, device, gen)
+    chain = sft_vlm.tiny_chain(cfg.hidden_size, gen, device) if align else None
+    if lora:
+        inject_lora_bare(lm, lora, names=SFT_LORA_NAMES, generator=gen)
+        freeze_base(lm)
+    return SFTParams(lm, chain)
+
+
+def _tiny_sft_case(name: str, lora: int, align: float) -> dict:
+    """SFT_STEPS steps of the CLI's --tiny SFT on the CPU and on the card from
+    the same weights (built on the CPU, copied) and batch."""
+    import copy
+
+    cfg = sft_vlm.tiny_config()
+    cpu = _sft_model(cfg, 0, lora, align, device="cpu")
+    if lora:  # B off zero, so A's gradient is not zero either
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for m in cpu.lm.modules():
+                if has_lora(m):
+                    m.lora_b.add_(BUMP * torch.randn(m.lora_b.shape, generator=gen))
+    card = copy.deepcopy(cpu).to("cuda")
+    tc = SFTConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10, align_weight=align,
+                   cosine_weight=0.5 if align else 0.0)
+    rows = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        tx = make_sft_optimizer(tc)
+        state, step = init_sft_state(model, tx), make_sft_step(tc, tx)
+        batch = _sft_batch(cfg, 2, 32, 5, lens=[32, 23], align=align > 0, device=dev)
+        rows[dev] = []
+        for _ in range(SFT_STEPS):
+            state, m = step(state, batch)
+            rows[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    gaps = [(abs(a[0] / b[0] - 1), abs(a[1] / b[1] - 1)) for a, b in zip(rows["cuda"], rows["cpu"])]
+    return {"case": name, "loss_cuda": [r[0] for r in rows["cuda"]],
+            "loss_cpu": [r[0] for r in rows["cpu"]], "grad_norm_cuda": [r[1] for r in rows["cuda"]],
+            "loss_rel_gap": max(g[0] for g in gaps), "grad_norm_rel_gap": max(g[1] for g in gaps)}
+
+
+def phase_tiny_sft() -> dict:
+    """The sft_vlm CLI's --tiny SFT step (JAX's `_tiny_cfg` and tiny chain) on
+    the card against the CPU: LM-only, combined (align_weight 1) and bare
+    LoRA rank 4, loss and grad_norm within SFT_TOL."""
+    cases = [_tiny_sft_case("lm_only", 0, 0.0), _tiny_sft_case("combined", 0, 1.0),
+             _tiny_sft_case("lora4", 4, 0.0)]
+    rec = {"phase": "tiny_sft", "steps": SFT_STEPS, "tolerance": SFT_TOL, "cases": cases}
+    emit(rec)
+    if any(c["loss_rel_gap"] > SFT_TOL or c["grad_norm_rel_gap"] > SFT_TOL for c in cases):
+        raise AssertionError(f"tiny_sft: {rec}")
+    return rec
+
+
+def _sft_full_case(name: str, lora: int = 0, align: float = 0.0) -> dict:
+    """SFT_STEPS steps of make_sft_step on SFT_CFG (full width, 4 layers) in
+    f32 at batch 1 × SFT_SEQ, SFTConfig's defaults but warmup 0, one fixed
+    seeded batch (a third of it prompt), then one profiled step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _sft_model(SFT_CFG, 0, lora, align)
+    tc = SFTConfig(warmup_steps=0, align_weight=align)
+    tx = make_sft_optimizer(tc)
+    state, step = init_sft_state(params, tx), make_sft_step(tc, tx)
+    batch = _sft_batch(SFT_CFG, 1, SFT_SEQ, 7, align=align > 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, step_s = [], []
+    _reset_launches()
+    _reset_train_launches()
+    for _ in range(SFT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = _profile(lambda: step(state, batch))
+    rec = {"case": name, "lora_rank": lora, "align_weight": align, **_sft_counts(params),
+           "init_s": init_s, "loss": losses, "grad_norm": float(m["grad_norm"]),
+           "num_targets": float(m["num_targets"]), "step_s": step_s,
+           "sft_step_s": sum(step_s[1:]) / (len(step_s) - 1), "max_memory_allocated_gb": peak_gb,
+           "idle_share": profile["idle_share"], "profile_one_step": profile,
+           "launches": launches}
+    if "align_loss" in m:
+        rec["align_loss"] = float(m["align_loss"])
+    del state, params, step, tx, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = (not all(np.isfinite(losses)) or not all(b < a for a, b in zip(losses, losses[1:]))
+           or peak_gb >= 80.0 or any(launches.values()))
+    if bad:  # the single-card SFT runs no kernel: its masked attention is the dense path
+        raise AssertionError(f"sft {name}: {rec}")
+    return rec
+
+
+def _sft_text_dir(d: Path, cfg) -> Path:
+    """An HF text-only Qwen3 dir (config.json, one safetensors file) of
+    seeded f32 weights at `cfg`."""
+    lm = Qwen3LM(cfg, torch.float32, "cuda", torch.Generator(device="cuda").manual_seed(4))
+    d.mkdir(parents=True, exist_ok=True)
+    write_safetensors(d / "model.safetensors",
+                      {("model." + k[len("language_model."):] if k.startswith("language_model.")
+                        else k): v for k, v in lm.state_dict().items()})
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "qwen3", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "num_key_value_heads": cfg.num_key_value_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "tie_word_embeddings": False}))
+    return d
+
+
+def _sft_cli(tmp: Path) -> dict:
+    """sft_tokenize's `tokenize_dataset` over seeded chat transcripts through
+    the stand-in tokenizer (ChatML, rendered natively), then the sft_vlm CLI
+    in-process from a YAML --config on that --data_dir and a --model_path of
+    the real vocabulary (151,936) at a narrow width."""
+    rng = np.random.default_rng(8)
+    words = lambda n: " ".join(f"w{int(i)}" for i in rng.integers(0, 999, n))  # noqa: E731
+    recs = [{"conversations": [{"from": "system", "value": words(5)}]
+             + [{"from": "human" if j % 2 == 0 else "gpt", "value": words(int(rng.integers(4, 30)))}
+                for j in range(2 * (1 + i % 2))]} for i in range(6)]
+    conv = tmp / "sft_conv.jsonl"
+    conv.write_text("\n".join(json.dumps(r) for r in recs))
+    data = tmp / "sft_data"
+    kept = sft_tokenize.tokenize_dataset(ConversationDataset(str(conv), StandInTokenizer()),
+                                         str(data), max_len=4096)
+    cfg = Qwen3TextConfig(vocab_size=151936, hidden_size=256, intermediate_size=512,
+                          num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                          head_dim=128)
+    model_dir = _sft_text_dir(tmp / "sft_model", cfg)
+    out = tmp / "sft_out"
+    yml = tmp / "sft.yaml"
+    yml.write_text(write_yaml({"model_path": str(model_dir), "data_dir": str(data),
+                               "total_steps": 3, "warmup_steps": 1, "lr": 1e-4,
+                               "batch_size": 2, "seq_len": 512, "log_interval": 1,
+                               "output_dir": str(out), "device": "cuda"}))
+    t0 = time.perf_counter()
+    metrics = sft_vlm.run(sft_vlm.parse_args(["--config", str(yml)]))
+    wall_s = time.perf_counter() - t0
+    rec = {"part": "sft_vlm_cli", "samples": kept, "wall_s": wall_s,
+           "loss": [r["loss"] for r in metrics], "num_targets": [r["num_targets"] for r in metrics],
+           "run_config_yaml": (out / "run_config.yaml").exists(),
+           "checkpoint": (out / "checkpoints" / "3" / "state.pt").exists()}
+    shutil.rmtree(out, ignore_errors=True)
+    if (kept != 6 or len(metrics) != 3 or not all(np.isfinite(rec["loss"]))
+            or not rec["run_config_yaml"] or not rec["checkpoint"]
+            or min(rec["num_targets"]) <= 0):
+        raise AssertionError(f"sft_vlm CLI: {rec}")
+    return rec
+
+
+def phase_sft(tmp: Path) -> dict:
+    """SFT at full width: SFT_CFG (Qwen3-VL-30B-A3B's text stack, 4 of 48
+    layers) in f32, 3 steps each of the full finetune, bare LoRA rank 16 on
+    q/k/v/o and the combined loss (align_weight 1, the CLI's chain): the
+    loss falls, peak under 80 GB; then the CLI (`_sft_cli`)."""
+    cases = [_sft_full_case("full"), _sft_full_case("lora16", lora=LORA_RANK),
+             _sft_full_case("combined", align=1.0)]
+    cli = _sft_cli(tmp)
+    rec = {"phase": "sft", "config": "QWEN3_VL_30B_A3B.text, 4 of 48 layers",
+           "seq_len": SFT_SEQ, "batch": 1, "steps": SFT_STEPS, "cases": cases, "cli": cli}
+    emit(rec)
+    return rec
+
+
+def _sft_ring_backward(gen: torch.Generator) -> dict:
+    """The token-causal ring backward (rows 4 and 5 on the earlier shards)
+    over RING_N in-process shards of an SFT batch's attention, SFT_RING_Q:
+    against the plain loop (`_ring_bwd_case`) and, per (batch row, head)
+    within GRAD_TOL of its norm, against the dense causal backward of the
+    whole sequence in f32 (autograd)."""
+    B, L, N, D = SFT_RING_Q
+    q, k = _normed(B, L, N, D, gen), _normed(B, L, N, D, gen)
+    v = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    rec = _ring_bwd_case("sft_token", q, k, v, do, RING_N, causal="token")
+    qs, ks, vs, dos = (_shards(t, RING_N) for t in (q, k, v, do))
+    fwd = ring_flash_attention_shards(qs, ks, vs, causal="token", return_lse=True)
+    grads = ring_flash_backward_shards(qs, ks, vs, [f[0] for f in fwd], [f[1] for f in fwd],
+                                       dos, None, "token")
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    s_ = torch.einsum("bind,bjnd->bnij", leaves[0], leaves[1]) * D**-0.5
+    s_ = s_.masked_fill(torch.ones(L, L, dtype=torch.bool, device="cuda").triu(1), float("-inf"))
+    o = torch.einsum("bnij,bjnd->bind", torch.softmax(s_, -1), leaves[2])
+    o.backward(do.float())
+    err = {t: float(_grad_rel(torch.cat([g[i] for g in grads], 1), leaves[i].grad).max())
+           for i, t in enumerate(("dq", "dk", "dv"))}
+    rec["max_rel_err_per_head_vs_dense_causal"] = err
+    del leaves, s_, o, grads, fwd
+    torch.cuda.empty_cache()
+    if max(err.values()) > GRAD_TOL:
+        raise AssertionError(f"sp_train SFT ring backward: {rec}")
+    return rec
+
+
+RING_F32_TOL = 1e-5  # of scale, the f32 step kernel vs ring_step_plain on f32 inputs: f32
+# products both sides, summed in other orders
+
+
+def _ring_f32_case(gen: torch.Generator) -> dict:
+    """The f32 step kernel at the world-1 SFT step's shape (SFT_MESH_CFG's
+    attention over the 2 × SFT_SEQ batch, own shard, token-causal) against
+    ring_step_plain on the same f32 inputs: the finished output within
+    RING_F32_TOL of its scale, and the LSE; one step timed beside the plain
+    twin and f32 SDPA (causal) on the same q/k/v."""
+    B, L, N, D = 2, SFT_SEQ, SFT_MESH_CFG.num_attention_heads, SFT_MESH_CFG.head_dim
+    q, k, v = (torch.randn(B, L, N, D, generator=gen, device="cuda") for _ in range(3))
+    carry = ring_carry(B, L, N, D, "cuda")
+    n0 = ring_step.launches_f32
+    out, lse = ring_finish(*ring_step(q, k, v, *carry, causal="token"), torch.float32,
+                           return_lse=True)
+    torch.cuda.synchronize()
+    launched = ring_step.launches_f32 - n0
+    ref, lse_ref = ring_finish(*ring_step_plain(q, k, v, *ring_carry(B, L, N, D, "cuda"),
+                                                causal="token"), torch.float32, return_lse=True)
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    lse_err = float((lse - lse_ref).abs().max())
+    rec = {"phase": "sp_train", "part": "ring_step_f32", "q": [B, L, N, D], "causal": "token",
+           "launched": launched, "max_abs_err": err, "max_rel_err_of_scale": rel,
+           "lse_max_abs_err": lse_err, "tolerance": RING_F32_TOL}
+    if launched != 1 or rel > RING_F32_TOL or lse_err > RING_F32_TOL * 10 or not torch.isfinite(
+            out).all():
+        raise AssertionError(f"sp_train ring_step_f32: {rec}")
+    rec["ms"] = cuda_ms(lambda: ring_step(q, k, v, *carry, causal="token"), 5)
+    rec["plain_ms"] = cuda_ms(lambda: ring_step_plain(q, k, v, *carry, causal="token"), 1, 0)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rec["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 5)
+    pairs = B * L * (L + 1) // 2
+    nbytes = 3 * B * L * N * D * 4 + 2 * (2 * B * N * L * 4 + B * L * N * D * 4)
+    t_ops = 4 * N * D * pairs / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit(rec)
+    del q, k, v, qt, kt, vt, carry, out, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _sft_mesh_setup(mode: str, world: int, device: str = "cuda"):
+    """(mesh, sp?, shard?) of an SFT mode."""
+    if mode == "sp":
+        return create_mesh(sp=world, device=device), True, False
+    if mode == "fsdp":
+        return create_mesh(fsdp=world, device=device), False, True
+    if mode == "dp2_fsdp2":
+        return create_mesh(dp=2, fsdp=world // 2, device=device), False, True
+    raise ValueError(mode)
+
+
+def _sft_mesh_batch(device="cuda") -> dict:
+    """The sp_train SFT batch: 2 rows of SFT_SEQ, the second padded at the
+    tail (1,500 tokens), so the rows hold unequal target counts."""
+    return _sft_batch(SFT_MESH_CFG, 2, SFT_SEQ, 9, lens=[SFT_SEQ, 1500], device=device)
+
+
+def _sft_reference() -> dict:
+    """The single-card SFT step on SFT_MESH_CFG: loss and grad_norm of
+    SP_TRAIN_STEPS steps and step 1's leaf grads (on the host)."""
+    params = _sft_model(SFT_MESH_CFG, 1)
+    tc = SFTConfig(warmup_steps=0)
+    tx = make_sft_optimizer(tc)
+    state, step = init_sft_state(params, tx), make_sft_step(tc, tx)
+    spy = GradSpy(tx, keep=1)
+    batch = _sft_mesh_batch()
+    rows = []
+    for _ in range(SP_TRAIN_STEPS):
+        state, m = step(state, batch)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    del state, params, step, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
+            "grads": spy.grads}
+
+
+def _sft_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
+    """SP_TRAIN_STEPS SFT steps under `mode` on a `world`-rank mesh, held to
+    the single-card step (`ref`): loss within SP_LOSS_TOL, grad_norm and
+    step 1's leaf grads within SP_GNORM_TOL. Launches are summed over the
+    ranks (under --sp each rank runs its own share of the ring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = _sft_model(SFT_MESH_CFG, 1)
+    mesh, sp, shard = _sft_mesh_setup(mode, world, device)
+    if shard:
+        shard_params(params, mesh)
+    tc = SFTConfig(warmup_steps=0)
+    tx = make_sft_optimizer(tc)
+    state = init_sft_state(params, tx)
+    step = make_sft_step(tc, tx, sp_mesh=mesh if sp else None, mesh=mesh)
+    spy = GradSpy(tx, ref=ref["grads"], keep=1)
+    batch = _sft_mesh_batch(device)
+    rows, step_s = [], []
+    _reset_launches()
+    _reset_train_launches()
+    for _ in range(SP_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0, spy_s = time.perf_counter(), spy.seconds
+        state, m = step(state, batch)
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0 - (spy.seconds - spy_s))
+    local = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32}
+    counts = torch.tensor([local[k] for k in sorted(local)], device=device)
+    dist.all_reduce(counts)
+    launches = dict(zip(sorted(local), counts.tolist()))
+    rec = {"mode": "sft_" + mode, "world": world, "loss": [r[0] for r in rows],
+           "grad_norm": [r[1] for r in rows], "step_s": step_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_all_ranks": launches,
+           "loss_rel_err": [abs(r[0] / ref["loss"][i] - 1) for i, r in enumerate(rows)],
+           "grad_norm_rel_err": [abs(r[1] / ref["grad_norm"][i] - 1) for i, r in enumerate(rows)],
+           "worst_leaf_grad_rel_err": spy.worst}
+    ring_ok = not sp or (launches["ring_step_f32"] > 0  # the f32 LM's ring
+                         and (world == 1 or launches["flash_bwd_dq"] > 0))
+    rec["ok"] = (max(rec["loss_rel_err"]) <= SP_LOSS_TOL
+                 and max(rec["grad_norm_rel_err"]) <= SP_GNORM_TOL
+                 and spy.worst[0][0] <= SP_GNORM_TOL and ring_ok)
+    del state, params, step, batch, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# --- the image path and the data pipeline (inside the vlm phase) ------------
+
+def _vae_extract(clip: Path, tmp: Path) -> dict:
+    """vae_feature_extract --random_weights on the 720p clip file at
+    832x480x81 (stage 1), before the VLM is built: one V2V row whose source
+    is the same clip."""
+    fdir, manifest = tmp / "features", tmp / "manifest.jsonl"
+    manifest.write_text(json.dumps({"id": "clip720", "video": str(clip),
+                                    "source_video": str(clip), "caption": EDIT_PROMPT}))
+    args = vae_feature_extract.parse_args(
+        ["--manifest", str(manifest), "--output_dir", str(fdir), "--size", "832*480",
+         "--frame_num", str(FRAMES), "--random_weights", "--device", "cuda"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = vae_feature_extract.run(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with np.load(written[0]) as f:
+        keys, shape = sorted(f.files), list(f["latent_feature_tgt"].shape)
+        finite = bool(np.isfinite(f["latent_feature_tgt"]).all())
+    rec = {"file": written[0].name, "keys": keys, "latent_shape": shape, "wall_s": wall_s}
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (keys != ["latent_feature", "latent_feature_tgt", "prompt"] or not finite
+            or shape != [16, GRID[0], GRID[1] * 2, GRID[2] * 2]):
+        raise AssertionError(f"vae_feature_extract: {rec}")
+    return {**rec, "dir": fdir, "manifest": manifest}
+
+
+def _image_pass(model: Qwen3VLModel, tmp: Path) -> dict:
+    """The engine's image message on a seeded 1280x720 still (a PNG through
+    utils/png.py): its grid at the caption budget, prompt length, the
+    caption's launches and seconds, then the image features
+    (qwen3vl_forward, is_video=False) and their shape."""
+    vc, tok = model.cfg.vision, StandInTokenizer()
+    tok.ids["<|image_pad|>"] = SPECIAL_TOKEN_IDS["<|image_pad|>"]
+    tok.text[SPECIAL_TOKEN_IDS["<|image_pad|>"]] = "<|image_pad|>"
+    tok._split = "(" + "|".join(re.escape(t) for t in tok.ids) + ")"
+    path = write_png(tmp / "still.png", np.random.default_rng(12).integers(
+        0, 256, STILL_SHAPE, dtype=np.uint8))
+    engine = Qwen3VLEngine.from_model(model, VLMConfig(max_new_tokens=VLM_NEW_TOKENS), tok)
+    msg = [{"role": "system", "content": [{"type": "text", "text": "Describe the image."}]},
+           {"role": "user", "content": [{"type": "image", "image": str(path)},
+                                        {"type": "text", "text": EDIT_PROMPT}]}]
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caption = engine._generate(msg)
+    torch.cuda.synchronize()
+    caption_s = time.perf_counter() - t0
+    launches = _launches()
+    budget = (480 * 480, 4 * 480 * 480)
+    patches, grid = preprocess_image(str(path), vc.patch_size, vc.temporal_patch_size,
+                                     vc.spatial_merge_size, *budget, device="cuda")
+    ids = build_chat_ids(tok, EDIT_PROMPT, grid=grid, merge_size=vc.spatial_merge_size,
+                         is_video=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = qwen3vl_forward(model, ids, torch.from_numpy(patches).cuda(), grid, is_video=False)
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - t0
+    n_vis = int(np.prod(grid)) // vc.spatial_merge_size**2
+    rec = {"image": list(STILL_SHAPE), "grid": list(grid), "visual_tokens": n_vis,
+           "prompt_len": int(ids.shape[1]), "features_shape": list(h.shape),
+           "caption_s": caption_s, "features_s": features_s, "caption_chars": len(caption),
+           "launches": launches}
+    want = {**{k: 0 for k in launches}, "flash_d72": vc.depth,
+            "flash_causal": model.cfg.text.num_hidden_layers}
+    size = smart_resize(STILL_SHAPE[0], STILL_SHAPE[1], vc.patch_size * vc.spatial_merge_size,
+                        *budget)
+    if (tuple(grid) != (1, size[0] // vc.patch_size, size[1] // vc.patch_size) or launches != want
+            or int((ids == SPECIAL_TOKEN_IDS["<|image_pad|>"]).sum()) != n_vis
+            or tuple(h.shape) != (1, ids.shape[1], model.cfg.text.hidden_size)
+            or not torch.isfinite(h).all()):
+        raise AssertionError(f"vlm image pass: {rec}")
+    return rec
+
+
+def _ar_extract(model: Qwen3VLModel, vae: dict) -> dict:
+    """ar_feature_extract's per-row function with the engine over this model
+    (stage 2): the row's stage-1 file gains the VLM features and captions."""
+    engine = Qwen3VLEngine.from_model(model, VLMConfig(max_new_tokens=VLM_NEW_TOKENS),
+                                      StandInTokenizer())
+    row = json.loads(vae["manifest"].read_text())
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ar_feature_extract.extract_row(engine, row, 0, vae["dir"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    with np.load(path, allow_pickle=True) as f:
+        keys = sorted(f.files)
+        shape = list(f["vlm_last_hidden_states"].shape)
+    rec = {"keys": keys, "vlm_shape": shape, "wall_s": wall_s, "launches": launches}
+    # source caption and features read the clip, the target caption is text only
+    want = {**{k: 0 for k in launches}, "flash_d72": 2 * model.cfg.vision.depth,
+            "flash_causal": 3 * model.cfg.text.num_hidden_layers}
+    if (launches != want or shape[1:] != [model.cfg.text.hidden_size]
+            or not {"vlm_last_hidden_states", "source_caption", "target_caption"} <= set(keys)):
+        raise AssertionError(f"ar_feature_extract: {rec}")
+    return rec
+
+
+def _pipeline_train_step(fdir: Path) -> dict:
+    """One T2V-1.3B finetune step (the train phase's settings) on the batch
+    training/dataset.py reads from the extracted features: the latents and
+    the source latents from stage 1, the VLM features from stage 2.
+    --random_weights has no umT5 and writes no text_emb (as JAX's), so the
+    text context is the train phase's seeded one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tc, params, batch, draws = _train_setup()
+    ds = OmniVideoDataset(str(fdir))
+    got = collate([ds[0]], PadSpec(text_len=CTX_LEN, vlm_len=CTX_LEN, latent_frames=GRID[0]))
+    read = {k: torch.from_numpy(v).cuda() for k, v in got.items()}
+    batch.update(read)
+    tx = make_optimizer(tc, params)
+    state = init_train_state(params, tx)
+    step = make_unified_train_step(cfg, tc, tx)
+    _reset_launches()
+    _reset_train_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, draws)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    rec = {"read": {k: list(v.shape) for k, v in read.items()}, "loss": loss,
+           "grad_norm": float(m["grad_norm"]), "step_s": time.perf_counter() - t0,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {**_train_launches(), **_launches()}}
+    del state, params, step, batch, tx, read
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (not np.isfinite(loss) or rec["launches"] != _train_expect(cfg)
+            or sorted(rec["read"]) != ["latents", "visual_emb", "vlm"]):
+        raise AssertionError(f"data pipeline finetune step: {rec}")
+    return rec
+
+
 def _sp_train_alone() -> int:
     """`chip_smoke.py sp_train`: the train phase for its reference, then sp_train."""
     phase_device()
@@ -2927,6 +3523,15 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
+    if argv[:1] == ["sft"]:
+        phase_device()
+        phase_tiny_sft()
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            phase_sft(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return 0
     if argv[:1] in (["lora"], ["adafactor"], ["qwen3_sp"]):
         phase_device()
         tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -2944,7 +3549,7 @@ def main(argv) -> int:
         return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
-                         "'sp_train', 'lora', 'adafactor' or 'qwen3_sp')")
+                         "'sp_train', 'sft', 'lora', 'adafactor' or 'qwen3_sp')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -2962,6 +3567,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     phase_tiny()
     phase_tiny_vlm()
     phase_tiny_train()
+    phase_tiny_sft()
     clip = write_clip(tmp / "clip_720p.npz")
     vlm = phase_vlm(clip)
     features = vlm.pop("features")
@@ -2979,10 +3585,13 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     a14b = phase_a14b(features)
     del features
     train = phase_train()
-    phase_sp_train(train.pop("ref"), gen)
+    sp_train = phase_sp_train(train.pop("ref"), gen)
     lora = phase_lora(train, tmp)
     ada = phase_adafactor(train)
+    phase_sft(tmp)
     text = vlm["text_only"]
+    ar = vlm["ar_feature_extract"]
+    sft_ring = sp_train["ring_backward"]["sft_token"]
     gen_cli = lora["generate"]["cli_launches"]
     train_rows = {k: sum(p[k] for p in train["launches_per_step"])
                   for k in flash_attention_train.launches}
@@ -2990,13 +3599,22 @@ def _all_phases(dev: dict, tmp: Path) -> int:
         "qk_prep": {"e2e": e2e["qk_prep"], "lora_generate_cli": gen_cli["qk_prep"]},
         "flash_fwd": {"e2e": e2e["flash_fwd"], "lora_generate_cli": gen_cli["flash_fwd"]},
         "flash_causal": {"vlm": vlm["launches"]["flash_causal"],
-                         "text_only": text["launches"]["flash_causal"]},
+                         "text_only": text["launches"]["flash_causal"],
+                         "vlm_image": vlm["image"]["launches"]["flash_causal"],
+                         "ar_feature_extract": ar["launches"]["flash_causal"]},
         "flash_d72": {"vlm": vlm["launches"]["flash_d72"],
-                      "vision_lora": text["launches"]["flash_d72"]},
+                      "vision_lora": text["launches"]["flash_d72"],
+                      "vlm_image": vlm["image"]["launches"]["flash_d72"],
+                      "ar_feature_extract": ar["launches"]["flash_d72"]},
         "fused_adaln": {"a14b": a14b["launches"]["fused_adaln"]},
         "ring_step": {"sp": sp["launches"]["ring_step"],
                       "qwen3_sp": text["qwen3_sp"]["launches"]["ring_step"]},
-        **{k: {"train": train_rows[k], "lora": lora["launches"][k], "adafactor": ada["launches"][k]}
+        "ring_step_f32": {
+            "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["ring_step_f32"]},
+        **{k: {"train": train_rows[k], "lora": lora["launches"][k], "adafactor": ada["launches"][k],
+               "data_pipeline_train": vlm["pipeline_train"]["launches"][k],
+               **({"sft_ring_backward": sft_ring["launches"][k]} if k in sft_ring["launches"]
+                  else {})}
            for k in flash_attention_train.launches}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     kernels = [
@@ -3042,6 +3660,14 @@ def _all_phases(dev: dict, tmp: Path) -> int:
          "ms": main_ring["ms"], "plain_ms": main_ring["plain_ms"],
          "bound_ms": main_ring["bound_ms"], "bound_by": main_ring["bound_by"],
          "library_ms": main_ring["library_ms"]})
+    f32_ring = sp_train["ring_step_f32"]
+    kernels.append(
+        {"name": "ring_step_f32", "route": "cuda",
+         "source": "omnivideo_tpu_torch/csrc/ring_step_f32.cu",
+         "replaces": "omnivideo_tpu/ops/pallas/ring_attention.py:36",
+         "launches": launches["ring_step_f32"], "max_abs_err": f32_ring["max_abs_err"],
+         "ms": f32_ring["ms"], "plain_ms": f32_ring["plain_ms"], "bound_ms": f32_ring["bound_ms"],
+         "bound_by": f32_ring["bound_by"], "library_ms": f32_ring["library_ms"]})
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     idle = {(k["name"], p) for k in kernels for p, n in k["launches_by_path"].items() if n == 0}

@@ -188,7 +188,9 @@ class FastTokenizer:
     `tokenizers` package only (imported here, when one is built). The API
     the engine uses: __call__(text, add_special_tokens)["input_ids"],
     decode(ids, skip_special_tokens), eos_token_id (from
-    tokenizer_config.json's eos_token)."""
+    tokenizer_config.json's eos_token); and for the SFT data
+    (training/conversation.py) `chat_template` (tokenizer_config.json's,
+    else None) and `special_tokens_map` (its bos/eos/unk/pad strings)."""
 
     def __init__(self, model_dir: str):
         from tokenizers import Tokenizer
@@ -196,11 +198,19 @@ class FastTokenizer:
         d = Path(model_dir)
         self._tk = Tokenizer.from_file(str(d / "tokenizer.json"))
         self.eos_token_id = None
+        self.chat_template = None
+        self.special_tokens_map = {}
         tc = d / "tokenizer_config.json"
         if tc.exists():
-            eos = json.loads(tc.read_text()).get("eos_token")
-            if isinstance(eos, dict):
-                eos = eos.get("content")
+            conf = json.loads(tc.read_text())
+            self.chat_template = conf.get("chat_template")
+            for key in ("bos_token", "eos_token", "unk_token", "pad_token"):
+                tok = conf.get(key)
+                if isinstance(tok, dict):
+                    tok = tok.get("content")
+                if tok is not None:
+                    self.special_tokens_map[key] = tok
+            eos = self.special_tokens_map.get("eos_token")
             if eos is not None:
                 self.eos_token_id = self._tk.token_to_id(eos)
 
@@ -210,3 +220,23 @@ class FastTokenizer:
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
         return self._tk.decode([int(i) for i in ids], skip_special_tokens=skip_special_tokens)
 
+
+
+def load_qwen3_hf(model: torch.nn.Module, items: Iterable[Tuple[str, torch.Tensor]]
+                  ) -> torch.nn.Module:
+    """An HF text-only Qwen3 / Qwen3-MoE checkpoint (`model.embed_tokens`,
+    `model.layers.*`, `model.norm`, `lm_head`) into a text_model.Qwen3LM,
+    cast to its dtype; a Qwen3-VL checkpoint's text stack
+    (`model.language_model.*`) loads too, its vision tower skipped. Every
+    parameter must be filled and every name used."""
+    def renamed():
+        for key, src in items:
+            if key.startswith(("model.visual.", "visual.")):
+                continue
+            if key.startswith("model.language_model."):
+                key = key[len("model."):]
+            elif key.startswith("model."):
+                key = "language_model." + key[len("model."):]
+            yield key, src
+
+    return load_qwen3vl_hf(model, renamed())

@@ -317,3 +317,163 @@ def load_qwen3vl(model: Qwen3VLModel, sd: Mapping[str, Any]) -> Qwen3VLModel:
     every parameter must be present and every key used (LoRA keys attach
     their adapters)."""
     return load_strict(with_adapters(model, sd), sd)
+
+
+def qwen3_state_dict_to_params(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of `qwen3_params_to_state_dict`: text_model.Qwen3LM names
+    → JAX's {'embed', 'layers', 'norm'[, 'lm_head']} numpy tree, layers
+    stacked, kernels [in, out], bare LoRA siblings `{key}_lora_*` beside
+    their weight."""
+    sd = {k: _np(v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+          for k, v in sd.items()}
+    out: Dict[str, Any] = {"embed": sd["language_model.embed_tokens.weight"],
+                           "norm": sd["language_model.norm.weight"]}
+    if "lm_head.weight" in sd:
+        out["lm_head"] = sd["lm_head.weight"].T
+    n = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("language_model.layers."))
+    per: Dict[tuple, list] = {}
+
+    def put(path, i, a):
+        per.setdefault(path, [None] * n)[i] = a
+
+    names = {"input_layernorm.weight": ("ln1",), "post_attention_layernorm.weight": ("ln2",),
+             "self_attn.q_norm.weight": ("attn", "q_norm"),
+             "self_attn.k_norm.weight": ("attn", "k_norm"),
+             "mlp.gate.weight": ("mlp", "gate"), "mlp.experts_gate": ("mlp", "experts", "gate"),
+             "mlp.experts_up": ("mlp", "experts", "up"),
+             "mlp.experts_down": ("mlp", "experts", "down")}
+    sites = {"self_attn.q_proj": ("attn", "q"), "self_attn.k_proj": ("attn", "k"),
+             "self_attn.v_proj": ("attn", "v"), "self_attn.o_proj": ("attn", "o"),
+             "mlp.gate_proj": ("mlp", "gate"), "mlp.up_proj": ("mlp", "up"),
+             "mlp.down_proj": ("mlp", "down")}
+    for k, a in sd.items():
+        if not k.startswith("language_model.layers."):
+            continue
+        _, _, i, rest = k.split(".", 3)
+        i = int(i)
+        if rest in names:
+            path = names[rest]
+            put(path, i, a.T if rest == "mlp.gate.weight" else a)
+            continue
+        site, leaf = rest.rsplit(".", 1)
+        d, key = sites[site]
+        put((d, key if leaf == "weight" else f"{key}_{leaf}"), i, a.T if leaf == "weight" else a)
+    layers: Dict[str, Any] = {}
+    for path, arrs in per.items():
+        node = layers
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.stack(arrs)
+    out["layers"] = layers
+    return out
+
+
+def _core_maps(core: str, tree) -> Dict[str, tuple]:
+    """{reference state-dict name: path in JAX's QueryTransformer tree} of
+    one DM_Adapter / VisionHead tree (JAX `_transformer_from_sd`'s map)."""
+    attn = {"in_proj_weight": "in_proj_w", "in_proj_bias": "in_proj_b",
+            "out_proj.weight": "out_proj_w", "out_proj.bias": "out_proj_b"}
+    ffn = {"linear1.weight": "w1", "linear1.bias": "b1", "linear2.weight": "w2",
+           "linear2.bias": "b2"}
+    m = {"decoder_query": ("decoder_query",), "fc.0.weight": ("fc", "fc1_w"),
+         "fc.0.bias": ("fc", "fc1_b"), "fc.2.weight": ("fc", "fc2_w"),
+         "fc.2.bias": ("fc", "fc2_b")}
+    tr = tree["transformer"]
+    for side, parts in (("encoder", ("self_attn",)), ("decoder", ("self_attn", "cross_attn"))):
+        for i in range(len(tr[side])):
+            p = f"{core}.{side}.layers.{i}"
+            base = ("transformer", side, i)
+            for part in parts:
+                ref = "multihead_attn" if part == "cross_attn" else part
+                for a, b in attn.items():
+                    m[f"{p}.{ref}.{a}"] = base + (part, b)
+            for a, b in ffn.items():
+                m[f"{p}.{a}"] = base + ("ffn", b)
+            for nm in ("norm1", "norm2") + (("norm3",) if side == "decoder" else ()):
+                for leaf in ("weight", "bias"):
+                    m[f"{p}.{nm}.{leaf}"] = base + (nm, leaf)
+        for leaf in ("weight", "bias"):
+            m[f"{core}.{side}.norm.{leaf}"] = ("transformer", f"{side}_norm", leaf)
+    return m
+
+
+def _get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _set(tree, path, value):
+    for p in path[:-1]:
+        tree = tree[p]
+    tree[path[-1]] = value
+
+
+_CHAIN_CORES = {"vision_head": "visionHeadAdapter", "adapter": "adapter"}
+
+
+def chain_params_to_state_dict(chain) -> Dict[str, np.ndarray]:
+    """JAX's alignment chain {'vision_head', 'adapter'} (models/adapters.py
+    trees) → the names of training.align.AlignChain."""
+    sd = {}
+    for part, core in _CHAIN_CORES.items():
+        for name, path in _core_maps(core, chain[part]).items():
+            sd[f"{part}.{name}"] = _np(_get(chain[part], path))
+    return sd
+
+
+def chain_state_dict_to_params(sd: Mapping[str, Any], like) -> Dict[str, Any]:
+    """The inverse of `chain_params_to_state_dict`, into a copy of the JAX
+    tree `like` (its structure: the number of layers)."""
+    def copy(t):
+        if isinstance(t, Mapping):
+            return {k: copy(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [copy(v) for v in t]
+        return None
+
+    out = copy(like)
+    for part, core in _CHAIN_CORES.items():
+        for name, path in _core_maps(core, like[part]).items():
+            v = sd[f"{part}.{name}"]
+            _set(out[part], path, _np(v.detach().float().cpu().numpy()
+                                      if isinstance(v, torch.Tensor) else v))
+    return out
+
+
+def sft_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """JAX's SFT tree {'lm'[, 'chain']} (params, grads or AdamW moments) →
+    the names of training.sft.SFTParams: 'lm.' + the Qwen3LM names,
+    'chain.' + the AlignChain names."""
+    sd = {f"lm.{k}": v for k, v in qwen3_params_to_state_dict(params["lm"]).items()}
+    if "chain" in params:
+        sd.update({f"chain.{k}": v for k, v in chain_params_to_state_dict(params["chain"]).items()})
+    return sd
+
+
+def sft_state_dict_to_params(sd: Mapping[str, Any], chain_like=None) -> Dict[str, Any]:
+    """The inverse of `sft_params_to_state_dict` (an SFTParams state dict,
+    its grads or its moments) → JAX's numpy tree; `chain_like` gives the
+    chain's structure when the state has one."""
+    out = {"lm": qwen3_state_dict_to_params({k[3:]: v for k, v in sd.items()
+                                             if k.startswith("lm.")})}
+    chain = {k[6:]: v for k, v in sd.items() if k.startswith("chain.")}
+    if chain:
+        out["chain"] = chain_state_dict_to_params(chain, chain_like)
+    return out
+
+
+def adamw_state_from_jax(mu, nu, count: int, device=None) -> Dict[str, Any]:
+    """optax's ScaleByAdamState (mu, nu: SFT trees; count) → the port's
+    AdamW state (training/trainer.py `Optimizer`), on `device`."""
+    return {"count": int(count),
+            "mu": {k: torch.as_tensor(v.copy(), device=device)
+                   for k, v in sft_params_to_state_dict(mu).items()},
+            "nu": {k: torch.as_tensor(v.copy(), device=device)
+                   for k, v in sft_params_to_state_dict(nu).items()}}
+
+
+def adamw_state_to_jax(opt_state: Mapping[str, Any], chain_like=None):
+    """The port's AdamW state → (mu, nu, count) in JAX's numpy SFT trees."""
+    return (sft_state_dict_to_params(opt_state["mu"], chain_like),
+            sft_state_dict_to_params(opt_state["nu"], chain_like), int(opt_state["count"]))

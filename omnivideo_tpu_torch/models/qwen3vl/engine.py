@@ -16,11 +16,15 @@ config.json, tokenizer.json (`FastTokenizer`, which needs the `tokenizers`
 package) and the safetensors shards streamed onto the card in the dtype
 they are stored in, as the JAX engine keeps it (io/hf_reader.py).
 `Qwen3VLEngine.from_model(model, cfg, tokenizer)` wraps a model already on
-its device with any tokenizer of the FastTokenizer API.
+its device with any tokenizer of the FastTokenizer API. `_generate` takes
+the reference's message structure, a video or an image element beside the
+text; an image (models/qwen3vl/preprocess.py `preprocess_image`: a uint8
+array, an .npy/.npz or a PNG) is resized to the caption budget and becomes
+a (1, h, w) grid behind `<|image_pad|>` tokens.
 
 Backends keep the JAX names: "jax" is the native path; "hf" (transformers'
-own torch model) is not ported and raises, as does `fsdp` > 1 (the FSDP
-slice) and the image branch (ROADMAP §1 item 4).
+own torch model) is not ported and raises, as does `fsdp` > 1 (ROADMAP §1
+item 4: sharding the KV-cached decode).
 
 The pixel budgets are the JAX engine's: the caption passes resize to
 480²…4·480² pixels, the feature pass to 480…1,920 pixels (so a 720p or
@@ -46,7 +50,8 @@ from ...device import resolve_device
 from ...io.hf_reader import (FastTokenizer, checkpoint_dtype, iter_hf_safetensors,
                              load_hf_config, load_qwen3vl_hf, qwen3vl_config_from_hf)
 from .full_model import Qwen3VLModel, qwen3vl_forward, qwen3vl_greedy_decode
-from .preprocess import build_chat_ids, preprocess_video_timestamps
+from .preprocess import build_chat_ids, preprocess_image, preprocess_video_timestamps
+
 
 def extract_masked_hidden(hidden, mask) -> List[Any]:
     """Split the valid positions of each batch row (vllm_model.py:295-310 of
@@ -116,7 +121,8 @@ def _check_config(cfg: VLMConfig) -> None:
     if cfg.backend != "jax":
         raise ValueError(f"unknown VLM backend {cfg.backend!r}")
     if cfg.fsdp > 1:
-        raise NotImplementedError("VLM fsdp > 1 comes with the FSDP slice, ROADMAP §1")
+        raise NotImplementedError("VLM fsdp > 1 is not ported (ROADMAP §1 item 4: sharding "
+                                  "the KV-cached decode)")
 
 
 def checkpoint_eos(model_path: str, cfg_dict: dict) -> Optional[int]:
@@ -203,10 +209,29 @@ class Qwen3VLEngine:
         toks = [int(t) for t in toks.tolist() if t != self._eos]
         return self.tokenizer.decode(toks, skip_special_tokens=True).strip()
 
+    def _generate_image(self, user_text: str, system_prompt: Optional[str], image) -> str:
+        """A caption of one image (JAX `_generate`'s image branch): resized to
+        the caption budget, a (1, h, w) grid behind `<|image_pad|>` tokens."""
+        vc = self.model.cfg.vision
+        short = self.cfg.target_short_side
+        patches, grid = preprocess_image(
+            image, patch_size=vc.patch_size, temporal_patch_size=vc.temporal_patch_size,
+            merge_size=vc.spatial_merge_size, min_pixels=short * short,
+            max_pixels=short * short * 4, device=self.model.device)
+        ids = build_chat_ids(self.tokenizer, user_text, system_prompt=system_prompt, grid=grid,
+                             merge_size=vc.spatial_merge_size, is_video=False)
+        toks = qwen3vl_greedy_decode(self.model, ids,
+                                     torch.from_numpy(patches).to(self.model.device), grid,
+                                     max_new_tokens=self.cfg.max_new_tokens,
+                                     eos_token_id=self._eos, temperature=self.cfg.temperature,
+                                     is_video=False)
+        toks = [int(t) for t in toks.tolist() if t != self._eos]
+        return self.tokenizer.decode(toks, skip_special_tokens=True).strip()
+
     def _generate(self, messages) -> str:
         """Chat generation over the reference's message structure (system +
-        user [video | text ...])."""
-        system_prompt, user_text, video = None, "", None
+        user [video | image | text ...])."""
+        system_prompt, user_text, video, image = None, "", None, None
         for msg in messages:
             content = msg.get("content", [])
             if isinstance(content, str):
@@ -219,8 +244,9 @@ class Qwen3VLEngine:
                 elif ele.get("type") == "video":
                     video = ele.get("video")
                 elif ele.get("type") == "image":
-                    raise NotImplementedError(
-                        "image inputs of the Qwen3-VL engine wait for ROADMAP §1 item 4")
+                    image = ele.get("image")
+        if image is not None:
+            return self._generate_image(user_text, system_prompt, image)
         return self._generate_native(user_text, system_prompt, video)
 
     # -- public flows (vllm_model.py of the reference) -----------------------

@@ -164,27 +164,29 @@ def mrope_cos_sin(position_ids: np.ndarray, cfg: Qwen3VLConfig) -> Tuple[np.ndar
     return np.cos(emb).astype(np.float32), np.sin(emb).astype(np.float32)
 
 
-def _embed_multimodal(model: Qwen3VLModel, ids: np.ndarray, pixel_patches, grid_thw):
+def _embed_multimodal(model: Qwen3VLModel, ids: np.ndarray, pixel_patches, grid_thw,
+                      is_video: bool = True):
     """(x [1, L, D], visual positions or None, deepstack list, position ids)
-    for a video prompt (the port has no image preprocessing yet)."""
+    for a video prompt, or with is_video=False an image prompt (its
+    `<|image_pad|>` span, one grid)."""
     cfg = model.cfg
     dev = model.device
     x = model.language_model.embed_tokens(torch.as_tensor(ids, device=dev))
     if pixel_patches is None:
         return x, None, [], get_rope_index(ids, None, cfg)
     tokens, deepstack = model.visual(torch.as_tensor(pixel_patches), grid_thw)
-    vis = np.nonzero(ids[0] == cfg.video_token_id)[0]
+    vis = np.nonzero(ids[0] == (cfg.video_token_id if is_video else cfg.image_token_id))[0]
     if len(vis) != tokens.shape[0]:
         raise ValueError(f"{len(vis)} placeholder tokens vs {tokens.shape[0]} visual tokens")
     vis_t = torch.as_tensor(vis, device=dev)
     x[0, vis_t] = tokens.to(x.dtype)
-    pos = get_rope_index(ids, np.array([list(grid_thw)]), cfg)
+    pos = get_rope_index(ids, np.array([list(grid_thw)]), cfg, is_video)
     return x, vis_t, deepstack, pos
 
 
 def _prefill(model: Qwen3VLModel, ids: np.ndarray, pixel_patches, grid_thw,
              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-             timings: Optional[Dict[str, float]] = None):
+             timings: Optional[Dict[str, float]] = None, is_video: bool = True):
     """The multimodal causal forward over all layers → (pre-norm hidden
     [1, L, D], position ids). With `cache` = (k, v) [layers, 1, S, K, hd]
     f32, the post-RoPE K/V of every layer are written to rows [0, L).
@@ -194,7 +196,7 @@ def _prefill(model: Qwen3VLModel, ids: np.ndarray, pixel_patches, grid_thw,
     eps = tcfg.rms_norm_eps
     rep = tcfg.num_attention_heads // tcfg.num_key_value_heads
     clock = _StageClock(timings, model.device)
-    x, vis, deepstack, pos = _embed_multimodal(model, ids, pixel_patches, grid_thw)
+    x, vis, deepstack, pos = _embed_multimodal(model, ids, pixel_patches, grid_thw, is_video)
     clock("vision_s")
     B, L, D = x.shape
     cos, sin = (torch.as_tensor(a, device=x.device) for a in mrope_cos_sin(pos, model.cfg))
@@ -221,13 +223,14 @@ def qwen3vl_forward(
     pixel_patches=None,
     grid_thw: Optional[Tuple[int, int, int]] = None,
     final_norm: bool = False,
+    is_video: bool = True,
 ) -> torch.Tensor:
     """Multimodal forward → hidden state [1, L, D] (pre-final-norm unless
     final_norm). input_ids: [1, L] with the `<|video_pad|>` spans already
     expanded to the grid's token counts; pixel_patches: [num_patches,
-    C·tp·p·p]."""
+    C·tp·p·p]; is_video=False: an image prompt's `<|image_pad|>` span."""
     ids = np.asarray(input_ids)
-    x, _ = _prefill(model, ids, pixel_patches, grid_thw)
+    x, _ = _prefill(model, ids, pixel_patches, grid_thw, is_video=is_video)
     if final_norm:
         x = rms(x, model.language_model.norm.weight, model.cfg.text.rms_norm_eps)
     return x
@@ -261,6 +264,7 @@ def qwen3vl_greedy_decode(
     top_p: float = 0.9,
     generator: Optional[torch.Generator] = None,
     timings: Optional[Dict[str, float]] = None,
+    is_video: bool = True,
 ) -> np.ndarray:
     """Caption decoding with a KV cache → [max_new_tokens] int64 (eos-padded
     after the stop). Prefill is the multimodal forward caching post-RoPE K/V
@@ -279,7 +283,8 @@ def qwen3vl_greedy_decode(
     shape = (tcfg.num_hidden_layers, B, Lp + max_new_tokens, tcfg.num_key_value_heads, hd)
     kc = torch.zeros(shape, dtype=torch.float32, device=dev)
     vc = torch.zeros_like(kc)
-    x, pos = _prefill(model, ids, pixel_patches, grid_thw, cache=(kc, vc), timings=timings)
+    x, pos = _prefill(model, ids, pixel_patches, grid_thw, cache=(kc, vc), timings=timings,
+                      is_video=is_video)
     clock = _StageClock(timings, dev)
     logits = lm_logits(model.lm_head, lm.embed_tokens, rms(x[:, -1:], lm.norm.weight, eps))
     tok = sample_token(logits[0, -1], temperature, top_p, generator)

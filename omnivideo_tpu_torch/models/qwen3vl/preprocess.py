@@ -11,12 +11,15 @@ the JAX package uses Pillow's) and returns the patches, the grid and the
 per-temporal-group `<t seconds>` timestamps of HF's Qwen3VLProcessor.
 `build_chat_ids` renders the Qwen3-VL chat template with its video
 expansion through a tokenizer; `video_prompt_ids` lays out the same video
-spans around given token ids. The image path (`load_image`,
-`preprocess_image`, `build_vqa_ids`) waits for ROADMAP §1 item 4.
+spans around given token ids. The image path: `load_image` (a uint8
+array, an `.npy`/`.npz`, or a PNG read by utils/png.py: the card's machine
+has no Pillow) smart-resized on `device`, `preprocess_image` (grid (1, h,
+w)) and `build_vqa_ids`.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 
 from ...configs.qwen3vl import SPECIAL_TOKEN_IDS, Qwen3VLConfig
 from ...device import resolve_device
+from ...utils.png import read_png
 from ...utils.video import read_video_frames, resize_frames
 from .media import round_by_factor, smart_resize
 
@@ -158,16 +162,57 @@ def build_chat_ids(
     return np.asarray([ids], np.int32)
 
 
-_IMAGE_PATH = "the image path of the Qwen3-VL engine waits for ROADMAP §1 item 4"
+def load_image(image, factor: int, min_pixels: int = 4 * 28 * 28,
+               max_pixels: int = 16384 * 28 * 28, device="cuda") -> np.ndarray:
+    """An image → smart-resized [1, H, W, 3] uint8 (JAX `load_image`).
+    `image`: a [H, W, 3 or 4] uint8 array, or a path to an `.npy`, an `.npz`
+    (its `image` array, else its first) or an 8-bit RGB/RGBA PNG
+    (utils/png.py; anything else raises). Alpha is dropped, as Pillow's
+    convert("RGB") drops it. The resize runs on `device` (utils/video.py
+    `resize_frames`, within 1 uint8 level of Pillow's bicubic, JAX's)."""
+    if isinstance(image, (str, Path)):
+        path = Path(image)
+        if path.suffix == ".npy":
+            image = np.load(path)
+        elif path.suffix == ".npz":
+            with np.load(path) as z:
+                image = z["image"] if "image" in z.files else z[z.files[0]]
+        elif path.suffix.lower() == ".png":
+            image = read_png(path)
+        else:
+            raise ValueError(f"{path}: images are read from .png, .npy or .npz (no Pillow)")
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError(f"image must be [H, W, 3 or 4] uint8, got {image.shape} {image.dtype}")
+    image = np.ascontiguousarray(image[..., :3])
+    h, w = image.shape[:2]
+    size = smart_resize(h, w, factor=factor, min_pixels=min_pixels, max_pixels=max_pixels)
+    if size != (h, w):
+        image = resize_frames(torch.from_numpy(image[None]).to(resolve_device(device)),
+                              size).cpu().numpy()[0]
+    return image[None]
 
 
-def load_image(*args, **kwargs):
-    raise NotImplementedError(_IMAGE_PATH)
+def preprocess_image(image, patch_size: int = 16, temporal_patch_size: int = 2,
+                     merge_size: int = 2, min_pixels: int = 4 * 28 * 28,
+                     max_pixels: int = 16384 * 28 * 28, device="cuda"):
+    """An image (see `load_image`) → (patches [n, C·tp·p·p] f32 numpy, grid
+    (1, h, w)): the one frame repeated to the temporal patch."""
+    frames = load_image(image, factor=patch_size * merge_size, min_pixels=min_pixels,
+                        max_pixels=max_pixels, device=device)
+    return frames_to_patches(frames, patch_size, temporal_patch_size, merge_size)
 
 
-def preprocess_image(*args, **kwargs):
-    raise NotImplementedError(_IMAGE_PATH)
-
-
-def build_vqa_ids(*args, **kwargs):
-    raise NotImplementedError(_IMAGE_PATH)
+def build_vqa_ids(tokenizer, question: str, n_vision_tokens: int = 0, is_video: bool = False,
+                  system_prompt: Optional[str] = None) -> np.ndarray:
+    """[1, L] int32 ids of `<system?> user(<vision> question) assistant`, the
+    vision span n_vision_tokens = t·h·w / merge² pad tokens long."""
+    pad = VIDEO_PAD if is_video else IMAGE_PAD
+    parts = []
+    if system_prompt:
+        parts.append(f"<|im_start|>system\n{system_prompt}<|im_end|>\n")
+    vision = f"{VISION_START}{pad * n_vision_tokens}{VISION_END}" if n_vision_tokens else ""
+    parts.append(f"<|im_start|>user\n{vision}{question}<|im_end|>\n")
+    parts.append("<|im_start|>assistant\n")
+    ids = tokenizer("".join(parts), add_special_tokens=False)["input_ids"]
+    return np.asarray([ids], np.int32)

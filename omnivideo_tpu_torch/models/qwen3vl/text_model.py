@@ -8,8 +8,22 @@ contiguous row segment with `torch.matmul`, and scatter-adds the weighted
 outputs back: O(k·T·D·M) work, E/k× less than the dense mixture. The
 segment bounds come to the host once per layer (one sync); each token's k
 weighted outputs are summed in slot order, so a forward is bitwise
-repeatable on the card. `moe_dense`, every expert on every token, stays as
-the exact oracle the tests use.
+repeatable on the card. The stacked expert banks are taken apart once per
+call (`unbind`), so under autograd each bank's gradient is stacked once
+rather than a zero bank allocated per expert; the segments' outputs are
+concatenated in expert order. `moe_dense`, every expert on every token,
+stays as the exact oracle the tests use.
+
+`qwen3_forward` and `qwen3_forward_sp` run in inference mode;
+`qwen3_forward_trainable` and `qwen3_forward_sp_trainable` (the SFT step,
+training/sft.py) run under the caller's grad mode. Under autograd (grad mode
+on and a query that requires grad) the causal attention takes JAX's dense
+path (JAX `attn_impl="dense"`): the causal flash kernel (row 2) is
+forward-only, in JAX as here. The choice is made in the open on grad mode
+(`_causal_attend`), as parallel/ring.py makes it for the ring, whose
+trainable form the SP forward then runs. Every decoder layer runs through
+its module's `forward`, so FSDP2 (parallel/sharding.py) gathers each layer
+as one unit.
 
 Parameter names follow the HF checkpoint's `model.language_model.*`; the
 stacked expert weights keep the JAX layout ([E, D, M] for gate/up, [E, M, D]
@@ -122,14 +136,15 @@ def moe(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
     tok_of = order // k
     counts = torch.bincount(flat_e, minlength=mlp.cfg.num_experts).tolist()  # host sync
     xs = xt[tok_of]
-    o = torch.empty_like(xs)
+    gate, up, down = (w.unbind(0) for w in (mlp.experts_gate, mlp.experts_up, mlp.experts_down))
+    outs = []
     start = 0
     for e, n in enumerate(counts):
         if n:
             seg = xs[start:start + n]
-            h = F.silu(seg @ mlp.experts_gate[e]) * (seg @ mlp.experts_up[e])
-            o[start:start + n] = h @ mlp.experts_down[e]
+            outs.append((F.silu(seg @ gate[e]) * (seg @ up[e])) @ down[e])
             start += n
+    o = torch.cat(outs)
     o = o * topv.reshape(-1)[order][:, None].to(o.dtype)
     # back to (token, slot) order, then each token's k outputs summed in slot
     # order: deterministic, where an index_add_ on the card sums in whatever
@@ -155,11 +170,28 @@ def moe_dense(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
 class Qwen3DecoderLayer(nn.Module):
     def __init__(self, cfg: Qwen3TextConfig, dtype, device):
         super().__init__()
+        self.cfg = cfg
         self.input_layernorm = Gain(cfg.hidden_size, device)
         self.post_attention_layernorm = Gain(cfg.hidden_size, device)
         self.self_attn = Qwen3Attention(cfg, dtype, device)
         self.mlp = (Qwen3MoE(cfg, dtype, device) if cfg.num_experts
                     else Qwen3MLP(cfg, dtype, device))
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, attend,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """One causal layer over x [B, L, D]: `attend(q, k, v)` with K/V at
+        the KV heads; `kv` (k, v) [B, S, K, hd] f32 receive the post-RoPE
+        K/V in rows [0, L)."""
+        cfg = self.cfg
+        B, L, _ = x.shape
+        attn = self.self_attn
+        q, k, v = qkv_rope(attn, rms(x, self.input_layernorm.weight, cfg.rms_norm_eps), cos, sin,
+                           cfg)
+        if kv is not None:
+            kv[0][:, :L] = k.float()
+            kv[1][:, :L] = v.float()
+        x = x + lin(attn.o_proj, attend(q, k, v).reshape(B, L, -1))
+        return mlp_block(self, x, cfg.rms_norm_eps)
 
 
 class Qwen3TextModel(nn.Module):
@@ -230,10 +262,11 @@ class Qwen3LM(nn.Module):
     """The text-only Qwen3 causal LM (JAX's {'embed', 'layers', 'norm',
     'lm_head'} tree): `language_model` and `lm_head` (None when tied), the
     attribute names of `Qwen3VLModel`, so the functions below take either.
-    Seeded normal(0.02) weights, unit gains."""
+    Seeded normal(init_std) weights, unit gains."""
 
     def __init__(self, cfg: Qwen3TextConfig, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 init_std: float = 0.02):
         super().__init__()
         from ...device import resolve_device
 
@@ -245,10 +278,10 @@ class Qwen3LM(nn.Module):
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, (nn.Linear, nn.Embedding)):
-                    m.weight.normal_(0.0, 0.02, generator=generator)
+                    m.weight.normal_(0.0, init_std, generator=generator)
                 elif isinstance(m, Qwen3MoE):
                     for p in (m.experts_gate, m.experts_up, m.experts_down):
-                        p.normal_(0.0, 0.02, generator=generator)
+                        p.normal_(0.0, init_std, generator=generator)
                 elif isinstance(m, Gain):
                     m.weight.fill_(1.0)
 
@@ -273,20 +306,11 @@ def _head(model: nn.Module, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_layers(model: nn.Module, x: torch.Tensor, cos, sin, attend, cache=None):
-    """The decoder layers over x [B, L, D]: `attend(q, k, v)` with K/V at
-    the KV heads; `cache` (k, v) [layers, B, S, K, hd] f32 gets each
-    layer's post-RoPE K/V in rows [0, L)."""
-    cfg = _text_cfg(model)
-    eps = cfg.rms_norm_eps
-    B, L, _ = x.shape
+    """The decoder layers over x [B, L, D] (each through its module's
+    forward); `cache` (k, v) [layers, B, S, K, hd] f32 gets each layer's
+    post-RoPE K/V in rows [0, L)."""
     for i, layer in enumerate(model.language_model.layers):
-        attn = layer.self_attn
-        q, k, v = qkv_rope(attn, rms(x, layer.input_layernorm.weight, eps), cos, sin, cfg)
-        if cache is not None:
-            cache[0][i, :, :L] = k.float()
-            cache[1][i, :, :L] = v.float()
-        x = x + lin(attn.o_proj, attend(q, k, v).reshape(B, L, -1))
-        x = mlp_block(layer, x, eps)
+        x = layer(x, cos, sin, attend, None if cache is None else (cache[0][i], cache[1][i]))
     return x
 
 
@@ -298,35 +322,61 @@ def _flash_causal(q, k, v):
                            causal=True)
 
 
-@torch.inference_mode()
-def qwen3_forward(model: nn.Module, ids: torch.Tensor,
-                  attn_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The full causal forward (JAX `qwen3_forward`) → (final-normed hidden
-    [B, L, D], logits [B, L, V] f32). ids [B, L] on the model's device. With
-    no mask the attention is pure causal, the flash kernel's causal mode
-    (row 2) on the card; `attn_mask` [B, L] (> 0: a real key) takes the
-    dense path with JAX's additive bias (causal and key terms of −3.4e38
-    each)."""
+def _mask_bias(L: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
+    """JAX's additive f32 bias [B or 1, 1, L, L]: −3.4e38 above the diagonal
+    and, with `attn_mask` [B, L] (> 0: a real key), at padded keys."""
+    big = torch.tensor(-3.4e38, dtype=torch.float32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    tri = torch.ones(L, L, dtype=torch.bool, device=device).tril()
+    bias = torch.where(tri, zero, big)[None, None]
+    if attn_mask is not None:
+        bias = bias + torch.where(attn_mask.to(device)[:, None, None, :] > 0, zero, big)
+    return bias
+
+
+def _causal_attend(L: int, attn_mask: Optional[torch.Tensor], device):
+    """attend(q, k, v) of the causal forward: the causal flash kernel (row 2
+    on the card) when there is no mask and no autograd, else JAX's dense
+    path with its additive bias (the mask's, or the causal triangle's)."""
+    bias = None
+
+    def attend(q, k, v):
+        nonlocal bias
+        if attn_mask is None and not (torch.is_grad_enabled() and q.requires_grad):
+            return _flash_causal(q, k, v)
+        if bias is None:
+            bias = _mask_bias(L, attn_mask, device)
+        return cached_attention(q, k, v, q.dtype, bias).view(q.shape)
+
+    return attend
+
+
+def qwen3_forward_trainable(model: nn.Module, ids: torch.Tensor,
+                            attn_mask: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full causal forward (JAX `qwen3_forward`) under the caller's grad
+    mode → (final-normed hidden [B, L, D], logits [B, L, V] f32). ids
+    [B, L] on the model's device. `attn_mask` [B, L] (> 0: a real key)
+    takes the dense path with JAX's additive bias (causal and key terms of
+    −3.4e38 each); so does every forward under autograd (`_causal_attend`);
+    otherwise the attention is the causal flash kernel."""
     cfg = _text_cfg(model)
     emb = model.language_model.embed_tokens
     ids = ids.to(emb.weight.device)
-    B, L = ids.shape
+    L = ids.shape[1]
     cos, sin = rope_1d(torch.arange(L, device=ids.device), cfg)
-    if attn_mask is None:
-        attend = _flash_causal
-    else:
-        big = torch.tensor(-3.4e38, dtype=torch.float32, device=ids.device)
-        zero = torch.zeros((), dtype=torch.float32, device=ids.device)
-        tri = torch.ones(L, L, dtype=torch.bool, device=ids.device).tril()
-        bias = (torch.where(tri, zero, big)[None, None]
-                + torch.where(attn_mask.to(ids.device)[:, None, None, :] > 0, zero, big))
-
-        def attend(q, k, v):
-            return cached_attention(q, k, v, q.dtype, bias).view(q.shape)
-
-    x = _causal_layers(model, emb(ids), cos, sin, attend)
+    x = _causal_layers(model, emb(ids), cos, sin, _causal_attend(L, attn_mask, ids.device))
     hidden = rms(x, model.language_model.norm.weight, cfg.rms_norm_eps)
     return hidden, _head(model, hidden)
+
+
+@torch.inference_mode()
+def qwen3_forward(model: nn.Module, ids: torch.Tensor,
+                  attn_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`qwen3_forward_trainable` in inference mode: with no mask the
+    attention is pure causal, the flash kernel's causal mode (row 2) on the
+    card."""
+    return qwen3_forward_trainable(model, ids, attn_mask)
 
 
 @torch.inference_mode()
@@ -373,24 +423,37 @@ def qwen3_greedy_decode(model: nn.Module, prompt_ids: torch.Tensor, max_new_toke
 
 
 def _gather_tokens(x: torch.Tensor, group) -> torch.Tensor:
-    import torch.distributed as dist
+    """all_gather along dim 1 in rank order, differentiable (its backward
+    hands this rank its slice)."""
+    from ..wan_dit import _GatherSeq
 
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, 1)
+    return _GatherSeq.apply(x, group)
 
 
 @torch.inference_mode()
 def qwen3_forward_sp(model: nn.Module, ids: torch.Tensor, mesh, seq_axis: str = "seq",
                      ulysses_axis: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The causal forward sequence-parallel (JAX `qwen3_forward_sp`): every
+    """`qwen3_forward_sp_trainable` in inference mode."""
+    return qwen3_forward_sp_trainable(model, ids, mesh, seq_axis, ulysses_axis)
+
+
+def qwen3_forward_sp_trainable(model: nn.Module, ids: torch.Tensor, mesh,
+                               seq_axis: str = "seq", ulysses_axis: Optional[str] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal forward sequence-parallel (JAX `qwen3_forward_sp`) under
+    the caller's grad mode: every
     rank passes the same ids [B, L]; tokens are sharded over `seq_axis`
     (the ring), or with `ulysses_axis` over ulysses × ring in JAX's
     ring-major order (rank (ring i, ulysses u) holds shard i·nu + u, so the
     Ulysses all-to-all leaves ring rank i one contiguous superblock). GQA
     K/V are expanded to every head before the ring, which runs the
-    token-causal ring step (row 8 on the card). Returns the global (hidden,
-    logits), gathered on every rank. L % (n·nu) == 0."""
+    token-causal ring step in the model's dtype (row 8 on the card for
+    bf16, the f32 step kernel for f32). Returns the global (hidden, logits),
+    gathered on every rank. L % (n·nu) == 0. Under autograd the ring is the
+    trainable one (rows 4 and 5 in the backward on the earlier shards;
+    parallel/ring.py dispatches on grad mode) and the gathers hand each
+    rank its slice's gradient; there is no mask, so padding must sit at
+    the tail."""
     from ...parallel.ring import ring_attention
     from ...parallel.ulysses import _a2a_gather_heads, _a2a_scatter_heads
 
@@ -418,7 +481,9 @@ def qwen3_forward_sp(model: nn.Module, ids: torch.Tensor, mesh, seq_axis: str = 
         k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
         if ug is not None:
             q, k, v = (_a2a_scatter_heads(t, ug) for t in (q, k, v))
-        o = ring_attention(q, k, v, ring, causal="token")
+        # JAX's ring here keeps the model's dtype (no comm_dtype): an f32 LM's
+        # attention stays f32 (the f32 step kernel), as its router needs
+        o = ring_attention(q, k, v, ring, causal="token", operand_dtype=None)
         return _a2a_gather_heads(o, ug) if ug is not None else o
 
     x = _causal_layers(model, emb(ids[:, start:start + Ll]), cos, sin, attend)

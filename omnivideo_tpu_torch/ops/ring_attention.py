@@ -3,11 +3,14 @@
 Port of the forward of omnivideo_tpu/ops/pallas/ring_attention.py. A ring
 step (`_step_kernel`, kernel row 8) attends this rank's q shard to the K/V
 shard visiting on this step and merges the result into a carried online
-softmax state. `ring_step` launches the CUDA kernel `csrc/ring_step.cu` for
-CUDA tensors and updates the carry in place; for CPU tensors it returns the
+softmax state. `ring_step` launches a CUDA kernel for CUDA tensors and
+updates the carry in place: `csrc/ring_step.cu` (row 8, the tensor cores)
+for bf16 q/k/v, `csrc/ring_step_f32.cu` (f32 products on the CUDA cores, as
+the Pallas kernel takes them) for f32 q/k/v; for CPU tensors it returns the
 plain twin `ring_step_plain`'s new carry. Its launches are counted in
-`ring_step.launches`. On CUDA it raises under grad mode with an input that
-requires grad: only `ring_flash_attention_trainable` calls it there.
+`ring_step.launches` (bf16) and `ring_step.launches_f32`. On CUDA it raises
+under grad mode with an input that requires grad: only
+`ring_flash_attention_trainable` calls it there.
 
 The carry, in the port's own terms: m and l are [B, N, Lq] f32 (no 128-lane
 broadcast), acc is [B, Lq, N, D] f32, packed like q. m is kept in log2
@@ -182,8 +185,9 @@ def ring_step(
 ) -> Carry:
     """One ring step. q: [B, Lq, N, D]; k/v: [B, Lk, N, D]; the carry as
     `ring_carry` makes it; step_lens: [B] valid keys of this K/V shard.
-    CUDA: packed contiguous bf16 q/k/v at head dim 128 (zigzag: Lq == Lk,
-    Lq / 2 a multiple of 64), the carry updated in place and returned."""
+    CUDA: packed contiguous q/k/v at head dim 128, all bf16 (row 8; zigzag:
+    Lq == Lk, Lq / 2 a multiple of 64) or all f32 (the f32 step kernel), the
+    carry updated in place and returned."""
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else D**-0.5
@@ -196,8 +200,11 @@ def ring_step(
     _kernels.check_no_grad("ring_step", q, k, v)
     if D != 128:
         raise ValueError(f"ring_step: no kernel for head_dim {D} (the kernel takes 128)")
-    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("ring_step: the kernel takes packed contiguous bf16 [B, L, N, D] q/k/v")
+    f32 = q.dtype == torch.float32
+    want = torch.float32 if f32 else torch.bfloat16
+    if any(t.dtype != want or not t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("ring_step: the kernels take packed contiguous [B, L, N, D] q/k/v, "
+                         "all bf16 or all f32")
     if k.shape != (B, Lk, N, D) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if (m.shape != (B, N, Lq) or l.shape != m.shape or acc.shape != q.shape
@@ -206,20 +213,27 @@ def ring_step(
     zz = 0
     if causal == "zigzag":
         zz = Lq // 2
-        if Lk != Lq or Lq % 2 or zz % 64:
+        if Lk != Lq or Lq % 2 or (zz % 64 and not f32):
             raise ValueError(f"ring_step zigzag: needs Lq == Lk with Lq / 2 a multiple of 64, got {Lq}, {Lk}")
     lens = None if step_lens is None else step_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if Lq and Lk:
-        code = _kernels.library().ring_step_launch(
+        lib = _kernels.library()
+        launch = lib.ring_step_f32_launch if f32 else lib.ring_step_launch
+        code = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
             lens.data_ptr() if lens is not None else None, B, Lq, Lk, N, D, CAUSAL_MODES[causal],
             my, src, n, zz, _qscale(scale), torch.cuda.current_stream(q.device).cuda_stream)
-        _kernels.check(code, "ring_step")
-        ring_step.launches += 1
+        if f32:
+            _kernels.check(code, "ring_step_f32")
+            ring_step.launches_f32 += 1
+        else:
+            _kernels.check(code, "ring_step")
+            ring_step.launches += 1
     return m, l, acc
 
 
 ring_step.launches = 0
+ring_step.launches_f32 = 0
 
 
 def ring_flash_attention_shards(
@@ -364,6 +378,14 @@ def _bwd_step(q, k, v, do, lse, delta, lens, causal, my, src, scale, bwd):
     return bwd(q, k, v, do, lse, delta, lens, scale)
 
 
+def _flash_bwd_bf16(q, k, v, do, lse, delta, lens, scale):
+    """flash_bwd (rows 4 and 5), whose kernels read bf16: f32 operands on
+    the card are rounded for them (the own-shard step keeps f32)."""
+    if q.is_cuda and q.dtype == torch.float32:
+        q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    return flash_bwd(q, k, v, do, lse, delta, lens, scale)
+
+
 def _check_trainable(causal, kv_lens) -> None:
     if causal not in TRAINABLE_CAUSAL:
         raise ValueError(f"the ring backward takes causal in {TRAINABLE_CAUSAL}, got {causal!r} "
@@ -429,7 +451,7 @@ def ring_flash_backward_shard(q, k, v, out, lse, do, group=None, kv_lens=None, c
         lens = None if kv_lens is None else step_lens_for(kv_lens, src, k.shape[1], n, chunks)
         if s < n - 1:
             kv_works, kv_next = exchange(kv, group)
-        g = _bwd_step(q, *kv, do, lse, delta, lens, causal, my, src, scale, flash_bwd)
+        g = _bwd_step(q, *kv, do, lse, delta, lens, causal, my, src, scale, _flash_bwd_bf16)
         if pending is not None:
             for w in pending[0]:
                 w.wait()
@@ -456,10 +478,10 @@ def ring_flash_backward_shard(q, k, v, out, lse, do, group=None, kv_lens=None, c
 
 class _RingFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kv_lens, group, causal, scale, chunks):
+    def forward(ctx, q, k, v, kv_lens, group, causal, scale, chunks, operand_dtype):
         dtypes = (q.dtype, k.dtype, v.dtype)
-        if q.is_cuda:  # the kernels read bf16 operands
-            q, k, v = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+        if q.is_cuda:
+            q, k, v = (t.to(operand_dtype or t.dtype).contiguous() for t in (q, k, v))
         out, lse = ring_flash_attention_shard(q, k, v, group, kv_lens=kv_lens, causal=causal,
                                               softmax_scale=scale, return_lse=True,
                                               chunks=chunks)
@@ -475,7 +497,7 @@ class _RingFlash(torch.autograd.Function):
         dq, dk, dv = ring_flash_backward_shard(q, k, v, out, lse, do, ctx.group, kv_lens,
                                                ctx.causal, ctx.scale, ctx.chunks)
         return (dq.to(ctx.dtypes[0]), dk.to(ctx.dtypes[1]), dv.to(ctx.dtypes[2]),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def ring_flash_attention_trainable(
@@ -487,14 +509,19 @@ def ring_flash_attention_trainable(
     causal: Optional[str] = None,
     softmax_scale: Optional[float] = None,
     chunks: int = 1,
+    operand_dtype: Optional[torch.dtype] = torch.bfloat16,
 ) -> torch.Tensor:
     """Differentiable ring attention on this rank's shards (arguments as
     `ring_flash_attention_shard`; causal None, "block" or "token", kv_lens
-    only with None). On CUDA q/k/v enter the kernels in bf16; the output and
-    the gradients come back in the callers' dtypes."""
+    only with None). On CUDA q/k/v enter the forward in `operand_dtype`
+    (JAX's `comm_dtype`): bf16, row 8; None keeps their dtype, so f32 q/k/v
+    take the f32 step kernel and keep f32 through the own-shard backward
+    step, and are rounded to bf16 only for the backward kernels (rows 4 and
+    5) on the other shards. The output and the gradients come back in the
+    callers' dtypes."""
     _check_trainable(causal, kv_lens)
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5
-    return _RingFlash.apply(q, k, v, kv_lens, group, causal, float(scale), chunks)
+    return _RingFlash.apply(q, k, v, kv_lens, group, causal, float(scale), chunks, operand_dtype)
 
 
 def zigzag_order(L: int, n: int) -> torch.Tensor:

@@ -47,11 +47,14 @@ def _mode(causal) -> Optional[str]:
     return causal
 
 
-def _ring(q, k, v, group, kv_lens, causal, softmax_scale, chunks=1):
-    """The trainable ring under autograd, else the forward-only ring."""
+def _ring(q, k, v, group, kv_lens, causal, softmax_scale, chunks=1,
+          operand_dtype=torch.bfloat16):
+    """The trainable ring under autograd, else the forward-only ring (which
+    takes q/k/v as they come: bf16 row 8, f32 the f32 step kernel)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return ring_flash_attention_trainable(q, k, v, group, kv_lens=kv_lens, causal=causal,
-                                              softmax_scale=softmax_scale, chunks=chunks)
+                                              softmax_scale=softmax_scale, chunks=chunks,
+                                              operand_dtype=operand_dtype)
     return ring_flash_attention_shard(q, k, v, group, kv_lens=kv_lens, causal=causal,
                                       softmax_scale=softmax_scale, chunks=chunks)
 
@@ -65,13 +68,17 @@ def ring_attention(
     softmax_scale: Optional[float] = None,
     impl: str = "ppermute",
     kv_lens: Optional[torch.Tensor] = None,
+    operand_dtype: Optional[torch.dtype] = torch.bfloat16,
 ) -> torch.Tensor:
     """This rank's shards q: [B, Lq/n, N, D], k/v: [B, Lk/n, N, D] (rank
     order) → its output shard. kv_lens: [B] valid global KV lengths
-    (contiguous end padding)."""
+    (contiguous end padding). operand_dtype: the dtype q/k/v enter the
+    trainable ring's forward in on the card (JAX's `comm_dtype`; None keeps
+    theirs)."""
     if impl not in RING_IMPLS:
         raise ValueError(f"ring impl {impl!r} not in {RING_IMPLS}")
-    return _ring(q, k, v, group, kv_lens, _mode(causal), softmax_scale)
+    return _ring(q, k, v, group, kv_lens, _mode(causal), softmax_scale,
+                 operand_dtype=operand_dtype)
 
 
 def hybrid_attention(

@@ -24,6 +24,13 @@ collectives; the port applies the same two rules with torch's own:
   `parallelize_module` installs never run. FSDP2 then shards the TP
   DTensors over 'fsdp' (2-D placements).
 
+The SFT tree (training/sft.py `SFTParams`: the text-only Qwen3 and the
+alignment chain) takes the FSDP rule alone: FSDP2 on every Qwen3 decoder
+layer, then on the root, which holds the embedding, the final norm, the
+head and the chain. JAX's TP rule (`_tp_leaf_spec`) splits only leaves
+under "blocks", the DiT's, so over 'tensor' the LM and the chain stay whole
+on every rank, as in JAX; the port adds no Megatron split of Qwen3.
+
 `params_shardings(module, mesh)` is the plan, per parameter name:
 {"fsdp": dim or None, "tensor": dim or None}; `shard_params` applies it and
 `placements` reads what a sharded module holds. The root's parameters are
@@ -58,6 +65,19 @@ def _dit(module: nn.Module) -> nn.Module:
     return module.wan if hasattr(module, "wan") else module
 
 
+def _is_sft(module: nn.Module) -> bool:
+    """An SFT tree (training/sft.py SFTParams): its `lm` is a Qwen3."""
+    return hasattr(module, "lm")
+
+
+def _units(module: nn.Module):
+    """The FSDP2 units below the root: the DiT's blocks, or the Qwen3's
+    decoder layers."""
+    if _is_sft(module):
+        return list(module.lm.language_model.layers)
+    return list(_dit(module).blocks)
+
+
 def _tp_rule(local_name: str) -> Optional[int]:
     """Sharded dim of a block parameter under the Megatron split, or None.
     local_name is relative to the block, e.g. 'self_attn.q.weight'."""
@@ -83,8 +103,11 @@ def _replicated(module: nn.Module) -> set:
 
 def params_shardings(module: nn.Module, mesh: DeviceMesh) -> Dict[str, Dict[str, Optional[int]]]:
     """The plan: {parameter name: {"fsdp": dim or None, "tensor": dim or
-    None}} for `module` (a WanDiT or a UnifiedParams) on `mesh`."""
+    None}} for `module` (a WanDiT, a UnifiedParams or an SFTParams) on
+    `mesh`."""
     fsdp, tp = axis_size(mesh, "fsdp"), axis_size(mesh, "tensor")
+    if _is_sft(module):
+        tp = 1  # JAX's TP rule splits the DiT's blocks only
     prefix = "wan." if hasattr(module, "wan") else ""
     whole = _replicated(module)
     plan = {}
@@ -133,15 +156,15 @@ def apply_tp(module: nn.Module, mesh: DeviceMesh) -> None:
 
 
 def shard_params(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
-    """Shard `module` (a WanDiT or a UnifiedParams) in place: the Megatron
-    split over 'tensor' when it has more than one rank, then FSDP2 over
-    'fsdp' per block and at the root. Returns the module."""
-    if axis_size(mesh, "tensor") > 1:
+    """Shard `module` (a WanDiT, a UnifiedParams or an SFTParams) in place:
+    the Megatron split of the DiT over 'tensor' when it has more than one
+    rank, then FSDP2 over 'fsdp' per block (per decoder layer) and at the
+    root. Returns the module."""
+    if axis_size(mesh, "tensor") > 1 and not _is_sft(module):
         apply_tp(module, mesh)
     fsdp_mesh = mesh["fsdp"]
     whole = _replicated(module)
-    units = [fully_shard(blk, mesh=fsdp_mesh, ignored_params=whole)
-             for blk in _dit(module).blocks]
+    units = [fully_shard(blk, mesh=fsdp_mesh, ignored_params=whole) for blk in _units(module)]
     units.append(fully_shard(module, mesh=fsdp_mesh, ignored_params=whole))
     if fsdp_mesh.device_type == "cpu":  # gloo has neither AVG nor PREMUL_SUM
         for m in units:

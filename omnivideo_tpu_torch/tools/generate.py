@@ -102,7 +102,9 @@ from omnivideo_tpu_torch.utils.video import (
 NOT_PORTED = {
     "layer_stream": (False, "it comes with the streaming slice, ROADMAP §1"),
     "stream_quant": (None, "it comes with the streaming slice, ROADMAP §1"),
-    "vlm_fsdp": (1, "FSDP2 over the Qwen3-VL MoE waits for ROADMAP §1 item 4"),
+    "vlm_fsdp": (1, "FSDP2 over the Qwen3-VL MoE: the model fits one card, and sharding its "
+                    "KV-cached decode (an all-gather per token) is queued last in ROADMAP §1 "
+                    "item 4"),
     "max_steps_per_call": (None, "a TPU dispatch-time workaround the card does not need"),
 }
 

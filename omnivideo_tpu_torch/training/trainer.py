@@ -189,8 +189,14 @@ def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
     """optax.warmup_cosine_decay_schedule(0, lr, warmup, decay), the warmup
     clamped for short runs as in JAX, rounded to f32."""
     warmup = min(tc.warmup_steps, max(tc.total_steps - 1, 0))
-    decay = max(tc.total_steps, warmup + 1) - warmup
-    peak = tc.learning_rate
+    return warmup_cosine_schedule(tc.learning_rate, warmup, max(tc.total_steps, warmup + 1))
+
+
+def warmup_cosine_schedule(peak: float, warmup: int, decay_steps: int) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, decay_steps) at a
+    count, rounded to f32: linear from 0 over `warmup` counts, then a cosine
+    to 0 over the remaining decay_steps − warmup."""
+    decay = decay_steps - warmup
 
     def sched(count: int) -> float:
         if count < warmup:
@@ -244,9 +250,9 @@ class _AdamWRule:
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** t)
         neg_lr = -self.sched(count)
         for n, p in leaves:
-            mu, nu, p = _local(state["mu"][n]), _local(state["nu"][n]), _local(p)
-            mu.copy_((1 - self.b1) * g[n] + self.b1 * mu)
-            nu.copy_((1 - self.b2) * g[n].square() + self.b2 * nu)
+            mu, nu, p, gn = _local(state["mu"][n]), _local(state["nu"][n]), _local(p), g[n]
+            mu.copy_((1 - self.b1) * gn + self.b1 * mu)
+            nu.copy_((1 - self.b2) * gn.square() + self.b2 * nu)
             u = (mu / bc1) / ((nu / bc2).sqrt() + self.eps) + self.wd * p
             p.copy_(p + neg_lr * u)
 
@@ -421,24 +427,37 @@ class _AdafactorRule:
                 p.copy_(p + u)
 
 
+class _Clipped:
+    """Gradients clipped on access, (g / norm) · clip per leaf, so the clip
+    holds one scaled leaf at a time, not a scaled copy of every gradient."""
+
+    def __init__(self, g: Dict[str, torch.Tensor], norm: torch.Tensor, clip: float):
+        self.g, self.norm, self.clip = g, norm, clip
+
+    def __getitem__(self, n: str) -> torch.Tensor:
+        return (self.g[n] / self.norm) * self.clip
+
+
 class Optimizer:
     """The port's `make_optimizer`: clip_by_global_norm → the inner rule
     (`tc.optimizer`: "adamw", or "adafactor" with the lr-scaled decay),
     masked to the trainable leaves, inside MultiSteps when
     grad_accum_steps > 1 (see the module docstring). The clip, the mask
     and the accumulation are shared; the count advances once per applied
-    update and every schedule reads it before it increments. `init` builds
-    the state, `update` applies one call's grads to the parameters in
-    place."""
+    update and every schedule reads it before it increments. `sched`
+    replaces `lr_schedule(tc)` (training/sft.py's unclamped warmup). `init`
+    builds the state, `update` applies one call's grads to the parameters
+    in place."""
 
     RULES = ("adamw", "adafactor")
 
-    def __init__(self, tc: TrainConfig, trainable: Optional[set] = None):
+    def __init__(self, tc: TrainConfig, trainable: Optional[set] = None,
+                 sched: Optional[Callable[[int], float]] = None):
         if tc.optimizer not in self.RULES:
             raise ValueError(f"optimizer {tc.optimizer!r} not in {self.RULES}")
         self.tc = tc
         self.trainable = trainable
-        self.sched = lr_schedule(tc)
+        self.sched = sched if sched is not None else lr_schedule(tc)
         self.rule = (_AdamWRule(tc, self.sched) if tc.optimizer == "adamw" else
                      _AdafactorRule(tc, self.sched))
 
@@ -476,7 +495,7 @@ class Optimizer:
         if self.tc.grad_clip:
             norm = global_norm([state["acc"][n] if k > 1 else grads[n] for n, _ in leaves])
             if float(norm) >= self.tc.grad_clip:
-                g = {n: (t / norm) * self.tc.grad_clip for n, t in g.items()}
+                g = _Clipped(g, norm, self.tc.grad_clip)
         self.rule.apply(leaves, g, state, state["count"])
         state["count"] += 1
         if k > 1:
@@ -606,12 +625,16 @@ def make_unified_loss(cfg: PipelineConfig, tc: TrainConfig,
 _SUM_AXES = {"ulysses": ("seq",), "ring": ("seq",), "hybrid": ("fsdp", "seq"), "tp": ()}
 
 
-def reduce_gradients(model: nn.Module, mesh, sp: Optional[SPConfig] = None) -> None:
+def reduce_gradients(model: nn.Module, mesh, sp: Optional[SPConfig] = None,
+                     summed: Optional[Tuple[str, ...]] = None) -> None:
     """Reduce every parameter's grad in place over the mesh (module
     docstring): a sum over the axes that shard tokens, a mean over 'data'
     and over 'fsdp' where it does not shard tokens; FSDP2 has reduced its
-    parameters' grads over 'fsdp' already. Nothing over 'tensor'."""
-    summed = _SUM_AXES[sp.mode] if sp is not None else ()
+    parameters' grads over 'fsdp' already. Nothing over 'tensor'. `summed`
+    names the summed axes in place of `sp`'s (training/sft.py sums over
+    'data' too: its loss is already divided by the global target count)."""
+    if summed is None:
+        summed = _SUM_AXES[sp.mode] if sp is not None else ()
     params = [p for p in model.parameters() if p.grad is not None]
     scale = {id(p): 1 for p in params}
     for axis in ("fsdp", "seq", "data"):  # one axis after the other: same buffers

@@ -6,8 +6,9 @@ registers, spills, ptxas's wgmma-serialisation warnings) and from the
 profiler (demangled names: device time by class). The Hopper forward
 mainloop `attn_fwd_kernel` serves five rows, told apart only by its epilogue
 policy's type, so a new policy that the names miss would be filed under
-another row. The names here are ptxas's and the profiler's own spelling of
-this repository's kernels, on synthetic log lines; nothing needs a card.
+another row; the f32 ring step is a kernel of its own. The names here are
+ptxas's and the profiler's own spelling of this repository's kernels, on
+synthetic log lines; nothing needs a card.
 The script's stand-in tokenizer and safetensors writer, which stand in for
 packages the card's machine may lack, are checked here too.
 """
@@ -38,6 +39,8 @@ MANGLED = {  # row → the entry function as ptxas names it
                "EPK13__nv_bfloat16S2_PKfS4_PS0_Pfiiiiif",
     "fused_adaln": "_ZN40_GLOBAL__N__4f4767a5_8_adaln_cu_0e84efa312adaln_kernel"
                    "EPKfPKvS1_S1_S1_S1_S1_PfPviiiif",
+    "ring_step_f32": "_ZN47_GLOBAL__N__5b2f0c1e_16_ring_step_f32_cu_7a1e20d220ring_step_f32_kernel"
+                     "EPKfS1_S1_PfS2_S2_PKiiiiiiiiif",
 }
 _NS = "(anonymous namespace)::"
 DEMANGLED = {  # row → the kernel as the profiler names it
@@ -62,6 +65,9 @@ DEMANGLED = {  # row → the kernel as the profiler names it
     "fused_adaln": f"{_NS}adaln_kernel(float const*, __nv_bfloat16 const*, void const*, "
                    "void const*, void const*, void const*, float*, void*, int, int, int, int, "
                    "int, float)",
+    "ring_step_f32": f"{_NS}ring_step_f32_kernel(float const*, float const*, float const*, "
+                     "float*, float*, float*, int const*, int, int, int, int, int, int, int, "
+                     "int, float)",
 }
 
 
@@ -181,16 +187,17 @@ def test_safetensors_writer_reads_back(tmp_path):
 @pytest.mark.parametrize("phase,entry", [("profile", "phase_profile"), ("sp", "phase_sp"),
                                          ("sp_train", "_sp_train_alone"), ("lora", "phase_lora"),
                                          ("adafactor", "phase_adafactor"),
-                                         ("qwen3_sp", "phase_vlm")])
+                                         ("qwen3_sp", "phase_vlm"), ("sft", "phase_sft")])
 def test_phase_commands(monkeypatch, phase, entry):
     """`python3 chip_smoke.py <phase>` runs that phase alone (lora and
     adafactor after the train phase, their AdamW yardstick; qwen3_sp inside
-    the vlm phase, whose text stack it runs); any other argument is refused
-    with the list of names."""
+    the vlm phase, whose text stack it runs; sft after tiny_sft); any other
+    argument is refused with the list of names."""
     calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for name in ("phase_device", "phase_profile", "phase_sp", "_sp_train_alone", "t2v_pipeline",
-                 "phase_train", "phase_lora", "phase_adafactor", "phase_vlm", "write_clip"):
+                 "phase_train", "phase_lora", "phase_adafactor", "phase_vlm", "write_clip",
+                 "phase_tiny_sft", "phase_sft"):
         monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name, **k: calls.append(_n) or (
             (None, torch.zeros(1), torch.Generator()) if _n == "t2v_pipeline" else 0))
     monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.zeros(1))
@@ -270,3 +277,27 @@ def test_fingerprint_sees_one_element():
     u[517] = torch.nextafter(u[517], torch.tensor(float("inf")))
     assert torch.equal(chip_smoke._fingerprint(t.clone()), f)
     assert not torch.equal(chip_smoke._fingerprint(u), f)
+
+
+def test_sft_batch_and_stand_in_chat_data(tmp_path):
+    """The sft phases' data: `_sft_batch` rows of unequal target counts,
+    padded at the tail (the --sp forward has no mask); and the stand-in
+    tokenizer's ChatML data through sft_tokenize (no chat_template: rendered
+    natively), whose labels keep the assistant turns and their <|im_end|>."""
+    from omnivideo_tpu_torch.tools.data_prepare.sft_tokenize import tokenize_dataset
+    from omnivideo_tpu_torch.training.conversation import ConversationDataset
+    from omnivideo_tpu_torch.training.sft import SFTDataset
+
+    cfg = chip_smoke.dataclasses.replace(chip_smoke.SFT_MESH_CFG, vocab_size=300)
+    b = chip_smoke._sft_batch(cfg, 2, 64, 9, lens=[64, 40], device="cpu")
+    assert b["ids"].shape == b["labels"].shape == b["attn_mask"].shape == (2, 64)
+    assert b["attn_mask"].sum(1).tolist() == [64, 40]
+    assert ((b["labels"] != -100).sum(1)).tolist() == [64 - 21, 40 - 13]
+    conv = tmp_path / "c.jsonl"
+    conv.write_text('{"conversations": [{"from": "human", "value": "hi"}, '
+                    '{"from": "gpt", "value": "ok"}]}')
+    tokenize_dataset(ConversationDataset(str(conv), chip_smoke.StandInTokenizer()),
+                     str(tmp_path / "d"))
+    s = SFTDataset(str(tmp_path / "d"))[0]
+    kept = [int(i) for i, lab in zip(s["ids"], s["labels"]) if lab != -100]
+    assert kept == [*b"ok", 151645, *b"\n"]

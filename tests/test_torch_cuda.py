@@ -25,7 +25,7 @@ fused_adaln: x_new bit for bit (the kernel rounds each product and sum as
 PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
 1e-5 of it (f32 out): the row mean and variance sum in another order.
 ring_step: the finished output within 4 bf16 ulps of each row's max, as
-flash; the carried m within 1e-4 (log2 units) and l within 1e-4 relative of
+flash (the f32 step kernel: 1e-5 of it, and the LSE within 1e-5); the carried m within 1e-4 (log2 units) and l within 1e-4 relative of
 the plain twin's (f32 sums in another order); the ring backward's dq/dk/dv
 as the training kernels'. Where K/V rows past kv_len
 (or a ring step's step_lens) hold NaN, the forward kernels' outputs are
@@ -593,6 +593,27 @@ def test_ring_step_kernel_matches_plain(cuda, causal, Ls, lens):
         assert all((o[lens.index(0)] == 0).all() for o, _ in outs)
 
 
+@pytest.mark.parametrize("causal,Ls,lens", RING_CASES)
+def test_ring_step_f32_kernel_matches_plain(cuda, causal, Ls, lens):
+    """The f32 step kernel (f32 q/k/v) over the same four shards: the output
+    within 1e-5 of each row's max |plain| and the LSE within 1e-5 (f32
+    products on both sides, summed in other orders)."""
+    n, B, N, D = 4, 2, 2, 128
+    q, k, v = (t.float() for t in _qkv(B, n * Ls, n * Ls, N, D, Ls, 1.0, cuda))
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=cuda)
+    shards = _ring_layout(q, k, v, causal, n, Ls, cuda)
+    n0, b0 = ring_step.launches_f32, ring_step.launches
+    outs = ring_flash_attention_shards(*shards, kv_lens=kv, causal=causal, return_lse=True)
+    assert (ring_step.launches_f32 - n0, ring_step.launches - b0) == (n * n, 0)
+    refs = ring_flash_attention_shards(*shards, kv_lens=kv, causal=causal, return_lse=True,
+                                       step=ring_step_plain)
+    for (o, lse), (o_p, lse_p) in zip(outs, refs):
+        scale = o_p.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        assert float(((o - o_p).abs() / scale).max()) <= 1e-5
+        seen = lse_p > -1e29
+        torch.testing.assert_close(lse[seen], lse_p[seen], rtol=0, atol=1e-5)
+
+
 def test_ring_step_kernel_ignores_keys_past_step_lens(cuda):
     """K and V tokens past kv_len hold NaN (the padded tail of the last
     shards): the outputs are finite and equal the plain twin's on the same
@@ -663,8 +684,10 @@ def test_ring_step_kernel_refuses_grad_and_bad_operands(cuda):
         with pytest.raises(ValueError, match="head_dim 64"):
             x = torch.zeros(B, L, N, 64, device=cuda, dtype=torch.bfloat16)
             ring_step(x, x, x, *ring_carry(B, L, N, 64, cuda))
-        with pytest.raises(ValueError, match="bf16"):
-            ring_step(q.float(), q.float(), q.float(), *carry)
+        with pytest.raises(ValueError, match="all bf16 or all f32"):  # f32 has its own kernel
+            ring_step(q.half(), q.half(), q.half(), *carry)
+        with pytest.raises(ValueError, match="all bf16 or all f32"):
+            ring_step(q.float(), q.detach(), q.detach(), *carry)
         with pytest.raises(ValueError, match="zigzag"):
             x = torch.zeros(B, 96, N, D, device=cuda, dtype=torch.bfloat16)
             ring_step(x, x, x, *ring_carry(B, 96, N, D, cuda), causal="zigzag", n=2)

@@ -5,7 +5,9 @@
 - no module of it imports them, calls a library attention or
   torch.compile (AST scan);
 - importing the host side of the main path (the generate CLI, the Qwen3-VL
-  engine, the loader, the readers and the video IO) loads none of
+  engine, the loader, the readers and the video IO) and of the SFT and
+  data-prepare tools (the sft_vlm CLI, the conversation data, the PNG
+  reader, sft_tokenize, vae_ and ar_feature_extract) loads none of
   tokenizers, transformers, safetensors, PIL or imageio, which the card's
   machine may lack: they are imported inside the functions that need them;
 - its entry points default to CUDA and raise without a CUDA device unless
@@ -68,6 +70,10 @@ def test_host_modules_import_no_optional_packages():
         "import omnivideo_tpu_torch.io.hf_reader, omnivideo_tpu_torch.io.safetensors\n"
         "import omnivideo_tpu_torch.models.t5, omnivideo_tpu_torch.utils.spm_convert\n"
         "import omnivideo_tpu_torch.models.qwen3vl.preprocess, omnivideo_tpu_torch.utils.avi\n"
+        "import omnivideo_tpu_torch.tools.sft_vlm, omnivideo_tpu_torch.training.conversation\n"
+        "import omnivideo_tpu_torch.tools.data_prepare.sft_tokenize, omnivideo_tpu_torch.utils.png\n"
+        "import omnivideo_tpu_torch.tools.data_prepare.vae_feature_extract\n"
+        "import omnivideo_tpu_torch.tools.data_prepare.ar_feature_extract\n"
         f"bad = [k for k in sys.modules if k.split('.')[0] in {optional + FORBIDDEN_MODULES!r}]\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -115,7 +121,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
     from omnivideo_tpu_torch.pipelines.loading import load_expert, load_pipeline
     from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
-    from omnivideo_tpu_torch.tools import finetune, generate
+    from omnivideo_tpu_torch.tools import finetune, generate, sft_vlm
+    from omnivideo_tpu_torch.tools.data_prepare import ar_feature_extract, vae_feature_extract
     from omnivideo_tpu_torch.training.trainer import init_unified_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -130,6 +137,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: Qwen3VLModel.random_init(QWEN3_VL_30B_A3B),
                   lambda: init_unified_params(cfg),
                   lambda: finetune.main(["--dummy_data", "--tiny", "--total_steps", "1"]),
+                  lambda: sft_vlm.main(["--dummy_data", "--tiny", "--total_steps", "1"]),
+                  lambda: vae_feature_extract.main(["--manifest", "m.jsonl", "--output_dir", "o",
+                                                    "--random_weights"]),
+                  lambda: ar_feature_extract.main(["--features_dir", "f", "--manifest", "m.jsonl",
+                                                   "--vlm_path", "v"]),
                   lambda: T5Encoder(T5Config()), lambda: init_t5(T5Config()),
                   lambda: wan_state_dict_to_params({}, dit),
                   lambda: load_expert(cfg, "missing_dir", "low_noise_model"),

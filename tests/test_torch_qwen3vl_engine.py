@@ -202,7 +202,7 @@ def test_from_model_and_unported_options(engines):
                      (engine.VLMConfig(backend="vllm"), ValueError)):
         with pytest.raises(err):
             engine.Qwen3VLEngine.from_model(ours.model, cfg, ours.tokenizer)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(FileNotFoundError):  # the image path reads the file it is given
         ours._generate([{"role": "user", "content": [{"type": "image", "image": "x.png"}]}])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        preprocess.preprocess_image("x.png")
+    with pytest.raises(ValueError, match="no Pillow"):  # PNG, .npy or .npz only
+        preprocess.preprocess_image("x.jpg", device="cpu")

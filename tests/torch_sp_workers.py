@@ -487,3 +487,103 @@ def lora_mesh_worker(rank, tmp, cases, steps):
         out[f"qwen/{qname}/hidden"], out[f"qwen/{qname}/logits"] = hidden.numpy(), logits.numpy()
     if rank == 0:
         _save(tmp, "lora_mesh", **out)
+
+
+SFT_MESHES = {  # name → create_mesh kwargs: 4 ranks, each CLI axis at 2 (sp at 4 too)
+    "dp2_fsdp2": dict(dp=2, fsdp=2),
+    "dp2_sp2": dict(dp=2, sp=2),
+    "fsdp2_tp2": dict(fsdp=2, tp=2),
+    "sp4": dict(sp=4),
+}
+
+
+def sft_build(sd, cfg_json, chain):
+    """The port's SFTParams on the CPU from a flat state dict (training/sft.py
+    names) and a Qwen3TextConfig as JSON; `chain`: the tiny chain's widths."""
+    from omnivideo_tpu_torch.configs.qwen3vl import Qwen3TextConfig
+    from omnivideo_tpu_torch.io.jax_bridge import load_qwen3vl
+    from omnivideo_tpu_torch.models.adapters import init_dm_adapter, init_vision_head
+    from omnivideo_tpu_torch.models.qwen3vl.text_model import Qwen3LM
+    from omnivideo_tpu_torch.training.align import AlignChain
+    from omnivideo_tpu_torch.training.sft import SFTParams
+
+    cfg = Qwen3TextConfig(**json.loads(cfg_json))
+    lm = load_qwen3vl(Qwen3LM(cfg, torch.float32, device="cpu"),
+                      {k[3:]: torch.from_numpy(v) for k, v in sd.items() if k.startswith("lm.")})
+    ch = None
+    if chain:
+        ch = AlignChain(init_vision_head(cfg.hidden_size, 32, 24, 4, 1, device="cpu"),
+                        init_dm_adapter(24, 32, 32, 4, 1, device="cpu"))
+        ch.load_state_dict({k[6:]: torch.from_numpy(v) for k, v in sd.items()
+                            if k.startswith("chain.")})
+    return SFTParams(lm, ch)
+
+
+def sft_steps(mesh_kw, sd, cfg_json, tc_kw, batch, steps, lora_rank=0):
+    """`steps` SFT steps of the port on `mesh_kw` (None: one process) from
+    `sd`; per step {'loss', 'lm_loss', 'num_targets', 'grad_norm'[,
+    'align_loss'], 'grads': {name: the reduced gradient, whole}}."""
+    from torch.distributed.tensor import DTensor
+
+    from omnivideo_tpu_torch.parallel.mesh import create_mesh
+    from omnivideo_tpu_torch.parallel.sharding import shard_params
+    from omnivideo_tpu_torch.training import sft
+    from omnivideo_tpu_torch.training.lora import freeze_base, inject_lora_bare
+
+    model = sft_build(sd, cfg_json, tc_kw.get("align_weight", 0) > 0)
+    if lora_rank:
+        inject_lora_bare(model.lm, lora_rank, generator=torch.Generator().manual_seed(1))
+    mesh = create_mesh(**mesh_kw) if mesh_kw else None
+    if mesh is not None and mesh_kw.get("fsdp", 1) > 1:
+        shard_params(model, mesh)
+    if lora_rank:
+        freeze_base(model.lm)
+    tc = sft.SFTConfig(**tc_kw)
+    tx = sft.make_sft_optimizer(tc)
+    state = sft.init_sft_state(model, tx)
+    step = sft.make_sft_step(tc, tx, sp_mesh=mesh if mesh_kw and mesh_kw.get("sp", 1) > 1
+                             else None, mesh=mesh)
+    update, seen = tx.update, {}
+
+    def spy(model_, grads, opt_state):
+        seen.update({n: (g.full_tensor() if isinstance(g, DTensor) else g).detach().clone().numpy()
+                     for n, g in grads.items()})
+        return update(model_, grads, opt_state)
+
+    tx.update = spy
+    recs = []
+    for _ in range(steps):
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        recs.append({**{k: float(v) for k, v in m.items()}, "grads": dict(seen)})
+    return recs
+
+
+def sft_mesh_worker(rank, tmp, tc_kw, steps, cli_runs):
+    """From sft_inputs.npz ("sd/...", "batch/...", "cfg"): the SFT step on
+    every mesh of SFT_MESHES for `steps` steps (full finetune), then LoRA on
+    dp2×fsdp2, then the sft_vlm CLI once per argv of `cli_runs` (tmp paths
+    filled in). Rank 0 writes sft_mesh.npz."""
+    from omnivideo_tpu_torch.tools import sft_vlm
+
+    data = load(tmp, "sft_inputs")
+    sd = {k[3:]: v for k, v in data.items() if k.startswith("sd/")}
+    batch = {k[6:]: v for k, v in data.items() if k.startswith("batch/")}
+    out = {}
+
+    def keep(name, recs):
+        for s, r in enumerate(recs):
+            for k, v in r.items():
+                if k == "grads":
+                    out.update({f"{name}/{s}/grad/{n}": g for n, g in v.items()})
+                else:
+                    out[f"{name}/{s}/{k}"] = np.array(v)
+
+    for name, mesh_kw in SFT_MESHES.items():
+        keep(name, sft_steps(mesh_kw, sd, str(data["cfg"]), tc_kw, batch, steps))
+    keep("lora_dp2_fsdp2", sft_steps(SFT_MESHES["dp2_fsdp2"], sd, str(data["cfg"]), tc_kw, batch,
+                                     steps, lora_rank=4))
+    for name, argv in cli_runs:
+        sft_vlm.run(sft_vlm.parse_args([a.replace("{tmp}", str(tmp)) for a in argv]))
+        dist.barrier()
+    if rank == 0:
+        _save(tmp, "sft_mesh", **out)
