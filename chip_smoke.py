@@ -12,6 +12,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py adafactor  # the train phase, then adafactor
     python3 chip_smoke.py qwen3_sp   # the vlm phase, with its text-only pass and qwen3_sp
     python3 chip_smoke.py sft        # tiny_sft, then sft
+    python3 chip_smoke.py sft_sp     # the f32 ring step's cases, then the SFT step
+                                     # under --sp at world 1 beside its single-card step
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -163,8 +165,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             cards under --sp, --fsdp and (4 cards) --dp 2 --fsdp 2, held to
             the single-card step as the train modes are; the f32 LM's ring
             runs the f32 step kernel (csrc/ring_step_f32.cu), held to
-            ring_step_plain at the world-1 step's shape [2, 2048, 32, 128]
-            (own shard, token-causal) within RING_F32_TOL of scale;
+            ring_step_plain within RING_F32_TOL of each output row's max
+            (and the LSE) at the world-1 step's shape [2, 2048, 32, 128]
+            (own shard, token-causal) and at a 4-card run's per-rank
+            [2, 512, 32, 128] (own shard; an earlier shard, all visible),
+            each timed beside f32 SDPA (its kernel named by the profiler);
   lora      the train phase's T2V-1.3B step with rank-16 LoRA on the
             attention and FFN projections, the base frozen, AdamW on the
             adapters: 3 steps, launches per step asserted, step time, peak
@@ -342,6 +347,7 @@ from omnivideo_tpu_torch.utils.png import write_png
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 F32_FLOPS = 67e12  # f32 outside the tensor cores
+TF32_FLOPS = 495e12  # dense tensor-core tf32; an f32-accurate product takes 3 of them
 FLASH_ULPS = 4.0  # |o − o_plain| in bf16 ulps of its row's max|o_plain|: p is
 # rounded to bf16 before p·v at points that differ with the mode; an output
 # row is a mean over the keys it sees (|o| ~ sqrt(e/keys)), so the limit
@@ -3186,49 +3192,70 @@ def _sft_ring_backward(gen: torch.Generator) -> dict:
     return rec
 
 
-RING_F32_TOL = 1e-5  # of scale, the f32 step kernel vs ring_step_plain on f32 inputs: f32
-# products both sides, summed in other orders
+RING_F32_TOL = 1e-5  # of each output row's max |plain| and |LSE − LSE_plain|, the f32 step
+# kernel vs ring_step_plain on f32 inputs: f32-accurate products (three tf32 products,
+# tests/test_torch_ring_f32_split.py) summed in other orders
+RING_F32_CASES = (  # (case, q rows = keys, my, src, n): token-causal steps
+    ("sft_world1", SFT_SEQ, 0, 0, 1),  # the world-1 --sp SFT step: own shard
+    ("rank4_own", SFT_SEQ // 4, 1, 1, 4),  # a 4-card run's per-rank step, own shard
+    ("rank4_earlier", SFT_SEQ // 4, 2, 1, 4),  # an earlier shard: every key visible
+)
 
 
 def _ring_f32_case(gen: torch.Generator) -> dict:
-    """The f32 step kernel at the world-1 SFT step's shape (SFT_MESH_CFG's
-    attention over the 2 × SFT_SEQ batch, own shard, token-causal) against
-    ring_step_plain on the same f32 inputs: the finished output within
-    RING_F32_TOL of its scale, and the LSE; one step timed beside the plain
-    twin and f32 SDPA (causal) on the same q/k/v."""
-    B, L, N, D = 2, SFT_SEQ, SFT_MESH_CFG.num_attention_heads, SFT_MESH_CFG.head_dim
-    q, k, v = (torch.randn(B, L, N, D, generator=gen, device="cuda") for _ in range(3))
-    carry = ring_carry(B, L, N, D, "cuda")
-    n0 = ring_step.launches_f32
-    out, lse = ring_finish(*ring_step(q, k, v, *carry, causal="token"), torch.float32,
-                           return_lse=True)
-    torch.cuda.synchronize()
-    launched = ring_step.launches_f32 - n0
-    ref, lse_ref = ring_finish(*ring_step_plain(q, k, v, *ring_carry(B, L, N, D, "cuda"),
-                                                causal="token"), torch.float32, return_lse=True)
-    err = float((out - ref).abs().max())
-    rel = err / float(ref.abs().max())
-    lse_err = float((lse - lse_ref).abs().max())
-    rec = {"phase": "sp_train", "part": "ring_step_f32", "q": [B, L, N, D], "causal": "token",
-           "launched": launched, "max_abs_err": err, "max_rel_err_of_scale": rel,
-           "lse_max_abs_err": lse_err, "tolerance": RING_F32_TOL}
-    if launched != 1 or rel > RING_F32_TOL or lse_err > RING_F32_TOL * 10 or not torch.isfinite(
-            out).all():
-        raise AssertionError(f"sp_train ring_step_f32: {rec}")
-    rec["ms"] = cuda_ms(lambda: ring_step(q, k, v, *carry, causal="token"), 5)
-    rec["plain_ms"] = cuda_ms(lambda: ring_step_plain(q, k, v, *carry, causal="token"), 1, 0)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    rec["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 5)
-    pairs = B * L * (L + 1) // 2
-    nbytes = 3 * B * L * N * D * 4 + 2 * (2 * B * N * L * 4 + B * L * N * D * 4)
-    t_ops = 4 * N * D * pairs / F32_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rec.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
-    emit(rec)
-    del q, k, v, qt, kt, vt, carry, out, ref
+    """The f32 step kernel at the SFT's --sp shapes (SFT_MESH_CFG's attention
+    over the 2 × SFT_SEQ batch: RING_F32_CASES) against ring_step_plain on the
+    same f32 inputs, TF32 off: each output row within RING_F32_TOL of its
+    max, and the LSE; each case timed beside f32 SDPA on the same q/k/v
+    (causal on an own shard), whose kernel the profiler names (inside the
+    whole run, after the earlier phases, it has traced none there), and the plain
+    twin at the first. Bound: the larger of the bytes at the HBM rate and
+    three tf32 products of the visible pairs' FLOPs at the tf32 rate (the
+    FFMA figure beside it). The first case is the kernel line's."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("sp_train ring_step_f32: the plain twin must run in full f32")
+    B, N, D = 2, SFT_MESH_CFG.num_attention_heads, SFT_MESH_CFG.head_dim
+    cases = []
+    for name, L, my, src, n in RING_F32_CASES:
+        kw = dict(causal="token", my=my, src=src, n=n)
+        q, k, v = (torch.randn(B, L, N, D, generator=gen, device="cuda") for _ in range(3))
+        carry = ring_carry(B, L, N, D, "cuda")
+        n0 = ring_step.launches_f32
+        out, lse = ring_finish(*ring_step(q, k, v, *carry, **kw), torch.float32, return_lse=True)
+        torch.cuda.synchronize()
+        launched = ring_step.launches_f32 - n0
+        ref, lse_ref = ring_finish(*ring_step_plain(q, k, v, *ring_carry(B, L, N, D, "cuda"), **kw),
+                                   torch.float32, return_lse=True)
+        err = (out - ref).abs()
+        rel = float((err / ref.abs().amax(-1, keepdim=True).clamp_min(1e-30)).max())
+        lse_err = float((lse - lse_ref).abs().max())
+        rec = {"case": name, "q": [B, L, N, D], **kw, "launched": launched,
+               "max_abs_err": float(err.max()), "max_rel_err_of_row_max": rel,
+               "lse_max_abs_err": lse_err, "tolerance": RING_F32_TOL}
+        if launched != 1 or rel > RING_F32_TOL or lse_err > RING_F32_TOL or not torch.isfinite(
+                out).all():
+            raise AssertionError(f"sp_train ring_step_f32: {rec}")
+        rec["ms"] = cuda_ms(lambda: ring_step(q, k, v, *carry, **kw), 20)
+        if not cases:
+            rec["plain_ms"] = cuda_ms(lambda: ring_step_plain(q, k, v, *carry, **kw), 1, 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=my == src)
+        rec["library_ms"] = cuda_ms(sdpa, 10)
+        top = _profile(sdpa)["top_kernels_ms"]  # empty where the profiler traced no kernel
+        rec["library_kernel"] = top[0][0] if top else "not traced"
+        pairs = B * (L * (L + 1) // 2 if my == src else L * L)
+        nbytes = 3 * B * L * N * D * 4 + 2 * (2 * B * N * L * 4 + B * L * N * D * 4)
+        t_ops = 3 * 4 * N * D * pairs / TF32_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rec.update(bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_ffma_ms=4 * N * D * pairs / F32_FLOPS * 1e3)
+        emit({"phase": "sp_train", "part": "ring_step_f32", **rec})
+        cases.append(rec)
+        del q, k, v, qt, kt, vt, carry, out, ref
     torch.cuda.empty_cache()
-    return rec
+    return {**cases[0], "cases": cases}
 
 
 def _sft_mesh_setup(mode: str, world: int, device: str = "cuda"):
@@ -3459,6 +3486,25 @@ def _pipeline_train_step(fdir: Path) -> dict:
     return rec
 
 
+def _sft_sp_alone() -> int:
+    """`chip_smoke.py sft_sp`: the f32 ring step's cases, then the SFT step
+    under --sp on a NCCL group of world 1 beside the single-card step."""
+    phase_device()
+    _ring_f32_case(torch.Generator(device="cuda").manual_seed(0))
+    sft_ref = _sft_reference()
+    maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        rec = _sft_mode("sp", 1, sft_ref)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "sft_sp", "sft_config": "QWEN3_VL_30B_A3B.text, 2 layers, 16 experts",
+          "sft_seq_len": SFT_SEQ, "single_card": {"loss": sft_ref["loss"],
+                                                  "grad_norm": sft_ref["grad_norm"]}, **rec})
+    if not rec["ok"]:
+        raise AssertionError(f"sft_sp: {rec}")
+    return 0
+
+
 def _sp_train_alone() -> int:
     """`chip_smoke.py sp_train`: the train phase for its reference, then sp_train."""
     phase_device()
@@ -3523,6 +3569,8 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
+    if argv[:1] == ["sft_sp"]:
+        return _sft_sp_alone()
     if argv[:1] == ["sft"]:
         phase_device()
         phase_tiny_sft()
@@ -3549,7 +3597,7 @@ def main(argv) -> int:
         return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
-                         "'sp_train', 'sft', 'lora', 'adafactor' or 'qwen3_sp')")
+                         "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor' or 'qwen3_sp')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:

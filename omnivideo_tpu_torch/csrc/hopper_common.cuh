@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels:
-// TMA tensor maps and loads, mbarriers, register reallocation and wgmma,
-// the shared-memory address and bf16 packing.
+// TMA tensor maps and loads, mbarriers, register reallocation and wgmma (bf16,
+// and tf32 with its rounding), the shared-memory address and bf16 packing,
+// and the ring step's carry in device memory.
 //
 // Operand tiles live in shared memory in the layout a 128-byte-swizzled TMA
 // box writes: a panel of R rows x 64 bf16 (128 bytes a row, 16-byte chunk c
@@ -71,30 +72,39 @@ EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A map over one packed bf16 operand [B, L, N, D], box = `rows` rows x
-// `cols` columns of one head (128 bytes a row with the 128-byte swizzle, 32
-// with the 32-byte one), zero fill past L and past D. Returns false if the
-// CUDA driver refuses it (alignment, sizes: D·2 must be a multiple of 16).
+// A map over one packed operand [B, L, N, D] (bf16, or f32 where `dtype`
+// says so), box = `rows` rows x `cols` columns of one head (128 bytes a row
+// with the 128-byte swizzle, 32 with the 32-byte one), zero fill past L and
+// past D. Returns false if the CUDA driver refuses it (alignment, sizes: a
+// head row's bytes must be a multiple of 16).
 bool encode_packed_map(CUtensorMap* map, const void* base, int B, int L, int N, int D, int rows,
-                       int cols, CUtensorMapSwizzle swizzle) {
+                       int cols, CUtensorMapSwizzle swizzle,
+                       CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return false;
+  const cuuint64_t esize = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(N) * D * 2;
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row_bytes,
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(N) * D * esize;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * esize, row_bytes,
                                  row_bytes * static_cast<cuuint64_t>(L)};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, dtype, 4, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the 128-byte-swizzled map of a 128-wide head (the backward kernels')
 bool encode_packed_map(CUtensorMap* map, const void* base, int B, int L, int N, int rows) {
   return encode_packed_map(map, base, B, L, N, 128, rows, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the 128-byte-swizzled map of a 128-wide f32 head: a box is 32 columns
+// (128 bytes), so a head row spans four panels
+bool encode_packed_map_f32(CUtensorMap* map, const void* base, int B, int L, int N, int rows) {
+  return encode_packed_map(map, base, B, L, N, 128, rows, 32, CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // ---- device: TMA and mbarriers ----------------------------------------------
@@ -309,6 +319,54 @@ __device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[NA], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// ---- device: tf32 products ---------------------------------------------------
+//
+// wgmma on .tf32 operands reads A and B K-major only (the transpose bits are
+// for 16-bit types). A k8 step is 32 bytes, as a bf16 k16 step, so the
+// descriptors above carry over: a 128-byte-swizzled panel holds 32 f32 a row.
+// A register fragment (64 x 8) is four f32 per thread: rows g and g + 8 of
+// the warp's 16 (g = lane / 4), columns t and t + 4 (t = lane % 4), as
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+
+// x rounded to the nearest tf32 (10 fraction bits; ties away from zero), as an
+// f32 whose low 13 bits are 0, so the tensor cores read it exactly
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// d (64 x 32, f32) = (scale_d ? d : 0) + A·B; A and B K-major tf32 in shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32, f32) = (scale_d ? d : 0) + A·B; A (64 x 8 tf32) from registers,
+// B K-major tf32 in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // ---- device: operand tiles, proxy fence, named barriers ---------------------
 
 constexpr uint32_t kPanel = 64 * 128;   // 64 rows x 64 bf16, 8 KiB
@@ -339,6 +397,62 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[NACC
   a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// ---- device: the ring step's carry -------------------------------------------
+//
+// m, l [B, N, Lq] and acc [B, Lq, N, 128] f32 in device memory (acc packed like
+// q); in registers, a consumer thread's rows row_a and row_a + 8 in the 64 x 128
+// f32 accumulator layout (entry 4i + 2r + {0, 1}: row row_a + 8r, columns
+// 8i + 2(lane % 4) + {0, 1}), and l on one lane of each quad so that the quad's
+// shares sum to the row's l. A row past Lq reads m = −1e30 (no key seen), l = 0.
+
+__device__ __forceinline__ void ring_carry_load(float (&acc)[64], float (&m)[2], float (&l)[2],
+                                                const float* m_c, const float* l_c,
+                                                const float* acc_c, int Lq, int N, int b, int h,
+                                                int row_a, int lane) {
+  const size_t stat0 = (static_cast<size_t>(b) * N + h) * Lq;
+  const size_t ld = static_cast<size_t>(N) * 128;
+  const float* accg = acc_c + static_cast<size_t>(b) * Lq * ld + static_cast<size_t>(h) * 128 +
+                      (lane % 4) * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + r * 8;
+    const bool ok = row < Lq;
+    m[r] = ok ? m_c[stat0 + row] : -1e30f;
+    l[r] = ok && lane % 4 == 0 ? l_c[stat0 + row] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float2 a = ok ? *reinterpret_cast<const float2*>(accg + row * ld + i * 8)
+                          : make_float2(0.f, 0.f);
+      acc[4 * i + 2 * r] = a.x;
+      acc[4 * i + 2 * r + 1] = a.y;
+    }
+  }
+}
+
+// the carry out, in place, for the rows below Lq (l already summed over the quad)
+__device__ __forceinline__ void ring_carry_store(const float (&acc)[64], const float (&m)[2],
+                                                 const float (&l)[2], float* m_c, float* l_c,
+                                                 float* acc_c, int Lq, int N, int b, int h,
+                                                 int row_a, int lane) {
+  const size_t stat0 = (static_cast<size_t>(b) * N + h) * Lq;
+  const size_t ld = static_cast<size_t>(N) * 128;
+  float* accg = acc_c + static_cast<size_t>(b) * Lq * ld + static_cast<size_t>(h) * 128 +
+                (lane % 4) * 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + r * 8;
+    if (row >= Lq) continue;
+    if (lane % 4 == 0) {
+      m_c[stat0 + row] = m[r];
+      l_c[stat0 + row] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<float2*>(accg + row * ld + i * 8) =
+          make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+  }
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {

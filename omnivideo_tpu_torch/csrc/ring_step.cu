@@ -128,51 +128,16 @@ struct RingCarry {
     return {r.kind == kNone, r.kind == kDiag, r.qb, r.kb, r.shift};
   }
 
-  // carry in: rows row_a and row_a + 8; l goes to one lane of each quad so
-  // the quad's shares still sum to the row's l
+  // the carry in and out: hopper_common.cuh's layout (out only where this
+  // warpgroup saw a tile)
   __device__ void load(float (&acc)[64], float (&m)[2], float (&l)[2], int b, int h, int row_a,
                        int lane) const {
-    const size_t stat0 = (static_cast<size_t>(b) * N + h) * Lq;
-    const size_t ld = static_cast<size_t>(N) * D;
-    const float* accg = acc_c + static_cast<size_t>(b) * Lq * ld + static_cast<size_t>(h) * D +
-                        (lane % 4) * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_a + r * 8;
-      const bool ok = row < Lq;
-      m[r] = ok ? m_c[stat0 + row] : fwdh::kInitMax;
-      l[r] = ok && lane % 4 == 0 ? l_c[stat0 + row] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float2 a = ok ? *reinterpret_cast<const float2*>(accg + row * ld + i * 8)
-                            : make_float2(0.f, 0.f);
-        acc[4 * i + 2 * r] = a.x;
-        acc[4 * i + 2 * r + 1] = a.y;
-      }
-    }
+    ring_carry_load(acc, m, l, m_c, l_c, acc_c, Lq, N, b, h, row_a, lane);
   }
 
-  // carry out, in place, where this warpgroup saw a tile
   __device__ void store(const float (&acc)[64], const float (&m)[2], const float (&l)[2], int b,
                         int h, int row_a, int lane, bool seen, unsigned char*) const {
-    if (!seen) return;
-    const size_t stat0 = (static_cast<size_t>(b) * N + h) * Lq;
-    const size_t ld = static_cast<size_t>(N) * D;
-    float* accg = acc_c + static_cast<size_t>(b) * Lq * ld + static_cast<size_t>(h) * D +
-                  (lane % 4) * 2;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_a + r * 8;
-      if (row >= Lq) continue;
-      if (lane % 4 == 0) {
-        m_c[stat0 + row] = m[r];
-        l_c[stat0 + row] = l[r];
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        *reinterpret_cast<float2*>(accg + row * ld + i * 8) =
-            make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
-    }
+    if (seen) ring_carry_store(acc, m, l, m_c, l_c, acc_c, Lq, N, b, h, row_a, lane);
   }
 };
 

@@ -5,8 +5,9 @@ step (`_step_kernel`, kernel row 8) attends this rank's q shard to the K/V
 shard visiting on this step and merges the result into a carried online
 softmax state. `ring_step` launches a CUDA kernel for CUDA tensors and
 updates the carry in place: `csrc/ring_step.cu` (row 8, the tensor cores)
-for bf16 q/k/v, `csrc/ring_step_f32.cu` (f32 products on the CUDA cores, as
-the Pallas kernel takes them) for f32 q/k/v; for CPU tensors it returns the
+for bf16 q/k/v, `csrc/ring_step_f32.cu` (f32-accurate products, as the
+Pallas kernel takes them: three TF32 tensor-core products of a hi/lo split)
+for f32 q/k/v; for CPU tensors it returns the
 plain twin `ring_step_plain`'s new carry. Its launches are counted in
 `ring_step.launches` (bf16) and `ring_step.launches_f32`. On CUDA it raises
 under grad mode with an input that requires grad: only

@@ -1,7 +1,7 @@
 """Time the flash-attention kernels of one checkout at the main paths' shapes.
 
     PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
-        [--which fwd|bwd|fwd_lse|ring|all ...]
+        [--which fwd|bwd|fwd_lse|ring|ring_f32|all ...]
 
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
@@ -21,7 +21,12 @@ through `flash_fwd_lse_launch` at the same two shapes; `ring` times one ring
 step (row 8) through `ring_step_launch`, non-causal, on an empty carry that
 the launches keep updating: the sp phase's step, q [2, 32760, 12, 128]
 against 32,760 keys, and a 4-card run's per-rank step, 8,190 q rows against
-8,190 keys. Each case prints one JSON line with the device time per launch
+8,190 keys. `ring_f32` times the f32 ring step through `ring_step_f32_launch`
+at the Qwen3 SFT's `--sp` shapes (32 heads, f32 q/k/v, token-causal): the
+world-1 step's own shard [2, 2048, 32, 128], and a 4-card run's per-rank
+[2, 512, 32, 128] own shard and an earlier shard (every key visible); its
+bound is three tf32 products of the visible pairs' FLOPs at 495 TFLOP/s.
+Each case prints one JSON line with the device time per launch
 (CUDA events) of `rounds` rounds of `reps` launches each, after one untimed
 round, and the bound: the case's matmul FLOPs over the H100's 989 TFLOP/s.
 `--cases` picks `fwd` cases by name. A `fwd` round holds at
@@ -55,8 +60,14 @@ FWD_CASES = (  # (case, B, Lq, Lk, N, D, causal)
 BWD_CASES = (("bwd_self", SEQ), ("bwd_cross", 6272))
 LSE_CASES = (("fwd_lse_self", SEQ), ("fwd_lse_cross", 6272))
 RING_CASES = (("ring_sp1", SEQ), ("ring_sp4", SEQ // 4))  # (case, q rows = keys per step)
+RING_F32_CASES = (  # (case, q rows = keys, my, src, n), token-causal, 32 heads
+    ("ring_f32_sft_world1", 2048, 0, 0, 1),
+    ("ring_f32_rank4_own", 512, 1, 1, 4),
+    ("ring_f32_rank4_earlier", 512, 2, 1, 4),
+)
 N, D = 12, 128
 BF16_FLOPS = 989e12  # the H100 SXM's dense bf16 tensor-core rate
+TF32_FLOPS = 495e12  # dense tf32; the f32 ring step takes three tf32 products per product
 ROUND_FLOP = 2e13  # least work per `fwd` round: ~20 ms at the bf16 rate
 
 
@@ -176,11 +187,34 @@ def _ring(args, smi, gen) -> None:
         del q, k, v, m, l, acc
 
 
+def _ring_f32(args, smi, gen) -> None:
+    B, n_heads = 2, 32
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    qscale = flash_mod._qscale(D**-0.5)
+    for name, L, my, src, n in RING_F32_CASES:
+        q, k, v = (torch.randn(B, L, n_heads, D, generator=gen, device="cuda") for _ in range(3))
+        m = torch.full((B, n_heads, L), -1e30, dtype=torch.float32, device="cuda")
+        l = torch.zeros(B, n_heads, L, dtype=torch.float32, device="cuda")
+        acc = torch.zeros(B, L, n_heads, D, dtype=torch.float32, device="cuda")
+        ptrs = tuple(t.data_ptr() for t in (q, k, v, m, l, acc)) + (None,)
+        ms = _time(lambda: _kernels.check(lib.ring_step_f32_launch(
+            *ptrs, B, L, L, n_heads, D, 2, my, src, n, 0, qscale, stream), "ring_step_f32"),
+            args.reps, args.rounds)
+        flop = 4 * B * n_heads * D * (L * (L + 1) // 2 if my == src else L * L)
+        print(json.dumps({"case": name, "q": [B, L, n_heads, D], "Lk": L, "my": my, "src": src,
+                          "ring_step_f32_ms": ms, "bound_ms": 3 * flop / TF32_FLOPS * 1e3,
+                          "gflop": flop / 1e9, "package": flash_mod.__file__,
+                          "nvidia_smi": smi}), flush=True)
+        del q, k, v, m, l, acc
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--which", nargs="+", choices=("fwd", "bwd", "fwd_lse", "ring", "all"),
+    ap.add_argument("--which", nargs="+",
+                    choices=("fwd", "bwd", "fwd_lse", "ring", "ring_f32", "all"),
                     default=["fwd"])
     ap.add_argument("--cases", nargs="+", choices=[c[0] for c in FWD_CASES],
                     help="only these `fwd` cases (default: all)")
@@ -196,6 +230,8 @@ def main() -> None:
         _fwd_lse(args, smi, gen)
     if {"ring", "all"} & set(args.which):
         _ring(args, smi, gen)
+    if {"ring_f32", "all"} & set(args.which):
+        _ring_f32(args, smi, gen)
 
 
 if __name__ == "__main__":

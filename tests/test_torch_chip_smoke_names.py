@@ -6,7 +6,8 @@ registers, spills, ptxas's wgmma-serialisation warnings) and from the
 profiler (demangled names: device time by class). The Hopper forward
 mainloop `attn_fwd_kernel` serves five rows, told apart only by its epilogue
 policy's type, so a new policy that the names miss would be filed under
-another row; the f32 ring step is a kernel of its own. The names here are
+another row; the f32 ring step (TF32 tensor cores, its own Maps and Step) is
+a kernel of its own. The names here are
 ptxas's and the profiler's own spelling of this repository's kernels, on
 synthetic log lines; nothing needs a card.
 The script's stand-in tokenizer and safetensors writer, which stand in for
@@ -39,8 +40,8 @@ MANGLED = {  # row → the entry function as ptxas names it
                "EPK13__nv_bfloat16S2_PKfS4_PS0_Pfiiiiif",
     "fused_adaln": "_ZN40_GLOBAL__N__4f4767a5_8_adaln_cu_0e84efa312adaln_kernel"
                    "EPKfPKvS1_S1_S1_S1_S1_PfPviiiif",
-    "ring_step_f32": "_ZN47_GLOBAL__N__5b2f0c1e_16_ring_step_f32_cu_7a1e20d220ring_step_f32_kernel"
-                     "EPKfS1_S1_PfS2_S2_PKiiiiiiiiif",
+    "ring_step_f32": "_ZN49_GLOBAL__N__ba5cd9de_16_ring_step_f32_cu_7d4311e220ring_step_f32_kernel"
+                     "ENS_4MapsENS_4StepE",
 }
 _NS = "(anonymous namespace)::"
 DEMANGLED = {  # row → the kernel as the profiler names it
@@ -65,9 +66,7 @@ DEMANGLED = {  # row → the kernel as the profiler names it
     "fused_adaln": f"{_NS}adaln_kernel(float const*, __nv_bfloat16 const*, void const*, "
                    "void const*, void const*, void const*, float*, void*, int, int, int, int, "
                    "int, float)",
-    "ring_step_f32": f"{_NS}ring_step_f32_kernel(float const*, float const*, float const*, "
-                     "float*, float*, float*, int const*, int, int, int, int, int, int, int, "
-                     "int, float)",
+    "ring_step_f32": f"{_NS}ring_step_f32_kernel({_NS}Maps, {_NS}Step)",
 }
 
 
