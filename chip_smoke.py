@@ -14,6 +14,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py sft        # tiny_sft, then sft
     python3 chip_smoke.py sft_sp     # the f32 ring step's cases, then the SFT step
                                      # under --sp at world 1 beside its single-card step
+    python3 chip_smoke.py i2v        # flash, then tiny_i2v, i2v, vae22 and xlm
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -22,11 +23,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             ptxas serialised a kernel's wgmma: a C75xx warning);
   qk_prep   the qk_prep CUDA kernel against qk_prep_plain on the card at the
             T2V-1.3B shapes (RoPE self-attention q/k, norm-only context k, a
-            sequence longer than the RoPE table);
+            sequence longer than the RoPE table) and at the 14B models'
+            RoPE self-attention q/k ([2, 32760, 5120], 40 heads: the a14b
+            and i2v paths);
   flash     the flash CUDA kernel against the q-chunked flash_attention_plain
             at the DiT's shapes (bounded self- and cross-attention, self at
             T2V-A14B's 40 heads, a forced max-tracked case, a ragged kv_lens
-            case with one fully masked batch row), the Qwen3 prefill's
+            case with one fully masked batch row, I2V-14B's split
+            cross-attention: [2, 32760, 40, 128] q over the 257 CLIP keys and
+            over the 512 text keys, bounded), the Qwen3 prefill's
             (causal, head dim 128, with and without kv_lens) and the vision
             tower's (head dim 72: bounded, forced max-tracked, kv_lens, and
             kv_lens with NaN in the K/V rows past it), each output row held
@@ -124,6 +129,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             launches per forward asserted, one profiled forward, then the
             experts are freed (under 2 GB left allocated) and the VAE
             decodes to uint8; peak memory below 80 GB;
+  tiny_i2v  WanI2V.generate of a tiny i2v model (2 layers, dim 256, head
+            dim 128; CLIP of width 1280 and 2 layers, 257 tokens; a 2.1 VAE of
+            width 8) on the card against the same weights, 48x80 first frame
+            (both resizes run), contexts and noise on the CPU: latents within
+            I2V_TOL, the two decoders on the CPU's latents within
+            ENCODE_TOL, each device's own frames within ENCODE_TOL plus
+            the CPU decoder's gap between the two sets of latents (its
+            witness of how far the decoder carries the latents' gap),
+            launches per forward asserted (qk_prep 2,
+            flash_fwd 3 a block, fused_adaln 3 a block + 1);
+  i2v       I2V-14B at full width and depth from seeded bf16 weights (~16.4B
+            parameters), the full ViT-H/14 CLIP (bf16) and Wan2.1 VAE: a
+            seeded 1280x720 first frame, 832x480x81, seeded 512x4096
+            contexts, 2 UniPC steps at shift 5, CFG 5.0, f32 residual,
+            qk_impl and ew_impl "kernel"; launches per forward asserted (80
+            qk_prep, 120 flash_fwd, 121 fused_adaln), one profiled forward,
+            the DiT and CLIP freed, the decode to uint8 [81, 480, 832, 3];
+            stage seconds and peak memory (below 80 GB);
+  vae22     the Wan2.2 VAE: a tiny one on the card against the CPU (encode
+            and decode within VAE22_TOL), then VAE22Config() from a seeded
+            reference-layout state dict (vae22_state_dict_to_params):
+            a seeded 832x480x81 clip encoded to [48, 21, 30, 52] and decoded
+            back; shapes, finite values, seconds and peaks;
+  xlm       XLM-Roberta large with the CLIP head at full width, f32, on the
+            card against the same weights on the CPU: [2, 512] seeded ids
+            with pad tails, hidden states and pooled output within XLM_TOL;
   flash_train  the training forward (o and LSE) and the dq and dk/dv
             backward kernels against their plain twins on the same bf16
             inputs at the training path's shapes (self-attention [1, 32760,
@@ -225,6 +256,7 @@ import torch.multiprocessing as mp
 from torch.distributed.tensor import DTensor
 
 from omnivideo_tpu_torch.configs.base import (
+    I2V_14B,
     T2V_1_3B,
     T2V_A14B,
     PipelineConfig,
@@ -240,6 +272,7 @@ from omnivideo_tpu_torch.configs.qwen3vl import (
     Qwen3VLConfig,
     Qwen3VLVisionConfig,
 )
+from omnivideo_tpu_torch.io.jax_bridge import to_torch
 from omnivideo_tpu_torch.models.qwen3vl import full_model as vlm_full
 from omnivideo_tpu_torch.models.qwen3vl import text_model as vlm_text
 from omnivideo_tpu_torch.models.qwen3vl.engine import (
@@ -255,9 +288,22 @@ from omnivideo_tpu_torch.models.qwen3vl.full_model import (
 )
 from omnivideo_tpu_torch.models.qwen3vl.media import smart_resize
 from omnivideo_tpu_torch.models.qwen3vl.preprocess import frames_to_patches, video_prompt_ids
+from omnivideo_tpu_torch.models.clip_vision import CLIPVisionConfig, init_clip_vision
 from omnivideo_tpu_torch.models.t5 import T5EncoderModel, init_t5
-from omnivideo_tpu_torch.models.wan_dit import SPConfig
+from omnivideo_tpu_torch.models.wan_dit import SPConfig, WanDiT
 from omnivideo_tpu_torch.models.vae2_1 import Wan21VAE, init_vae
+from omnivideo_tpu_torch.models.vae2_2 import (
+    VAE22Config,
+    Wan22VAE,
+    vae22_reference_shapes,
+    vae22_state_dict_to_params,
+)
+from omnivideo_tpu_torch.models.xlm_roberta import (
+    PAD_ID,
+    init_xlm_roberta,
+    xlm_roberta_apply,
+    xlm_roberta_with_head_apply,
+)
 from omnivideo_tpu_torch.ops import _kernels
 from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 from omnivideo_tpu_torch.ops.flash_attention import (
@@ -288,6 +334,7 @@ from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from omnivideo_tpu_torch.parallel.mesh import create_mesh
 from omnivideo_tpu_torch.parallel.sharding import shard_params
+from omnivideo_tpu_torch.pipelines.i2v import WanI2V
 from omnivideo_tpu_torch.pipelines.loading import load_expert
 from omnivideo_tpu_torch.pipelines.x2x import ExpertParams, OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
@@ -508,14 +555,17 @@ def phase_device() -> dict:
 
 
 def phase_qk_prep(gen: torch.Generator) -> dict:
+    """qk_prep against its plain twin: the 1.3B self-attention q/k (the
+    kernels line's case), its context, a sequence past the RoPE table, and
+    the 14B self-attention q/k that the a14b and i2v paths give it."""
     dev = "cuda"
-    d, N = 1536, 12
-    hd = d // N
+    hd = 128
     cos, sin = (torch.tensor(t, device=dev) for t in rope_3d_tables(GRID, hd))
-    cases = [("self_rope", 2, SEQ, True), ("context_norm_only", 2, 6272, False),
-             ("past_table", 2, SEQ + 1000, True)]
+    cases = [("self_rope", 2, SEQ, 1536, True), ("context_norm_only", 2, 6272, 1536, False),
+             ("past_table", 2, SEQ + 1000, 1536, True), ("self_rope_14b", 2, SEQ, 5120, True)]
     main = None
-    for name, B, L, rope in cases:
+    for name, B, L, d, rope in cases:
+        N = d // hd
         x = (torch.randn(B, L, d, generator=gen, device=dev) * 3.0).to(torch.bfloat16)
         g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
         c, s = (cos, sin) if rope else (None, None)
@@ -535,7 +585,7 @@ def phase_qk_prep(gen: torch.Generator) -> dict:
                   + (2 * min(L, SEQ) * hd // 2 * 4 if rope else 0))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 9 * B * L * d / F32_FLOPS * 1e3
-        rec = {"phase": "qk_prep", "case": name, "shape": [B, L, d], "rope": rope,
+        rec = {"phase": "qk_prep", "case": name, "shape": [B, L, d], "heads": N, "rope": rope,
                "max_abs_err": float(diff.max()), "max_pair_ulps": ulps,
                "mismatch_fraction": mismatch,
                "max_rel_err_rn": rn_rel, "ms": ms, "plain_ms": plain_ms,
@@ -671,6 +721,9 @@ def phase_flash(gen: torch.Generator) -> dict:
     run("max_tracked_forced", 2, 8192, 8192, 12, 128, 4.0, None, True, False)
     run("kv_lens_ragged", 2, 4096, 8190, 12, 128, 1.0, [5001, 0], True, False)
     run("self_bounded_n40", 2, SEQ, SEQ, 40, 128, 1.0, None, True, False)  # T2V-A14B's heads
+    # I2V-14B's split cross-attention: the 257 CLIP tokens (a 1-key tail tile) and 512 text
+    run("i2v_cross_image", 2, SEQ, 257, 40, 128, 1.0, None, True, False)
+    run("i2v_cross_text", 2, SEQ, 512, 40, 128, 1.0, None, True, False)
     # the Qwen3 text prefill (causal, max-tracked, K/V repeated to 32 heads)
     L = vlm_prompt_len()
     run("causal_prefill", 1, L, L, 32, 128, 1.0, None, False, True)
@@ -1307,9 +1360,12 @@ def _companion_state_dicts(comp: dict) -> dict:
 
 
 def _flat(tree, prefix: str = "") -> dict:
+    """Nested dicts and lists of tensors → {dotted path: tensor}."""
     out = {}
-    for k, v in tree.items():
-        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {prefix + k: v})
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, (dict, list))
+                   else {f"{prefix}{k}": v})
     return out
 
 
@@ -1898,6 +1954,298 @@ def phase_a14b(ar_vision: torch.Tensor) -> dict:
                              f"{per_forward}, frames {shape}")
     del pipe, vae, latents, frames
     gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+I2V_STEPS = 2  # of 40: t = 999 and the step after it at shift 5
+I2V_TOL = 5e-2  # tiny i2v, card vs CPU, latents of scale (bf16 q/k/v in the card's flash
+# kernels where the CPU's plain twins compute in f32, as the tiny generate's limit)
+VAE22_TOL = 1e-3  # tiny VAE 2.2, card vs CPU, of scale: f32 convolutions (TF32 off) summed in
+# other orders by cuDNN and oneDNN, as ENCODE_TOL
+XLM_TOL = 1e-4  # XLM-R large, card vs CPU, of scale: f32 GEMMs (TF32 off) in other orders
+XLM_IDS = (2, 512)  # a CLIP text batch at the 512 tokens the reference pads to
+I2V_SOURCE = (720, 1280, 3)  # the first frame: a 1280x720 still, so both resizes run
+
+
+def _tiny_i2v_config() -> PipelineConfig:
+    """An i2v model at head dim 128 (the kernels' head dim) with a 2.1 VAE
+    of width 8."""
+    return PipelineConfig(
+        name="tiny-i2v",
+        dit=WanDiTConfig(model_type="i2v", patch_size=(1, 2, 2), text_len=16, in_dim=12, dim=256,
+                         ffn_dim=512, freq_dim=32, text_dim=48, out_dim=4, num_heads=2,
+                         num_layers=2),
+        vae=VAEConfig(dim=8, z_dim=4), max_context_len=16)
+
+
+TINY_CLIP = CLIPVisionConfig(image_size=32, patch_size=2, dim=1280, mlp_ratio=1.0, num_heads=16,
+                             num_layers=2)  # img_emb's width, 257 tokens
+
+
+class _PerForward:
+    """Each kernel's launches per forward of one DiT (hooks)."""
+
+    def __init__(self, dit):
+        self.per_forward = []
+        dit.register_forward_pre_hook(lambda *a: setattr(self, "start", _launches()))
+        dit.register_forward_hook(lambda *a: self.per_forward.append(
+            {k: v - self.start[k] for k, v in _launches().items() if v != self.start[k]}))
+
+
+def _i2v_expect(cfg: PipelineConfig) -> dict:
+    """Launches per i2v forward: per block the self-attention's fused
+    prologue (qk_prep on q and k) and three flash launches (self, text, image),
+    the three AdaLN sandwiches; and the head's."""
+    n = cfg.dit.num_layers
+    return {"qk_prep": 2 * n, "flash_fwd": 3 * n, "fused_adaln": 3 * n + 1}
+
+
+def phase_tiny_i2v() -> dict:
+    """WanI2V.generate at tiny width on the card (kernels) vs the CPU (plain
+    twins) from the same weights, first frame, contexts and noise: latents
+    and the decoded video, and the launches per forward."""
+    cfg = _tiny_i2v_config()
+    gen = torch.Generator().manual_seed(41)
+    pipes = {}
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator(device=dev).manual_seed(6)
+        wan = WanDiT(cfg.dit, dtype=cfg.torch_param_dtype, device=dev, generator=g)
+        clip = init_clip_vision(TINY_CLIP, device=dev, generator=g)
+        vae = Wan21VAE.create(init_vae(cfg.vae, device=dev, generator=g), cfg.vae)
+        pipes[dev] = WanI2V(cfg, wan, vae, clip, TINY_CLIP, ew_impl="kernel")
+    with torch.no_grad():  # init zero-fills the head: make velocities non-zero
+        pipes["cpu"].wan.head.head.weight.normal_(0.0, 0.1, generator=gen)
+    pipes["cuda"].wan.load_state_dict(pipes["cpu"].wan.state_dict())
+    pipes["cuda"].clip.load_state_dict(pipes["cpu"].clip.state_dict())
+    _copy_tree(pipes["cpu"].vae.params, pipes["cuda"].vae.params)
+    img = torch.randint(0, 256, (48, 80, 3), generator=gen, dtype=torch.uint8)
+    ctx = torch.randn(12, cfg.dit.text_dim, generator=gen)
+    noise = torch.randn(1, 4, 3, 8, 8, generator=gen)
+    kw = dict(precomputed_context=ctx, precomputed_context_null=torch.zeros_like(ctx),
+              size=(64, 64), frame_num=9, sampling_steps=3, guide_scale=5.0, shift=5.0,
+              noise=noise)
+    counts = _PerForward(pipes["cuda"].wan)
+    lat_c = pipes["cpu"].generate(img, decode=False, **kw)
+    _reset_launches()
+    lat_g = pipes["cuda"].generate(img, decode=False, **kw).cpu()
+    launches = _launches()
+    per_forward = list(counts.per_forward)
+    # the two decoders on the same latents (the CPU's); then the CPU decoder
+    # on both sets of latents, the witness of how far it carries their gap,
+    # which sets the limit for each device's own video
+    vid_c, vid_g = pipes["cpu"].decode(lat_c), pipes["cuda"].decode(lat_c).cpu()
+    witness = float((pipes["cpu"].decode(lat_g) - vid_c).abs().max())
+    own = float((pipes["cuda"].decode(lat_g).cpu() - vid_c).abs().max())
+    frames = pipes["cuda"].decode(lat_g, output_uint8=True)
+    expect = _i2v_expect(cfg)
+    rec = {"phase": "tiny_i2v", "latent_rel_err": float((lat_g - lat_c).abs().max()
+                                                        / lat_c.abs().max()),
+           "latent_max_abs_err": float((lat_g - lat_c).abs().max()),
+           "tolerance_rel": I2V_TOL, "decode_max_abs_err": float((vid_g - vid_c).abs().max()),
+           "decode_tolerance": ENCODE_TOL, "cpu_decode_latent_gap": witness,
+           "own_video_max_abs_err": own, "own_video_tolerance": witness + ENCODE_TOL,
+           "first_frame": list(img.shape),
+           "clip_tokens": TINY_CLIP.num_tokens, "frames_shape": list(frames.shape),
+           "launches": launches, "per_forward": per_forward, "expected_per_forward": expect}
+    emit(rec)
+    if (not torch.isfinite(lat_g).all() or rec["latent_rel_err"] > I2V_TOL
+            or rec["decode_max_abs_err"] > ENCODE_TOL or own > witness + ENCODE_TOL
+            or per_forward != [expect] * 3 or tuple(frames.shape) != (9, 64, 64, 3)):
+        raise AssertionError(f"tiny_i2v: {rec}")
+    return rec
+
+
+def phase_i2v() -> dict:
+    """I2V-14B at full width and depth from seeded bf16 weights, with the
+    full ViT-H/14 CLIP and Wan2.1 VAE: a seeded 1280x720 first frame,
+    832x480x81, seeded 512x4096 contexts, I2V_STEPS UniPC steps at shift 5,
+    CFG 5.0, f32 residual, both fused kernels; launches per forward
+    asserted, one profiled forward, the DiT freed, the decode to uint8."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = I2V_14B
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    t0 = time.perf_counter()
+    wan = WanDiT(cfg.dit, dtype=torch.bfloat16, device="cuda", generator=gen)
+    with torch.no_grad():  # init zero-fills the head: make velocities non-zero
+        wan.head.head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
+    clip_cfg = CLIPVisionConfig()
+    clip = init_clip_vision(clip_cfg, dtype=torch.bfloat16, device="cuda", generator=gen)
+    vae = Wan21VAE.create(init_vae(cfg.vae, device="cuda", generator=gen), cfg.vae)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in wan.parameters())
+    wan_gb = sum(p.numel() * p.element_size() for p in wan.parameters()) / 1e9
+    clip_params = sum(p.numel() for p in clip.parameters())
+    pipe = WanI2V(cfg, wan, vae, clip, clip_cfg, qk_impl="kernel", ew_impl="kernel")
+    del wan, clip  # the pipeline holds them until free_model()
+    img = torch.randint(0, 256, I2V_SOURCE, generator=gen, device="cuda", dtype=torch.uint8)
+    ctx = torch.randn(CTX_LEN, cfg.dit.text_dim, generator=gen, device="cuda")
+    ctx_null = torch.randn(CTX_LEN, cfg.dit.text_dim, generator=gen, device="cuda")
+    counts = _PerForward(pipe.wan)
+    _reset_launches()
+    latents = pipe.generate(img, precomputed_context=ctx, precomputed_context_null=ctx_null,
+                            size=SIZE, frame_num=FRAMES, shift=5.0, sampling_steps=I2V_STEPS,
+                            guide_scale=5.0, decode=False, generator=gen)
+    launches = _launches()
+    per_forward = list(counts.per_forward)
+    timings = dict(pipe.timings)
+    expect = _i2v_expect(cfg)
+    dit = pipe.wan
+    with torch.inference_mode():
+        x2 = torch.cat([latents, latents]).bfloat16()
+        y2 = torch.randn(2, 4 + cfg.vae.z_dim, *latents.shape[2:], generator=gen,
+                         device="cuda").bfloat16()
+        clip2 = torch.randn(2, clip_cfg.num_tokens, clip_cfg.dim, generator=gen,
+                            device="cuda").bfloat16()
+        ctx2 = dit.embed_context(torch.randn(2, CTX_LEN, cfg.dit.text_dim, generator=gen,
+                                             device="cuda").bfloat16())
+        t = torch.full((2,), 999.0, device="cuda")
+        profile = _profile(lambda: dit(x2, t, ctx2, context_embedded=True, ew_impl="kernel",
+                                       y=y2, clip_fea=clip2))
+    del x2, y2, clip2, ctx2, dit
+    counts = None
+    denoise_peak = torch.cuda.max_memory_allocated() / 1e9
+    pipe.free_model()
+    after_free_gb = torch.cuda.memory_allocated() / 1e9
+    frames = pipe.decode(latents, output_uint8=True)
+    shape = tuple(frames.shape)
+    rec = {"phase": "i2v", "config": "I2V_14B", "layers": cfg.dit.num_layers, "dim": cfg.dit.dim,
+           "heads": cfg.dit.num_heads, "ffn_dim": cfg.dit.ffn_dim, "in_dim": cfg.dit.in_dim,
+           "params": n_params, "weights_gb": wan_gb, "clip_params": clip_params,
+           "init_s": init_s, "first_frame": list(I2V_SOURCE), "seq_len": SEQ,
+           "context_len": clip_cfg.num_tokens + CTX_LEN, "size": list(SIZE), "frames": FRAMES,
+           "steps": I2V_STEPS, "shift": 5.0, "guide_scale": 5.0, "residual_dtype": "float32",
+           "latents": list(latents.shape), **timings, "decode_s": pipe.timings["decode_s"],
+           "launches": launches,
+           "per_forward": per_forward, "expected_per_forward": expect,
+           "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
+           "denoise_peak_gb": denoise_peak, "allocated_after_free_gb": after_free_gb,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile_one_forward": profile}
+    emit(rec)
+    want = {"qk_prep": expect["qk_prep"] * I2V_STEPS, "flash_fwd": expect["flash_fwd"] * I2V_STEPS,
+            "flash_causal": 0, "flash_d72": 0,
+            "fused_adaln": expect["fused_adaln"] * I2V_STEPS, "ring_step": 0}
+    if (launches != want or per_forward != [expect] * I2V_STEPS
+            or shape != (FRAMES, SIZE[1], SIZE[0], 3) or rec["max_memory_allocated_gb"] >= 80.0
+            or after_free_gb > 2.0
+            or tuple(latents.shape) != (1, cfg.vae.z_dim, GRID[0], SIZE[1] // 8, SIZE[0] // 8)):
+        raise AssertionError(f"i2v: launches {launches} (expected {want}), per forward "
+                             f"{per_forward}, frames {shape}, latents {tuple(latents.shape)}")
+    del pipe, vae, latents, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _vae22_sd(cfg: VAE22Config, device, gen) -> dict:
+    """A seeded reference-layout Wan2.2 VAE state dict: conv weights
+    N(0, 1/fan_in), biases zero, norm gains one."""
+    sd = {}
+    for name, shape in vae22_reference_shapes(cfg).items():
+        if name.endswith(".gamma"):
+            sd[name] = torch.ones(shape, device=device)
+        elif name.endswith(".bias"):
+            sd[name] = torch.zeros(shape, device=device)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            sd[name] = torch.randn(shape, generator=gen, device=device) * fan_in**-0.5
+    return sd
+
+
+def phase_vae22() -> dict:
+    """The Wan2.2 VAE: at tiny width, encode and decode on the card against
+    the CPU from one seeded state dict; at full width (VAE22Config()), a
+    seeded state dict through vae22_state_dict_to_params, a seeded 832x480
+    clip encoded and decoded back: shapes, finite values, seconds, peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiny = VAE22Config(dim=8, dec_dim=12, z_dim=6)
+    sd = _vae22_sd(tiny, "cpu", torch.Generator().manual_seed(22))
+    x = torch.rand(1, 3, 9, 64, 64, generator=torch.Generator().manual_seed(23)) * 2 - 1
+    cpu = Wan22VAE.create(vae22_state_dict_to_params(sd, tiny, device="cpu"), tiny)
+    gpu = Wan22VAE.create(vae22_state_dict_to_params(sd, tiny, device="cuda"), tiny)
+    z_c, z_g = cpu.encode(x), gpu.encode(x.cuda()).cpu()
+    r_c, r_g = cpu.decode(z_c), gpu.decode(z_c.cuda()).cpu()
+    tiny_rec = {"encode_rel_err": float((z_g - z_c).abs().max() / z_c.abs().max()),
+                "decode_rel_err": float((r_g - r_c).abs().max() / r_c.abs().max()),
+                "latents": list(z_g.shape), "tolerance_rel": VAE22_TOL}
+
+    cfg = VAE22Config()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    vae = Wan22VAE.create(vae22_state_dict_to_params(_vae22_sd(cfg, "cuda", gen), cfg), cfg)
+    n_params = sum(t.numel() for t in _flat(vae.params).values())
+    clip = torch.rand(1, 3, FRAMES, SIZE[1], SIZE[0], generator=gen, device="cuda") * 2 - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = vae.encode(clip)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    enc_peak = torch.cuda.max_memory_allocated() / 1e9
+    del clip
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    video = vae.decode(z)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    lat = (cfg.z_dim, (FRAMES - 1) // 4 + 1, SIZE[1] // 16, SIZE[0] // 16)
+    rec = {"phase": "vae22", "tiny": tiny_rec, "config": "VAE22Config()", "params": n_params,
+           "frames": FRAMES, "size": list(SIZE), "latents": list(z.shape[1:]),
+           "video": list(video.shape[1:]), "finite": bool(torch.isfinite(z).all()
+                                                          and torch.isfinite(video).all()),
+           "encode_s": encode_s, "decode_s": decode_s, "encode_peak_gb": enc_peak,
+           "decode_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    if (tiny_rec["encode_rel_err"] > VAE22_TOL or tiny_rec["decode_rel_err"] > VAE22_TOL
+            or tuple(z.shape[1:]) != lat or not rec["finite"]
+            or tuple(video.shape[1:]) != (3, FRAMES, SIZE[1], SIZE[0])):
+        raise AssertionError(f"vae22: {rec}")
+    del vae, z, video
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_xlm() -> dict:
+    """XLM-Roberta large with the CLIP head (out_dim 1024) at full width, f32,
+    on the card against the same weights on the host CPU: XLM_IDS
+    seeded ids with pad tails; hidden states and the pooled output."""
+    params_c = init_xlm_roberta(out_dim=1024, device="cpu",
+                                generator=torch.Generator().manual_seed(25))
+    params_g = to_torch(params_c, "cuda")
+    rng = np.random.default_rng(26)
+    ids = torch.from_numpy(rng.integers(3, 250002, XLM_IDS))
+    ids[:, 0] = 0
+    for b, n in enumerate((400, 137)):  # each row's tokens, then pads
+        ids[b, n - 1] = 2
+        ids[b, n:] = PAD_ID
+    t0 = time.perf_counter()
+    h_c = xlm_roberta_apply(params_c, ids)
+    p_c = xlm_roberta_with_head_apply(params_c, ids)
+    cpu_s = time.perf_counter() - t0
+    h_g = xlm_roberta_apply(params_g, ids).cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_g = xlm_roberta_with_head_apply(params_g, ids)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    p_g = p_g.cpu()
+    live = ids != PAD_ID
+    rec = {"phase": "xlm", "config": "XLM-R large (vocab 250002, 514 positions, dim 1024, 16 "
+           "heads, 24 layers) + head 1024", "params": sum(t.numel() for t in _flat(params_c).values()),
+           "ids": list(ids.shape), "tokens": live.sum(1).tolist(),
+           "hidden_rel_err": float((h_g - h_c)[live].abs().max() / h_c[live].abs().max()),
+           "pooled_rel_err": float((p_g - p_c).abs().max() / p_c.abs().max()),
+           "tolerance_rel": XLM_TOL, "with_head_s": card_s, "cpu_s": cpu_s}
+    emit(rec)
+    if rec["hidden_rel_err"] > XLM_TOL or rec["pooled_rel_err"] > XLM_TOL:
+        raise AssertionError(f"xlm: {rec}")
+    del params_g
     torch.cuda.empty_cache()
     return rec
 
@@ -3505,6 +3853,18 @@ def _sft_sp_alone() -> int:
     return 0
 
 
+def _i2v_alone() -> int:
+    """`chip_smoke.py i2v`: the flash phase (with its i2v cross-attention
+    cases), then tiny_i2v, i2v, vae22 and xlm."""
+    phase_device()
+    phase_flash(torch.Generator(device="cuda").manual_seed(0))
+    phase_tiny_i2v()
+    phase_i2v()
+    phase_vae22()
+    phase_xlm()
+    return 0
+
+
 def _sp_train_alone() -> int:
     """`chip_smoke.py sp_train`: the train phase for its reference, then sp_train."""
     phase_device()
@@ -3567,6 +3927,8 @@ def main(argv) -> int:
         phase_sp(pipe, ctx, torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size,
                                         generator=gen, device="cuda"))
         return 0
+    if argv[:1] == ["i2v"]:
+        return _i2v_alone()
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
     if argv[:1] == ["sft_sp"]:
@@ -3597,7 +3959,8 @@ def main(argv) -> int:
         return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
-                         "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor' or 'qwen3_sp')")
+                         "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor', 'qwen3_sp' or "
+                         "'i2v')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -3632,6 +3995,10 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     phase_tiny_a14b()
     a14b = phase_a14b(features)
     del features
+    tiny_i2v = phase_tiny_i2v()
+    i2v = phase_i2v()
+    phase_vae22()
+    phase_xlm()
     train = phase_train()
     sp_train = phase_sp_train(train.pop("ref"), gen)
     lora = phase_lora(train, tmp)
@@ -3644,8 +4011,11 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     train_rows = {k: sum(p[k] for p in train["launches_per_step"])
                   for k in flash_attention_train.launches}
     by_path = {  # each path's own count: reset just before it, read just after
-        "qk_prep": {"e2e": e2e["qk_prep"], "lora_generate_cli": gen_cli["qk_prep"]},
-        "flash_fwd": {"e2e": e2e["flash_fwd"], "lora_generate_cli": gen_cli["flash_fwd"]},
+        "qk_prep": {"e2e": e2e["qk_prep"], "lora_generate_cli": gen_cli["qk_prep"],
+                    "tiny_i2v": tiny_i2v["launches"]["qk_prep"], "i2v": i2v["launches"]["qk_prep"]},
+        "flash_fwd": {"e2e": e2e["flash_fwd"], "lora_generate_cli": gen_cli["flash_fwd"],
+                      "tiny_i2v": tiny_i2v["launches"]["flash_fwd"],
+                      "i2v": i2v["launches"]["flash_fwd"]},
         "flash_causal": {"vlm": vlm["launches"]["flash_causal"],
                          "text_only": text["launches"]["flash_causal"],
                          "vlm_image": vlm["image"]["launches"]["flash_causal"],
@@ -3654,7 +4024,9 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                       "vision_lora": text["launches"]["flash_d72"],
                       "vlm_image": vlm["image"]["launches"]["flash_d72"],
                       "ar_feature_extract": ar["launches"]["flash_d72"]},
-        "fused_adaln": {"a14b": a14b["launches"]["fused_adaln"]},
+        "fused_adaln": {"a14b": a14b["launches"]["fused_adaln"],
+                        "tiny_i2v": tiny_i2v["launches"]["fused_adaln"],
+                        "i2v": i2v["launches"]["fused_adaln"]},
         "ring_step": {"sp": sp["launches"]["ring_step"],
                       "qwen3_sp": text["qwen3_sp"]["launches"]["ring_step"]},
         "ring_step_f32": {

@@ -3,8 +3,8 @@ omnivideo_tpu/configs/base.py, without its jax.numpy dtype helper).
 
 Field names and defaults equal the JAX package's, so a config can be built
 from the other by `dataclasses.asdict`. The ported variants are T2V-1.3B,
-the dual-expert T2V-A14B and the single-expert T2V-14B; the i2v variant
-waits for the i2v slice.
+the dual-expert T2V-A14B, the single-expert T2V-14B and the image-to-video
+I2V-14B.
 """
 
 from __future__ import annotations
@@ -143,6 +143,28 @@ T2V_14B = PipelineConfig(
     name="t2v-14B",
     dit=WanDiTConfig(
         patch_size=(1, 2, 2),
+        dim=5120,
+        ffn_dim=13824,
+        freq_dim=256,
+        num_heads=40,
+        num_layers=40,
+        qk_norm=True,
+        cross_attn_norm=True,
+        eps=1e-6,
+    ),
+    dual_expert=False,
+    max_context_len=512,
+)
+
+# vanilla Wan2.1 i2v 14B: the first frame's latents and mask concatenated on
+# the input channels (in_dim 36 = 16 noise + 4 mask + 16 latents) and the
+# CLIP tokens' split cross-attention
+I2V_14B = PipelineConfig(
+    name="i2v-14B",
+    dit=WanDiTConfig(
+        model_type="i2v",
+        patch_size=(1, 2, 2),
+        in_dim=36,
         dim=5120,
         ffn_dim=13824,
         freq_dim=256,

@@ -3,7 +3,8 @@ numpy arrays) into the port's modules; the parity tests use it. The
 reference PyTorch state dicts (the golden fixtures' `sd::` keys, the
 checkpoint files) map through `io/torch_convert.py`.
 
-`wan_params_to_state_dict` turns a DiT pytree into reference-named arrays
+`wan_params_to_state_dict` turns a DiT pytree (the i2v `img_emb` and
+`k_img`/`v_img`/`norm_k_img` too) into reference-named arrays
 (`_dense` kernels [in, out] become Linear weights [out, in], the stacked
 `blocks` leaves [n_layers, ...] are split per layer); `load_wan_state_dict`
 copies reference-named arrays into a WanDiT, reshaping where only the layout
@@ -11,7 +12,9 @@ differs (the Conv3d patch embedding, the modulation tables) and casting to
 each parameter's dtype — the module already holds cast_wan_params' split
 (modulation, norms and head f32; the rest the param dtype). Companion and
 VAE params (encoder and decoder) keep the JAX dict layout and map as they
-are (`to_torch`). `t5_params_to_state_dict` / `load_t5` carry the umT5
+are (`to_torch`; VAE 2.2's too). `clip_params_to_state_dict` gives the CLIP
+vision tower's reference names, `xlm_params_from_jax` splits XLM-Roberta's
+stacked layers. `t5_params_to_state_dict` / `load_t5` carry the umT5
 pytree (stacked `layers`), and `pipeline_from_jax` assembles an x2x pipeline
 (one or two DiT trees, their companions, the VAE) from JAX pipeline parts. `unified_params_to_state_dict` / `load_unified` map the training tree
 {'wan', 'companions'} (its params, gradients or updated params) to the
@@ -56,9 +59,11 @@ def _np(a) -> np.ndarray:
 
 
 def to_torch(tree, device=None):
-    """Nested dict of arrays → nested dict of tensors (owned copies)."""
+    """Nested dicts and lists of arrays → the same of tensors (owned copies)."""
     if isinstance(tree, Mapping):
         return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, device) for v in tree]
     return torch.as_tensor(_np(tree).copy(), device=device)
 
 
@@ -81,6 +86,13 @@ def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
     lin("time_projection.1", params["time_projection"])
     lin("head.head", params["head"]["head"])
     sd["head.modulation"] = _np(params["head"]["modulation"])
+    if "img_emb" in params:  # i2v MLPProj: reference img_emb.proj.{0,1,3,4}
+        ie = params["img_emb"]
+        for i, ln in ((0, "ln1"), (4, "ln2")):
+            sd[f"img_emb.proj.{i}.weight"] = _np(ie[ln]["scale"])
+            sd[f"img_emb.proj.{i}.bias"] = _np(ie[ln]["bias"])
+        lin("img_emb.proj.1", ie["fc1"])
+        lin("img_emb.proj.3", ie["fc2"])
     blocks = params["blocks"]
     n_layers = _np(blocks["modulation"]).shape[0]
 
@@ -100,6 +112,10 @@ def wan_params_to_state_dict(params) -> Dict[str, np.ndarray]:
                 blin(f"{p}.{part}.{proj}", a[proj], i)
             sd[f"{p}.{part}.norm_q.weight"] = _np(a["norm_q"])[i]
             sd[f"{p}.{part}.norm_k.weight"] = _np(a["norm_k"])[i]
+            if "k_img" in a:  # i2v cross-attention
+                blin(f"{p}.{part}.k_img", a["k_img"], i)
+                blin(f"{p}.{part}.v_img", a["v_img"], i)
+                sd[f"{p}.{part}.norm_k_img.weight"] = _np(a["norm_k_img"])[i]
         blin(f"{p}.ffn.0", blocks["ffn"]["fc1"], i)
         blin(f"{p}.ffn.2", blocks["ffn"]["fc2"], i)
         if "norm3" in blocks:
@@ -145,6 +161,50 @@ def wan_state_dict_to_jax(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             out[path] = a
     for path, by_layer in layers.items():
         out[path] = np.stack([by_layer[i] for i in sorted(by_layer)])
+    return out
+
+
+def clip_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+    """JAX CLIP vision pytree (`init_clip_vision` /
+    `clip_vision_from_state_dict` layout: kernels [in, out], `blocks` a
+    list) → the reference VisionTransformer's names, which
+    models/clip_vision.py `clip_vision_from_state_dict` reads."""
+    pe = params["patch_embedding"]
+    kernel = _np(pe["kernel"])  # [3·p·p, dim]
+    p = int(round((kernel.shape[0] // 3) ** 0.5))
+    sd = {"patch_embedding.weight": kernel.T.reshape(kernel.shape[1], 3, p, p),
+          "cls_embedding": _np(params["cls_embedding"]),
+          "pos_embedding": _np(params["pos_embedding"])}
+    if "bias" in pe:
+        sd["patch_embedding.bias"] = _np(pe["bias"])
+    for n in ("pre_norm", "post_norm"):
+        if n in params:
+            sd[f"{n}.weight"] = _np(params[n]["weight"])
+            sd[f"{n}.bias"] = _np(params[n]["bias"])
+    for i, b in enumerate(params["blocks"]):
+        pre = f"transformer.{i}"
+        for n in ("norm1", "norm2"):
+            sd[f"{pre}.{n}.weight"] = _np(b[n]["weight"])
+            sd[f"{pre}.{n}.bias"] = _np(b[n]["bias"])
+        for port, key in (("attn.to_qkv", "qkv"), ("attn.proj", "proj"), ("mlp.0", "mlp1"),
+                          ("mlp.2", "mlp2")):
+            sd[f"{pre}.{port}.weight"] = _np(b[f"{key}_w"]).T
+            sd[f"{pre}.{port}.bias"] = _np(b[f"{key}_b"])
+    return sd
+
+
+def xlm_params_from_jax(params, device=None) -> Dict[str, Any]:
+    """JAX XLM-Roberta pytree (stacked `blocks` leaves [n_layers, ...]) →
+    models/xlm_roberta.py's params (a list of per-layer dicts), tensors on
+    `device`."""
+    out = {k: to_torch(v, device) for k, v in params.items() if k != "blocks"}
+    blocks = to_torch(params["blocks"], device)
+    n = next(iter(blocks["q"].values())).shape[0]
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, Mapping) else v[i] for k, v in tree.items()}
+
+    out["blocks"] = [layer(blocks, i) for i in range(n)]
     return out
 
 

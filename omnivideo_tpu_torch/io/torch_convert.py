@@ -12,11 +12,13 @@ and maps their names:
 - `wan_state_dict_to_params` builds a WanDiT and copies the WanModel names
   into it (the Conv3d patch embedding and the modulation tables reshaped,
   every tensor cast to its parameter's dtype: modulation, norms and head
-  f32, the rest the param dtype);
+  f32, the rest the param dtype); an i2v config's `img_emb.proj.*` and
+  `cross_attn.k_img/v_img/norm_k_img` load by the same names;
 - `unified_companions_to_params` maps vlm_norm / vlm_proj /
   visual_context_adapter into the JAX dict layout (kernels [in, out]).
-The VAE and umT5 names map in their modules (`models/vae2_1.py`,
-`models/t5.py`).
+The VAE, umT5, CLIP, VAE 2.2 and XLM-R names map in their modules
+(`models/vae2_1.py`, `models/t5.py`, `models/clip_vision.py`,
+`models/vae2_2.py`, `models/xlm_roberta.py`).
 """
 
 from __future__ import annotations

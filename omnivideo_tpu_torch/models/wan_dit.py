@@ -47,8 +47,20 @@ instead: the sequence stays whole, the blocks' weights are the Megatron
 split of parallel/sharding.py (`dense` runs them through
 parallel/tp.py's `tp_dense`), q and k are RMS-normed over the whole dim
 across the 'tensor' ranks, and each rank attends its N/tp heads. Under SP
-and TP `qk_impl` and `ew_impl` are "unfused", as JAX forces. Left out: the
-i2v k_img/img_emb branch, LoRA.
+and TP `qk_impl` and `ew_impl` are "unfused", as JAX forces.
+
+The i2v variant (`cfg.model_type == "i2v"`): `forward(..., y, clip_fea)`
+concatenates `y` (the first frame's mask and latents) to x on the channels
+before patchify, and prepends `img_emb`'s projection of the CLIP tokens
+(affine LayerNorm, Linear, exact GELU, Linear, affine LayerNorm; the
+reference's `img_emb.proj.{0,1,3,4}`) to the embedded context. Each block's
+cross-attention then takes the first IMG_TOKENS (257) context tokens as the
+image, with their own `k_img`, `v_img` and `norm_k_img`: two attentions
+over the text and over the image tokens, each without kv_lens and bounded
+under qk_norm, summed in the attention's dtype before `o`. That split
+cross-attention never takes the fused prologue (JAX's `"k_img" not in ca`
+guard): q and both keys go through the unfused rms_norm chain. The i2v
+model has no tensor-parallel path (`k_img`/`v_img` are not split).
 """
 
 from __future__ import annotations
@@ -246,16 +258,24 @@ class Gain(nn.Module):
 
 
 class AffineNorm(nn.Module):
-    """Affine layer-norm parameters (the reference norm3's weight/bias)."""
+    """Affine layer-norm parameters (the reference norm3's weight/bias), f32
+    unless `dtype` says otherwise."""
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, device=None, dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+
+IMG_TOKENS = 257  # CLIP ViT-H/14 tokens at 224 (cls + 16×16 patches) heading the i2v context
+CLIP_DIM = 1280  # their width, img_emb's input
 
 
 class WanAttention(nn.Module):
-    def __init__(self, dim: int, dtype, device):
+    """q/k/v/o projections and the q/k RMS gains; with `img` also the i2v
+    cross-attention's image key/value projections and key gain."""
+
+    def __init__(self, dim: int, dtype, device, img: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.q = nn.Linear(dim, dim, **kw)
@@ -264,6 +284,29 @@ class WanAttention(nn.Module):
         self.o = nn.Linear(dim, dim, **kw)
         self.norm_q = Gain(dim, device)
         self.norm_k = Gain(dim, device)
+        if img:
+            self.k_img = nn.Linear(dim, dim, **kw)
+            self.v_img = nn.Linear(dim, dim, **kw)
+            self.norm_k_img = Gain(dim, device)
+
+
+class MLPProj(nn.Module):
+    """The i2v `img_emb`: CLIP tokens → the DiT's width. Its LayerNorms hold
+    the param dtype (JAX's cast_wan_params keeps only names with "norm" f32,
+    and these are `ln1`/`ln2` there)."""
+
+    def __init__(self, in_dim: int, dim: int, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.proj = nn.Sequential(AffineNorm(in_dim, device, dtype), nn.Linear(in_dim, in_dim, **kw),
+                                  nn.GELU(), nn.Linear(in_dim, dim, **kw),
+                                  AffineNorm(dim, device, dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.proj
+        h = layer_norm(x, 1e-5, scale=p[0].weight, bias=p[0].bias)
+        h = dense(p[3], F.gelu(dense(p[1], h), approximate="none"))
+        return layer_norm(h, 1e-5, scale=p[4].weight, bias=p[4].bias)
 
 
 class WanBlock(nn.Module):
@@ -275,7 +318,7 @@ class WanBlock(nn.Module):
         self.cfg = cfg
         self.modulation = nn.Parameter(torch.zeros(1, 6, d, dtype=torch.float32, device=device))
         self.self_attn = WanAttention(d, dtype, device)
-        self.cross_attn = WanAttention(d, dtype, device)
+        self.cross_attn = WanAttention(d, dtype, device, img=cfg.model_type == "i2v")
         self.norm3 = AffineNorm(d, device) if cfg.cross_attn_norm else None
         self.ffn = nn.Sequential(
             nn.Linear(d, cfg.ffn_dim, dtype=dtype, device=device),
@@ -359,8 +402,8 @@ class WanBlock(nn.Module):
             xq = xn.to(pdtype)
         ca = self.cross_attn
         ctx = aux.context
-        Lc = ctx.shape[1]
-        if fuse_qk:
+        img = hasattr(ca, "k_img")
+        if fuse_qk and not img:
             o = self._fused_attn(aux, dense(ca.q, xq), ca.norm_q.weight, False,
                                  dense(ca.k, ctx), ca.norm_k.weight, False,
                                  dense(ca.v, ctx), None)
@@ -368,9 +411,18 @@ class WanBlock(nn.Module):
             q = self._norm(dense(ca.q, xq), ca.norm_q.weight, tp)
             n_loc = q.shape[-1] // hd
             q = q.view(B, L, n_loc, hd)
-            k = self._norm(dense(ca.k, ctx), ca.norm_k.weight, tp).view(B, Lc, n_loc, hd)
-            v = dense(ca.v, ctx).view(B, Lc, n_loc, hd)
-            o = attention(q, k, v, kv_lens=None, assume_normalized=cfg.qk_norm)
+
+            def over(c, k_lin, gain, v_lin):
+                k = self._norm(dense(k_lin, c), gain, tp).view(B, c.shape[1], n_loc, hd)
+                v = dense(v_lin, c).view(B, c.shape[1], n_loc, hd)
+                return attention(q, k, v, kv_lens=None,
+                                 assume_normalized=cfg.qk_norm).reshape(B, L, -1)
+
+            if img:  # the image tokens head the context, with their own K/V
+                o = (over(ctx[:, IMG_TOKENS:], ca.k, ca.norm_k.weight, ca.v)
+                     + over(ctx[:, :IMG_TOKENS], ca.k_img, ca.norm_k_img.weight, ca.v_img))
+            else:
+                o = over(ctx, ca.k, ca.norm_k.weight, ca.v)
         o = dense(ca.o, o.reshape(B, L, -1))
 
         # --- ffn
@@ -416,6 +468,8 @@ class WanDiT(nn.Module):
         self.time_embedding = nn.Sequential(
             nn.Linear(cfg.freq_dim, d, **kw), nn.SiLU(), nn.Linear(d, d, **kw))
         self.time_projection = nn.Sequential(nn.SiLU(), nn.Linear(d, 6 * d, **kw))
+        if cfg.model_type == "i2v":
+            self.img_emb = MLPProj(CLIP_DIM, d, dtype, device)
         self.blocks = nn.ModuleList(WanBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
         self.head = WanHead(cfg, device)
         self._rope_cache = {}
@@ -428,7 +482,9 @@ class WanDiT(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
         """Xavier-uniform linears with zero bias, normal(0.02) text/time
-        embeddings, normal/√d modulation tables, ones/zeros norms, zero head."""
+        embeddings, normal/√d modulation tables, ones/zeros norms, zero head.
+        The i2v parameters (img_emb, k_img/v_img, norm_k_img), which JAX's
+        init_wan_dit does not draw, follow the same rules."""
         d = self.cfg.dim
         dev = self.patch_embedding.weight.device
 
@@ -499,6 +555,8 @@ class WanDiT(nn.Module):
         carry_dtype: Optional[torch.dtype] = None,
         ew_impl: str = "unfused",
         sp: Optional[SPConfig] = None,
+        y: Optional[torch.Tensor] = None,
+        clip_fea: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """x: [B, C_in, F, H, W] noisy latents; t: [B] timesteps; context:
         [B, Lc, text_dim] (or [B, Lc, dim] if context_embedded), padded to
@@ -509,8 +567,15 @@ class WanDiT(nn.Module):
         carry (blocks compute from f32); exclusive with a non-f32
         residual_dtype. sp: run sequence-parallel (every rank passes the
         same inputs and gets the whole output; seq_len % sp_size == 0).
+        i2v: y [B, C_y, F, H, W] is concatenated to x on the channels;
+        clip_fea [B, 257, 1280] (the CLIP tower's tokens) is projected by
+        img_emb and prepended to the embedded context.
         Returns the velocity [B, C_out, F, H, W] f32."""
         cfg = self.cfg
+        if y is not None:
+            x = torch.cat([x, y.to(x.dtype)], dim=1)
+        if sp is not None and sp.mode == "tp" and cfg.model_type == "i2v":
+            raise ValueError("the i2v model has no tensor-parallel path")
         B = x.shape[0]
         pt, ph, pw = cfg.patch_size
         grid = (x.shape[2] // pt, x.shape[3] // ph, x.shape[4] // pw)
@@ -527,6 +592,8 @@ class WanDiT(nn.Module):
         e, e0 = self.time_embeddings(t)
         if not context_embedded:
             context = self.embed_context(context)
+        if clip_fea is not None:
+            context = torch.cat([self.img_emb(clip_fea).to(context.dtype), context], dim=1)
         cos, sin = self.rope_tables(grid)
         if sp is not None:
             n = sp.sp_size

@@ -111,7 +111,9 @@ NOT_PORTED = {
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--task", default="t2v-1.3B", choices=sorted(WAN_CONFIGS))
+    # i2v-14B runs through pipelines/i2v.py, not this CLI (JAX's has no i2v path)
+    p.add_argument("--task", default="t2v-1.3B",
+                   choices=sorted(k for k, c in WAN_CONFIGS.items() if c.dit.model_type != "i2v"))
     p.add_argument("--size", default=None,
                    help="W*H or a SIZE_CONFIGS key (default 832*480; --tiny: 64*32)")
     p.add_argument("--frame_num", type=int, default=None)

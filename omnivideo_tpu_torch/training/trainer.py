@@ -147,7 +147,9 @@ def init_unified_params(cfg: PipelineConfig, seed: int = 0, device="cuda",
 
 _RENAMES = (("text_embedding/0/", "text_embedding/fc1/"), ("text_embedding/2/", "text_embedding/fc2/"),
             ("time_embedding/0/", "time_embedding/fc1/"), ("time_embedding/2/", "time_embedding/fc2/"),
-            ("time_projection/1/", "time_projection/"), ("ffn/0/", "ffn/fc1/"), ("ffn/2/", "ffn/fc2/"))
+            ("time_projection/1/", "time_projection/"), ("ffn/0/", "ffn/fc1/"), ("ffn/2/", "ffn/fc2/"),
+            ("img_emb/proj/0/", "img_emb/ln1/"), ("img_emb/proj/1/", "img_emb/fc1/"),
+            ("img_emb/proj/3/", "img_emb/fc2/"), ("img_emb/proj/4/", "img_emb/ln2/"))
 
 
 def jax_path(name: str) -> str:
@@ -166,9 +168,9 @@ def jax_path(name: str) -> str:
     path = "/".join(parts)
     for a, b in _RENAMES:
         path = path.replace(a, b)
-    if path.endswith(("norm_q/weight", "norm_k/weight")):
+    if path.endswith(("norm_q/weight", "norm_k/weight", "norm_k_img/weight")):
         path = path[: -len("/weight")]
-    elif path.endswith("norm3/weight"):
+    elif path.endswith(("norm3/weight", "ln1/weight", "ln2/weight")):
         path = path[: -len("weight")] + "scale"
     elif path.endswith("/weight"):
         path = path[: -len("weight")] + "kernel"

@@ -271,6 +271,20 @@ def test_flash_infer_kernel_ignores_rows_past_kv_len(cuda, D, bounded):
     assert (out[1] == 0).all()
 
 
+@pytest.mark.parametrize("Lk", [257, 512])
+def test_flash_infer_kernel_i2v_cross_attention(cuda, Lk):
+    """Row 1 at the i2v split cross-attention's key counts, bounded, no
+    kv_lens: the 257 CLIP tokens (4 key tiles of 64 and a 1-key tail) and
+    the 512 text tokens, 40 heads; the max-tracked twin too."""
+    B, Lq, N, D = 2, 3000, 40, 128
+    q, k, v = _qkv(B, Lq, Lk, N, D, Lk, 1.0, cuda)
+    mb, safe = softmax_bound(q, k, D**-0.5)
+    assert bool(safe)
+    ref = flash_attention_plain(q, k, v, None, None, mb, safe)
+    _assert_flash_close(flash_attention(q, k, v, assume_normalized=True), ref)
+    _assert_flash_close(flash_attention(q, k, v), ref)
+
+
 def test_flash_infer_kernel_40_heads(cuda):
     """Row 1 at T2V-A14B's 40 heads: the tensor maps take their strides
     from N; bounded self-attention and its max-tracked twin."""

@@ -7,7 +7,9 @@
 - importing the host side of the main path (the generate CLI, the Qwen3-VL
   engine, the loader, the readers and the video IO) and of the SFT and
   data-prepare tools (the sft_vlm CLI, the conversation data, the PNG
-  reader, sft_tokenize, vae_ and ar_feature_extract) loads none of
+  reader, sft_tokenize, vae_ and ar_feature_extract) and of the i2v slice
+  (pipelines/i2v.py, models/clip_vision.py, models/vae2_2.py,
+  models/xlm_roberta.py) loads none of
   tokenizers, transformers, safetensors, PIL or imageio, which the card's
   machine may lack: they are imported inside the functions that need them;
 - its entry points default to CUDA and raise without a CUDA device unless
@@ -74,6 +76,8 @@ def test_host_modules_import_no_optional_packages():
         "import omnivideo_tpu_torch.tools.data_prepare.sft_tokenize, omnivideo_tpu_torch.utils.png\n"
         "import omnivideo_tpu_torch.tools.data_prepare.vae_feature_extract\n"
         "import omnivideo_tpu_torch.tools.data_prepare.ar_feature_extract\n"
+        "import omnivideo_tpu_torch.pipelines.i2v, omnivideo_tpu_torch.models.clip_vision\n"
+        "import omnivideo_tpu_torch.models.vae2_2, omnivideo_tpu_torch.models.xlm_roberta\n"
         f"bad = [k for k in sys.modules if k.split('.')[0] in {optional + FORBIDDEN_MODULES!r}]\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -114,7 +118,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from omnivideo_tpu_torch.device import resolve_device
     from omnivideo_tpu_torch.io.jax_bridge import pipeline_from_jax
     from omnivideo_tpu_torch.io.torch_convert import wan_state_dict_to_params
+    from omnivideo_tpu_torch.models.clip_vision import (
+        CLIPVision,
+        CLIPVisionConfig,
+        clip_vision_from_state_dict,
+        init_clip_vision,
+        preprocess_image,
+    )
     from omnivideo_tpu_torch.models.qwen3vl.full_model import Qwen3VLModel
+    from omnivideo_tpu_torch.models.vae2_2 import VAE22Config, vae22_state_dict_to_params
+    from omnivideo_tpu_torch.models.xlm_roberta import (
+        init_xlm_roberta,
+        xlm_roberta_state_dict_to_params,
+    )
     from omnivideo_tpu_torch.models.t5 import T5Encoder, init_t5
     from omnivideo_tpu_torch.models.vae2_1 import init_vae
     from omnivideo_tpu_torch.models.wan_dit import WanDiT
@@ -143,6 +159,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: ar_feature_extract.main(["--features_dir", "f", "--manifest", "m.jsonl",
                                                    "--vlm_path", "v"]),
                   lambda: T5Encoder(T5Config()), lambda: init_t5(T5Config()),
+                  lambda: CLIPVision(CLIPVisionConfig()),
+                  lambda: init_clip_vision(CLIPVisionConfig(num_layers=1)),
+                  lambda: clip_vision_from_state_dict({}, CLIPVisionConfig()),
+                  lambda: preprocess_image(torch.zeros(8, 8, 3, dtype=torch.uint8)),
+                  lambda: init_xlm_roberta(num_layers=1),
+                  lambda: xlm_roberta_state_dict_to_params({}),
+                  lambda: vae22_state_dict_to_params({}, VAE22Config()),
+                  lambda: WanDiT(dit.replace(model_type="i2v", in_dim=12)),
                   lambda: wan_state_dict_to_params({}, dit),
                   lambda: load_expert(cfg, "missing_dir", "low_noise_model"),
                   lambda: load_pipeline(cfg, "missing_dir"),
