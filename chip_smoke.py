@@ -15,6 +15,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py sft_sp     # the f32 ring step's cases, then the SFT step
                                      # under --sp at world 1 beside its single-card step
     python3 chip_smoke.py i2v        # flash, then tiny_i2v, i2v, vae22 and xlm
+    python3 chip_smoke.py stream     # cli and a14b (experts kept on the host), then stream
+    python3 chip_smoke.py stream_train  # the streamed trainers' phase alone
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -51,8 +53,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   vlm       first stage 1 of the data pipeline: vae_feature_extract
             --random_weights on the seeded 720p clip file at 832x480x81 (the
             file's keys and latent shape); then
-            Qwen3-VL-30B-A3B at full width and depth from seeded random
-            weights (~62 GB bf16, on the card): 6 seeded 832x480 frames →
+            Qwen3-VL-30B-A3B at full width and VLM_LAYERS of its 48 text
+            layers from seeded random weights (bf16, on the card; ~62 GB at
+            full depth): 6 seeded 832x480 frames →
             frames_to_patches (grid 3x30x52, 1,170 visual tokens), synthetic
             ids (L ~ 1.5k), the feature forward, a 16-token greedy decode,
             launch counts asserted, the top-8-of-128 grouped MoE of layer 0
@@ -61,24 +64,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             stand-in tokenizer) on a seeded 1280x720, 48-frame, 24 fps clip
             file: source caption (grid 3x44x80 at 704x1280), target caption
             (text only), features (grid 3x2x2 at 32x32), each pass's
-            launches (27 flash_d72 with a clip, 48 flash_causal), grids and
+            launches (27 flash_d72 with a clip, a flash_causal per text
+            layer), grids and
             feature shape asserted; the image path: the engine's image
             message on a seeded 1280x720 PNG still (grid 1x44x80, 880
-            <|image_pad|> tokens, 27 flash_d72 and 48 flash_causal launches)
+            <|image_pad|> tokens, 27 flash_d72 and a flash_causal per layer)
             and its features; stage 2: ar_feature_extract's per-row
             function with that engine on the stage-1 file (54 flash_d72 and
-            144 flash_causal launches); then the text-only pass (text_only
+            three flash_causal per layer); then the text-only pass (text_only
             below) on its text stack; the model is freed, and one T2V-1.3B
             train step (the train phase's settings) reads the extracted
             file through training/dataset.py (its launches asserted);
   text_only the vlm model's text stack as a text-only Qwen3 (qwen3_forward
-            on the prompt's 1,481 ids, a 16-token qwen3_greedy_decode, 48
-            flash_causal launches a pass): base, rank-16 bare adapters with
+            on the prompt's 1,481 ids, a 16-token qwen3_greedy_decode, a
+            flash_causal launch per layer a pass): base, rank-16 bare adapters with
             B = 0 (logits and tokens bit-equal), B perturbed, merged
             (MERGE_TOL of scale against the adapters); then the vision tower
             once with VISION_BARE_NAMES adapters (27 flash_d72 launches);
-  qwen3_sp  qwen3_forward_sp on a NCCL group of world 1 (48 token-causal
-            ring_step launches) against qwen3_forward on the same weights,
+  qwen3_sp  qwen3_forward_sp on a NCCL group of world 1 (a token-causal
+            ring_step launch per layer) against qwen3_forward on the same weights,
             SP_TOL of scale (run from the text-only pass);
   e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
@@ -129,6 +133,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             launches per forward asserted, one profiled forward, then the
             experts are freed (under 2 GB left allocated) and the VAE
             decodes to uint8; peak memory below 80 GB;
+  stream    T2V-A14B generate with both experts' blocks in page-locked host
+            memory (the a14b phase's weights, moved by split_host_params),
+            streamed through the card (pipelines/streaming.py), from the
+            a14b phase's inputs and noise: window 2 with each copy and
+            block timed by CUDA events on the two streams (copy GB/s, the
+            share of copy time hidden behind compute), window 1 and group 4
+            bit-equal to it, int8 (each expert quantised on the card, then
+            its bf16 host copy dropped) within STREAM_Q8_TOL of scale at
+            ≤ 0.51 of the bytes; latents within STREAM_TOL of the resident
+            run's, launches per generate as a14b's, per-step seconds, peak
+            device GB, host RSS and pinned GB; then the cli phase's row
+            through the generate CLI again, resident and with
+            --layer_stream: latents bit-equal to the cli phase's, the
+            streamed row's frames (before the lossy writer) within 1 uint8
+            level of the resident row's, decoded in the same state;
   tiny_i2v  WanI2V.generate of a tiny i2v model (2 layers, dim 256, head
             dim 128; CLIP of width 1280 and 2 layers, 257 tokens; a 2.1 VAE of
             width 8) on the card against the same weights, 48x80 first frame
@@ -157,15 +176,19 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             with pad tails, hidden states and pooled output within XLM_TOL;
   flash_train  the training forward (o and LSE) and the dq and dk/dv
             backward kernels against their plain twins on the same bf16
-            inputs at the training path's shapes (self-attention [1, 32760,
-            12, 128], cross-attention over 6,272 keys, ragged kv_lens with a
-            batch row of none), two backward launches bit for bit equal,
+            inputs at the training paths' shapes (T2V-1.3B: self-attention
+            [1, 32760, 12, 128], cross-attention over 6,272 keys, ragged
+            kv_lens with a batch row of none; T2V-A14B, as the streamed LoRA
+            step runs it: self-attention [1, 32760, 40, 128], cross-attention
+            over 512 keys), two backward launches bit for bit equal,
             achieved TFLOP/s and share of bound beside each time, SDPA
             forward and backward timed beside them;
   tiny_train  3 unified train steps of a 2-layer head-dim-128 model on the
             card (kernels) and on the CPU (plain twins) from the same
             weights, batch and draws: loss and grad_norm gaps;
-  train     make_unified_train_step on T2V_1_3B at full width and depth, f32
+  train     make_unified_train_step on T2V_1_3B at full width and
+            TRAIN_LAYERS of its 30 layers (this phase, sp_train's modes, lora,
+            adafactor and the data pipeline's step share the cut), f32
             master params, batch 1 at 832x480x81 (32,760 tokens, the mixed
             context cut to 6,272), remat, AdamW: 3 steps on one batch and one
             set of draws (the loss must fall), launch counts per step
@@ -227,7 +250,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             attention is the dense path, as in JAX); then sft_tokenize
             through the stand-in tokenizer (ChatML) and the sft_vlm CLI
             from a YAML --config on that --data_dir, 3 steps.
-The line before the last is the kernel summary (each row's launches per
+  stream_train  StreamedTrainer at T2V-1.3B full width and depth beside
+            make_train_step from the same weights, batch and draws (f32
+            masters, AdamW lr 3e-6, clip 0.1, context 6,272, 3 steps: loss
+            within 2e-3, grad_norm within 1e-2, launches per step as the
+            resident step's, then every block's and resident leaf's
+            parameter change within STREAM_PARAM_TOL of the resident
+            step's), its fused (clip 0: the same checks) and adafactor
+            (loss; grad_norm at step 1) modes at full depth,
+            STREAM_VARIANT_STEPS steps each; StreamedLoRATrainer on one
+            T2V-A14B expert (rank 16, bf16 base, then int8, 3 steps each)
+            beside the resident LoRA step on the same expert (73.8 GB);
+            step seconds, peak device GB, host RSS and pinned GB.
+The line before the kernel summary gives each phase's wall seconds. The line
+before the last is the kernel summary (each row's launches per
 path, each path's count reset just before it); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -237,6 +273,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import resource
 import shutil
@@ -336,6 +373,8 @@ from omnivideo_tpu_torch.parallel.mesh import create_mesh
 from omnivideo_tpu_torch.parallel.sharding import shard_params
 from omnivideo_tpu_torch.pipelines.i2v import WanI2V
 from omnivideo_tpu_torch.pipelines.loading import load_expert
+from omnivideo_tpu_torch.pipelines.streaming import (HostBuffer, host_block_targets,
+                                                      split_host_params)
 from omnivideo_tpu_torch.pipelines.x2x import ExpertParams, OmniVideoX2XUnified
 from omnivideo_tpu_torch.schedulers.unipc import FlowUniPC
 from omnivideo_tpu_torch.tools import generate as generate_cli
@@ -357,8 +396,12 @@ from omnivideo_tpu_torch.training.lora import (
     load_adapters_npz,
     merge_lora,
     save_adapters_npz,
+    set_adapter,
+    strip_lora,
 )
+from omnivideo_tpu_torch.training.lora import draw_lora
 from omnivideo_tpu_torch.training.lora import sites as lora_sites
+from omnivideo_tpu_torch.training.streaming import StreamedLoRATrainer, StreamedTrainer
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
     global_norm,
@@ -366,6 +409,7 @@ from omnivideo_tpu_torch.training.trainer import (
     init_unified_params,
     jax_path,
     make_optimizer,
+    make_train_step,
     make_unified_train_step,
     sample_draws,
 )
@@ -411,6 +455,11 @@ GRAD_TOL = 1e-2  # ‖g − g_plain‖/‖g_plain‖ per (batch row, head): p an
 TRAIN_TOL = 2e-3  # tiny train, card vs CPU, relative loss and grad_norm gaps (measured 5.7e-5): q/k/v/dO enter
 # the card's flash kernels in bf16 where the CPU's plain twins compute in f32
 TRAIN_STEPS = 3
+TRAIN_LAYERS = 6  # T2V-1.3B layers (of 30) in the train phase and the phases that share its
+# step (sp_train's modes, adafactor, the data pipeline's step; not lora, whose adapters go
+# through the full-depth generate), cut so that the whole run fits its time limit with
+# stream_train at full depth
+VLM_LAYERS = 24  # Qwen3-VL-30B-A3B text layers (of 48) in the vlm phase, for the same reason
 ADALN_F32_TOL = 1e-5  # f32 y, of its row's max |y_plain|: the row sums run in another order
 ADALN_BF16_ULPS = 1.0  # bf16 y, in ulps of its row's max |y_plain|: those sums can flip a rounding
 ENCODE_TOL = 1e-3  # VAE encode, card vs CPU, of the latent scale: f32 convolutions (TF32 off)
@@ -1150,14 +1199,15 @@ def _engine_pass(model: Qwen3VLModel, clip: Path) -> dict:
 
 def phase_vlm(clip: Path) -> dict:
     """Stage 1 of the data pipeline (`_vae_extract`) on the 720p clip file,
-    then Qwen3-VL-30B-A3B at full width and depth: feature forward and a
+    then Qwen3-VL-30B-A3B at full width, VLM_LAYERS deep: feature forward and a
     16-token greedy caption on 6 frames of 832x480, the engine on the clip
     (`_engine_pass`), the image path (`_image_pass`) and stage 2
     (`_ar_extract`); the model is freed, and one finetune step reads the
     extracted files (`_pipeline_train_step`). Returns the record with the
     features ([L − system prefix, 2048] f32 on the card) under
     "features"."""
-    cfg = QWEN3_VL_30B_A3B
+    cfg = dataclasses.replace(QWEN3_VL_30B_A3B, text=dataclasses.replace(
+        QWEN3_VL_30B_A3B.text, num_hidden_layers=VLM_LAYERS))
     vc = cfg.vision
     vae = _vae_extract(clip, clip.parent)
     torch.cuda.reset_peak_memory_stats()
@@ -1423,6 +1473,24 @@ def phase_load(expert, tmp: Path) -> dict:
     return rec
 
 
+class _CapturedFrames:
+    """Inside the `with`, the frames `generate_cli.save_video` gets (before
+    its lossy MJPEG writer), by file name."""
+
+    def __enter__(self):
+        self.frames, self._real = {}, generate_cli.save_video
+
+        def capture(path, video, **kw):
+            self.frames[Path(path).stem] = torch.as_tensor(video).cpu().numpy()
+            return self._real(path, video, **kw)
+
+        generate_cli.save_video = capture
+        return self
+
+    def __exit__(self, *exc):
+        generate_cli.save_video = self._real
+
+
 def phase_cli(clip: Path, tmp: Path) -> dict:
     """The generate CLI in-process at full width: one V2V row from the 720p
     24 fps clip file, T2V-1.3B random weights, 832x480x81, 2 steps (sampling
@@ -1438,7 +1506,8 @@ def phase_cli(clip: Path, tmp: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    (res,) = generate_cli.run(generate_cli.parse_args(argv))
+    with _CapturedFrames() as written:
+        (res,) = generate_cli.run(generate_cli.parse_args(argv))
     wall_s = time.perf_counter() - t0
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1458,6 +1527,7 @@ def phase_cli(clip: Path, tmp: Path) -> dict:
             or frames.dtype != np.uint8):
         raise AssertionError(f"cli: launches {launches} (expected {expect}), {rec}")
     shutil.rmtree(tmp / "cli_out")
+    rec.update(latents=res["latents"], frames=written.frames["v2v_0"], expect=expect)  # for stream
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -1852,10 +1922,13 @@ def phase_tiny_a14b() -> dict:
     return rec
 
 
-def phase_a14b(ar_vision: torch.Tensor) -> dict:
+def phase_a14b(ar_vision: torch.Tensor, keep_host: bool = False) -> dict:
     """T2V-A14B at full width and depth: umT5-XXL encode (then freed), VAE
     encode of the source clip, the dual-expert V2V generate in the f32
-    parity mode with both fused kernels, experts freed, VAE decode."""
+    parity mode with both fused kernels, experts freed, VAE decode. With
+    keep_host the experts' blocks move to page-locked host memory first
+    (split_host_params) and the record's "stream" holds them, the inputs and
+    the latents for the stream phase."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = T2V_A14B
@@ -1902,11 +1975,15 @@ def phase_a14b(ar_vision: torch.Tensor) -> dict:
     experts_gb = sum(p.numel() * p.element_size() for e in (pipe.high_noise, pipe.low_noise)
                      for p in e.wan.parameters()) / 1e9
     counts = _ForwardLaunches(pipe)
+    # generate's own draw from gen, made here so the stream phase can reuse it
+    noise = torch.randn((1,) + pipe._latent_shape(SIZE, FRAMES), generator=gen, device="cuda",
+                        dtype=torch.float32)
+    inputs = dict(precomputed_context=context, precomputed_context_null=context_null,
+                  ar_vision_input=ar_vision, visual_emb=visual_emb, noise=noise)
     _reset_launches()
-    latents = pipe.generate(precomputed_context=context, precomputed_context_null=context_null,
-                            ar_vision_input=ar_vision, visual_emb=visual_emb, size=SIZE,
-                            frame_num=FRAMES, sampling_steps=A14B_STEPS, shift=cfg.sample_shift,
-                            guide_scale=cfg.sample_guide_scale, decode=False, generator=gen)
+    latents = pipe.generate(size=SIZE, frame_num=FRAMES, sampling_steps=A14B_STEPS,
+                            shift=cfg.sample_shift, guide_scale=cfg.sample_guide_scale,
+                            decode=False, **inputs)
     launches = _launches()
     per_forward = {k: list(v) for k, v in counts.per_forward.items()}
     timings = dict(pipe.timings)
@@ -1923,6 +2000,15 @@ def phase_a14b(ar_vision: torch.Tensor) -> dict:
         profile = _profile(lambda: dit(x2, t, ctx2, context_embedded=True, ew_impl="kernel"))
     del x2, ctx2, dit
     denoise_peak = torch.cuda.max_memory_allocated() / 1e9
+    stream = None
+    if keep_host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for e in (pipe.high_noise, pipe.low_noise):
+            split_host_params(e.wan)
+        stream = {"experts": (pipe.high_noise, pipe.low_noise), "inputs": inputs,
+                  "latents": latents, "launches": expect, "timings": dict(timings),
+                  "split_s": time.perf_counter() - t0, "denoise_peak_gb": denoise_peak}
     pipe.free_experts()
     after_free_gb = torch.cuda.memory_allocated() / 1e9
     frames = pipe.decode(latents, output_uint8=True)
@@ -1938,6 +2024,7 @@ def phase_a14b(ar_vision: torch.Tensor) -> dict:
                          .timesteps], "residual_dtype": "float32",
            "ar_vision_input": list(ar_vision.shape),
            "denoise_s": timings["denoise_s"], "denoise_step_s": timings["denoise_step_s"],
+           "step_s": timings["step_s"],
            "decode_s": pipe.timings["decode_s"], "launches": launches,
            "fused_adaln_per_forward": per_forward,
            "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
@@ -1955,6 +2042,7 @@ def phase_a14b(ar_vision: torch.Tensor) -> dict:
     del pipe, vae, latents, frames
     gc.collect()
     torch.cuda.empty_cache()
+    rec["stream"] = stream
     return rec
 
 
@@ -2270,8 +2358,8 @@ def _bwd_launcher(name, q, k, v, do, lse, delta, kv, outs, scale):
     return lambda: _kernels.check(fn(*args), name)
 
 
-def _flash_train_case(name, B, Lq, Lk, lens, gen, reps):
-    N, D = 12, 128
+def _flash_train_case(name, B, Lq, Lk, lens, gen, reps, N=12):
+    D = 128
     scale = D**-0.5
     q, k = _normed(B, Lq, N, D, gen), _normed(B, Lk, N, D, gen)
     v = torch.randn(B, Lk, N, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2361,11 +2449,15 @@ def _flash_train_case(name, B, Lq, Lk, lens, gen, reps):
 
 
 def phase_flash_train(gen: torch.Generator) -> dict:
-    """Rows 3b, 4 and 5 at the training path's shapes; returns the
-    self-attention case (the kernels line reads it)."""
+    """Rows 3b, 4 and 5 at the training path's shapes: T2V-1.3B's 12 heads
+    (self, cross over its 6,272-token context, ragged), then T2V-A14B's 40
+    (self, cross over the streamed LoRA step's CTX_LEN context); returns the
+    12-head self-attention case (the kernels line reads it)."""
     main = _flash_train_case("self", 1, SEQ, SEQ, None, gen, reps=3)
     _flash_train_case("cross", 1, SEQ, 6272, None, gen, reps=5)
     _flash_train_case("kv_lens_ragged", 2, 4100, 8190, [5001, 0], gen, reps=5)
+    _flash_train_case("self_n40", 1, SEQ, SEQ, None, gen, reps=2, N=40)
+    _flash_train_case("cross_n40", 1, SEQ, CTX_LEN, None, gen, reps=3, N=40)
     return main
 
 
@@ -2459,10 +2551,10 @@ def _profile(fn) -> dict:
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
-def _train_setup(device="cuda"):
-    """The train phase's T2V_1_3B model, config and data, from fixed seeds:
-    (cfg, tc, params, batch, draws)."""
-    cfg = T2V_1_3B
+def _train_setup(device="cuda", layers: int = TRAIN_LAYERS):
+    """The train phase's T2V_1_3B model (`layers` deep), config and data,
+    from fixed seeds: (cfg, tc, params, batch, draws)."""
+    cfg = T2V_1_3B.replace(dit=T2V_1_3B.dit.replace(num_layers=layers))
     # the JAX CLI's learning rate, 3e-6: Adam's first step moves every param by ~lr,
     # and 1e-4 on all 1.43B params overshoots (loss 2.87 → 17.6 on this batch)
     tc = TrainConfig(warmup_steps=0, total_steps=1000, remat=True)
@@ -2515,8 +2607,8 @@ class GradSpy:
 
 
 def phase_train() -> dict:
-    """make_unified_train_step on T2V_1_3B at full width and depth; the
-    record keeps the first two steps' grads ("ref_grads", on the host) for
+    """make_unified_train_step on T2V_1_3B at full width, TRAIN_LAYERS
+    deep; the record keeps the first two steps' grads ("ref_grads", on the host) for
     the sp_train phase."""
     gc.collect()
     torch.cuda.empty_cache()
@@ -2925,10 +3017,11 @@ def _train_expect(cfg) -> dict:
 
 
 def phase_lora(adamw: dict, tmp: Path) -> dict:
-    """The train phase's T2V-1.3B step with rank-16 LoRA on DEFAULT_TARGETS
-    (the base frozen, AdamW on the adapters alone, lr LORA_LR), 3 steps:
-    step time, peak memory and optimizer-state bytes beside the train
-    phase's AdamW step (`adamw`, same call); the adapters moved, the base
+    """The train phase's T2V-1.3B step at full depth with rank-16 LoRA on
+    DEFAULT_TARGETS (the base frozen, AdamW on the adapters alone, lr
+    LORA_LR), 3 steps: step time, peak memory and optimizer-state bytes
+    beside the train phase's AdamW step (`adamw`, same call, TRAIN_LAYERS
+    deep); the adapters moved, the base
     bit-equal. Then the adapters (B perturbed) through generate: latents
     merged against unmerged (the delta in `dense`, ahead of rows 6 and 1)
     and against none, the merged weights held to the f64 fold, the generate
@@ -2937,7 +3030,7 @@ def phase_lora(adamw: dict, tmp: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg, tc, params, batch, draws = _train_setup()
+    cfg, tc, params, batch, draws = _train_setup(layers=T2V_1_3B.dit.num_layers)
     tc = dataclasses.replace(tc, learning_rate=LORA_LR, trainable_filters=LORA_FILTERS)
     inject_lora(params.wan, LORA_RANK, generator=torch.Generator(device="cuda").manual_seed(7))
     trained = freeze_base(params)
@@ -3109,7 +3202,7 @@ def phase_adafactor(adamw: dict) -> dict:
     """The train phase's step with --optimizer adafactor (every parameter,
     lr ADAFACTOR_LR), 3 steps: step time, peak memory and optimizer-state
     bytes beside AdamW's (`adamw`, same call); step 2's update of three JAX
-    leaves (factored across the 30 layers, unfactored across the layers,
+    leaves (factored across the layers, unfactored across the layers,
     one factored unstacked kernel) against the f64 reference of the same
     rule on the same grads and state."""
     gc.collect()
@@ -3189,7 +3282,7 @@ def phase_adafactor(adamw: dict) -> dict:
 
 
 def phase_text_only(model: Qwen3VLModel, ids: np.ndarray, patches: torch.Tensor, grid) -> dict:
-    """The text-only Qwen3 on the vlm phase's text stack (48 layers): the
+    """The text-only Qwen3 on the vlm phase's text stack (VLM_LAYERS): the
     causal forward on the prompt's L ids and a 16-token greedy decode, base
     and with rank-16 bare adapters (q k v o: the MoE layers' router and
     experts are never adapted): B = 0 bit-equal, B perturbed, merged
@@ -3873,6 +3966,452 @@ def _sp_train_alone() -> int:
     return 0
 
 
+STREAM_TOL = 1e-5  # streamed vs resident A14B latents, of scale: the same kernels on the same
+# inputs (predicted bit-equal; the bound covers a different cuBLAS algorithm per call)
+STREAM_Q8_TOL = 5e-2  # int8-streamed vs resident latents, of scale (JAX's bound for its int8
+# stream, tests/test_streaming.py)
+STREAM_Q8_BYTES = 0.51  # an int8 block's bytes over a bf16 block's, at most
+STREAM_TRAIN_LOSS_TOL = 2e-3  # rel, streamed vs resident train step: the same kernels on the
+# same tokens, sums (d_e0, d_ctx, the norm) in another order (SP_LOSS_TOL's reasoning)
+STREAM_TRAIN_GNORM_TOL = 1e-2  # rel, grad_norm (SP_GNORM_TOL)
+STREAM_LORA_Q8_TOL = 0.1  # rel, int8-base LoRA loss vs the bf16 base's (JAX's rtol)
+STREAM_VARIANT_STEPS = 2  # steps of the fused and adafactor cases (full depth), to fit the run time
+STREAM_LORA_STEPS = 3  # A14B LoRA steps: resident, bf16 base, int8 base
+STREAM_RULE_LEAVES = ("blocks.0.cross_attn.k.weight", "blocks.29.ffn.0.weight",  # factored
+                      "blocks.0.ffn.0.bias", "blocks.29.self_attn.norm_q.weight")  # unfactored
+STREAM_PARAM_TOL = 5e-2  # ‖Δ_streamed − Δ_resident‖/‖Δ_resident‖ of each leaf's parameter change
+# over the run: a block whose last write-back is dropped or stale reads ~1/steps (the control,
+# from the resident run's last step), a skipped block 1
+
+
+def _stream_generate(cfg, experts, inputs, timing=False, prepare=None, **stream_kw) -> tuple:
+    """One streamed A14B generate from the a14b phase's inputs: (latents,
+    record). A non-finite result raises (FloatingPointError, from generate)."""
+    high, low = experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = OmniVideoX2XUnified(cfg, low, high, qk_impl="kernel", ew_impl="kernel",
+                               layer_stream=True, **stream_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in (high, low):
+        pipe.executor(e.wan).timing = timing
+        if prepare is not None:
+            prepare(e, pipe.executor(e.wan))
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    executors = [pipe.executor(e.wan) for e in (high, low)]
+    _reset_launches()
+    gen_kw = dict(size=SIZE, frame_num=FRAMES, sampling_steps=A14B_STEPS, shift=cfg.sample_shift,
+                  guide_scale=cfg.sample_guide_scale, decode=False, **inputs)
+    with RssSampler() as rss:
+        lat = pipe.generate(**gen_kw)
+    rec = {"kw": dict(stream_kw), "window": executors[0].window, "launches": _launches(),
+           "step_s": pipe.timings["step_s"], "denoise_step_s": pipe.timings["denoise_step_s"],
+           "prepare_s": prep_s, "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "host_rss_peak_gb": rss.peak_gb, "pinned_gb": HostBuffer.pinned_bytes / 1e9,
+           "block_bytes": executors[0].block_bytes}
+    if timing:
+        rec["overlap"] = [st for ex in executors for st in ex.stats]
+    pipe.release_streams()
+    return lat, rec
+
+
+def phase_stream(a14b: dict, cli: dict, tmp: Path) -> dict:
+    """T2V-A14B generate with both experts' blocks in page-locked host
+    memory, streamed through the card (pipelines/streaming.py), from the
+    a14b phase's weights and inputs: window 2 (copy and compute overlap
+    timed with CUDA events), window 1 and group 4 bit-equal to it, int8 (each
+    expert quantised on the card, then its bf16 host copy dropped); then the
+    cli phase's row through the generate CLI again, resident and with
+    --layer_stream: both rows' latents bit-equal to the cli phase's, the
+    streamed row's frames within 1 level of the resident row's."""
+    cfg = T2V_A14B
+    st = a14b["stream"]
+    experts, inputs, ref, expect = st["experts"], st["inputs"], st["latents"], st["launches"]
+    runs = {}
+    lat, runs["window2"] = _stream_generate(cfg, experts, inputs, timing=True)
+    emit({"phase": "stream", "run": "window2", "latent_rel_err": _scale_rel(lat, ref),
+          **{k: v for k, v in runs["window2"].items() if k != "overlap"}})
+    lat1, runs["window1"] = _stream_generate(
+        cfg, experts, inputs, prepare=lambda e, ex: setattr(ex, "window", 1))
+    emit({"phase": "stream", "run": "window1", "equal": bool(torch.equal(lat1, lat)),
+          **runs["window1"]})
+    lat4, runs["group4"] = _stream_generate(cfg, experts, inputs, stream_group=4)
+    emit({"phase": "stream", "run": "group4", "equal": bool(torch.equal(lat4, lat)),
+          **runs["group4"]})
+    bf16_block = runs["window2"]["block_bytes"]
+
+    def drop_bf16(expert, ex):  # only the int8 copies stay on the host
+        expert.wan.host_blocks = ex.host_blocks
+
+    latq, runs["int8"] = _stream_generate(cfg, experts, inputs, prepare=drop_bf16,
+                                          stream_quant="int8")
+    rel = _scale_rel(lat, ref)
+    rel_q8 = _scale_rel(latq, ref)
+    overlap = runs["window2"].pop("overlap")
+    if not overlap:
+        raise AssertionError("stream: no copy was timed")
+    copy_ms = sum(o["copy_ms"] for o in overlap)
+    exposed_ms = sum(o["copy_ms"] * (1 - o["hidden_share"]) for o in overlap)
+    # the cli phase's row again, resident then streamed: the VAE decode of bit-equal latents
+    # moves with the process's state (the cli phase's own frames, decoded earlier, read 1
+    # level apart in a `stream` run alone, 12 once), so the frames are held to the resident
+    # row decoded here
+    rows = {}
+    for key, extra in (("resident", []), ("streamed", ["--layer_stream"])):
+        argv = list(cli["argv"]) + extra
+        argv[argv.index("--output_dir") + 1] = str(tmp / f"cli_{key}")
+        _reset_launches()
+        with _CapturedFrames() as written:
+            (res,) = generate_cli.run(generate_cli.parse_args(argv))
+        rows[key] = (argv, _launches(), res, written.frames["v2v_0"])
+        shutil.rmtree(tmp / f"cli_{key}", ignore_errors=True)
+    argv, cli_launches, res, frames = rows["streamed"]
+    levels = lambda a, b: int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())  # noqa: E731
+    cli_rec = {"argv": argv, "launches": cli_launches, "step_s": res["timings"]["step_s"],
+               "latents_equal": bool(torch.equal(res["latents"], cli["latents"])
+                                     and torch.equal(rows["resident"][2]["latents"],
+                                                     cli["latents"])),
+               "frames_max_levels": levels(frames, rows["resident"][3]),
+               "frames_vs_cli_phase_levels": levels(frames, cli["frames"])}
+    del rows
+    rec = {"phase": "stream", "config": "T2V_A14B", "resident_step_s": st["timings"]["step_s"],
+           "resident_denoise_peak_gb": st["denoise_peak_gb"], "split_s": st["split_s"],
+           "latent_rel_err": rel, "tolerance": STREAM_TOL,
+           "window1_equal": bool(torch.equal(lat1, lat)), "group4_equal": bool(torch.equal(lat4, lat)),
+           "int8_latent_rel_err": rel_q8, "int8_tolerance": STREAM_Q8_TOL,
+           "int8_block_bytes_ratio": runs["int8"]["block_bytes"] / bf16_block,
+           "copy_gb_per_s": sum(o["copy_gb"] for o in overlap) / (copy_ms / 1e3),
+           "hidden_share": 1 - exposed_ms / copy_ms, "copy_ms_total": copy_ms,
+           "compute_ms_total": sum(o["compute_ms"] for o in overlap),
+           "forwards_timed": len(overlap), "runs": runs, "expected_launches": expect,
+           "cli": cli_rec}
+    emit(rec)
+    bad = [k for k, r in runs.items() if r["launches"] != expect]
+    if (rel > STREAM_TOL or not rec["window1_equal"] or not rec["group4_equal"]
+            or not 0 < rel_q8 <= STREAM_Q8_TOL or rec["int8_block_bytes_ratio"] > STREAM_Q8_BYTES
+            or bad or cli_launches != cli["expect"] or not cli_rec["latents_equal"]
+            or cli_rec["frames_max_levels"] > 1):
+        raise AssertionError(f"stream: {rec} (launches off in {bad})")
+    rec["launches"] = runs["window2"]["launches"]
+    del st["experts"], experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _plain_train_setup(cfg, seed: int = 0):
+    """A seeded DiT of `cfg` (f32 masters, head filled), a batch at
+    832x480x81 with the full context, and one set of draws."""
+    tc = TrainConfig(warmup_steps=0, total_steps=1000, remat=True)
+    dit_cfg = cfg.dit.replace(text_len=cfg.max_context_len)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    wan = WanDiT(dit_cfg, dtype=torch.float32, device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():  # init zero-fills the head: every block gradient would be 0
+        wan.head.head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
+    lat = (1, cfg.dit.in_dim, GRID[0], GRID[1] * 2, GRID[2] * 2)
+    batch = {"latents": torch.randn(lat, generator=gen, device="cuda"),
+             "context": torch.randn(1, cfg.max_context_len, cfg.dit.text_dim, generator=gen,
+                                    device="cuda")}
+    return tc, wan, batch, sample_draws(gen, lat, tc)
+
+
+def _change_gaps(got: dict, ref: dict, prev: dict, base: dict) -> dict:
+    """How far the streamed run's parameters `got` depart from the resident
+    run's `ref`, as a share of the resident change ref − base (f64 sums; a
+    leaf the resident run left unmoved is skipped): per leaf, and per group
+    (a block's leaves together, the resident leaves together); beside the
+    control, the same share for ref's last step (ref − prev), which is what a
+    leaf or group whose last write-back was dropped would read."""
+    sq = {"gap": {}, "ctrl": {}, "moved": {}}
+    for n, r in ref.items():
+        moved = float((r - base[n]).double().square().sum())
+        if moved == 0.0:
+            continue
+        g = got[n].to(r.device, non_blocking=True)
+        sq["moved"][n] = moved
+        sq["gap"][n] = float((g - r).double().square().sum())
+        sq["ctrl"][n] = float((r - prev[n]).double().square().sum())
+    groups = {}
+    for n in sq["moved"]:
+        parts = n.split(".")
+        groups.setdefault(".".join(parts[:2]) if parts[0] == "blocks" else "resident", []).append(n)
+    out = {"leaves": len(sq["moved"]), "skipped_unmoved": len(ref) - len(sq["moved"])}
+    for level, members in (("leaf", {n: [n] for n in sq["moved"]}), ("group", groups)):
+        share = {k: {q: math.sqrt(sum(sq[q][n] for n in ns) / sum(sq["moved"][n] for n in ns))
+                     for q in ("gap", "ctrl")} for k, ns in members.items()}
+        worst = max(share, key=lambda k: share[k]["gap"])
+        least = min(share, key=lambda k: share[k]["ctrl"])
+        out[level] = {"worst": worst, "worst_gap": share[worst]["gap"],
+                      "median_gap": float(np.median([v["gap"] for v in share.values()])),
+                      "control_least": least, "control_least_share": share[least]["ctrl"],
+                      "control_median": float(np.median([v["ctrl"] for v in share.values()]))}
+    return out
+
+
+def _stream_train_case(name: str, steps: int, hold_params: bool, rule_leaves=(),
+                       **tc_kw) -> dict:
+    """make_train_step (resident) and StreamedTrainer from the same T2V-1.3B
+    weights (full depth), batch and draws, `steps` steps each: loss and
+    grad_norm per step; with `hold_params`, each leaf's parameter change
+    over the run against the resident run's (_change_gaps); `rule_leaves`
+    (block leaves, adafactor): the streamed trainer's first update of each
+    against the f64 reference of the rule on that leaf alone
+    (_adafactor_reference) from the gradient the rule was given, and that
+    gradient against the resident step's (clipped alike)."""
+    cfg = T2V_1_3B
+    out = {"case": name, "layers": cfg.dit.num_layers, "steps": steps, **tc_kw}
+    ref, seen = {}, {}
+    for mode in ("resident", "streamed"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tc, wan, batch, draws = _plain_train_setup(cfg)
+        tc = dataclasses.replace(tc, **tc_kw)
+        t0 = time.perf_counter()
+        if mode == "resident":
+            tx = make_optimizer(tc, wan)
+            state = init_train_state(wan, tx)
+            step = make_train_step(cfg, tc, tx)
+            if rule_leaves:
+                update = tx.update
+
+                def spy(model, grads, opt_state):
+                    if opt_state["count"] == 0:
+                        gnorm = float(global_norm(grads.values()))
+                        scale = min(1.0, tc.grad_clip / gnorm) if tc.grad_clip else 1.0
+                        seen["g_resident"] = {n: grads[n].detach() * scale for n in rule_leaves}
+                    return update(model, grads, opt_state)
+
+                tx.update = spy
+        else:
+            trainer = StreamedTrainer(cfg, tc, device="cuda")
+            state = trainer.init_state(wan)
+            step = trainer.train_step
+            if rule_leaves:  # pass B updates the blocks in order, after the resident leaves
+                apply, blocks = trainer.rule.apply, [-1]
+                block_names, watch = set(state.host_blocks[0].block()), {}
+                for n in rule_leaves:
+                    _, i, local = n.split(".", 2)
+                    watch.setdefault(int(i), {})[local] = n
+
+                def spy_rule(leaves, g, opt, count):
+                    if count == 0 and leaves[0][0] in block_names:
+                        blocks[0] += 1
+                        own = dict(leaves)
+                        for local, n in watch.get(blocks[0], {}).items():
+                            seen.setdefault("g", {})[n] = g[local].detach().clone()
+                            seen.setdefault("p0", {})[n] = own[local].detach().clone()
+                            seen["lr"] = trainer.rule.sched(count)
+                    apply(leaves, g, opt, count)
+                    if count == 0:
+                        own = dict(leaves)
+                        for local, n in watch.get(blocks[0], {}).items():
+                            seen.setdefault("p1", {})[n] = own[local].detach().clone()
+
+                trainer.rule.apply = spy_rule
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        with RssSampler() as rss:
+            if mode == "resident" and hold_params:  # the start and the last step's start kept
+                ref["base"] = {n: p.detach().clone() for n, p in wan.named_parameters()}
+                state, rows, step_s, per_step = _timed_steps(step, state, batch, draws,
+                                                             steps - 1)
+                ref["prev"] = {n: p.detach().clone() for n, p in wan.named_parameters()}
+                state, *last = _timed_steps(step, state, batch, draws, 1)
+                rows, step_s, per_step = (a + b for a, b in zip((rows, step_s, per_step), last))
+            else:
+                state, rows, step_s, per_step = _timed_steps(step, state, batch, draws, steps)
+        out[mode] = {"loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
+                     "step_s": step_s, "init_s": init_s,
+                     "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "host_rss_peak_gb": rss.peak_gb, "pinned_gb": HostBuffer.pinned_bytes / 1e9,
+                     "launches_ok": all(p == _train_expect(cfg) for p in per_step),
+                     "launches": {k: sum(p[k] for p in per_step)
+                                  for k in flash_attention_train.launches}}
+        if hold_params:
+            with torch.no_grad():
+                if mode == "resident":
+                    ref["params"] = {n: p.detach().clone() for n, p in wan.named_parameters()}
+                else:
+                    got = {**dict(state.resident.resident_parameters()),
+                           **host_block_targets(state.resident)}
+                    out["params"] = _change_gaps(got, ref["params"], ref["prev"], ref["base"])
+                    out["params"]["tolerance"] = STREAM_PARAM_TOL
+            torch.cuda.synchronize()
+        del state, step, wan, batch
+    ref.clear()
+    r, s_ = out["resident"], out["streamed"]
+    out["loss_rel"] = [abs(a / b - 1) for a, b in zip(s_["loss"], r["loss"])]
+    out["grad_norm_rel"] = [abs(a / b - 1) for a, b in zip(s_["grad_norm"], r["grad_norm"])]
+    # adafactor's update takes a leaf's RMS over the leaf: the resident rule over a JAX
+    # leaf's every layer, the streamed one per block (as JAX's streamed trainer does), so
+    # after the first update the two steps differ by design (at 30 layers the second
+    # step's loss by ~2e-2): loss and grad_norm are held at step 1, where both take the
+    # same parameters, and the streamed update to its own rule (rule_leaves)
+    held = 1 if tc.optimizer == "adafactor" else steps
+    out["steps_held"] = held
+    rule_ok = True
+    if rule_leaves:
+        zero = torch.zeros((), dtype=torch.float64)
+        st = {k: {n: zero for n in rule_leaves} for k in ("v", "v_row", "v_col")}
+        out["rule"], out["rule_grad"] = {}, {}
+        for n in rule_leaves:
+            want = _adafactor_reference([n], seen["p0"], seen["g"], st, 0, 1.0, seen["lr"],
+                                        tc.weight_decay)
+            got = seen["p1"][n].double() - seen["p0"][n].double()
+            got = got.T if n.endswith(".weight") and got.ndim == 2 else got
+            out["rule"][n] = _scale_rel(got, want)
+            g_r = seen["g_resident"][n].float()
+            out["rule_grad"][n] = float((seen["g"][n].float() - g_r).norm() / g_r.norm())
+        out["rule_tolerance"], out["rule_grad_tolerance"] = UPDATE_TOL, SP_GNORM_TOL
+        rule_ok = (max(out["rule"].values()) <= UPDATE_TOL
+                   and max(out["rule_grad"].values()) <= SP_GNORM_TOL)
+    params_ok = (not hold_params or (out["params"]["leaf"]["worst_gap"] <= STREAM_PARAM_TOL
+                                     < out["params"]["leaf"]["control_least_share"]))
+    out["ok"] = (max(out["loss_rel"][:held]) <= STREAM_TRAIN_LOSS_TOL
+                 and max(out["grad_norm_rel"][:held]) <= STREAM_TRAIN_GNORM_TOL
+                 and params_ok and rule_ok and r["launches_ok"] and s_["launches_ok"]
+                 and all(np.isfinite(s_["loss"])) and s_["loss"][-1] != s_["loss"][0])
+    return out
+
+
+def _stream_lora() -> dict:
+    """One T2V-A14B expert at full width and depth, rank-16 LoRA on
+    DEFAULT_TARGETS, batch 1 at 832x480x81 with a 512-token context: the
+    resident LoRA step (make_train_step, freeze_base), then
+    StreamedLoRATrainer from the same base, adapters and draws (bf16 base,
+    then int8 base), STREAM_LORA_STEPS steps each, timed."""
+    cfg = T2V_A14B
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dit_cfg = cfg.dit.replace(text_len=CTX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t0 = time.perf_counter()
+    wan = WanDiT(dit_cfg, dtype=torch.bfloat16, device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        wan.head.head.weight.normal_(0.0, cfg.dit.dim**-0.5, generator=gen)
+    adapters = draw_lora(wan, LORA_RANK, generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tc = TrainConfig(warmup_steps=0, total_steps=1000, remat=True, learning_rate=LORA_LR,
+                     trainable_filters=LORA_FILTERS)
+    lat = (1, cfg.dit.in_dim, GRID[0], GRID[1] * 2, GRID[2] * 2)
+    batch = {"latents": torch.randn(lat, generator=gen, device="cuda"),
+             "context": torch.randn(1, CTX_LEN, cfg.dit.text_dim, generator=gen, device="cuda")}
+    draws = sample_draws(gen, lat, tc)
+    n_layers = cfg.dit.num_layers
+    out = {"config": "T2V_A14B", "layers": n_layers, "rank": LORA_RANK,
+           "sites_per_block": len(adapters) // n_layers, "context_len": CTX_LEN,
+           "init_s": init_s, "lr": LORA_LR}
+    # resident reference (base 28.6 GB + f32 remat inputs 26.8 GB)
+    for name, (a, b, sc) in adapters.items():
+        set_adapter(wan.get_submodule(name), a, b, sc)
+    freeze_base(wan)
+    tx = make_optimizer(tc, wan)
+    state = init_train_state(wan, tx)
+    state, rows, step_s, per_step = _timed_steps(make_train_step(cfg, tc, tx), state, batch,
+                                                 draws, STREAM_LORA_STEPS)
+    out["resident"] = {"loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
+                       "step_s": step_s,
+                       "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, tx
+    strip_lora(wan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for key, quant in (("bf16", None), ("int8", "int8")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = StreamedLoRATrainer(cfg, tc, device="cuda", base_quant=quant)
+        state = trainer.init_state(wan, adapters)
+        start = {k: v.detach().clone() for k, v in state.lora.items()}
+        torch.cuda.synchronize()
+        init = time.perf_counter() - t0
+        with RssSampler() as rss:
+            state, rows, step_s, per_step = _timed_steps(trainer.train_step, state, batch,
+                                                         draws, STREAM_LORA_STEPS)
+        moved = sum(not torch.equal(state.lora[k], v) for k, v in start.items())
+        out[key] = {"loss": [r[0] for r in rows], "grad_norm": [r[1] for r in rows],
+                    "step_s": step_s, "init_s": init, "adapters_moved": moved,
+                    "adapter_tensors": len(start),
+                    "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "host_rss_peak_gb": rss.peak_gb, "pinned_gb": HostBuffer.pinned_bytes / 1e9,
+                    "launches": {k: sum(p[k] for p in per_step)
+                                 for k in flash_attention_train.launches},
+                    "launches_ok": all(p == _train_expect(cfg) for p in per_step)}
+        del state, trainer, start
+    r, b, q = out["resident"], out["bf16"], out["int8"]
+    out["loss_rel"] = [abs(x / y - 1) for x, y in zip(b["loss"], r["loss"])]
+    out["grad_norm_rel"] = [abs(x / y - 1) for x, y in zip(b["grad_norm"], r["grad_norm"])]
+    out["int8_loss_rel"] = [abs(x / y - 1) for x, y in zip(q["loss"], b["loss"])]
+    out["ok"] = (max(out["loss_rel"]) <= STREAM_TRAIN_LOSS_TOL
+                 and max(out["grad_norm_rel"]) <= STREAM_TRAIN_GNORM_TOL
+                 and max(out["int8_loss_rel"]) <= STREAM_LORA_Q8_TOL
+                 and b["adapters_moved"] > 0 and q["adapters_moved"] > 0
+                 and all(np.isfinite(b["loss"] + q["loss"]))
+                 and b["launches_ok"] and q["launches_ok"])
+    del wan, batch
+    return out
+
+
+def phase_stream_train() -> dict:
+    """(a) StreamedTrainer on T2V-1.3B at full width and depth against the
+    resident make_train_step (f32 masters, AdamW lr 3e-6, clip 0.1, remat,
+    3 steps from one batch and set of draws), then its fused (grad_clip 0)
+    and adafactor modes, STREAM_VARIANT_STEPS steps each; (b)
+    StreamedLoRATrainer on one T2V-A14B expert (_stream_lora). The record's
+    "launches" holds each streamed run's own count (reset before each step,
+    summed over the run)."""
+    cases = [_stream_train_case("adamw", TRAIN_STEPS, True),
+             _stream_train_case("fused", STREAM_VARIANT_STEPS, True, grad_clip=0.0),
+             _stream_train_case("adafactor", STREAM_VARIANT_STEPS, False, STREAM_RULE_LEAVES,
+                                optimizer="adafactor", learning_rate=ADAFACTOR_LR)]
+    lora = _stream_lora()
+    rec = {"phase": "stream_train", "full": cases, "lora": lora,
+           "train_step_s": sum(cases[0]["streamed"]["step_s"][1:]) / (TRAIN_STEPS - 1),
+           "resident_train_step_s": sum(cases[0]["resident"]["step_s"][1:]) / (TRAIN_STEPS - 1)}
+    emit(rec)
+    if not all(c["ok"] for c in cases) or not lora["ok"]:
+        raise AssertionError(f"stream_train: {rec}")
+    rec["launches"] = {"stream_train": cases[0]["streamed"]["launches"],
+                       "stream_train_fused": cases[1]["streamed"]["launches"],
+                       "stream_train_adafactor": cases[2]["streamed"]["launches"],
+                       "stream_lora": lora["bf16"]["launches"],
+                       "stream_lora_int8": lora["int8"]["launches"]}
+    return rec
+
+
+def _stream_alone() -> int:
+    """`chip_smoke.py stream`: the cli phase (its row is the yardstick of the
+    CLI's --layer_stream), the a14b phase keeping its experts on the host,
+    then stream."""
+    phase_device()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        cli = phase_cli(write_clip(tmp / "clip_720p.npz"), tmp)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        a14b = phase_a14b(torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen,
+                                      device="cuda"), keep_host=True)
+        phase_stream(a14b, cli, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+def _stream_train_alone() -> int:
+    """`chip_smoke.py stream_train`: the streamed trainers' phase alone."""
+    phase_device()
+    phase_stream_train()
+    return 0
+
+
 def _kernel_class(name: str) -> str:
     row = kernel_row(name)
     if row is not None:
@@ -3931,6 +4470,10 @@ def main(argv) -> int:
         return _i2v_alone()
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
+    if argv[:1] == ["stream"]:
+        return _stream_alone()
+    if argv[:1] == ["stream_train"]:
+        return _stream_train_alone()
     if argv[:1] == ["sft_sp"]:
         return _sft_sp_alone()
     if argv[:1] == ["sft"]:
@@ -3959,8 +4502,8 @@ def main(argv) -> int:
         return 0
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
-                         "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor', 'qwen3_sp' or "
-                         "'i2v')")
+                         "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor', 'qwen3_sp', "
+                         "'i2v', 'stream' or 'stream_train')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -3972,38 +4515,52 @@ def main(argv) -> int:
 def _all_phases(dev: dict, tmp: Path) -> int:
     """Every phase in order, then the kernel summary and the last line."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    qk = phase_qk_prep(gen)
-    fl = phase_flash(gen)
-    ft = phase_flash_train(gen)
-    phase_tiny()
-    phase_tiny_vlm()
-    phase_tiny_train()
-    phase_tiny_sft()
+    seconds = {}
+
+    def T(name, fn, *args, **kw):  # a phase, its synchronized wall time kept
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    qk = T("qk_prep", phase_qk_prep, gen)
+    fl = T("flash", phase_flash, gen)
+    ft = T("flash_train", phase_flash_train, gen)
+    T("tiny", phase_tiny)
+    T("tiny_vlm", phase_tiny_vlm)
+    T("tiny_train", phase_tiny_train)
+    T("tiny_sft", phase_tiny_sft)
     clip = write_clip(tmp / "clip_720p.npz")
-    vlm = phase_vlm(clip)
+    vlm = T("vlm", phase_vlm, clip)
     features = vlm.pop("features")
-    e2e_rec = phase_e2e(features)
+    e2e_rec = T("e2e", phase_e2e, features)
     e2e = e2e_rec["launches"]
-    phase_load(e2e_rec["pipe"].low_noise, tmp)
-    phase_cli(clip, tmp)
-    ring = phase_ring(gen)
-    sp = phase_sp(e2e_rec.pop("pipe"), e2e_rec.pop("ctx"), features)
+    T("load", phase_load, e2e_rec["pipe"].low_noise, tmp)
+    cli = T("cli", phase_cli, clip, tmp)
+    ring = T("ring", phase_ring, gen)
+    sp = T("sp", phase_sp, e2e_rec.pop("pipe"), e2e_rec.pop("ctx"), features)
     del e2e_rec
     gc.collect()
     torch.cuda.empty_cache()
-    adaln = phase_adaln(gen)["main"]
-    phase_tiny_a14b()
-    a14b = phase_a14b(features)
+    adaln = T("adaln", phase_adaln, gen)["main"]
+    T("tiny_a14b", phase_tiny_a14b)
+    a14b = T("a14b", phase_a14b, features, keep_host=True)
     del features
-    tiny_i2v = phase_tiny_i2v()
-    i2v = phase_i2v()
-    phase_vae22()
-    phase_xlm()
-    train = phase_train()
-    sp_train = phase_sp_train(train.pop("ref"), gen)
-    lora = phase_lora(train, tmp)
-    ada = phase_adafactor(train)
-    phase_sft(tmp)
+    stream = T("stream", phase_stream, a14b, cli, tmp)
+    del cli
+    tiny_i2v = T("tiny_i2v", phase_tiny_i2v)
+    i2v = T("i2v", phase_i2v)
+    T("vae22", phase_vae22)
+    T("xlm", phase_xlm)
+    train = T("train", phase_train)
+    sp_train = T("sp_train", phase_sp_train, train.pop("ref"), gen)
+    lora = T("lora", phase_lora, train, tmp)
+    ada = T("adafactor", phase_adafactor, train)
+    T("sft", phase_sft, tmp)
+    stream_train = T("stream_train", phase_stream_train)
+    emit({"phase": "times", "seconds": seconds, "total_s": sum(seconds.values())})
     text = vlm["text_only"]
     ar = vlm["ar_feature_extract"]
     sft_ring = sp_train["ring_backward"]["sft_token"]
@@ -4012,10 +4569,11 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                   for k in flash_attention_train.launches}
     by_path = {  # each path's own count: reset just before it, read just after
         "qk_prep": {"e2e": e2e["qk_prep"], "lora_generate_cli": gen_cli["qk_prep"],
-                    "tiny_i2v": tiny_i2v["launches"]["qk_prep"], "i2v": i2v["launches"]["qk_prep"]},
+                    "tiny_i2v": tiny_i2v["launches"]["qk_prep"], "i2v": i2v["launches"]["qk_prep"],
+                    "stream": stream["launches"]["qk_prep"]},
         "flash_fwd": {"e2e": e2e["flash_fwd"], "lora_generate_cli": gen_cli["flash_fwd"],
                       "tiny_i2v": tiny_i2v["launches"]["flash_fwd"],
-                      "i2v": i2v["launches"]["flash_fwd"]},
+                      "i2v": i2v["launches"]["flash_fwd"], "stream": stream["launches"]["flash_fwd"]},
         "flash_causal": {"vlm": vlm["launches"]["flash_causal"],
                          "text_only": text["launches"]["flash_causal"],
                          "vlm_image": vlm["image"]["launches"]["flash_causal"],
@@ -4026,13 +4584,15 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                       "ar_feature_extract": ar["launches"]["flash_d72"]},
         "fused_adaln": {"a14b": a14b["launches"]["fused_adaln"],
                         "tiny_i2v": tiny_i2v["launches"]["fused_adaln"],
-                        "i2v": i2v["launches"]["fused_adaln"]},
+                        "i2v": i2v["launches"]["fused_adaln"],
+                        "stream": stream["launches"]["fused_adaln"]},
         "ring_step": {"sp": sp["launches"]["ring_step"],
                       "qwen3_sp": text["qwen3_sp"]["launches"]["ring_step"]},
         "ring_step_f32": {
             "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["ring_step_f32"]},
         **{k: {"train": train_rows[k], "lora": lora["launches"][k], "adafactor": ada["launches"][k],
                "data_pipeline_train": vlm["pipeline_train"]["launches"][k],
+               **{path: n[k] for path, n in stream_train["launches"].items()},
                **({"sft_ring_backward": sft_ring["launches"][k]} if k in sft_ring["launches"]
                   else {})}
            for k in flash_attention_train.launches}}

@@ -26,11 +26,14 @@ tree. LoRA adapters (training/lora.py) ride along in both layouts: a dense
 site's stacked `lora_a/lora_b/lora_scale` leaves and the bare `{name}_lora_*`
 siblings become each layer's `<linear>.lora_a/.lora_b/.lora_scale` (JAX's
 orientation kept), and the loaders attach the adapters they name.
+`streamed_state_from_jax` carries JAX's StreamedTrainState /
+StreamedLoRAState (host numpy blocks, optax AdamW moments, the step) into
+the port's streamed trainer states (training/streaming.py).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -537,3 +540,91 @@ def adamw_state_to_jax(opt_state: Mapping[str, Any], chain_like=None):
     """The port's AdamW state → (mu, nu, count) in JAX's numpy SFT trees."""
     return (sft_state_dict_to_params(opt_state["mu"], chain_like),
             sft_state_dict_to_params(opt_state["nu"], chain_like), int(opt_state["count"]))
+
+
+
+# --- the streamed trainers' states (training/streaming.py) ------------------
+
+_BLOCK_LINEARS = {"ffn/fc1": "ffn.0", "ffn/fc2": "ffn.2"}
+
+
+def _stack(trees):
+    """Per-block dicts of arrays → one dict of [L, ...] arrays."""
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def _split_names(resident, block) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """A JAX DiT's non-block leaves and one block's (params, or optimizer
+    moments of the same structure) → (the port's resident names, its
+    block-relative names)."""
+    sd = wan_params_to_state_dict({**resident, "blocks": _stack([block])})
+    res = {k: v for k, v in sd.items() if not k.startswith("blocks.")}
+    blk = {k[len("blocks.0."):]: v for k, v in sd.items() if k.startswith("blocks.0.")}
+    return res, blk
+
+
+def _linear_name(path: str) -> str:
+    """A block-relative JAX adapter path ('self_attn/q', 'ffn/fc1') → the
+    port's Linear name ('self_attn.q', 'ffn.0')."""
+    return _BLOCK_LINEARS.get(path, path.replace("/", "."))
+
+
+def _adam(opt_state):
+    """optax adamw's ScaleByAdamState (mu, nu, count) inside a chain."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for s in opt_state:
+            found = _adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+@torch.no_grad()
+def _copy_named(dst: Mapping[str, torch.Tensor], src: Mapping[str, Any]) -> None:
+    for k, t in dst.items():
+        t.copy_(torch.from_numpy(np.array(_np(src[k]))).reshape(t.shape))
+
+
+def streamed_state_from_jax(trainer, jstate, device="cuda"):
+    """A JAX StreamedTrainState or StreamedLoRAState (host numpy blocks,
+    optax AdamW states) → the port trainer's state on `device`: the same
+    parameters, adapters, moments and step. AdamW states only."""
+    dev = resolve_device(device)
+    full = {**dict(jstate.resident), "blocks": _stack(jstate.host_blocks)}
+    bf16 = np.asarray(full["patch_embedding"]["kernel"]).dtype.name == "bfloat16"
+    wan = WanDiT(trainer.dit_cfg, dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
+    load_wan_state_dict(wan, wan_params_to_state_dict(full))
+    if hasattr(jstate, "lora"):
+        adapters = {f"blocks.{i}.{_linear_name(path)}": tuple(
+            torch.from_numpy(np.array(_np(x))) for x in
+            (site["lora_a"], site["lora_b"], sc[path]["lora_scale"]))
+            for i, (ab, sc) in enumerate(zip(jstate.lora, jstate.lora_scales))
+            for path, site in ab.items()}
+        state = trainer.init_state(wan, adapters)
+        adam = _adam(jstate.lora_opt)
+        if adam is None:
+            raise NotImplementedError("only AdamW states carry across")
+        for moment in ("mu", "nu"):
+            _copy_named(state.lora_opt[moment], {
+                f"blocks.{i}.{_linear_name(path)}.{key}": site[key]
+                for i, blk in enumerate(getattr(adam, moment)) for path, site in blk.items()
+                for key in ("lora_a", "lora_b")})
+        state.step = int(jstate.step)
+        return state
+    state = trainer.init_state(wan)
+    if _adam(jstate.resident_opt) is None:
+        raise NotImplementedError("only AdamW states carry across")
+    packer = state.host_opts[0].packer
+    for moment in ("mu", "nu"):
+        res_m = getattr(_adam(jstate.resident_opt), moment)
+        for i, jopt in enumerate(jstate.host_block_opts):
+            res, blk = _split_names(res_m, getattr(_adam(jopt), moment))
+            if i == 0:
+                _copy_named(state.resident_opt[moment], res)
+            _copy_named(trainer._opt_views(state.host_opts[i].data, packer)[moment], blk)
+    state.step = int(jstate.step)
+    return state

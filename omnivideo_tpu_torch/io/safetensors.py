@@ -13,15 +13,17 @@ let alone twice. The file is not mapped: on the card's machine a mapped
 file stayed resident in full while it was read, `MADV_DONTNEED` or not
 (`PERF.md` §6: the resident set rose by 2.83 GB over the load of
 a 2.84 GB expert). BF16 stays `torch.bfloat16`; a tensor at any byte
-offset reads the same.
+offset reads the same. `into` reads chosen tensors straight into host
+memory the caller owns (a streamed DiT's page-locked block buffers).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import struct
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -66,11 +68,13 @@ def _read_into(f, dst: torch.Tensor) -> None:
         got += n
 
 
-def iter_safetensors(path: PathLike, device="cuda", prefix_filter: Optional[str] = None
+def iter_safetensors(path: PathLike, device="cuda", prefix_filter: Optional[str] = None,
+                     into: Optional[Callable[[str], Optional[torch.Tensor]]] = None
                      ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor) for every tensor of one file (those whose names start
     with `prefix_filter`, if given), in file order, each in memory of its
-    own on `device`."""
+    own on `device`; where into(name) gives a CPU tensor of the same dtype
+    and size, the tensor is read into that one instead."""
     dev = resolve_device(device)
     header, _, start = read_header(path)
     entries = sorted(((e["data_offsets"][0], name, e) for name, e in header.items()
@@ -82,12 +86,15 @@ def iter_safetensors(path: PathLike, device="cuda", prefix_filter: Optional[str]
         for _, name, e in entries:
             begin, end = (start + o for o in e["data_offsets"])
             dtype, shape = DTYPES[e["dtype"]], tuple(e["shape"])
-            out = torch.empty(shape, dtype=dtype, device=dev)
+            out = into(name) if into is not None else None
+            if (out is None or out.device.type != "cpu" or out.dtype != dtype
+                    or out.numel() != math.prod(shape) or not out.is_contiguous()):
+                out = torch.empty(shape, dtype=dtype, device=dev)
             if end > size or end - begin != out.numel() * out.element_size():
                 raise ValueError(f"{path}: {name} {e} does not fit the file")
             raw = out.reshape(-1).view(torch.uint8)
             f.seek(begin)
-            if dev.type == "cpu":
+            if out.device.type == "cpu":
                 _read_into(f, raw)
             else:
                 if staging is None:

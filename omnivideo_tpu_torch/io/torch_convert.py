@@ -24,7 +24,7 @@ The VAE, umT5, CLIP, VAE 2.2 and XLM-R names map in their modules
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Iterable, Mapping, Tuple, Union
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -75,16 +75,23 @@ def split_unified_state_dict(sd: Mapping[str, Any]):
 
 @torch.no_grad()
 def load_strict(model: nn.Module,
-                sd: Union[Mapping[str, Any], Iterable[Tuple[str, Any]]]) -> nn.Module:
+                sd: Union[Mapping[str, Any], Iterable[Tuple[str, Any]]],
+                host_targets: Optional[Mapping[str, torch.Tensor]] = None) -> nn.Module:
     """Copy arrays into the parameters of the same names, reshaping where
     only the layout differs and casting to each parameter's dtype; every
     parameter must be filled and every name used (a name may also be a
     buffer's, such as an adapter's `lora_scale`). `sd` is a mapping, or
     (name, array) pairs that arrive one at a time (a safetensors file read
     tensor by tensor): each is copied as it comes, so loading holds the
-    model and one tensor more."""
+    model and one tensor more. `host_targets` ({name: tensor}) replace the
+    module's own entries of those names (a streamed DiT's blocks, whose
+    module tensors are meta: pipelines/streaming.py `host_block_targets`)."""
     params = dict(model.named_parameters())
     targets = {**dict(model.named_buffers()), **params}
+    if host_targets is not None:
+        params = {n: p for n, p in params.items() if n not in host_targets}
+        params.update(host_targets)
+        targets.update(host_targets)
     seen = set()
     for name, value in (sd.items() if isinstance(sd, Mapping) else sd):
         if name not in targets:
@@ -92,7 +99,8 @@ def load_strict(model: nn.Module,
         src, p = as_tensor(value), targets[name]
         if src.numel() != p.numel():
             raise ValueError(f"{name}: {tuple(src.shape)} does not fit {tuple(p.shape)}")
-        p.copy_(src.reshape(p.shape))
+        if src.device != p.device or src.data_ptr() != p.data_ptr():  # not read in place
+            p.copy_(src.reshape(p.shape))
         seen.add(name)
     missing = sorted(set(params) - seen)
     if missing:

@@ -249,6 +249,16 @@ class WanAux(NamedTuple):
     sp: Optional[SPConfig] = None
 
 
+class Prologue(NamedTuple):
+    """WanDiT.prologue's result: the embedded tokens h [B, L, dim] (param
+    dtype), e [B, T, dim] f32 for the head, the blocks' WanAux, the grid."""
+
+    h: torch.Tensor
+    e: torch.Tensor
+    aux: WanAux
+    grid: Tuple[int, int, int]
+
+
 class Gain(nn.Module):
     """A norm's per-channel weight (the reference WanRMSNorm's `weight`)."""
 
@@ -454,7 +464,8 @@ class WanDiT(nn.Module):
     real weights load a state dict through io/jax_bridge.py."""
 
     def __init__(self, cfg: WanDiTConfig, dtype: torch.dtype = torch.bfloat16,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 blocks_device=None):
         super().__init__()
         device = resolve_device(device)
         d = cfg.dim
@@ -470,52 +481,80 @@ class WanDiT(nn.Module):
         self.time_projection = nn.Sequential(nn.SiLU(), nn.Linear(d, 6 * d, **kw))
         if cfg.model_type == "i2v":
             self.img_emb = MLPProj(CLIP_DIM, d, dtype, device)
-        self.blocks = nn.ModuleList(WanBlock(cfg, dtype, device) for _ in range(cfg.num_layers))
+        bdev = device if blocks_device is None else torch.device(blocks_device)
+        self.blocks = nn.ModuleList(WanBlock(cfg, dtype, bdev) for _ in range(cfg.num_layers))
         self.head = WanHead(cfg, device)
         self._rope_cache = {}
-        self.init_weights(generator)
+        # blocks kept off the card (pipelines/streaming.py): packed host blocks
+        self.host_blocks = None
+        if bdev.type != "meta":
+            self.init_weights(generator)
 
     @property
     def param_dtype(self) -> torch.dtype:
         return self.patch_embedding.weight.dtype
 
-    @torch.no_grad()
-    def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
-        """Xavier-uniform linears with zero bias, normal(0.02) text/time
-        embeddings, normal/√d modulation tables, ones/zeros norms, zero head.
-        The i2v parameters (img_emb, k_img/v_img, norm_k_img), which JAX's
+    @property
+    def streamed(self) -> bool:
+        """Whether the blocks live on the host (`host_blocks`), not here."""
+        return self.host_blocks is not None
+
+    def resident_parameters(self):
+        """(name, parameter) of everything but the blocks."""
+        return [(n, p) for n, p in self.named_parameters() if not n.startswith("blocks.")]
+
+    def init_plan(self):
+        """The seeded init as (name, tensor, kind, scale) in draw order, kind
+        "zero", "one", "normal" (std scale) or "xavier": Xavier-uniform
+        linears with zero bias, normal(0.02) text/time embeddings,
+        normal/√d modulation tables, ones/zeros norms, zero head. The i2v
+        parameters (img_emb, k_img/v_img, norm_k_img), which JAX's
         init_wan_dit does not draw, follow the same rules."""
         d = self.cfg.dim
-        dev = self.patch_embedding.weight.device
+        normal_lins = {id(m) for m in (self.text_embedding[0], self.text_embedding[2],
+                                       self.time_embedding[0], self.time_embedding[2])}
+        for name, m in self.named_modules():
+            if isinstance(m, nn.Linear):
+                if m is self.head.head:
+                    yield f"{name}.weight", m.weight, "zero", 0.0
+                elif id(m) in normal_lins:
+                    yield f"{name}.weight", m.weight, "normal", 0.02
+                else:
+                    yield f"{name}.weight", m.weight, "xavier", 0.0
+                yield f"{name}.bias", m.bias, "zero", 0.0
+            elif isinstance(m, Gain):
+                yield f"{name}.weight", m.weight, "one", 0.0
+            elif isinstance(m, AffineNorm):
+                yield f"{name}.weight", m.weight, "one", 0.0
+                yield f"{name}.bias", m.bias, "zero", 0.0
+        for i, blk in enumerate(self.blocks):
+            yield f"blocks.{i}.modulation", blk.modulation, "normal", d**-0.5
+        yield "head.modulation", self.head.modulation, "normal", d**-0.5
 
-        def draw(p: torch.Tensor, kind: str, scale: float = 1.0):
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None, sink=None) -> None:
+        """Run `init_plan` from `generator`. A draw is made in f32 on the
+        model's device and cast into the parameter; with `sink`, every block
+        value goes to sink(name, f32 value) instead (pipelines/streaming.py
+        fills host blocks so, with the draws of the resident init)."""
+        dev = self.patch_embedding.weight.device
+        for name, p, kind, scale in self.init_plan():
+            to_sink = sink is not None and name.startswith("blocks.")
+            if kind in ("zero", "one") and not to_sink:
+                p.fill_(0.0 if kind == "zero" else 1.0)
+                continue
             t = torch.empty(p.shape, dtype=torch.float32, device=dev)
-            if kind == "normal":
+            if kind == "zero" or kind == "one":
+                t.fill_(0.0 if kind == "zero" else 1.0)
+            elif kind == "normal":
                 t.normal_(0.0, scale, generator=generator)
             else:  # xavier uniform over [out, in]
                 a = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
                 t.uniform_(-a, a, generator=generator)
-            p.copy_(t)
-
-        normal_lins = {id(m) for m in (self.text_embedding[0], self.text_embedding[2],
-                                       self.time_embedding[0], self.time_embedding[2])}
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                if m is self.head.head:
-                    m.weight.zero_()
-                elif id(m) in normal_lins:
-                    draw(m.weight, "normal", 0.02)
-                else:
-                    draw(m.weight, "xavier")
-                m.bias.zero_()
-            elif isinstance(m, Gain):
-                m.weight.fill_(1.0)
-            elif isinstance(m, AffineNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-        for blk in self.blocks:
-            draw(blk.modulation, "normal", d**-0.5)
-        draw(self.head.modulation, "normal", d**-0.5)
+            if to_sink:
+                sink(name, t)
+            else:
+                p.copy_(t)
 
     def rope_tables(self, grid: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
         """f32 cos/sin [F·H·W, head_dim//2] on the model's device, cached per grid."""
@@ -571,6 +610,39 @@ class WanDiT(nn.Module):
         clip_fea [B, 257, 1280] (the CLIP tower's tokens) is projected by
         img_emb and prepended to the embedded context.
         Returns the velocity [B, C_out, F, H, W] f32."""
+        if self.streamed:
+            raise ValueError("the blocks are on the host: run pipelines/streaming.py "
+                             "wan_dit_stream_apply")
+        if sp is not None:
+            qk_impl = ew_impl = "unfused"
+        pro = self.prologue(x, t, context, seq_len, context_embedded, sp, y, clip_fea)
+        h, e, aux, grid = pro.h, pro.e, pro.aux, pro.grid
+        bandwidth = residual_dtype is not None and residual_dtype != torch.float32
+        if bandwidth and carry_dtype not in (None, residual_dtype):
+            raise ValueError(f"carry_dtype {carry_dtype} with residual_dtype {residual_dtype}")
+        cdt = carry_dtype if carry_dtype is not None and not bandwidth else torch.float32
+
+        def block_fn(blk, xx):
+            if bandwidth or cdt == torch.float32:
+                return blk(xx, aux, qk_impl, ew_impl)
+            return blk(xx.float(), aux, qk_impl, ew_impl).to(cdt)
+
+        hf = h.to(residual_dtype if bandwidth else cdt)
+        for blk in self.blocks:
+            if remat:
+                hf = checkpoint(block_fn, blk, hf, use_reentrant=False)
+            else:
+                hf = block_fn(blk, hf)
+        return self._head(hf.float(), e, grid, ew_impl, sp)
+
+    def prologue(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
+                 seq_len: Optional[int] = None, context_embedded: bool = False,
+                 sp: Optional[SPConfig] = None, y: Optional[torch.Tensor] = None,
+                 clip_fea: Optional[torch.Tensor] = None) -> "Prologue":
+        """Everything before the blocks (patchify, patch_embedding, the pad,
+        the time embeddings, embed_context, img_emb, the RoPE tables, under
+        SP this rank's shard): the resident and the streamed forward
+        (pipelines/streaming.py) both start here."""
         cfg = self.cfg
         if y is not None:
             x = torch.cat([x, y.to(x.dtype)], dim=1)
@@ -599,7 +671,6 @@ class WanDiT(nn.Module):
             n = sp.sp_size
             if L % n:
                 raise ValueError(f"seq_len {L} not divisible by sp_size {n}; round it up")
-            qk_impl = ew_impl = "unfused"
             s0 = sp.shard_index * (L // n)
             s1 = s0 + L // n
             h = h[:, s0:s1].contiguous()
@@ -611,23 +682,7 @@ class WanDiT(nn.Module):
             cos, sin = cos[s0:min(s1, L_nat)], sin[s0:min(s1, L_nat)]
         aux = WanAux(e0=e0, context=context.to(pdtype), rope_cos=cos, rope_sin=sin,
                      kv_lens=kv_lens, sp=sp)
-        bandwidth = residual_dtype is not None and residual_dtype != torch.float32
-        if bandwidth and carry_dtype not in (None, residual_dtype):
-            raise ValueError(f"carry_dtype {carry_dtype} with residual_dtype {residual_dtype}")
-        cdt = carry_dtype if carry_dtype is not None and not bandwidth else torch.float32
-
-        def block_fn(blk, xx):
-            if bandwidth or cdt == torch.float32:
-                return blk(xx, aux, qk_impl, ew_impl)
-            return blk(xx.float(), aux, qk_impl, ew_impl).to(cdt)
-
-        hf = h.to(residual_dtype if bandwidth else cdt)
-        for blk in self.blocks:
-            if remat:
-                hf = checkpoint(block_fn, blk, hf, use_reentrant=False)
-            else:
-                hf = block_fn(blk, hf)
-        return self._head(hf.float(), e, grid, ew_impl, sp)
+        return Prologue(h, e, aux, grid)
 
     def _head(self, hf: torch.Tensor, e: torch.Tensor, grid, ew_impl: str,
               sp: Optional[SPConfig] = None) -> torch.Tensor:

@@ -18,7 +18,8 @@ as `noise`: the parity tests pass the JAX package's draw, which torch cannot
 reproduce. `qk_impl`, `ew_impl` and `residual_dtype` choose the DiT's fused
 kernels as in the x2x pipeline. There is no sequence parallelism, as JAX's
 i2v has none. Stage wall times land in `timings` (seconds, synchronized):
-clip_s, vae_encode_s, denoise_s, denoise_step_s, decode_s.
+clip_s, vae_encode_s, denoise_s, denoise_step_s, step_s (each step's,
+utils/observability.py `StepTimes`), decode_s.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from ..models.clip_vision import (
 from ..models.vae2_1 import Wan21VAE
 from ..models.wan_dit import WanDiT
 from ..schedulers.unipc import FlowUniPC
+from ..utils.observability import StepTimes
 from ..utils.video import resize_frames
 from .x2x import video_to_uint8_frames
 
@@ -187,7 +189,7 @@ class WanI2V:
         state = solver.init_state(noise.to(dev))
 
         self._sync()
-        t_den = time.perf_counter()
+        clock = StepTimes(dev)
         ctx_emb2 = self.wan.embed_context(ctx2.to(pdtype))
         y2 = torch.cat([y, y]).to(pdtype)
         clip2 = torch.cat([clip_fea, clip_fea]).to(pdtype)
@@ -199,11 +201,10 @@ class WanI2V:
                           ew_impl=self.ew_impl, y=y2, clip_fea=clip2)
             v = v2[1:] + guide_scale * (v2[0:1] - v2[1:])
             state = solver.step(state, v, i)
+            clock.lap()
         if not bool(torch.isfinite(state.x).all()):
             raise FloatingPointError("non-finite latents after the denoise steps")
-        self._sync()
-        self.timings["denoise_s"] = time.perf_counter() - t_den
-        self.timings["denoise_step_s"] = self.timings["denoise_s"] / max(1, len(solver))
+        self.timings.update(clock.timings())
         if not decode:
             return state.x
         return self.decode(state.x, output_uint8)

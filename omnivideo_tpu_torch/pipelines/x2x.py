@@ -27,6 +27,14 @@ solver on the same latents. An unseeded SP run (no `noise`, no `generator`)
 draws its seed on rank 0 and broadcasts it, so every rank draws the same
 noise. The decode runs on every rank; callers use rank 0's result.
 
+`layer_stream` runs each expert's blocks from host memory through
+pipelines/streaming.py's executor (one per distinct expert, two device
+slots, `stream_group` blocks a copy, `stream_quant="int8"` weight-only int8
+on the streamed weights; single-device only): the experts' blocks move to
+page-locked host buffers when the pipeline is built, and the executors'
+device slots are released before the VAE decode. Every denoise step's
+synchronized wall time lands in `timings["step_s"]`.
+
 `shard(mesh)` shards the experts with parallel/sharding.py `shard_params`
 (FSDP2 over 'fsdp': each block all-gathered for its forward; the Megatron
 split over 'tensor', run with `sp=SPConfig(mesh, "tp")`), as JAX's
@@ -54,6 +62,9 @@ from ..models.unified import build_mixed_context, init_unified_companions, null_
 from ..models.vae2_1 import Wan21VAE, init_vae
 from ..models.wan_dit import SPConfig, WanDiT
 from ..parallel.sharding import gathered, shard_params
+from ..utils.observability import StepTimes
+from .streaming import (BlockStreamingExecutor, random_streamed_dit, split_host_params,
+                        wan_dit_stream_apply)
 from ..schedulers.fm_dpm import FlowDPMSolver, get_sampling_sigmas
 from ..schedulers.unipc import FlowUniPC
 
@@ -89,6 +100,9 @@ class OmniVideoX2XUnified:
         ew_impl: str = "unfused",
         residual_dtype: Optional[str] = None,
         sp: Optional[SPConfig] = None,
+        layer_stream: bool = False,
+        stream_quant: Optional[str] = None,
+        stream_group: int = 1,
     ):
         self.config = config
         self.sp = sp
@@ -106,7 +120,28 @@ class OmniVideoX2XUnified:
         self.device = low_noise.wan.patch_embedding.weight.device
         self.num_train_timesteps = config.num_train_timesteps
         self.boundary = config.boundary
-        self.timings: Dict[str, float] = {}
+        self.timings: Dict[str, Any] = {}
+        if (stream_quant or stream_group != 1) and not layer_stream:
+            raise ValueError("stream_quant and stream_group need layer_stream")
+        if layer_stream and sp is not None:
+            raise ValueError("layer streaming is single-device (no sp/fsdp/tp)")
+        self.layer_stream = layer_stream
+        self._stream_kw = dict(quant=stream_quant, group=stream_group)
+        self._stream: Dict[int, BlockStreamingExecutor] = {}
+        if layer_stream:
+            for e in (self.low_noise, self.high_noise):
+                split_host_params(e.wan)
+
+    def executor(self, wan: WanDiT) -> BlockStreamingExecutor:
+        """The streaming executor of a streamed expert, made on first use
+        (so adapters merged into its host blocks before then are in it)."""
+        ex = self._stream.get(id(wan))
+        if ex is None:
+            ex = self._stream[id(wan)] = BlockStreamingExecutor(
+                self.config.dit.replace(text_len=self.config.max_context_len), wan.host_blocks,
+                qk_impl=self.qk_impl, ew_impl=self.ew_impl, device=self.device,
+                **self._stream_kw)
+        return ex
 
     @classmethod
     def random_init(
@@ -117,18 +152,21 @@ class OmniVideoX2XUnified:
         device="cuda",
         **pipe_kwargs,
     ) -> "OmniVideoX2XUnified":
-        """Random-weight pipeline from a seed (smoke tests, benchmarks)."""
+        """Random-weight pipeline from a seed (smoke tests, benchmarks). With
+        `layer_stream=True` the experts' blocks are drawn one parameter at a
+        time into host buffers (the same weights)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         dit_cfg = config.dit.replace(text_len=config.max_context_len)
+        build = random_streamed_dit if pipe_kwargs.get("layer_stream") else WanDiT
         low = ExpertParams(
-            wan=WanDiT(dit_cfg, dtype=config.torch_param_dtype, device=device, generator=gen),
+            wan=build(dit_cfg, dtype=config.torch_param_dtype, device=device, generator=gen),
             companions=init_unified_companions(config, device=device, generator=gen))
         high = low
         if config.dual_expert:
             high = ExpertParams(
-                wan=WanDiT(dit_cfg, dtype=config.torch_param_dtype, device=device,
-                           generator=gen),
+                wan=build(dit_cfg, dtype=config.torch_param_dtype, device=device,
+                          generator=gen),
                 companions=low.companions)
         vae = None
         if with_vae:
@@ -165,10 +203,17 @@ class OmniVideoX2XUnified:
             shard_params(expert.wan, mesh)
         return self
 
+    def release_streams(self) -> None:
+        """Free the streaming executors' device slots (re-made on use)."""
+        for ex in self._stream.values():
+            ex.release()
+
     def free_experts(self) -> None:
         """Drop both experts and return their memory to the device (the
         A14B order: denoise, free, decode)."""
+        self.release_streams()
         self.low_noise = self.high_noise = None
+        self._stream = {}
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -267,8 +312,10 @@ class OmniVideoX2XUnified:
         if n_high < S:
             segments.append((self.low_noise, n_high, S, g_low))
 
-        self._sync()
-        t_den = time.perf_counter()
+        if self.layer_stream:  # made before the clock starts (int8 copies, slots)
+            for expert, _, _, _ in segments:
+                self.executor(expert.wan)
+        clock = StepTimes(dev)
         for expert, a, b, g in segments:
             dit = expert.wan
             pdtype = dit.param_dtype
@@ -279,20 +326,25 @@ class OmniVideoX2XUnified:
             for i in range(a, b):
                 x2 = torch.cat([state.x, state.x]).to(pdtype)
                 t2 = torch.full((2,), float(solver.coeffs["timestep"][i]), device=dev)
-                v2 = dit(x2, t2, ctx_emb2, seq_len=seq_len, context_embedded=True,
-                         residual_dtype=self.residual_dtype, qk_impl=self.qk_impl,
-                         ew_impl=self.ew_impl, sp=self.sp)
+                if self.layer_stream:
+                    v2 = wan_dit_stream_apply(dit, self.executor(dit), x2, t2, ctx_emb2,
+                                              seq_len=seq_len, context_embedded=True,
+                                              residual_dtype=self.residual_dtype)
+                else:
+                    v2 = dit(x2, t2, ctx_emb2, seq_len=seq_len, context_embedded=True,
+                             residual_dtype=self.residual_dtype, qk_impl=self.qk_impl,
+                             ew_impl=self.ew_impl, sp=self.sp)
                 v = v2[1:] + g * (v2[0:1] - v2[1:])
                 state = solver.step(state, v, i)
+                clock.lap()
             if not bool(torch.isfinite(state.x).all()):
                 raise FloatingPointError(f"non-finite latents after denoise steps [{a}:{b})")
-        self._sync()
-        self.timings["denoise_s"] = time.perf_counter() - t_den
-        self.timings["denoise_step_s"] = self.timings["denoise_s"] / max(1, S)
+        self.timings.update(clock.timings())
 
         latents = state.x
         if not decode:
             return latents
+        self.release_streams()  # the decode needs the slots' memory
         return self.decode(latents, output_uint8, vae_dtype)
 
     @torch.inference_mode()

@@ -38,10 +38,20 @@ flag; its GSPMD sequence sharding gives the same values); `--sp` and `--tp`
 exclude each other, as in JAX's SPConfig. The numbers are one process's
 (training/trainer.py). Only rank 0 writes metrics, logs and the run config;
 checkpoints hold the full state and resume under any mesh. `--task` takes
-every config of `configs.WAN_CONFIGS`; a dual-expert task (t2v-A14B) trains
-its low-noise expert, as the JAX CLI loads it. Flags of the JAX CLI that
-this port does not run yet raise NotImplementedError naming the ROADMAP
-item that brings them.
+the text-to-video configs of `configs.WAN_CONFIGS`; a dual-expert task
+(t2v-A14B) trains its low-noise expert, as the JAX CLI loads it. i2v-14B is
+refused: the step feeds its DiT neither the first-frame latents `y` nor the
+CLIP tokens `clip_fea` (JAX's finetune cannot train it either).
+
+`--layer_stream` trains on one card with the DiT's blocks, their gradients
+and their optimizer state in page-locked host memory, streamed through the
+card (training/streaming.py; the plain flow-matching loss over the DiT and
+one dataset, as JAX's CLI runs it); with `--lora_rank` only the frozen base
+streams and the adapters train on the card. `--stream_quant int8` streams
+int8 copies of the blocks (with `--lora_rank`, of the frozen base):
+
+    python -m omnivideo_tpu_torch.tools.finetune --dummy_data --tiny --layer_stream \
+        --lora_rank 4 --stream_quant int8 --total_steps 3 --device cpu
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from omnivideo_tpu_torch.parallel.distributed import (
 from omnivideo_tpu_torch.parallel.mesh import axis_index, create_mesh
 from omnivideo_tpu_torch.parallel.sharding import shard_params
 from omnivideo_tpu_torch.pipelines.loading import load_expert
+from omnivideo_tpu_torch.pipelines.streaming import random_streamed_dit
 from omnivideo_tpu_torch.training.checkpoint import CheckpointManager
 from omnivideo_tpu_torch.training.dataset import (
     OmniVideoDataset,
@@ -82,12 +93,14 @@ from omnivideo_tpu_torch.training.lora import (
     DEFAULT_TARGETS,
     LORA_FILTERS,
     count_lora_params,
+    draw_lora,
     extract_lora,
     freeze_base,
     inject_lora,
     merge_lora_state_dict,
     write_adapters_npz,
 )
+from omnivideo_tpu_torch.training.streaming import StreamedLoRATrainer, StreamedTrainer
 from omnivideo_tpu_torch.training.trainer import (
     TrainConfig,
     UnifiedParams,
@@ -102,13 +115,6 @@ from omnivideo_tpu_torch.utils.observability import (
     TimeoutGuard,
 )
 from omnivideo_tpu_torch.utils.run_config import apply_yaml_config, dump_run_config
-
-# flag → (value meaning "off", the ROADMAP §1 item that brings it)
-NOT_PORTED = {
-    "layer_stream": (False, "§1 item 6: the streamed trainers (training/streaming.py)"),
-    "stream_quant": (None, "§1 item 6: the streamed trainers with ops/quant.py"),
-}
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -159,8 +165,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="start from <ckpt_dir>/<low_noise_checkpoint>/model.pt (reference layout)")
     p.add_argument("--walltime", type=float, default=None,
                    help="seconds; stop and checkpoint before this walltime")
-    p.add_argument("--layer_stream", action="store_true")
-    p.add_argument("--stream_quant", default=None, choices=[None, "int8"])
+    p.add_argument("--layer_stream", action="store_true",
+                   help="one card, the DiT's blocks (and their grads and optimizer state) in "
+                        "host memory, streamed through it")
+    p.add_argument("--stream_quant", default=None, choices=[None, "int8"],
+                   help="with --layer_stream: int8 streamed blocks (LoRA: the frozen base)")
     p.add_argument("--dummy_data", action="store_true")
     p.add_argument("--with_aligned", action="store_true",
                    help="dummy data includes v1 aligned_emb features")
@@ -168,9 +177,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda")
     add_distributed_args(p)
     args = apply_yaml_config(p.parse_args(argv), p, argv)
-    for flag, (off, item) in NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+    if WAN_CONFIGS[args.task].dit.model_type == "i2v":
+        p.error(f"--task {args.task}: an i2v model is not trained here; the step feeds its DiT "
+                "neither the first-frame latents y nor the CLIP tokens clip_fea (JAX's finetune "
+                "cannot train i2v either)")
+    if args.stream_quant and not args.layer_stream:
+        p.error("--stream_quant requires --layer_stream")
+    if args.layer_stream:
+        if args.dp * args.fsdp * args.sp * args.tp > 1:
+            p.error("--layer_stream is the single-device path (no --dp/--fsdp/--sp/--tp)")
+        if len(args.data_dirs) > 1:
+            p.error("--layer_stream trains one dataset (the plain flow-matching loss)")
+        if args.trainable:
+            p.error("--layer_stream trains every DiT parameter, or with --lora_rank the "
+                    "adapters; --trainable does not apply")
+        if args.grad_accum_steps != 1:
+            p.error("--layer_stream takes one micro-batch a step (--grad_accum_steps 1)")
     if args.sp > 1 and args.tp > 1:
         p.error("--sp and --tp exclude each other (one SPConfig mode)")
     if args.batch_size % args.dp:
@@ -268,6 +290,9 @@ def main(argv=None) -> int:
     if not tasks:
         raise SystemExit("no datasets configured (--dummy_data or --data_dirs)")
 
+    if args.layer_stream:
+        return _main_streamed(args, cfg, tc, tasks, pad, device, out)
+
     # ---- params, optimizer, step ---------------------------------------------
     params = initial_params(cfg, args, device)
     if args.lora_rank > 0:
@@ -337,6 +362,78 @@ def main(argv=None) -> int:
     if args.lora_rank > 0:
         export_lora(args, params.wan, rank0)
     logging.info("done at step %d", step)
+    return 0
+
+
+def streamed_dit(cfg: PipelineConfig, args: argparse.Namespace, device):
+    """The f32 master DiT of a --layer_stream run with its blocks in host
+    memory: the low-noise expert of `--ckpt_dir` (read straight to host),
+    else the seeded init's DiT (init_unified_params' draws)."""
+    if args.ckpt_dir is not None:
+        return load_expert(cfg, args.ckpt_dir, cfg.low_noise_checkpoint, torch.float32, device,
+                           layer_stream=True).wan
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return random_streamed_dit(cfg.dit.replace(text_len=cfg.max_context_len), torch.float32,
+                               device, gen)
+
+
+def _main_streamed(args, cfg, tc, tasks, pad, device, out: Path) -> int:
+    """The --layer_stream loop: one dataset, the streamed trainer's step
+    (training/streaming.py), checkpoints, resume and the LoRA exports."""
+    (name, (ds, _)), = tasks.items()
+    wan = streamed_dit(cfg, args, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    if args.lora_rank > 0:
+        targets = tuple(args.lora_targets) if args.lora_targets else DEFAULT_TARGETS
+        adapters = draw_lora(wan, args.lora_rank, alpha=args.lora_alpha, targets=targets,
+                             generator=torch.Generator(device=device).manual_seed(args.seed + 7))
+        trainer = StreamedLoRATrainer(cfg, tc, device=device, base_quant=args.stream_quant,
+                                      generator=gen)
+        state = trainer.init_state(wan, adapters)
+        logging.info("streamed LoRA rank %d over %s: %d adapter params trainable",
+                     args.lora_rank, ",".join(targets),
+                     sum(v.numel() for v in state.lora.values()))
+    else:
+        trainer = StreamedTrainer(cfg, tc, device=device, stream_quant=args.stream_quant,
+                                  generator=gen)
+        state = trainer.init_state(wan)
+    ckpt = CheckpointManager(str(out / "checkpoints"))
+    if args.resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        logging.info("resumed from step %d", state.step)
+    loader = PrefetchLoader(data_loader(ds, args.batch_size, pad, seed=args.seed,
+                                        start=state.step))
+    metrics = MetricsLogger(str(out))
+    preempt, timeout = PreemptionGuard(), TimeoutGuard(args.walltime)
+    t0 = time.time()
+    while state.step < args.total_steps:
+        if preempt.should_stop() or timeout.should_stop():
+            ckpt.save(state.step, state, {"step": state.step, "preempted": True})
+            logging.warning("preemption/walltime stop at step %d (checkpointed)", state.step)
+            return 0
+        batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
+        gen.manual_seed(args.seed + 1 + state.step)  # the step's draws, resumed or not
+        state, m = trainer.train_step(state, batch)
+        step = state.step
+        if step % args.log_interval == 0 or step == args.total_steps:
+            metrics.log(step, **{f"loss/{name}": float(m["loss"])})
+            logging.info("step %d (%.1fs) loss %.6f grad_norm %.6f", step, time.time() - t0,
+                         float(m["loss"]), float(m["grad_norm"]))
+        if step % args.save_interval == 0 or step == args.total_steps:
+            ckpt.save(step, state, {"step": step})
+            logging.info("saved checkpoint at step %d", step)
+    metrics.close()
+    if args.lora_rank > 0 and args.lora_adapter_export:
+        Path(args.lora_adapter_export).parent.mkdir(parents=True, exist_ok=True)
+        n = write_adapters_npz(trainer.export_adapters(state), args.lora_adapter_export)
+        logging.info("LoRA adapters exported to %s (%d arrays)", args.lora_adapter_export, n)
+    if args.lora_rank > 0 and args.lora_export:
+        flat = wan_state_dict_to_jax(merge_lora_state_dict(trainer.export_params(state)))
+        Path(args.lora_export).parent.mkdir(parents=True, exist_ok=True)
+        np.savez(args.lora_export, **flat)
+        logging.info("LoRA-merged wan params exported to %s (%d arrays)", args.lora_export,
+                     len(flat))
+    logging.info("done at step %d", state.step)
     return 0
 
 

@@ -52,6 +52,16 @@ every row and rank 0 writes the outputs:
 `--lora_adapter_export`, or a file JAX's CLI wrote) into every distinct
 expert before any sharding, so the denoise runs plain weights.
 
+`--layer_stream` runs one card with the experts' blocks in page-locked
+host memory, streamed through a few device slots per step
+(pipelines/streaming.py: T2V-A14B's 57 GB of experts on a card that then
+holds a window of blocks), `--stream_quant int8` streams their large
+weights as int8, `--stream_group N` copies and runs N blocks at a time;
+both need `--layer_stream`, which needs one process:
+
+    python -m omnivideo_tpu_torch.tools.generate --task t2v-A14B --random_weights \\
+        --layer_stream --stream_quant int8 --input samples/t2v_example.jsonl
+
 `--dp_rank/--dp_world_size` split the JSONL rows between independent runs
 (row i goes to dp_rank i % dp_world_size), by default the mesh's data index
 and size, so the ranks of one mesh never split rows. `--vae_dtype bfloat16`
@@ -100,8 +110,6 @@ from omnivideo_tpu_torch.utils.video import (
 
 # flag → (value meaning "off", why it is not ported)
 NOT_PORTED = {
-    "layer_stream": (False, "it comes with the streaming slice, ROADMAP §1"),
-    "stream_quant": (None, "it comes with the streaming slice, ROADMAP §1"),
     "vlm_fsdp": (1, "FSDP2 over the Qwen3-VL MoE: the model fits one card, and sharding its "
                     "KV-cached decode (an all-gather per token) is queued last in ROADMAP §1 "
                     "item 4"),
@@ -152,8 +160,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "transfer posted before the launch")
     p.add_argument("--tp_size", type=int, default=1)
     p.add_argument("--fsdp_size", type=int, default=1)
-    p.add_argument("--layer_stream", action="store_true")
-    p.add_argument("--stream_quant", default=None, choices=[None, "int8"])
+    p.add_argument("--layer_stream", action="store_true",
+                   help="the experts' blocks in host memory, streamed through the card per "
+                        "step (one process)")
+    p.add_argument("--stream_quant", default=None, choices=[None, "int8"],
+                   help="with --layer_stream: int8 weight-only streamed blocks")
+    p.add_argument("--stream_group", type=int, default=1,
+                   help="with --layer_stream: blocks per copy and launch unit")
     p.add_argument("--lora_adapters", default=None,
                    help="adapter .npz (finetune --lora_adapter_export, or JAX's): merged into "
                         "every expert's weights at load")
@@ -182,6 +195,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--sp_mode hybrid takes the 'fsdp' axis as its Ulysses axis: give --fsdp_size")
     if args.sp_size > 1 and args.tp_size > 1:
         p.error("--sp_size and --tp_size exclude each other (one SPConfig mode)")
+    if args.stream_quant and not args.layer_stream:
+        p.error("--stream_quant requires --layer_stream")
+    if args.stream_group != 1 and not args.layer_stream:
+        p.error("--stream_group requires --layer_stream")
+    if args.stream_group < 1:
+        p.error("--stream_group must be ≥ 1")
+    if args.layer_stream and args.fsdp_size * args.sp_size * args.tp_size > 1:
+        p.error("--layer_stream is the single-device path (no --sp_size/--fsdp_size/--tp_size)")
     if not args.random_weights and not args.ckpt_dir:
         p.error("--ckpt_dir is required without --random_weights")
     return args
@@ -302,6 +323,9 @@ def run(args: argparse.Namespace) -> List[dict]:
 
     impl = dict(qk_impl=args.qk_impl, ew_impl=args.ew_impl, residual_dtype=args.residual_dtype,
                 sp=sp)
+    if args.layer_stream:
+        impl.update(layer_stream=True, stream_quant=args.stream_quant,
+                    stream_group=args.stream_group)
     shard = mesh if args.fsdp_size > 1 or args.tp_size > 1 else None
     adapters = load_adapters_npz(args.lora_adapters) if args.lora_adapters else None
     if args.random_weights:

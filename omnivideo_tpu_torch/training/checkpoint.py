@@ -17,6 +17,12 @@ file and re-shards it onto its own parameters (`set_model_state_dict`), so
 a step written under one mesh resumes under another, or in one process.
 Adafactor's row and column statistics, which lack one of their parameter's
 dims, are spread along it for the re-sharding and sliced back.
+
+The streamed trainers' states (training/streaming.py) save and restore
+themselves (`to_checkpoint` / `load_checkpoint`): the full trainer's
+resident leaves and their rule state, every host block and its packed rule
+state, and the step; the LoRA trainer's adapters, their rule state and the
+step (its frozen base is rebuilt from where the run started). One process.
 """
 
 from __future__ import annotations
@@ -106,6 +112,8 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metadata: Optional[dict] = None) -> Path:
         final = self.dir / str(step)
+        if hasattr(state, "to_checkpoint"):  # a streamed trainer's state
+            return self._write_blob(final, step, state.to_checkpoint(), metadata)
         if dist.is_initialized() and dist.get_world_size() > 1:
             params = get_model_state_dict(
                 state.params, options=StateDictOptions(full_state_dict=True, cpu_offload=True))
@@ -119,10 +127,14 @@ class CheckpointManager:
 
     def _write(self, final: Path, step: int, params: dict, opt_state: dict, at: int,
                metadata: Optional[dict]) -> Path:
+        return self._write_blob(final, step, {"params": params, "opt_state": opt_state,
+                                              "step": at}, metadata)
+
+    def _write_blob(self, final: Path, step: int, blob: dict, metadata: Optional[dict]) -> Path:
         tmp = self.dir / f".{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
-        torch.save({"params": params, "opt_state": opt_state, "step": at}, tmp / "state.pt")
+        torch.save(blob, tmp / "state.pt")
         (tmp / "meta.json").write_text(json.dumps(metadata or {}))
         shutil.rmtree(final, ignore_errors=True)
         tmp.rename(final)
@@ -136,6 +148,10 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
+        if hasattr(state_like, "load_checkpoint"):  # a streamed trainer's state
+            state_like.load_checkpoint(torch.load(self.dir / str(step) / "state.pt",
+                                                  map_location="cpu", weights_only=True))
+            return state_like
         dev = next(state_like.params.parameters()).device
         blob = torch.load(self.dir / str(step) / "state.pt", map_location=dev,
                           weights_only=True)

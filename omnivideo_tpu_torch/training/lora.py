@@ -133,17 +133,35 @@ def remove_adapter(lin: nn.Linear) -> None:
     del lin._buffers["lora_scale"]
 
 
-def _inject(chosen, rank: int, alpha: Optional[float], generator) -> int:
+def _draw(chosen, rank: int, alpha: Optional[float], generator, device=None) -> list:
+    """(site, A, B, scale) per chosen site, in order: A ~ N(0, 1/d_in) f32
+    drawn on `device` (default: the weight's), B = 0, scale alpha/r."""
     if rank < 1:
         raise ValueError(f"LoRA rank {rank} < 1")
     scale = (alpha if alpha is not None else float(rank)) / rank
+    out = []
     for site in chosen:
         w = site.lin.weight
+        dev = w.device if device is None else device
         d_out, d_in = w.shape
-        a = torch.randn(d_in, rank, generator=generator, device=w.device)
-        b = torch.zeros(rank, d_out, device=w.device)
-        set_adapter(site.lin, a / math.sqrt(d_in), b, torch.tensor(scale))
+        a = torch.randn(d_in, rank, generator=generator, device=dev)
+        out.append((site, a / math.sqrt(d_in), torch.zeros(rank, d_out, device=dev),
+                    torch.tensor(scale)))
+    return out
+
+
+def _inject(chosen, rank: int, alpha: Optional[float], generator) -> int:
+    for site, a, b, s in _draw(chosen, rank, alpha, generator):
+        set_adapter(site.lin, a, b, s)
     return len(chosen)
+
+
+def _dense_targets(dit: WanDiT, targets: Iterable[str]) -> list:
+    targets = tuple(targets)
+    chosen = [s for s in sites(dit) if any(t in s.path for t in targets)]
+    if not chosen:
+        raise ValueError(f"no dense sites matched targets {targets}")
+    return chosen
 
 
 def inject_lora(dit: WanDiT, rank: int, alpha: Optional[float] = None,
@@ -152,12 +170,20 @@ def inject_lora(dit: WanDiT, rank: int, alpha: Optional[float] = None,
     """Adapters at every dense site of `dit` whose JAX path contains one of
     `targets` (f32 A ~ N(0, 1/d_in) from `generator`, B = 0, scale alpha/r,
     alpha defaulting to r). In place; returns the module."""
-    targets = tuple(targets)
-    chosen = [s for s in sites(dit) if any(t in s.path for t in targets)]
-    if not chosen:
-        raise ValueError(f"no dense sites matched targets {targets}")
-    _inject(chosen, rank, alpha, generator)
+    _inject(_dense_targets(dit, targets), rank, alpha, generator)
     return dit
+
+
+def draw_lora(dit: WanDiT, rank: int, alpha: Optional[float] = None,
+              targets: Iterable[str] = DEFAULT_TARGETS,
+              generator: Optional[torch.Generator] = None) -> Dict[str, tuple]:
+    """The adapters `inject_lora` would attach, with its draws, without
+    attaching them: {Linear name: (A, B, scale)} on the model's resident
+    device (a streamed DiT's blocks are meta: training/streaming.py keeps
+    their adapters in the trainer's state)."""
+    dev = dit.patch_embedding.weight.device
+    return {site.name: (a, b, s.to(dev)) for site, a, b, s in
+            _draw(_dense_targets(dit, targets), rank, alpha, generator, dev)}
 
 
 def inject_lora_bare(model: nn.Module, rank: int, alpha: Optional[float] = None,

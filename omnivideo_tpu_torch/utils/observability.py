@@ -1,7 +1,8 @@
 """Training-loop observability (port of the loop half of
 omnivideo_tpu/utils/observability.py): a JSONL metrics writer with optional
 TensorBoard scalars, and the two stop guards a training loop polls (walltime
-and SIGTERM preemption). Device traces are `torch.profiler`'s, used directly.
+and SIGTERM preemption); and `StepTimes`, the denoise loops' per-step
+synchronized wall times. Device traces are `torch.profiler`'s, used directly.
 """
 
 from __future__ import annotations
@@ -11,9 +12,39 @@ import logging
 import signal
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional, Union
 
 log = logging.getLogger(__name__)
+
+
+class StepTimes:
+    """Each denoise step's wall time, the device synchronized at every lap
+    (the steps of a pipeline then cannot overlap the host's next launches,
+    which costs nothing at a step of seconds)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.steps: List[float] = []
+        self._sync()
+        self.t0 = self.t = time.perf_counter()
+
+    def _sync(self) -> None:
+        if getattr(self.device, "type", None) == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+
+    def lap(self) -> None:
+        self._sync()
+        now = time.perf_counter()
+        self.steps.append(now - self.t)
+        self.t = now
+
+    def timings(self) -> Dict[str, Union[float, List[float]]]:
+        """{"denoise_s", "denoise_step_s" (the mean), "step_s" (each)}."""
+        total = self.t - self.t0
+        return {"denoise_s": total, "denoise_step_s": total / max(1, len(self.steps)),
+                "step_s": list(self.steps)}
 
 
 class TimeoutGuard:

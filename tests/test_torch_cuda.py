@@ -754,3 +754,81 @@ def test_ring_backward_kernels_match_plain(cuda, causal, Ls, lens):
         dq = torch.cat([x[0] for x in got], 1)
         for b, n_b in enumerate(lens):
             assert (dq[b, n_b:] == 0).all()
+
+
+def _tiny_streamed_dit(cuda, dtype=torch.bfloat16):
+    """A 3-block DiT at head dim 128 (the kernels'), heads non-zero, with
+    bf16 weights (qk_prep's kernel takes bf16 only)."""
+    from omnivideo_tpu_torch.configs.base import WanDiTConfig
+    from omnivideo_tpu_torch.models.wan_dit import WanDiT
+
+    cfg = WanDiTConfig(patch_size=(1, 2, 2), in_dim=4, dim=256, ffn_dim=512, freq_dim=32,
+                       text_dim=48, out_dim=4, num_heads=2, num_layers=3, text_len=16)
+    g = torch.Generator(cuda).manual_seed(0)
+    wan = WanDiT(cfg, dtype=dtype, device=cuda, generator=g)
+    with torch.no_grad():
+        wan.head.head.weight.normal_(0.0, 0.05, generator=g)
+    x = torch.randn(2, 4, 4, 16, 16, generator=g, device=cuda)
+    t = torch.tensor([500.0, 500.0], device=cuda)
+    ctx = torch.randn(2, 16, 48, generator=g, device=cuda)
+    return wan, (x, t, ctx)
+
+
+@pytest.mark.parametrize("window,group,ew", [(1, 1, "unfused"), (2, 1, "kernel"),
+                                             (1, 2, "kernel")])
+def test_streamed_forward_equals_resident_on_the_card(cuda, window, group, ew):
+    """Blocks streamed from page-locked host buffers through a ring of
+    `window` slots on the copy stream (window 1: every copy waits for the
+    previous block's compute, the slot-reuse race detector) give the
+    resident forward bit for bit, through the same kernels, with f32
+    residual so the fused AdaLN runs at ew "kernel"."""
+    from omnivideo_tpu_torch.pipelines import streaming
+
+    wan, (x, t, ctx) = _tiny_streamed_dit(cuda)
+    with torch.inference_mode():
+        ref = wan(x, t, ctx, ew_impl=ew, residual_dtype=torch.float32)
+    wan, host = streaming.split_host_params(wan)
+    assert all(b.data.is_pinned() for b in host)
+    ex = streaming.BlockStreamingExecutor(wan.cfg, host, window=window, group=group,
+                                          ew_impl=ew, device=cuda)
+    ex.timing = True
+    n0 = qk_prep.launches
+    with torch.inference_mode():
+        out = streaming.wan_dit_stream_apply(wan, ex, x, t, ctx, residual_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert qk_prep.launches - n0 == 4 * 3
+    (stats,) = ex.stats
+    assert stats["copies"] == -(-3 // group) and 0.0 <= stats["hidden_share"] <= 1.0
+
+
+def test_streamed_int8_quantises_on_the_card_as_on_the_host(cuda):
+    """The int8 copies made on the card (the executor's) equal the host
+    quantiser's on the same blocks."""
+    from omnivideo_tpu_torch.ops.quant import Q8, quantize_block
+    from omnivideo_tpu_torch.pipelines import streaming
+
+    wan, _ = _tiny_streamed_dit(cuda)
+    wan, host = streaming.split_host_params(wan)
+    ex = streaming.BlockStreamingExecutor(wan.cfg, host, quant="int8", device=cuda)
+    want = quantize_block(host[0].block())
+    for k, v in ex.host_blocks[0].block().items():
+        if isinstance(v, Q8):
+            assert torch.equal(v.q8, want[k].q8) and torch.equal(v.scale, want[k].scale), k
+        else:
+            assert torch.equal(v, want[k]), k
+
+
+def test_streamed_pageable_host_block_raises(cuda):
+    """A host block in pageable memory would make each non-blocking copy
+    synchronous: the executor refuses it, and so does a load into a slot."""
+    from omnivideo_tpu_torch.pipelines import streaming
+
+    wan, _ = _tiny_streamed_dit(cuda)
+    block = streaming.block_tensors(wan.blocks[0])
+    pageable = streaming.BlockPacker(block).pack(block, pin=False)
+    with pytest.raises(RuntimeError, match="page-locked"):
+        streaming.BlockStreamingExecutor(wan.cfg, [pageable] * 3, device=cuda)
+    ring = streaming.DeviceRing(pageable.nbytes, 1, cuda)
+    with pytest.raises(RuntimeError, match="page-locked"):
+        ring.load(0, [(pageable.data, 0)])

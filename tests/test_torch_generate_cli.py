@@ -89,11 +89,45 @@ def test_read_clip_samples_and_pads(tmp_path):
                                                                                          4)
 
 
-@pytest.mark.parametrize("flag", [["--stream_quant", "int8"], ["--layer_stream"],
-                                  ["--max_steps_per_call", "3"], ["--vlm_backend", "hf"]])
+@pytest.mark.parametrize("flag", [["--vlm_fsdp", "2"], ["--max_steps_per_call", "3"],
+                                  ["--vlm_backend", "hf"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         generate.parse_args(["--input", "x.jsonl", "--random_weights"] + flag)
+
+
+@pytest.mark.parametrize("flag", [["--stream_quant", "int8"], ["--stream_group", "2"],
+                                  ["--layer_stream", "--sp_size", "2"]])
+def test_stream_flags_are_checked(flag):
+    """--stream_quant and --stream_group need --layer_stream, which is the
+    single-device path."""
+    with pytest.raises(SystemExit):
+        generate.parse_args(["--input", "x.jsonl", "--random_weights"] + flag)
+
+
+def test_cli_layer_stream_equals_resident(tmp_path):
+    """--layer_stream (the expert's blocks read straight into host buffers
+    from the checkpoint dir, streamed per step) gives the resident run's
+    latents bit for bit, with --stream_group 2 too; --stream_quant int8 (the
+    tiny model's bf16 weights of ≥ 4096 elements quantise) within 5e-2 of
+    their scale, the tiny generate's limit, and not equal."""
+    cfg, _ = tiny_cli_config()
+    ckpt = write_tiny_checkpoint(tmp_path / "ckpt", cfg, write_umt5_tokenizer_dir(tmp_path / "t5"))
+    (tmp_path / "in.jsonl").write_text(json.dumps({"sample_id": "t2v_0",
+                                                   "prompt": "a red fox in the snow."}) + "\n")
+    base = ["--task", "t2v-1.3B", "--tiny", "--ckpt_dir", str(ckpt), "--input",
+            str(tmp_path / "in.jsonl"), "--device", "cpu"]
+
+    def latents(name, *extra):
+        (r,) = generate.run(generate.parse_args(base + ["--output_dir", str(tmp_path / name),
+                                                        *extra]))
+        assert len(r["timings"]["step_s"]) == 2
+        return r["latents"]
+
+    ref = latents("resident")
+    assert torch.equal(latents("stream", "--layer_stream", "--stream_group", "2"), ref)
+    q8 = latents("q8", "--layer_stream", "--stream_quant", "int8")
+    assert 0 < float((q8 - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
 
 
 def test_cli_from_checkpoint_dir_matches_jax(tmp_path, monkeypatch):

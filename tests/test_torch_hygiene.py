@@ -9,7 +9,8 @@
   data-prepare tools (the sft_vlm CLI, the conversation data, the PNG
   reader, sft_tokenize, vae_ and ar_feature_extract) and of the i2v slice
   (pipelines/i2v.py, models/clip_vision.py, models/vae2_2.py,
-  models/xlm_roberta.py) loads none of
+  models/xlm_roberta.py) and of the streaming slice (pipelines/streaming.py,
+  training/streaming.py, ops/quant.py, the finetune CLI) loads none of
   tokenizers, transformers, safetensors, PIL or imageio, which the card's
   machine may lack: they are imported inside the functions that need them;
 - its entry points default to CUDA and raise without a CUDA device unless
@@ -78,6 +79,8 @@ def test_host_modules_import_no_optional_packages():
         "import omnivideo_tpu_torch.tools.data_prepare.ar_feature_extract\n"
         "import omnivideo_tpu_torch.pipelines.i2v, omnivideo_tpu_torch.models.clip_vision\n"
         "import omnivideo_tpu_torch.models.vae2_2, omnivideo_tpu_torch.models.xlm_roberta\n"
+        "import omnivideo_tpu_torch.pipelines.streaming, omnivideo_tpu_torch.training.streaming\n"
+        "import omnivideo_tpu_torch.ops.quant, omnivideo_tpu_torch.tools.finetune\n"
         f"bad = [k for k in sys.modules if k.split('.')[0] in {optional + FORBIDDEN_MODULES!r}]\n"
         "print('BAD', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -181,6 +184,35 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     pipe = OmniVideoX2XUnified.random_init(cfg, device="cpu")
     assert pipe.device == torch.device("cpu")
+
+
+def test_streaming_entry_points_raise_without_cuda(monkeypatch):
+    """The streamed executor, trainers, random init and CLI modes default to
+    the card like every entry point (and pin host memory only there)."""
+    from omnivideo_tpu_torch.configs.base import PipelineConfig, VAEConfig, WanDiTConfig
+    from omnivideo_tpu_torch.pipelines import streaming
+    from omnivideo_tpu_torch.pipelines.x2x import OmniVideoX2XUnified
+    from omnivideo_tpu_torch.tools import finetune, generate
+    from omnivideo_tpu_torch.training.streaming import StreamedLoRATrainer, StreamedTrainer
+    from omnivideo_tpu_torch.training.trainer import TrainConfig
+
+    dit = WanDiTConfig(in_dim=4, dim=256, ffn_dim=256, freq_dim=32, text_dim=32, out_dim=4,
+                       num_heads=2, num_layers=2)
+    cfg = PipelineConfig(dit=dit, vae=VAEConfig(dim=8, z_dim=4), vlm_in_dim=8, max_context_len=8)
+    _, blocks = streaming.split_host_params(streaming.random_streamed_dit(dit, device="cpu"))
+    assert not blocks[0].data.is_pinned()  # no card: plain host memory
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: streaming.BlockStreamingExecutor(dit, blocks),
+                  lambda: streaming.random_streamed_dit(dit),
+                  lambda: OmniVideoX2XUnified.random_init(cfg, layer_stream=True),
+                  lambda: StreamedTrainer(cfg, TrainConfig()),
+                  lambda: StreamedLoRATrainer(cfg, TrainConfig()),
+                  lambda: finetune.main(["--dummy_data", "--tiny", "--total_steps", "1",
+                                         "--layer_stream"]),
+                  lambda: generate.main(["--input", "x.jsonl", "--random_weights", "--tiny",
+                                         "--layer_stream"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 def test_every_csrc_file_is_in_the_build_digest():

@@ -107,7 +107,7 @@ def test_generate_matches_jax(pipes):
     assert t_vid.shape == (3, 9, 32, 32)
     np.testing.assert_allclose(t_vid.numpy(), np.asarray(j_vid), rtol=1e-4, atol=1e-4)
     assert set(tpipe.timings) == {"clip_s", "vae_encode_s", "denoise_s", "denoise_step_s",
-                                  "decode_s"}
+                                  "step_s", "decode_s"}
 
 
 def test_uint8_frames_and_generator_noise(pipes):

@@ -195,9 +195,38 @@ def test_finetune_cli(tmp_path):
     assert finetune.main(base + ["--total_steps", "4", "--resume"]) == 0
     lines = [json.loads(s) for s in (out / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in lines] == [1, 2, 3, 4]
-    for flag in (["--layer_stream"], ["--stream_quant", "int8"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            finetune.main(base + flag)
+    with pytest.raises(SystemExit):  # the int8 stream is the streamed trainers' option
+        finetune.main(base + ["--stream_quant", "int8"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--lora_rank", "4", "--stream_quant", "int8"]])
+def test_finetune_cli_layer_stream(tmp_path, monkeypatch, extra):
+    """--layer_stream (the streamed trainers, training/streaming.py): a run
+    preempted after 2 of 3 steps (checkpointed) and resumed takes the
+    losses of 3 uninterrupted steps; LoRA with an int8 base exports its
+    adapters in JAX's format."""
+    base = ["--dummy_data", "--tiny", "--device", "cpu", "--layer_stream", "--log_interval", "1",
+            "--total_steps", "3", "--warmup_steps", "0", "--lr", "1e-3"] + extra
+
+    def losses(out):
+        return [json.loads(s)["loss/t2v"] for s in (out / "metrics.jsonl").read_text().splitlines()]
+
+    full, part = tmp_path / "full", tmp_path / "part"
+    assert finetune.main(base + ["--output_dir", str(full)]) == 0
+    polls = iter([False, False, True])  # a SIGTERM seen before the third step
+    monkeypatch.setattr(finetune.PreemptionGuard, "should_stop", lambda self: next(polls))
+    assert finetune.main(base + ["--output_dir", str(part)]) == 0
+    assert CheckpointManager(str(part / "checkpoints")).latest_step() == 2
+    monkeypatch.undo()
+    assert finetune.main(base + ["--output_dir", str(part), "--resume"]) == 0
+    assert losses(part) == losses(full) and len(losses(full)) == 3
+    assert all(np.isfinite(v) for v in losses(full))
+    if extra:
+        ad = tmp_path / "ad.npz"
+        assert finetune.main(base + ["--total_steps", "1", "--output_dir", str(tmp_path / "x"),
+                                     "--lora_adapter_export", str(ad)]) == 0
+        with np.load(ad) as z:
+            assert z["blocks/self_attn/q::lora_a"].shape == (2, 64, 4)
 
 
 def _write_tiny_checkpoint(root, cfg, with_companions, seed=11):

@@ -115,7 +115,8 @@ def test_uint8_frames_and_timings():
     from omnivideo_tpu.utils.video import _to_uint8
 
     np.testing.assert_array_equal(frames.numpy(), _to_uint8(video.numpy()))
-    assert set(tpipe.timings) == {"denoise_s", "denoise_step_s", "decode_s"}
+    assert set(tpipe.timings) == {"denoise_s", "denoise_step_s", "step_s", "decode_s"}
+    assert len(tpipe.timings["step_s"]) == GEN["sampling_steps"]  # each step, synchronized
 
 
 def test_dual_expert_split_uses_high_noise_expert_first():
