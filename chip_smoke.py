@@ -17,6 +17,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py i2v        # flash, then tiny_i2v, i2v, vae22 and xlm
     python3 chip_smoke.py stream     # cli and a14b (experts kept on the host), then stream
     python3 chip_smoke.py stream_train  # the streamed trainers' phase alone
+    python3 chip_smoke.py serve      # e2e (VLM features seeded), then serve, export and
+                                     # eval_videos on its pipeline
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -69,7 +71,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             feature shape asserted; the image path: the engine's image
             message on a seeded 1280x720 PNG still (grid 1x44x80, 880
             <|image_pad|> tokens, 27 flash_d72 and a flash_causal per layer)
-            and its features; stage 2: ar_feature_extract's per-row
+            and its features; tools/eval_vlm.py over a seeded generic JSONL
+            (2 image rows on that still, 2 video rows on the clip, one
+            multiple-choice; 27 flash_d72 and a flash_causal per layer
+            per row; the summary's keys; preprocess_video on the card
+            within PV_MAX_LEVELS of the CPU); stage 2: ar_feature_extract's per-row
             function with that engine on the stage-1 file (54 flash_d72 and
             three flash_causal per layer); then the text-only pass (text_only
             below) on its text stack; the model is freed, and one T2V-1.3B
@@ -91,6 +97,23 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             vae_dtype=bf16, timed beside the f32 one, its frames within
             VAE_BF16_MAX_LEVELS (and on average VAE_BF16_MEAN_LEVELS) uint8
             levels of the f32 ones;
+  serve     tools/serve.py's Server on the e2e phase's pipeline (no second
+            init) behind http.server on 127.0.0.1:0, driven by urllib: a
+            832x480x81 request (2 steps, a seeded 64x4096 context) whose
+            frames must equal, bit for bit, the same generate called
+            directly beside it, with the same qk_prep and flash_fwd
+            launches; a 832x480x17 request with the id "../../evil" (its
+            file stays inside the output dir); a malformed body (500) and
+            /healthz after it; latency per request;
+  export    tools/export_aot.py on the same expert at 832x480x81 (bf16):
+            torch.export, save, load, one call of the loaded program held to
+            the eager forward (bit-equal, else FLASH_ULPS of each row's max)
+            with the same launches; export, save and load seconds, the
+            artifact's bytes, the program's and the eager forward's ms;
+  eval_videos  tools/eval_videos.py over the serve phase's two clips on the
+            card, each its own reference (PSNR infinite, SSIM 1), and the
+            two requests' first 17 frames as a pair, card vs CPU within
+            METRIC_REL_TOL;
   load      the e2e phase's expert written in the diffusers layout
             (safetensors by write_safetensors, companions as .bin) and read
             back by load_expert onto the card: every tensor bit-equal, load
@@ -123,14 +146,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             against the same weights on the CPU, fed by a tiny umT5 encode
             and a tiny VAE encode (each also compared), both solvers, 7
             fused_adaln launches per forward asserted;
-  a14b      T2V-A14B at full width and depth from seeded weights: umT5-XXL
+  a14b      T2V-A14B at full width from seeded weights, A14B_LAYERS of its
+            40 layers (the stream phase and stream_train's LoRA expert
+            share the cut): umT5-XXL
             (bf16, on the card) encodes 512 seeded ids for the prompt and the
             negative and is freed; the full-size VAE encodes a seeded
-            832x480x81 clip; both experts (2 x 14.29B bf16) run a V2V
-            generate with the vlm phase's features, f32 residual,
+            832x480x81 clip; both experts (2 x 14.29B bf16 at 40 layers)
+            run a V2V generate with the vlm phase's features, f32 residual,
             ew_impl="kernel", qk_impl="kernel", 3 UniPC steps at shift 12
-            (2 high-noise steps, 1 low-noise, asserted) with 121 fused_adaln
-            launches per forward asserted, one profiled forward, then the
+            (2 high-noise steps, 1 low-noise, asserted) with 3 fused_adaln
+            launches per layer and one more per forward asserted, one
+            profiled forward, then the
             experts are freed (under 2 GB left allocated) and the VAE
             decodes to uint8; peak memory below 80 GB;
   stream    T2V-A14B generate with both experts' blocks in page-locked host
@@ -284,6 +310,9 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
+from http.server import HTTPServer
 from pathlib import Path
 
 import numpy as np
@@ -434,6 +463,12 @@ from omnivideo_tpu_torch.training.sft import (
     sft_collate,
 )
 from omnivideo_tpu_torch.utils.png import write_png
+from omnivideo_tpu_torch.models.qwen3vl.preprocess import CLIP_STD, preprocess_video
+from omnivideo_tpu_torch.tools import eval_videos as eval_videos_tool
+from omnivideo_tpu_torch.tools import eval_vlm as eval_vlm_tool
+from omnivideo_tpu_torch.tools import export_aot
+from omnivideo_tpu_torch.tools import serve as serve_tool
+from omnivideo_tpu_torch.utils.metrics import evaluate_pair
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet, at the 700 W limit
 BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -460,6 +495,9 @@ TRAIN_LAYERS = 6  # T2V-1.3B layers (of 30) in the train phase and the phases th
 # through the full-depth generate), cut so that the whole run fits its time limit with
 # stream_train at full depth
 VLM_LAYERS = 24  # Qwen3-VL-30B-A3B text layers (of 48) in the vlm phase, for the same reason
+A14B_LAYERS = 20  # T2V-A14B layers (of 40) wherever the run builds its experts: the a14b
+# and stream phases and stream_train's LoRA expert; cut so that the whole run, with the
+# serve, export and eval phases, fits its time limit
 ADALN_F32_TOL = 1e-5  # f32 y, of its row's max |y_plain|: the row sums run in another order
 ADALN_BF16_ULPS = 1.0  # bf16 y, in ulps of its row's max |y_plain|: those sums can flip a rounding
 ENCODE_TOL = 1e-3  # VAE encode, card vs CPU, of the latent scale: f32 convolutions (TF32 off)
@@ -1272,6 +1310,7 @@ def phase_vlm(clip: Path) -> dict:
     profile = _vlm_profile(model, ids, patches, grid)
     engine = _engine_pass(model, clip)
     image = _image_pass(model, clip.parent)
+    eval_vlm = _eval_vlm_pass(model, clip)
     ar = _ar_extract(model, vae)
     text = phase_text_only(model, ids, patches, grid)
     steps = timings["decode_steps"]
@@ -1287,7 +1326,7 @@ def phase_vlm(clip: Path) -> dict:
            "d72_guard": {"bounded_blocks": int(safe.sum()),
                          "max_tracked_blocks": int((safe == 0).sum())},
            "launches_per_pass": per_pass, "launches": total, "moe_check": moe_check,
-           "profile": profile, "engine": engine, "image": image,
+           "profile": profile, "engine": engine, "image": image, "eval_vlm": eval_vlm,
            "vae_feature_extract": {k: v for k, v in vae.items() if k not in ("dir", "manifest")},
            "ar_feature_extract": ar, "text_only_launches": text["launches"],
            "qwen3_sp_launches": text["qwen3_sp"]["launches"]}
@@ -1931,7 +1970,7 @@ def phase_a14b(ar_vision: torch.Tensor, keep_host: bool = False) -> dict:
     the latents for the stream phase."""
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = T2V_A14B
+    cfg = T2V_A14B.replace(dit=T2V_A14B.dit.replace(num_layers=A14B_LAYERS))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     t5 = init_t5(cfg.t5, dtype=torch.bfloat16, device="cuda", seed=0)
@@ -3820,10 +3859,7 @@ def _image_pass(model: Qwen3VLModel, tmp: Path) -> dict:
     utils/png.py): its grid at the caption budget, prompt length, the
     caption's launches and seconds, then the image features
     (qwen3vl_forward, is_video=False) and their shape."""
-    vc, tok = model.cfg.vision, StandInTokenizer()
-    tok.ids["<|image_pad|>"] = SPECIAL_TOKEN_IDS["<|image_pad|>"]
-    tok.text[SPECIAL_TOKEN_IDS["<|image_pad|>"]] = "<|image_pad|>"
-    tok._split = "(" + "|".join(re.escape(t) for t in tok.ids) + ")"
+    vc, tok = model.cfg.vision, _image_tokenizer()
     path = write_png(tmp / "still.png", np.random.default_rng(12).integers(
         0, 256, STILL_SHAPE, dtype=np.uint8))
     engine = Qwen3VLEngine.from_model(model, VLMConfig(max_new_tokens=VLM_NEW_TOKENS), tok)
@@ -4027,7 +4063,7 @@ def phase_stream(a14b: dict, cli: dict, tmp: Path) -> dict:
     cli phase's row through the generate CLI again, resident and with
     --layer_stream: both rows' latents bit-equal to the cli phase's, the
     streamed row's frames within 1 level of the resident row's."""
-    cfg = T2V_A14B
+    cfg = T2V_A14B.replace(dit=T2V_A14B.dit.replace(num_layers=A14B_LAYERS))
     st = a14b["stream"]
     experts, inputs, ref, expect = st["experts"], st["inputs"], st["latents"], st["launches"]
     runs = {}
@@ -4280,12 +4316,12 @@ def _stream_train_case(name: str, steps: int, hold_params: bool, rule_leaves=(),
 
 
 def _stream_lora() -> dict:
-    """One T2V-A14B expert at full width and depth, rank-16 LoRA on
+    """One T2V-A14B expert at full width, A14B_LAYERS deep, rank-16 LoRA on
     DEFAULT_TARGETS, batch 1 at 832x480x81 with a 512-token context: the
     resident LoRA step (make_train_step, freeze_base), then
     StreamedLoRATrainer from the same base, adapters and draws (bf16 base,
     then int8 base), STREAM_LORA_STEPS steps each, timed."""
-    cfg = T2V_A14B
+    cfg = T2V_A14B.replace(dit=T2V_A14B.dit.replace(num_layers=A14B_LAYERS))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4412,6 +4448,305 @@ def _stream_train_alone() -> int:
     return 0
 
 
+SERVE_CTX = (64, 4096)  # a short JSON context: the DiT pads it to text_len 6,272
+SERVE_SHORT_FRAMES = 17
+SERVE_SEED = 7
+SERVE_GUIDE = 5.0
+METRIC_REL_TOL = 1e-5  # eval_videos, card vs CPU, relative: f64 sums in another order
+PV_MAX_LEVELS = 2.0  # preprocess_video, card vs CPU, in uint8 levels: two resizes, each
+# rounding after its width and height passes; one level of the first carried by the second's
+# bicubic taps (absolute sum > 1) reads up to 2
+PV_OVER1_SHARE = 1e-4  # share of patch values allowed more than 1 level apart
+EVAL_NEW_TOKENS = 8  # eval_vlm --max_new_tokens (its MC row widens it to 12, as JAX's)
+
+
+def _http(url: str, body=None):
+    """(status, JSON reply) of a GET, or of a POST with `body`."""
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class _ServedFrames:
+    """Inside the `with`, the frames the server's `save_video` gets (before
+    the lossy writer), by file stem."""
+
+    def __enter__(self):
+        self.frames, self._real = {}, serve_tool.save_video
+
+        def capture(path, video, **kw):
+            self.frames[Path(path).stem] = torch.as_tensor(video).cpu()
+            return self._real(path, video, **kw)
+
+        serve_tool.save_video = capture
+        return self
+
+    def __exit__(self, *exc):
+        serve_tool.save_video = self._real
+
+
+def phase_serve(pipe, tmp: Path) -> dict:
+    """tools/serve.py's `Server` on the e2e phase's pipeline (no second
+    init) behind http.server on 127.0.0.1:0, driven by urllib: request (a)
+    832x480x81, STEPS UniPC steps, a seeded 64x4096 context; then the same
+    generate called directly (its frames bit-equal to the ones (a) wrote,
+    the same launches); request (b) 832x480x17 with the id "../../evil" (the
+    file keeps inside the output dir under a server id); a malformed body (a
+    500) and /healthz after it. Launches per request, latencies."""
+    out_dir = tmp / "serve_out"
+    server = serve_tool.Server(serve_tool.parse_args(["--output_dir", str(out_dir)]), pipe=pipe)
+    httpd = HTTPServer(("127.0.0.1", 0), serve_tool.make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    ctx = np.random.default_rng(21).standard_normal(SERVE_CTX).astype(np.float32)
+
+    def body(**kw):
+        return json.dumps({"context": ctx.tolist(), "size": list(SIZE), "sampling_steps": STEPS,
+                           "seed": SERVE_SEED, "guide_scale": SERVE_GUIDE, **kw}).encode()
+
+    layers = T2V_1_3B.dit.num_layers
+    expect = {"qk_prep": 4 * layers * STEPS, "flash_fwd": 2 * layers * STEPS, "flash_causal": 0,
+              "flash_d72": 0, "fused_adaln": 0, "ring_step": 0}
+    reqs = {}
+    try:
+        with _ServedFrames() as written:
+            for name, kw in (("a", {"id": "req_a", "frame_num": FRAMES}),
+                             ("b", {"id": "../../evil", "frame_num": SERVE_SHORT_FRAMES})):
+                payload = body(**kw)
+                _reset_launches()
+                t0 = time.perf_counter()
+                code, reply = _http(base + "/generate", payload)
+                reqs[name] = {"status": code, "reply": reply, "wall_s": time.perf_counter() - t0,
+                              "launches": _launches(), "body_bytes": len(payload)}
+                if name == "a":  # the direct call, decoded beside the served one
+                    ctx_t = torch.from_numpy(ctx).cuda()
+                    _reset_launches()
+                    t0 = time.perf_counter()
+                    direct = pipe.generate(
+                        precomputed_context=ctx_t, precomputed_context_null=torch.zeros_like(ctx_t),
+                        size=SIZE, frame_num=FRAMES, sampling_steps=STEPS, guide_scale=SERVE_GUIDE,
+                        generator=torch.Generator(device="cuda").manual_seed(SERVE_SEED),
+                        output_uint8=True).cpu()
+                    direct_s = time.perf_counter() - t0
+                    direct_launches = _launches()
+        bad = _http(base + "/generate", b"{not json")
+        health = _http(base + "/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    a, b = reqs["a"]["reply"], reqs["b"]["reply"]
+    paths = {k: Path(r["reply"].get("path", "")) for k, r in reqs.items()}
+    served_a = written.frames.get(a.get("file_id"))
+    rec = {"phase": "serve", "config": "T2V_1_3B", "size": list(SIZE), "steps": STEPS,
+           "context": list(SERVE_CTX), "frames": {"a": FRAMES, "b": SERVE_SHORT_FRAMES},
+           "latency_s": {k: r["reply"].get("latency_s") for k, r in reqs.items()},
+           "wall_s": {k: r["wall_s"] for k, r in reqs.items()},
+           "body_bytes": {k: r["body_bytes"] for k, r in reqs.items()},
+           "direct_generate_s": direct_s, "denoise_step_s": pipe.timings.get("denoise_step_s"),
+           "launches_per_request": {k: r["launches"] for k, r in reqs.items()},
+           "direct_launches": direct_launches,
+           "bit_equal_to_direct": served_a is not None and torch.equal(served_a, direct),
+           "b_file_id": b.get("file_id"), "written": {k: p.name for k, p in paths.items()},
+           "malformed_status": bad[0], "healthz": health}
+    emit(rec)
+    inside = all(p.exists() and p.resolve().parent == out_dir.resolve() for p in paths.values())
+    if (any(r["status"] != 200 for r in reqs.values()) or not rec["bit_equal_to_direct"]
+            or a.get("file_id") != "req_a" or b.get("id") != "../../evil"
+            or b.get("file_id") == b.get("id") or not inside
+            or any(r["launches"] != expect for r in reqs.values()) or direct_launches != expect
+            or bad[0] != 500 or health != (200, {"status": "ok",
+                                                 "backend": torch.cuda.get_device_name(0),
+                                                 "task": "t2v-1.3B"})):
+        raise AssertionError(f"serve: {rec} (launches expected {expect})")
+    rec["paths"] = paths
+    rec["launches"] = {k: reqs["a"]["launches"][k] + reqs["b"]["launches"][k] for k in expect}
+    return rec
+
+
+def phase_export(pipe, tmp: Path) -> dict:
+    """tools/export_aot.py on the e2e phase's expert at 832x480x81 (bf16
+    latents [2, 16, 21, 60, 104], t [2], a seeded context [2, 6272, 4096]):
+    export, save into the run's temp dir, load, call once; the loaded
+    program held to the eager forward on the same inputs (bit-equal, else
+    within FLASH_ULPS of each output row's max) with the same qk_prep and
+    flash_fwd launches; export, save and load seconds, the artifact's bytes,
+    and the program's ms beside the eager forward's."""
+    dit = pipe.low_noise.wan
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    xs, ts, cs = export_aot.input_shapes(T2V_1_3B, SIZE, FRAMES)
+    x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+    t = torch.full(ts, 937.0, device="cuda")
+    ctx = torch.randn(cs, generator=gen, device="cuda").bfloat16()
+    t0 = time.perf_counter()
+    prog = export_aot.export_denoise(dit, x, t, ctx, torch.bfloat16)
+    export_s = time.perf_counter() - t0
+    path = tmp / "dit_t2v_1_3b.pt2"
+    t0 = time.perf_counter()
+    nbytes = export_aot.save_program(prog, path)
+    save_s = time.perf_counter() - t0
+    del prog
+    t0 = time.perf_counter()
+    loaded = torch.export.load(str(path)).module()
+    load_s = time.perf_counter() - t0
+    params = export_aot.dit_params(dit)
+    kw = dict(residual_dtype=torch.bfloat16, qk_impl="kernel",
+              ew_impl=export_aot.ew_impl_for(torch.bfloat16))
+    with torch.no_grad():
+        _reset_launches()
+        out = loaded(params, x, t, ctx)
+        torch.cuda.synchronize()
+        prog_launches = _launches()
+        _reset_launches()
+        ref = dit(x, t, ctx, **kw)
+        torch.cuda.synchronize()
+        eager_launches = _launches()
+        prog_ms = cuda_ms(lambda: loaded(params, x, t, ctx), reps=2, warmup=0)
+        eager_ms = cuda_ms(lambda: dit(x, t, ctx, **kw), reps=2, warmup=0)
+    ulps = float(row_ulps(out, ref).max())
+    layers = T2V_1_3B.dit.num_layers
+    expect = {"qk_prep": 4 * layers, "flash_fwd": 2 * layers, "flash_causal": 0, "flash_d72": 0,
+              "fused_adaln": 0, "ring_step": 0}
+    rec = {"phase": "export", "config": "T2V_1_3B", "x": list(xs), "ctx": list(cs),
+           "residual_dtype": "bfloat16", "export_s": export_s, "save_s": save_s,
+           "load_s": load_s, "artifact_bytes": nbytes, "program_ms": prog_ms,
+           "eager_ms": eager_ms, "bit_equal": bool(torch.equal(out, ref)),
+           "max_row_ulps": ulps, "tolerance_row_ulps": FLASH_ULPS,
+           "launches": prog_launches, "eager_launches": eager_launches,
+           "out_shape": list(out.shape)}
+    emit(rec)
+    if (prog_launches != eager_launches or prog_launches != expect or ulps > FLASH_ULPS
+            or tuple(out.shape) != (2, 16) + tuple(xs[2:]) or not torch.isfinite(out).all()):
+        raise AssertionError(f"export: {rec} (launches expected {expect})")
+    path.unlink()
+    return rec
+
+
+def phase_eval_videos(served: dict, tmp: Path) -> dict:
+    """tools/eval_videos.py over the serve phase's two clips on the card,
+    each its own reference (PSNR infinite, SSIM 1), then the two requests'
+    first 17 frames as a pair: the metrics on the card within
+    METRIC_REL_TOL of the same on the CPU."""
+    d = tmp / "eval_videos"
+    d.mkdir()
+    for p in served["paths"].values():
+        shutil.copy(p, d / p.name)
+    t0 = time.perf_counter()
+    report = eval_videos_tool.main(["--generated", str(d), "--reference", str(d), "--report",
+                                    str(tmp / "eval_videos.json"), "--device", "cuda"])
+    report_s = time.perf_counter() - t0
+    a = read_video_frames(str(served["paths"]["a"]))[0]
+    b = read_video_frames(str(served["paths"]["b"]))[0]
+    n = min(len(b), SERVE_SHORT_FRAMES)
+    t0 = time.perf_counter()
+    card = evaluate_pair(torch.from_numpy(b[:n]).cuda(), torch.from_numpy(a[:n]).cuda())
+    card_s = time.perf_counter() - t0
+    host = evaluate_pair(torch.from_numpy(b[:n]), torch.from_numpy(a[:n]))
+    gaps = {k: abs(card[k] - host[k]) / max(abs(host[k]), 1e-12) for k in host}
+    rec = {"phase": "eval_videos", "files": sorted(report["per_sample"]), "n": report["n"],
+           "self_reference": report["per_sample"], "pair_frames": n, "pair_card": card,
+           "pair_cpu": host, "pair_rel_gaps": gaps, "tolerance_rel": METRIC_REL_TOL,
+           "report_s": report_s, "pair_card_s": card_s}
+    emit(rec)
+    if (report["n"] != 2 or any(m["psnr"] != float("inf") or abs(m["ssim"] - 1.0) > 1e-12
+                                for m in report["per_sample"].values())
+            or max(gaps.values()) > METRIC_REL_TOL or len(a) != FRAMES
+            or not all(np.isfinite(v) for v in card.values())):
+        raise AssertionError(f"eval_videos: {rec}")
+    return rec
+
+
+def _image_tokenizer() -> StandInTokenizer:
+    """The stand-in tokenizer with `<|image_pad|>` split out too (image rows)."""
+    tok = StandInTokenizer()
+    tok.ids["<|image_pad|>"] = SPECIAL_TOKEN_IDS["<|image_pad|>"]
+    tok.text[SPECIAL_TOKEN_IDS["<|image_pad|>"]] = "<|image_pad|>"
+    tok._split = "(" + "|".join(re.escape(t) for t in tok.ids) + ")"
+    return tok
+
+
+def _eval_vlm_pass(model: Qwen3VLModel, clip: Path) -> dict:
+    """tools/eval_vlm.py over a seeded `generic` JSONL of 4 rows with the
+    engine over this model: 2 image rows on the image pass's 1280x720 PNG
+    and 2 video rows on the 720p clip, one of them multiple-choice,
+    --max_new_tokens EVAL_NEW_TOKENS; the summary's keys, each row's
+    launches (the vision tower's flash_d72 per block, a flash_causal per
+    text layer), and preprocess_video on the card against the CPU."""
+    vc = model.cfg.vision
+    d = clip.parent
+    rows = [{"question_id": "img0", "text": "Is there a red shape?", "image": "still.png",
+             "answer": "yes", "category": "image"},
+            {"question_id": "img1", "text": "Is there a cat?", "image": "still.png",
+             "answer": "no", "category": "image"},
+            {"question_id": "vid0", "text": "Is the video dark?", "video": clip.name,
+             "answer": "no", "category": "video"},
+            {"question_id": "vid1", "text": "What moves?", "video": clip.name,
+             "options": ["noise", "a dog", "a car"], "answer": "A", "category": "video"}]
+    (d / "eval_questions.jsonl").write_text("\n".join(json.dumps(r) for r in rows) + "\n")
+    engine = Qwen3VLEngine.from_model(model, VLMConfig(), _image_tokenizer())
+    per_row, real = [], eval_vlm_tool.qwen3vl_greedy_decode
+
+    def counted(*args, **kw):
+        _reset_launches()
+        out = real(*args, **kw)
+        per_row.append(_launches())
+        return out
+
+    args = eval_vlm_tool.parse_args(["--questions", str(d / "eval_questions.jsonl"),
+                                     "--format", "generic", "--report", str(d / "eval.json"),
+                                     "--max_new_tokens", str(EVAL_NEW_TOKENS)])
+    eval_vlm_tool.qwen3vl_greedy_decode = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, summary = eval_vlm_tool.run(args, engine=engine)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        eval_vlm_tool.qwen3vl_greedy_decode = real
+    kw = dict(patch_size=vc.patch_size, temporal_patch_size=vc.temporal_patch_size,
+              merge_size=vc.spatial_merge_size)
+    p_card, g_card = preprocess_video(str(clip), device="cuda", **kw)
+    p_cpu, g_cpu = preprocess_video(str(clip), device="cpu", **kw)
+    lv = (np.abs(p_card - p_cpu).reshape(p_cpu.shape[0], 3, -1) * 255
+          * CLIP_STD[None, :, None])
+    want = {**{k: 0 for k in _launches()}, "flash_d72": vc.depth,
+            "flash_causal": model.cfg.text.num_hidden_layers}
+    rec = {"rows": len(rows), "summary": summary, "eval_s": eval_s,
+           "predictions": [r["prediction"] for r in results], "launches_per_row": per_row,
+           "launches": {k: sum(r[k] for r in per_row) for k in want},
+           "video_grid": list(g_card), "preprocess_video_max_levels": float(lv.max()),
+           "preprocess_video_over_1_level_share": float((lv > 1.0 + 1e-4).mean()),
+           "tolerance_levels": PV_MAX_LEVELS, "tolerance_over_1_share": PV_OVER1_SHARE}
+    if (set(summary) != {"accuracy", "n", "per_category"} or summary["n"] != len(rows)
+            or set(summary["per_category"]) != {"image", "video"} or per_row != [want] * len(rows)
+            or g_card != g_cpu or lv.max() > PV_MAX_LEVELS + 1e-4
+            or (lv > 1.0 + 1e-4).mean() > PV_OVER1_SHARE):
+        raise AssertionError(f"vlm eval_vlm: {rec}")
+    return rec
+
+
+def _serve_alone() -> int:
+    """`chip_smoke.py serve`: e2e (VLM features seeded), then serve, export
+    and eval_videos on its pipeline."""
+    phase_device()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        e2e = phase_e2e(torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen,
+                                    device="cuda"))
+        served = phase_serve(e2e["pipe"], tmp)
+        phase_export(e2e["pipe"], tmp)
+        phase_eval_videos(served, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def _kernel_class(name: str) -> str:
     row = kernel_row(name)
     if row is not None:
@@ -4468,6 +4803,8 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["i2v"]:
         return _i2v_alone()
+    if argv[:1] == ["serve"]:
+        return _serve_alone()
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
     if argv[:1] == ["stream"]:
@@ -4503,7 +4840,7 @@ def main(argv) -> int:
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
                          "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor', 'qwen3_sp', "
-                         "'i2v', 'stream' or 'stream_train')")
+                         "'i2v', 'stream', 'stream_train' or 'serve')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -4537,6 +4874,9 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     features = vlm.pop("features")
     e2e_rec = T("e2e", phase_e2e, features)
     e2e = e2e_rec["launches"]
+    served = T("serve", phase_serve, e2e_rec["pipe"], tmp)
+    exported = T("export", phase_export, e2e_rec["pipe"], tmp)
+    T("eval_videos", phase_eval_videos, served, tmp)
     T("load", phase_load, e2e_rec["pipe"].low_noise, tmp)
     cli = T("cli", phase_cli, clip, tmp)
     ring = T("ring", phase_ring, gen)
@@ -4568,17 +4908,23 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     train_rows = {k: sum(p[k] for p in train["launches_per_step"])
                   for k in flash_attention_train.launches}
     by_path = {  # each path's own count: reset just before it, read just after
-        "qk_prep": {"e2e": e2e["qk_prep"], "lora_generate_cli": gen_cli["qk_prep"],
+        "qk_prep": {"e2e": e2e["qk_prep"], "serve": served["launches"]["qk_prep"],
+                    "export": exported["launches"]["qk_prep"],
+                    "lora_generate_cli": gen_cli["qk_prep"],
                     "tiny_i2v": tiny_i2v["launches"]["qk_prep"], "i2v": i2v["launches"]["qk_prep"],
                     "stream": stream["launches"]["qk_prep"]},
-        "flash_fwd": {"e2e": e2e["flash_fwd"], "lora_generate_cli": gen_cli["flash_fwd"],
+        "flash_fwd": {"e2e": e2e["flash_fwd"], "serve": served["launches"]["flash_fwd"],
+                      "export": exported["launches"]["flash_fwd"],
+                      "lora_generate_cli": gen_cli["flash_fwd"],
                       "tiny_i2v": tiny_i2v["launches"]["flash_fwd"],
                       "i2v": i2v["launches"]["flash_fwd"], "stream": stream["launches"]["flash_fwd"]},
         "flash_causal": {"vlm": vlm["launches"]["flash_causal"],
+                         "eval_vlm": vlm["eval_vlm"]["launches"]["flash_causal"],
                          "text_only": text["launches"]["flash_causal"],
                          "vlm_image": vlm["image"]["launches"]["flash_causal"],
                          "ar_feature_extract": ar["launches"]["flash_causal"]},
         "flash_d72": {"vlm": vlm["launches"]["flash_d72"],
+                      "eval_vlm": vlm["eval_vlm"]["launches"]["flash_d72"],
                       "vision_lora": text["launches"]["flash_d72"],
                       "vlm_image": vlm["image"]["launches"]["flash_d72"],
                       "ar_feature_extract": ar["launches"]["flash_d72"]},

@@ -9,7 +9,10 @@ flattened patches in the processor's merge-grouped traversal order.
 `device` (utils/video.py `resize_frames`: torch's antialiased bicubic where
 the JAX package uses Pillow's) and returns the patches, the grid and the
 per-temporal-group `<t seconds>` timestamps of HF's Qwen3VLProcessor.
-`build_chat_ids` renders the Qwen3-VL chat template with its video
+`preprocess_video` (the eval path, tools/eval_vlm.py) samples and resizes
+through media.py `fetch_video` and re-aligns the frames to patch·merge
+multiples with a second resize on `device`. `build_chat_ids` renders the
+Qwen3-VL chat template with its video
 expansion through a tokenizer; `video_prompt_ids` lays out the same video
 spans around given token ids. The image path: `load_image` (a uint8
 array, an `.npy`/`.npz`, or a PNG read by utils/png.py: the card's machine
@@ -23,13 +26,11 @@ from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ...configs.qwen3vl import SPECIAL_TOKEN_IDS, Qwen3VLConfig
-from ...device import resolve_device
 from ...utils.png import read_png
-from ...utils.video import read_video_frames, resize_frames
-from .media import round_by_factor, smart_resize
+from ...utils.video import read_video_frames
+from .media import fetch_video, resize_on, round_by_factor, smart_resize
 
 # CLIP normalization constants (Qwen2VLImageProcessor defaults)
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -89,6 +90,24 @@ def video_prompt_ids(
     return np.asarray([ids], np.int64)
 
 
+def preprocess_video(path: str, patch_size: int = 16, temporal_patch_size: int = 2,
+                     merge_size: int = 2, nframes: Optional[int] = None, device="cuda"):
+    """A clip file → (patches [n, C·tp·p·p] f32 numpy, grid (t, h, w)):
+    media.py `fetch_video` (its frame count and pixel budget, resized on
+    `device`), then a second resize of the same kind down to this model's
+    patch_size·merge_size multiples where fetch_video's 28-pixel grid does
+    not fit them, as JAX's second Pillow resize."""
+    ele = {"video": path}
+    if nframes is not None:
+        ele["nframes"] = nframes
+    frames, _fps = fetch_video(ele, device)
+    f = patch_size * merge_size
+    H, W = frames.shape[1:3]
+    if H % f or W % f:
+        frames = resize_on(frames, ((H // f) * f or f, (W // f) * f or f), device)
+    return frames_to_patches(frames, patch_size, temporal_patch_size, merge_size)
+
+
 def preprocess_video_timestamps(
     path: str,
     patch_size: int = 16,
@@ -112,7 +131,7 @@ def preprocess_video_timestamps(
     size = smart_resize(H, W, factor=patch_size * merge_size, min_pixels=min_pixels,
                         max_pixels=max_pixels)
     if size != (H, W):
-        sel = resize_frames(torch.from_numpy(sel).to(resolve_device(device)), size).cpu().numpy()
+        sel = resize_on(sel, size, device)
     patches, grid = frames_to_patches(sel, patch_size, temporal_patch_size, merge_size)
     ind = list(idx)
     if len(ind) % merge_size:
@@ -188,8 +207,7 @@ def load_image(image, factor: int, min_pixels: int = 4 * 28 * 28,
     h, w = image.shape[:2]
     size = smart_resize(h, w, factor=factor, min_pixels=min_pixels, max_pixels=max_pixels)
     if size != (h, w):
-        image = resize_frames(torch.from_numpy(image[None]).to(resolve_device(device)),
-                              size).cpu().numpy()[0]
+        image = resize_on(image[None], size, device)[0]
     return image[None]
 
 

@@ -12,9 +12,13 @@ and that guard are computed on the device and handed to the kernel as
 tensors: choosing the mode needs no host sync. `causal=True` is token
 causality (col ≤ row), the Qwen3 text prefill.
 
-`flash_attention` launches the CUDA kernel `csrc/flash_fwd.cu` for CUDA
-tensors and takes `flash_attention_plain` only for CPU tensors. The kernel
-is the Hopper forward mainloop (`csrc/flash_fwd_hopper.cuh`) with one
+`flash_attention` computes the bound on the device and calls the registered
+op `omnivideo::flash_attention`, whose CUDA implementation launches the
+kernel `csrc/flash_fwd.cu`, whose CPU implementation is
+`flash_attention_plain`, and whose fake implementation gives the output's
+shape to `torch.export` (so an exported program holds the call, not its
+body). On the CPU under autograd the plain twin runs outside the op. The
+kernel is the Hopper forward mainloop (`csrc/flash_fwd_hopper.cuh`) with one
 epilogue policy per instantiation, each with its own launch count in
 `flash_attention.launches`: "flash_fwd" (head dim 128, the Wan DiT),
 "flash_causal" (head dim 128, causal, the Qwen3 prefill) and "flash_d72"
@@ -139,18 +143,31 @@ def flash_attention(
 ) -> torch.Tensor:
     """q: [B, Lq, N, D]; k/v: [B, Lk, N, D]; kv_lens: [B] int or None.
     Returns [B, Lq, N, D] in q.dtype. The CUDA kernel takes packed
-    contiguous q/k/v."""
-    B, Lq, N, D = q.shape
-    Lk = k.shape[1]
+    contiguous q/k/v. The bound (mb, safe) is computed here, on the device;
+    the attention itself is the registered op `omnivideo::flash_attention`
+    (the kernel on CUDA, the plain twin on the CPU), except on the CPU under
+    autograd, where the plain twin runs directly so gradients flow."""
+    D = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else D**-0.5
     mb = safe = None
     if assume_normalized:
         mb, safe = softmax_bound(q, k, scale, qk_row_norms)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_lens, scale, mb, safe, causal)
-    _kernels.check_no_grad("flash_attention", q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return flash_attention_plain(q, k, v, kv_lens, scale, mb, safe, causal)
+    else:
+        _kernels.check_no_grad("flash_attention", q, k, v)
+        _check_kernel_operands(q, k, v, causal)
+    return torch.ops.omnivideo.flash_attention(q, k, v, kv_lens, mb, safe, float(scale), causal)
+
+
+def _check_kernel_operands(q, k, v, causal: bool) -> str:
+    """The kernel instantiation that serves these operands; raises for any
+    the kernel does not take (another device, head dim, dtype, layout)."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
     name = KERNELS.get((D, causal))
     if name is None:
         raise ValueError(f"no flash kernel for head_dim {D} with causal={causal} "
@@ -161,6 +178,18 @@ def flash_attention(
         raise ValueError("flash kernel takes packed contiguous [B, L, N, D] q/k/v")
     if k.shape != (B, Lk, N, D) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    return name
+
+
+@torch.library.custom_op("omnivideo::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_lens: Optional[torch.Tensor], mb: Optional[torch.Tensor],
+                        safe: Optional[torch.Tensor], softmax_scale: float,
+                        causal: bool) -> torch.Tensor:
+    """The CUDA kernel (csrc/flash_fwd.cu), one launch counted per call."""
+    name = _check_kernel_operands(q, k, v, causal)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
     out = torch.empty_like(q)
     if Lq == 0:
         return out
@@ -170,11 +199,21 @@ def flash_attention(
         lens.data_ptr() if lens is not None else None,
         mb.data_ptr() if mb is not None else None,
         safe.data_ptr() if safe is not None else None,
-        B, Lq, Lk, N, D, int(causal), _qscale(scale),
+        B, Lq, Lk, N, D, int(causal), _qscale(softmax_scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(code, f"flash_attention ({name})")
     flash_attention.launches[name] += 1
     return out
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, kv_lens, mb, safe, softmax_scale, causal):
+    return flash_attention_plain(q, k, v, kv_lens, softmax_scale, mb, safe, causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, kv_lens, mb, safe, softmax_scale, causal):
+    return torch.empty_like(q)
 
 
 flash_attention.launches = {name: 0 for name in KERNELS.values()}

@@ -5,13 +5,14 @@ omnivideo_tpu/ops/fused_adaln.py and its Pallas kernel ops/pallas/adaln.py).
     y     = LN(x_new; eps) [·ln_scale + ln_bias] [·(1 + mod_scale) + mod_shift]
 
 in one pass over the [B, L, d] residual stream: the sandwich between the
-stages of the Wan DiT block and before its head. `fused_adaln` launches the
-CUDA kernel `csrc/adaln.cu` for CUDA tensors (f32 x, d % 128 == 0, d up to
-the kernel's register budget; anything else raises) and takes
-`fused_adaln_plain`, which follows the JAX `_ref_impl` op for op (centred
-variance, two roundings for each product-then-sum), only for CPU tensors.
-Launches are counted in `fused_adaln.launches`. Bound and design: see the
-kernel source.
+stages of the Wan DiT block and before its head. `fused_adaln` calls the
+registered op `omnivideo::fused_adaln`: its CUDA implementation launches the
+kernel `csrc/adaln.cu` (f32 x, d % 128 == 0, d up to the kernel's register
+budget; anything else raises), its CPU one is `fused_adaln_plain`, which
+follows the JAX `_ref_impl` op for op (centred variance, two roundings for
+each product-then-sum), and its fake one gives the output shapes for
+`torch.export`. Launches are counted in `fused_adaln.launches`. Bound and
+design: see the kernel source.
 
 Differentiable like the JAX `custom_vjp`: under autograd the forward runs
 the kernel and the backward is the VJP of the plain formula, recomputed
@@ -83,12 +84,22 @@ def _ptr(t: Optional[Tensor]):
 
 
 def _forward(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps, out_dtype):
-    if x.device.type == "cpu":
-        return fused_adaln_plain(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps,
-                                 out_dtype)
-    if not x.is_cuda:
-        raise ValueError(f"fused_adaln: unsupported device {x.device}")
+    """(x_new or None, y) through the registered op `omnivideo::fused_adaln`."""
     _check_args(o, gate, ln_scale, ln_bias, mod_scale, mod_shift)
+    if x.device.type != "cpu" and not x.is_cuda:
+        raise ValueError(f"fused_adaln: unsupported device {x.device}")
+    x_new, y = torch.ops.omnivideo.fused_adaln(x, o, gate, ln_scale, ln_bias, mod_scale,
+                                               mod_shift, float(eps), out_dtype)
+    return (x_new if o is not None else None), y
+
+
+@torch.library.custom_op("omnivideo::fused_adaln", mutates_args=(), device_types="cuda")
+def _fused_adaln_op(x: Tensor, o: Optional[Tensor], gate: Optional[Tensor],
+                    ln_scale: Optional[Tensor], ln_bias: Optional[Tensor],
+                    mod_scale: Optional[Tensor], mod_shift: Optional[Tensor], eps: float,
+                    out_dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """The CUDA kernel (csrc/adaln.cu), one launch counted per call. x_new
+    is an empty tensor when there is no residual branch (o is None)."""
     B, L, d = x.shape
     lib = _kernels.library()
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -108,7 +119,7 @@ def _forward(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps, out_dtype
     x_new = torch.empty_like(x) if o is not None else None
     y = torch.empty(B, L, d, dtype=out_dtype, device=dev)
     if B * L == 0:
-        return x_new, y
+        return (x_new if o is not None else x.new_empty(0)), y
     for t in (x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, x_new, y):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("fused_adaln kernel needs 16-byte aligned tensors")
@@ -119,7 +130,20 @@ def _forward(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps, out_dtype
         float(eps), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(code, "fused_adaln")
     fused_adaln.launches += 1
-    return x_new, y
+    return (x_new if o is not None else x.new_empty(0)), y
+
+
+@_fused_adaln_op.register_kernel("cpu")
+def _(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps, out_dtype):
+    x_new, y = fused_adaln_plain(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps,
+                                 out_dtype)
+    return (x_new if o is not None else x.new_empty(0)), y
+
+
+@_fused_adaln_op.register_fake
+def _(x, o, gate, ln_scale, ln_bias, mod_scale, mod_shift, eps, out_dtype):
+    x_new = torch.empty_like(x, dtype=torch.float32) if o is not None else x.new_empty(0)
+    return x_new, x.new_empty(x.shape, dtype=out_dtype)
 
 
 class _FusedAdaLN(torch.autograd.Function):

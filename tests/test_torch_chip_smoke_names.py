@@ -188,20 +188,22 @@ def test_safetensors_writer_reads_back(tmp_path):
                                          ("adafactor", "phase_adafactor"),
                                          ("qwen3_sp", "phase_vlm"), ("sft", "phase_sft"),
                                          ("i2v", "_i2v_alone"), ("stream", "_stream_alone"),
-                                         ("stream_train", "_stream_train_alone")])
+                                         ("stream_train", "_stream_train_alone"),
+                                         ("serve", "_serve_alone")])
 def test_phase_commands(monkeypatch, phase, entry):
     """`python3 chip_smoke.py <phase>` runs that phase alone (lora and
     adafactor after the train phase, their AdamW yardstick; qwen3_sp inside
     the vlm phase, whose text stack it runs; sft after tiny_sft; i2v after the
     flash phase, with tiny_i2v, vae22 and xlm; stream after the cli and a14b
-    phases, whose row and weights it reuses; stream_train alone); any other
+    phases, whose row and weights it reuses; stream_train alone; serve, export
+    and eval_videos after e2e, whose pipeline they reuse); any other
     argument is refused with the list of names."""
     calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for name in ("phase_device", "phase_profile", "phase_sp", "_sp_train_alone", "t2v_pipeline",
                  "phase_train", "phase_lora", "phase_adafactor", "phase_vlm", "write_clip",
                  "phase_tiny_sft", "phase_sft", "_i2v_alone", "_stream_alone",
-                 "_stream_train_alone"):
+                 "_stream_train_alone", "_serve_alone"):
         monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name, **k: calls.append(_n) or (
             (None, torch.zeros(1), torch.Generator()) if _n == "t2v_pipeline" else 0))
     monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.zeros(1))

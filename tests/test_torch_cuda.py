@@ -24,6 +24,9 @@ finite differences of an f64 einsum attention (the kernels' bf16 operands).
 fused_adaln: x_new bit for bit (the kernel rounds each product and sum as
 PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
 1e-5 of it (f32 out): the row mean and variance sum in another order.
+The registered `omnivideo::` ops (the calls a torch.export program holds)
+are held to the plain twins by the same rules, and an exported DiT's
+program to the eager forward bit for bit, with the same launches.
 ring_step: the finished output within 4 bf16 ulps of each row's max, as
 flash (the f32 step kernel: 1e-5 of it, and the LSE within 1e-5); the carried m within 1e-4 (log2 units) and l within 1e-4 relative of
 the plain twin's (f32 sums in another order); the ring backward's dq/dk/dv
@@ -832,3 +835,91 @@ def test_streamed_pageable_host_block_raises(cuda):
     ring = streaming.DeviceRing(pageable.nbytes, 1, cuda)
     with pytest.raises(RuntimeError, match="page-locked"):
         ring.load(0, [(pageable.data, 0)])
+
+
+def test_registered_ops_launch_the_kernels(cuda):
+    """The `omnivideo::` ops called directly, as a torch.export program calls
+    them, launch the hand-written kernels (one count each) and agree with
+    the plain twins as the wrappers do; their fake implementations give the
+    kernels' output shapes and dtypes."""
+    import omnivideo_tpu_torch.ops  # noqa: F401
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    ops = torch.ops.omnivideo
+    q, k, v = _qkv(2, 300, 517, 2, 128, 5, 4.0, cuda)
+    mb, safe = softmax_bound(q, k, 128**-0.5)
+    n0 = flash_attention.launches["flash_fwd"]
+    o = ops.flash_attention(q, k, v, None, mb, safe, 128**-0.5, False)
+    assert flash_attention.launches["flash_fwd"] == n0 + 1
+    _assert_flash_close(o, flash_attention_plain(q, k, v, None, 128**-0.5, mb, safe))
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(2, 700, 256, generator=gen, device=cuda) * 3).bfloat16()
+    g = 1.0 + 0.1 * torch.randn(256, generator=gen, device=cuda)
+    cos, sin = (torch.tensor(t, device=cuda) for t in rope_3d_tables((5, 10, 14), 128))
+    n0 = qk_prep.launches
+    y, rn = ops.qk_prep(x, g, cos, sin, 2, 1e-6)
+    assert qk_prep.launches == n0 + 1
+    yp, rnp = qk_prep_plain(x, g, cos, sin, 2, 1e-6)
+    assert float(_pair_ulps(y, yp).max()) <= 4.0
+    torch.testing.assert_close(rn, rnp, rtol=1e-4, atol=0)
+
+    xs = 2.0 + torch.randn(2, 37, 256, generator=gen, device=cuda)
+    o2 = torch.randn(2, 37, 256, generator=gen, device=cuda).bfloat16()
+    m = torch.randn(2, 256, generator=gen, device=cuda)
+    n0 = fused_adaln.launches
+    x_new, y2 = ops.fused_adaln(xs, o2, m, None, None, m, m, 1e-6, torch.bfloat16)
+    assert fused_adaln.launches == n0 + 1
+    x_ref, y_ref = fused_adaln_plain(xs, o2, m, None, None, m, m, 1e-6, torch.bfloat16)
+    assert torch.equal(x_new, x_ref)
+    assert bool(((y2.float() - y_ref.float()).abs()
+                 <= _bf16_ulp(y_ref.float().abs().amax(-1, keepdim=True))).all())
+
+    with FakeTensorMode() as mode:
+        fq, fk, fv, fx, fxs, fo = (mode.from_tensor(t) for t in (q, k, v, x, xs, o2))
+        fmb, fsafe, fg, fm = (mode.from_tensor(t) for t in (mb, safe, g, m))
+        assert ops.flash_attention(fq, fk, fv, None, fmb, fsafe, 0.1, False).shape == q.shape
+        fy, frn = ops.qk_prep(fx, fg, None, None, 2, 1e-6)
+        assert (fy.shape, frn.shape, frn.dtype) == ((2, 700, 2, 128), (2, 2), torch.float32)
+        fxn, fy2 = ops.fused_adaln(fxs, fo, fm, None, None, fm, fm, 1e-6, torch.float32)
+        assert fxn.shape == xs.shape and fy2.dtype == torch.float32
+
+
+@pytest.mark.parametrize("residual", ["bfloat16", "float32"])
+def test_exported_dit_on_the_card_equals_eager(cuda, residual, tmp_path):
+    """tools/export_aot.py on a 2-layer head-dim-128 DiT on the card: the
+    loaded program launches the same kernels as the eager forward (qk_prep,
+    flash_fwd; fused_adaln with the f32 residual) and gives its output bit
+    for bit."""
+    from omnivideo_tpu_torch.configs.base import WanDiTConfig
+    from omnivideo_tpu_torch.models.wan_dit import WanDiT
+    from omnivideo_tpu_torch.tools import export_aot
+
+    cfg = WanDiTConfig(patch_size=(1, 2, 2), text_len=16, in_dim=4, dim=256, ffn_dim=512,
+                       freq_dim=32, text_dim=48, out_dim=4, num_heads=2, num_layers=2)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dit = WanDiT(cfg, dtype=torch.bfloat16, device=cuda, generator=gen)
+    with torch.no_grad():
+        dit.head.head.weight.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(2, 4, 3, 16, 16, generator=gen, device=cuda).bfloat16()
+    t = torch.tensor([937.0, 41.0], device=cuda)
+    ctx = torch.randn(2, 16, 48, generator=gen, device=cuda).bfloat16()
+    rdt = getattr(torch, residual)
+    prog = export_aot.export_denoise(dit, x, t, ctx, rdt)
+    export_aot.save_program(prog, tmp_path / "dit.pt2")
+    loaded = torch.export.load(str(tmp_path / "dit.pt2")).module()
+
+    def counts():
+        return (qk_prep.launches, flash_attention.launches["flash_fwd"], fused_adaln.launches)
+
+    with torch.no_grad():
+        c0 = counts()
+        got = loaded(export_aot.dit_params(dit), x, t, ctx)
+        c1 = counts()
+        want = dit(x, t, ctx, residual_dtype=rdt, qk_impl="kernel",
+                   ew_impl=export_aot.ew_impl_for(rdt))
+        c2 = counts()
+    prog_n = tuple(b - a for a, b in zip(c0, c1))
+    assert prog_n == tuple(b - a for a, b in zip(c1, c2))
+    assert prog_n == (8, 4, 7 if residual == "float32" else 0)
+    assert torch.equal(got, want)

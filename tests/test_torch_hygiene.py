@@ -215,6 +215,55 @@ def test_streaming_entry_points_raise_without_cuda(monkeypatch):
             build()
 
 
+def test_serving_export_eval_modules_import_no_optional_packages():
+    """The serving, export and evaluation side (the server, the exporter,
+    the eval harnesses, the v1 generator, the rest of utils and
+    schedulers) imports none of the optional packages, nor jax or
+    omnivideo_tpu."""
+    optional = ("tokenizers", "transformers", "safetensors", "PIL", "imageio", "dashscope")
+    code = (
+        "import sys\n"
+        "import omnivideo_tpu_torch.tools.serve, omnivideo_tpu_torch.tools.export_aot\n"
+        "import omnivideo_tpu_torch.tools.eval_vlm, omnivideo_tpu_torch.tools.eval_videos\n"
+        "import omnivideo_tpu_torch.tools.export_tokenizer, omnivideo_tpu_torch.tools.step_time\n"
+        "import omnivideo_tpu_torch.pipelines.generator, omnivideo_tpu_torch.eval\n"
+        "import omnivideo_tpu_torch.utils.prompt_extend, omnivideo_tpu_torch.utils.chaos\n"
+        "import omnivideo_tpu_torch.utils.metrics, omnivideo_tpu_torch.utils.misc\n"
+        "import omnivideo_tpu_torch.schedulers.ddim, omnivideo_tpu_torch.schedulers.continuous_ode\n"
+        "import omnivideo_tpu_torch.models.qwen3vl.media\n"
+        f"bad = [k for k in sys.modules if k.split('.')[0] in {optional + FORBIDDEN_MODULES!r}]\n"
+        "print('BAD', bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_serving_export_eval_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """serve, export_aot, eval_vlm, eval_videos, the v1 generator, the Qwen
+    prompt expander and masks_like default to the card and raise without
+    one unless the caller asks for the CPU."""
+    from omnivideo_tpu_torch.pipelines.generator import OmniVideoGenerator
+    from omnivideo_tpu_torch.tools import eval_videos, eval_vlm, export_aot, serve
+    from omnivideo_tpu_torch.utils.misc import masks_like
+    from omnivideo_tpu_torch.utils.prompt_extend import QwenPromptExpander
+
+    (tmp_path / "q.jsonl").write_text("")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: serve.main(["--random_weights", "--tiny", "--output_dir",
+                                      str(tmp_path / "s")]),
+                  lambda: export_aot.main(["--tiny", "--out", str(tmp_path / "x.pt2")]),
+                  lambda: eval_vlm.main(["--model_path", str(tmp_path), "--questions",
+                                         str(tmp_path / "q.jsonl")]),
+                  lambda: eval_videos.main(["--generated", str(tmp_path)]),
+                  lambda: OmniVideoGenerator(str(tmp_path)),
+                  lambda: QwenPromptExpander(model_name=str(tmp_path)),
+                  lambda: masks_like((1, 2, 3, 4))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    assert masks_like((1, 2, 3, 4), device="cpu").shape == (1, 2, 3, 4)
+
+
 def test_every_csrc_file_is_in_the_build_digest():
     """The build is cached by a digest of SOURCES and HEADERS: a file under
     csrc/ missing from both would not trigger a rebuild when edited."""
