@@ -19,6 +19,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py stream_train  # the streamed trainers' phase alone
     python3 chip_smoke.py serve      # e2e (VLM features seeded), then serve, export and
                                      # eval_videos on its pipeline
+    python3 chip_smoke.py gmm        # the MoE's grouped products (rows 9, 9b) alone
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -42,6 +43,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             to its own scale; each kernel timed alone at its C entry point
             and through the wrapper, scaled_dot_product_attention timed
             beside it as a yardstick only;
+  gmm       rows 9 (gmm) and 9b (tgmm) of csrc/gmm.cu against their plain
+            twins at Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
+            768 → 2,048) with routing from a seeded router over a skewed
+            draw: the vlm phase's prefill (11,848 rows, bf16), a decode step
+            (8 rows), the SFT's f32 step (16,384 rows: forward, the input's
+            gradient through the transposed bank, the bank's by tgmm), tgmm
+            in bf16; one expert with every row, group sizes summing below m
+            (those rows exactly zero), half the experts empty; bf16 rows
+            within GMM_BF16_ULPS of each row's max, f32 within GMM_F32_TOL,
+            tgmm per group's block; ms, plain_ms, bound_ms, and
+            torch._grouped_mm's ms beside them as a yardstick;
   tiny      a small generate() on the card (kernels) against the same
             weights and noise on the CPU (plain versions);
   tiny_vlm  a small Qwen3-VL (vision head dim 72, text head dim 128) on the
@@ -60,9 +72,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             full depth): 6 seeded 832x480 frames →
             frames_to_patches (grid 3x30x52, 1,170 visual tokens), synthetic
             ids (L ~ 1.5k), the feature forward, a 16-token greedy decode,
-            launch counts asserted, the top-8-of-128 grouped MoE of layer 0
+            launch counts asserted (three gmm launches a MoE layer a pass
+            here and on every MoE path below, tgmm in the SFT's), the
+            feature forward and decode again through the per-expert
+            torch.matmul MoE (the port's before rows 9/9b), recording its
+            routing, then through the kernels with that routing replayed:
+            features within VLM_PATH_TOL of scale, greedy tokens equal up
+            to a near-tie; the top-8-of-128 grouped MoE of layer 0
             against its all-experts oracle, a profile of one feature
-            forward; then the engine (Qwen3VLEngine.from_model with a
+            forward (its idle share); then the engine (Qwen3VLEngine.from_model with a
             stand-in tokenizer) on a seeded 1280x720, 48-frame, 24 fps clip
             file: source caption (grid 3x44x80 at 704x1280), target caption
             (text only), features (grid 3x2x2 at 32x32), each pass's
@@ -272,8 +290,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             steps on one seeded batch (a third of it prompt) then a
             profiled one: the full finetune, bare LoRA rank 16 on q/k/v/o
             and the combined loss (the CLI's alignment chain); the loss
-            must fall, peak under 80 GB, no kernel launched (the masked
-            attention is the dense path, as in JAX); then sft_tokenize
+            must fall, peak under 80 GB, no attention kernel launched (the
+            masked attention is the dense path, as in JAX), the MoE through
+            rows 9 and 9b (tgmm unless the banks are frozen); then sft_tokenize
             through the stand-in tokenizer (ChatML) and the sft_vlm CLI
             from a YAML --config on that --data_dir, 3 steps.
   stream_train  StreamedTrainer at T2V-1.3B full width and depth beside
@@ -384,6 +403,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
+from omnivideo_tpu_torch.ops.gmm import gmm, gmm_plain, tgmm, tgmm_plain
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
     ring_finish,
@@ -523,7 +543,8 @@ ENGINE_GRIDS = {"caption": (3, 44, 80), "features": (3, 2, 2)}  # 720p after sma
 # 704x1280 at 480²…4·480² pixels, 32x32 at 480…1,920 (the JAX engine's budgets)
 D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
 KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_causal", "flash_d72", "flash_fwd_lse",
-               "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step", "ring_step_f32")
+               "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step", "ring_step_f32",
+               "gmm", "tgmm")
 
 
 def emit(obj) -> None:
@@ -571,7 +592,9 @@ def kernel_row(name: str):
     mangled (nvcc's log) or demangled (the profiler's) name, or None. The
     Hopper forward mainloop `attn_fwd_kernel` serves five rows, told apart by
     its epilogue policy's type: InferOut<128> row 1, CausalOut row 2,
-    InferOut<72> row 3a, LseOut row 3b, RingCarry row 8."""
+    InferOut<72> row 3a, LseOut row 3b, RingCarry row 8. The MoE's grouped
+    products: `gmm_kernel` row 9, `tgmm_kernel` row 9b (their one-block
+    work-list kernel `gmm_meta_kernel` files under no row)."""
     if "attn_fwd_kernel" in name:
         if "RingCarry" in name:
             return "ring_step"
@@ -585,7 +608,8 @@ def kernel_row(name: str):
         return None
     for key, row in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
                      ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln"),
-                     ("ring_step_f32", "ring_step_f32")):
+                     ("ring_step_f32", "ring_step_f32"), ("tgmm_kernel", "tgmm"),
+                     ("gmm_kernel", "gmm")):
         if key in name:
             return row
     return None
@@ -954,6 +978,8 @@ def _reset_launches() -> None:
     fused_adaln.launches = 0
     ring_step.launches = 0
     ring_step.launches_f32 = 0
+    gmm.launches = 0
+    tgmm.launches = 0
     for name in flash_attention.launches:
         flash_attention.launches[name] = 0
 
@@ -961,6 +987,21 @@ def _reset_launches() -> None:
 def _launches() -> dict:
     return {"qk_prep": qk_prep.launches, "fused_adaln": fused_adaln.launches,
             "ring_step": ring_step.launches, **flash_attention.launches}
+
+
+def _moe_launches() -> dict:
+    """The MoE's grouped-product kernels (rows 9 and 9b), kept apart from
+    `_launches` so that the attention paths' launch dicts stay as they were."""
+    return {"gmm": gmm.launches, "tgmm": tgmm.launches}
+
+
+def _check_moe_launches(what: str, got: dict, layers: int, backward: bool = False) -> None:
+    """Three gmm launches a layer a pass (gate, up, down), so a multiple of
+    3·layers and at least one pass; tgmm only under autograd."""
+    n = got["gmm"]
+    if n == 0 or n % (3 * layers) or (got["tgmm"] == 0) == backward:
+        raise AssertionError(f"{what}: MoE launches {got} for {layers} MoE layers "
+                             f"({'with' if backward else 'no'} backward)")
 
 
 def _tiny_vlm_config() -> Qwen3VLConfig:
@@ -1174,6 +1215,297 @@ def _vlm_moe_check(model: Qwen3VLModel, L: int) -> dict:
     return rec
 
 
+GMM_BF16_ULPS = 4.0  # bf16 out of f32 sums: the tensor cores add the products of a k16
+# step in an order of their own before the f32 accumulator, so a sum may differ
+# in its last f32 bits and round to the other bf16 neighbour; 4 ulps of a row's max
+# as the flash rows
+GMM_F32_TOL = 1e-5  # f32, of each row's max |plain|: the same products summed in another order
+GMM_TOKENS = (1481, 1, 2048)  # the vlm phase's prompt (L), a decode step, the SFT's batch
+
+
+def _routed(tokens: int, experts: int, k: int, gen: torch.Generator, skew: float = 1.5):
+    """A seeded router over a skewed draw, as the MoE routes: tokens [T, D]
+    ~ N(0, 1) at Qwen3-VL-30B-A3B's width, logits x·Wr + skew·N(0, 1) per
+    expert (some experts popular, some rarely hit), top-k, the (token,
+    slot) pairs sorted by expert → (x, token of each sorted row, int32 group
+    sizes on the card)."""
+    D = QWEN3_VL_30B_A3B.text.hidden_size
+    x = torch.randn(tokens, D, generator=gen, device="cuda")
+    wr = torch.randn(D, experts, generator=gen, device="cuda") * D**-0.5
+    bias = skew * torch.randn(experts, generator=gen, device="cuda")
+    flat = torch.topk(x @ wr + bias, k, dim=-1).indices.reshape(-1)
+    sizes = torch.bincount(flat, minlength=experts).to(torch.int32)
+    return x, torch.argsort(flat, stable=True) // k, sizes
+
+
+def _gmm_row_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out − ref| over each row's max |ref|: bf16 in ulps of it, f32 as
+    a share of it (0 for no rows)."""
+    if out.numel() == 0:
+        return 0.0
+    if out.dtype == torch.bfloat16:
+        return float(row_ulps(out, ref).max())
+    rmax = ref.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return float(((out.float() - ref.float()).abs() / rmax).max())
+
+
+def _gmm_limit(dtype) -> float:
+    return GMM_BF16_ULPS if dtype == torch.bfloat16 else GMM_F32_TOL
+
+
+def _grouped_mm_ms(a: torch.Tensor, b: torch.Tensor, sizes: torch.Tensor, reps: int):
+    """torch._grouped_mm on the same operands, the yardstick only (the port
+    never calls it): (ms, None), or (None, why) where this torch lacks it or
+    refuses the operands (it takes bf16 only)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or a.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bf16 only" if fn else "no torch._grouped_mm"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    try:
+        return cuda_ms(lambda: fn(a, b, offs=offs), reps), None
+    except (RuntimeError, ValueError, TypeError) as exc:
+        return None, str(exc).splitlines()[0][:160]
+
+
+def _gmm_case(name: str, lhs, rhs, sizes, transpose=False, reps=20) -> dict:
+    """gmm against gmm_plain on the same operands: the rows of the groups
+    within each row's limit, the rows past the group sum exactly zero; the
+    kernel timed at its wrapper, the plain twin, torch._grouped_mm; the
+    bound from this data (the experts hit, the rows routed)."""
+    m, k = lhs.shape
+    out = gmm(lhs, rhs, sizes, transpose_rhs=transpose)
+    ref = gmm_plain(lhs, rhs, sizes, transpose)
+    torch.cuda.synchronize()
+    n = out.shape[1]
+    total = min(int(sizes.sum()), m)
+    err = _gmm_row_err(out[:total], ref[:total])
+    zero_tail = bool(torch.count_nonzero(out[total:]) == 0)
+    esize = lhs.element_size()
+    nbytes = (int((sizes > 0).sum()) * k * n + total * k + m * n) * esize
+    ops = 2.0 * total * k * n
+    peak = BF16_FLOPS if lhs.dtype == torch.bfloat16 else F32_FLOPS
+    lib_ms, lib_why = _grouped_mm_ms(lhs, rhs.transpose(1, 2) if transpose else rhs, sizes,
+                                     reps)
+    rec = {"case": name, "op": "gmm", "dtype": str(lhs.dtype).split(".")[-1], "m": m, "k": k,
+           "n": n, "groups": sizes.numel(), "groups_hit": int((sizes > 0).sum()),
+           "rows_routed": total, "transpose_rhs": transpose, "max_row_err": err,
+           "limit": _gmm_limit(lhs.dtype), "max_abs_err": float((out - ref).abs().max()),
+           "rows_past_sum_zero": zero_tail,
+           "ms": cuda_ms(lambda: gmm(lhs, rhs, sizes, transpose_rhs=transpose), reps),
+           "plain_ms": cuda_ms(lambda: gmm_plain(lhs, rhs, sizes, transpose), 1, 0),
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
+           "library_ms": lib_ms}
+    if lib_why:
+        rec["library_why_none"] = lib_why
+    rec["ok"] = err <= rec["limit"] and zero_tail and bool(torch.isfinite(out).all())
+    return rec
+
+
+def _tgmm_case(name: str, lhs, dy, sizes, reps=10) -> dict:
+    """tgmm against tgmm_plain: each group's [k, n] block within the limit
+    of its own max, an empty group's block exactly zero; timed as gmm."""
+    m, k = lhs.shape
+    n, E = dy.shape[1], sizes.numel()
+    out = tgmm(lhs, dy, sizes)
+    ref = tgmm_plain(lhs, dy, sizes)
+    torch.cuda.synchronize()
+    hit = (sizes > 0).nonzero().flatten()
+    err = _gmm_row_err(out[hit].reshape(len(hit), -1), ref[hit].reshape(len(hit), -1))
+    empty_zero = bool(torch.count_nonzero(out[sizes == 0]) == 0)
+    total = min(int(sizes.sum()), m)
+    esize = lhs.element_size()
+    nbytes = (total * (k + n) + E * k * n) * esize
+    ops = 2.0 * total * k * n
+    peak = BF16_FLOPS if lhs.dtype == torch.bfloat16 else F32_FLOPS
+    lib_ms, lib_why = _grouped_mm_ms(lhs.T, dy, sizes, reps)
+    rec = {"case": name, "op": "tgmm", "dtype": str(lhs.dtype).split(".")[-1], "m": m, "k": k,
+           "n": n, "groups": E, "groups_hit": len(hit), "rows_routed": total,
+           "max_block_err": err, "limit": _gmm_limit(lhs.dtype),
+           "max_abs_err": float((out - ref).abs().max()), "empty_groups_zero": empty_zero,
+           "ms": cuda_ms(lambda: tgmm(lhs, dy, sizes), reps),
+           "plain_ms": cuda_ms(lambda: tgmm_plain(lhs, dy, sizes), 1, 0),
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
+           "library_ms": lib_ms}
+    if lib_why:
+        rec["library_why_none"] = lib_why
+    rec["ok"] = err <= rec["limit"] and empty_zero and bool(torch.isfinite(out).all())
+    return rec
+
+
+def phase_gmm(gen: torch.Generator) -> dict:
+    """Rows 9 and 9b against their plain twins at the main paths' shapes,
+    routed by `_routed`: Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
+    768 → 2,048) at the vlm phase's prefill (1,481 tokens, 11,848 rows,
+    bf16) and at a decode step (8 rows), the SFT's f32 step (2,048 tokens,
+    16,384 rows: the forward, the input's gradient through the transposed
+    bank and the bank's gradient by tgmm), tgmm in bf16 at the prefill's
+    rows; edge cases: one expert with every row, group sizes summing below
+    m (the rows past are zero), half the experts never routed. Returns
+    {"gmm": the prefill gate/up case, "tgmm": the SFT's bank gradient,
+    "cases": all}."""
+    cfg = QWEN3_VL_30B_A3B.text
+    E, D, M, k = cfg.num_experts, cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts_per_tok
+    bf = torch.bfloat16
+    up = (torch.randn(E, D, M, generator=gen, device="cuda") * 0.02).to(bf)  # [E, D, M]
+    down = (torch.randn(E, M, D, generator=gen, device="cuda") * 0.02).to(bf)  # [E, M, D]
+    cases = []
+    prefill, decode, sft = GMM_TOKENS
+    x, tok, sizes = _routed(prefill, E, k, gen)
+    xs = x.to(bf)[tok]
+    h = torch.randn(xs.shape[0], M, generator=gen, device="cuda").to(bf)
+    cases.append(_gmm_case("prefill_gate_up", xs, up, sizes))
+    cases.append(_gmm_case("prefill_down", h, down, sizes))
+    cases.append(_tgmm_case("prefill_bank_grad_bf16", xs, h, sizes, reps=5))
+    x1, tok1, sizes1 = _routed(decode, E, k, gen)
+    xs1 = x1.to(bf)[tok1]
+    cases.append(_gmm_case("decode_gate_up", xs1, up, sizes1, reps=200))
+    cases.append(_gmm_case("decode_down", h[:xs1.shape[0]].contiguous(), down, sizes1,
+                           reps=200))
+    one = torch.zeros(E, dtype=torch.int32, device="cuda")
+    one[3] = 1000
+    cases.append(_gmm_case("one_expert_all_rows", xs[:1000].contiguous(), up, one))
+    short = sizes.clone()
+    short[E // 2:] = 0  # rows past the first half's sum must come out zero
+    cases.append(_gmm_case("sum_below_m", xs, up, short))
+    del up, down, xs, h
+    up32 = torch.randn(E, D, M, generator=gen, device="cuda") * 0.02
+    x, tok, sizes = _routed(sft, E, k, gen)
+    xs = x[tok].contiguous()
+    dy = torch.randn(xs.shape[0], M, generator=gen, device="cuda")
+    cases.append(_gmm_case("sft_forward_f32", xs, up32, sizes, reps=5))
+    cases.append(_gmm_case("sft_input_grad_f32", dy, up32, sizes, transpose=True, reps=5))
+    main_t = _tgmm_case("sft_bank_grad_f32", xs, dy, sizes, reps=5)
+    cases.append(main_t)
+    half = sizes.clone()
+    half[::2] = 0
+    rows = int(half.sum())
+    cases.append(_gmm_case("half_experts_empty_f32", xs[:rows].contiguous(), up32, half, reps=5))
+    cases.append(_tgmm_case("half_experts_empty_tgmm_f32", xs[:rows].contiguous(),
+                            dy[:rows].contiguous(), half, reps=5))
+    del up32, xs, dy
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "gmm", "config": "QWEN3_VL_30B_A3B.text MoE", "experts": E,
+           "experts_per_token": k, "tolerance_bf16_row_ulps": GMM_BF16_ULPS,
+           "tolerance_f32_row_rel": GMM_F32_TOL, "cases": cases}
+    emit(rec)
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"gmm: cases {bad} off: {rec}")
+    return {"gmm": cases[0], "tgmm": main_t, "cases": cases}
+
+
+VLM_PATH_TOL = 5e-2  # the vlm features, the grouped kernels vs the per-expert products on the
+# same routing, of scale: both round each product to bf16 once from f32 sums taken in other
+# orders, and 24 layers carry the flipped roundings through attention, the norms and the
+# residual (the tiny VLM's card-vs-CPU limit, which covers such roundings along the same model)
+VLM_NEAR_TIE = 0.05  # a greedy choice whose top logit leads by less than this share of the
+# largest |logit| may flip (phase_tiny_vlm's rule)
+
+
+def _moe_per_expert(mlp, x: torch.Tensor) -> torch.Tensor:
+    """The MoE as the port ran it before rows 9 and 9b: the group sizes read
+    back to the host, one torch.matmul per expert over its row segment. The
+    vlm phase's yardstick only; the port no longer calls it."""
+    B, L, D = x.shape
+    xt = x.reshape(B * L, D)
+    k = mlp.cfg.num_experts_per_tok
+    topv, topi, _ = vlm_text.router(mlp, xt)
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=mlp.cfg.num_experts).tolist()  # host sync
+    xs = xt[order // k]
+    gate, up, down = (w.unbind(0) for w in (mlp.experts_gate, mlp.experts_up, mlp.experts_down))
+    outs, start = [], 0
+    for e, n in enumerate(counts):
+        if n:
+            seg = xs[start:start + n]
+            outs.append((torch.nn.functional.silu(seg @ gate[e]) * (seg @ up[e])) @ down[e])
+            start += n
+    o = torch.cat(outs)
+    o = o * topv.reshape(-1)[order][:, None].to(o.dtype)
+    slots = torch.empty_like(o)
+    slots[order] = o
+    return slots.view(B * L, k, D).sum(1).reshape(B, L, D)
+
+
+def _vlm_per_expert_check(model, ids, patches, grid, feats, toks) -> dict:
+    """The feature forward and greedy decode through `_moe_per_expert` (the
+    parent's MoE), recording each MoE call's routing and the decode's logit
+    margins; then the port's path (rows 9) again with that routing replayed
+    (its own router probabilities, the reference's chosen experts): the
+    features within VLM_PATH_TOL of scale and the greedy tokens equal up to
+    the first near-tie. The free run's gaps (`feats`, `toks`: the port's own
+    routing) are reported beside them: a router near-tie flipped by a bf16
+    rounding swaps a token's expert, which says nothing about the kernels."""
+    route, moe_fn, sample = vlm_text.router, vlm_text.moe, vlm_full.sample_token
+    calls, margins, used = [], [], [0]
+
+    def record(mlp, xt):
+        topv, topi, probs = route(mlp, xt)
+        calls.append(topi)
+        return topv, topi, probs
+
+    def replay(mlp, xt):
+        topv, topi, probs = route(mlp, xt)
+        if used[0] < len(calls) and calls[used[0]].shape == topi.shape:
+            topi = calls[used[0]]
+            topv = probs.gather(1, topi)
+            if mlp.cfg.norm_topk_prob:
+                topv = topv / topv.sum(-1, keepdim=True)
+        used[0] += 1
+        return topv, topi, probs
+
+    def spy(logits, *args):
+        top2 = logits.float().topk(2).values
+        margins.append(float((top2[0] - top2[1]) / logits.float().abs().max()))
+        return sample(logits, *args)
+
+    out = {}
+    try:
+        for name, moe_impl, router_impl in (("per_expert", _moe_per_expert, record),
+                                            ("replayed", moe_fn, replay)):
+            vlm_text.moe, vlm_text.router = moe_impl, router_impl
+            vlm_full.sample_token = spy if name == "per_expert" else sample
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = extract_features(model, ids, patches, grid, drop_idx=SYSTEM_PREFIX)
+            torch.cuda.synchronize()
+            features_s = time.perf_counter() - t0
+            timings = {}
+            t = qwen3vl_greedy_decode(model, ids, patches, grid, max_new_tokens=VLM_NEW_TOKENS,
+                                      timings=timings)
+            out[name] = {"features": f["vlm_last_hidden_states"], "tokens": np.asarray(t),
+                         "features_s": features_s, **timings}
+    finally:
+        vlm_text.moe, vlm_text.router, vlm_full.sample_token = moe_fn, route, sample
+    ref = out["per_expert"]
+
+    def first_gap(t):
+        d = np.nonzero(np.asarray(t) != ref["tokens"])[0]
+        return int(d[0]) if len(d) else None
+
+    scale = ref["features"].abs().max()
+    rel = float((out["replayed"]["features"] - ref["features"]).abs().max() / scale)
+    first, free_first = first_gap(out["replayed"]["tokens"]), first_gap(toks)
+    rec = {"features_rel_err_replayed": rel, "tolerance_rel": VLM_PATH_TOL,
+           "features_rel_err_own_routing": float((feats - ref["features"]).abs().max() / scale),
+           "tokens_per_expert": ref["tokens"].tolist(),
+           "tokens_replayed": out["replayed"]["tokens"].tolist(),
+           "first_divergence_replayed": first, "first_divergence_own_routing": free_first,
+           "per_expert_margins": margins, "near_tie": VLM_NEAR_TIE,
+           "router_calls": len(calls), "replayed_calls": used[0],
+           "per_expert_features_s": ref["features_s"], "per_expert_prefill_s": ref["prefill_s"],
+           "per_expert_decode_ms_per_token": ref["decode_s"] / ref["decode_steps"] * 1e3}
+    del out
+    if (rel > VLM_PATH_TOL or used[0] != len(calls)
+            or (first is not None and margins[first] >= VLM_NEAR_TIE)):
+        raise AssertionError(f"vlm per-expert check: {rec}")
+    return rec
+
+
 def _engine_pass(model: Qwen3VLModel, clip: Path) -> dict:
     """The Qwen3-VL engine on the same model and the 720p clip file, through
     the stand-in tokenizer: source caption, target caption and features as
@@ -1284,12 +1616,12 @@ def phase_vlm(clip: Path) -> dict:
         feats = extract_features(model, ids, patches, grid, drop_idx=SYSTEM_PREFIX)
         torch.cuda.synchronize()
         features_s = time.perf_counter() - t0
-        got_f = _launches()
+        got_f, moe_f = _launches(), _moe_launches()
         _reset_launches()
         timings = {}
         toks = qwen3vl_greedy_decode(model, ids, patches, grid, max_new_tokens=VLM_NEW_TOKENS,
                                      timings=timings)
-        got_d = _launches()
+        got_d, moe_d = _launches(), _moe_launches()
     finally:
         flash_mod.softmax_bound = bound_fn
     for got in (got_f, got_d):
@@ -1297,6 +1629,11 @@ def phase_vlm(clip: Path) -> dict:
             raise AssertionError(f"vlm: launches {got} per pass, expected {per_pass}")
         for k in total:
             total[k] += got[k]
+    layers = cfg.text.num_hidden_layers
+    if moe_f != {"gmm": 3 * layers, "tgmm": 0}:  # one forward: gate, up, down a layer
+        raise AssertionError(f"vlm: MoE launches {moe_f} in the feature forward")
+    _check_moe_launches("vlm decode", moe_d, layers)
+    moe_total = {k: moe_f[k] + moe_d[k] for k in moe_f}
     h = feats["vlm_last_hidden_states"]
     L = ids.shape[1]
     expect = (L - SYSTEM_PREFIX, cfg.text.hidden_size)
@@ -1306,6 +1643,7 @@ def phase_vlm(clip: Path) -> dict:
                              f"finite {bool(torch.isfinite(h).all())}, tokens {toks}")
     safe = torch.cat(guard).cpu()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_expert = _vlm_per_expert_check(model, ids, patches, grid, h, toks)
     moe_check = _vlm_moe_check(model, L)
     profile = _vlm_profile(model, ids, patches, grid)
     engine = _engine_pass(model, clip)
@@ -1325,7 +1663,9 @@ def phase_vlm(clip: Path) -> dict:
            "features_rms": float(h.square().mean().sqrt()), "tokens": toks.tolist(),
            "d72_guard": {"bounded_blocks": int(safe.sum()),
                          "max_tracked_blocks": int((safe == 0).sum())},
-           "launches_per_pass": per_pass, "launches": total, "moe_check": moe_check,
+           "launches_per_pass": per_pass, "launches": total, "moe_launches": moe_total,
+           "moe_launches_per_pass": {"features": moe_f, "decode": moe_d},
+           "idle_share": profile["idle_share"], "per_expert": per_expert, "moe_check": moe_check,
            "profile": profile, "engine": engine, "image": image, "eval_vlm": eval_vlm,
            "vae_feature_extract": {k: v for k, v in vae.items() if k not in ("dir", "manifest")},
            "ar_feature_extract": ar, "text_only_launches": text["launches"],
@@ -3333,7 +3673,7 @@ def phase_text_only(model: Qwen3VLModel, ids: np.ndarray, patches: torch.Tensor,
     ids_t = torch.as_tensor(ids, device="cuda")
     per = {"flash_causal": layers, "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0,
            "flash_d72": 0, "ring_step": 0}
-    counts, out = [], {}
+    counts, moe_counts, out = [], [], {}
 
     def run(tag):
         _reset_launches()
@@ -3343,12 +3683,14 @@ def phase_text_only(model: Qwen3VLModel, ids: np.ndarray, patches: torch.Tensor,
         torch.cuda.synchronize()
         out[f"{tag}_forward_s"] = time.perf_counter() - t0
         counts.append(_launches())
+        moe_counts.append(_moe_launches())
         _reset_launches()
         t0 = time.perf_counter()
         toks = qwen3_greedy_decode(model, ids_t, VLM_NEW_TOKENS)
         torch.cuda.synchronize()
         out[f"{tag}_decode_s"] = time.perf_counter() - t0
         counts.append(_launches())
+        moe_counts.append(_moe_launches())
         return logits, toks
 
     logits0, toks0 = run("base")
@@ -3389,8 +3731,11 @@ def phase_text_only(model: Qwen3VLModel, ids: np.ndarray, patches: torch.Tensor,
     if (not repeatable or not b0_equal or rel_m > MERGE_TOL or any(c != per for c in counts)
             or vis_launches != vis_expect or not torch.isfinite(y_ad).all()):
         raise AssertionError(f"text_only: {rec} (launches expected {per} per pass)")
+    for c in moe_counts:
+        _check_moe_launches("text_only pass", c, layers)
     rec["launches"] = {"flash_causal": sum(c["flash_causal"] for c in counts),
                        "flash_d72": vis_launches["flash_d72"]}
+    rec["moe_launches"] = {k: sum(c[k] for c in moe_counts) for k in ("gmm", "tgmm")}
     return rec
 
 
@@ -3409,7 +3754,7 @@ def phase_qwen3_sp(model, ids_t: torch.Tensor, ref_logits: torch.Tensor) -> dict
         _, logits = qwen3_forward_sp(model, ids_t, mesh)
         torch.cuda.synchronize()
         sp_s = time.perf_counter() - t0
-        launches = _launches()
+        launches, moe = _launches(), _moe_launches()
     finally:
         dist.destroy_process_group()
     rel = _scale_rel(logits, ref_logits)
@@ -3418,12 +3763,13 @@ def phase_qwen3_sp(model, ids_t: torch.Tensor, ref_logits: torch.Tensor) -> dict
     count = torch.cuda.device_count()
     rec = {"phase": "qwen3_sp", "world": 1, "seq_len": int(ids_t.shape[1]), "forward_s": sp_s,
            "logits_rel_err": rel, "tolerance_rel": SP_TOL, "launches": launches,
-           "multi_card": None}
+           "moe_launches": moe, "multi_card": None}
     if count >= 2:
         print(f"qwen3_sp: the {min(4, count)}-rank run is not part of this script (ROADMAP "
               "§1 item 4); the CPU tests hold the ring of 4 and ring × Ulysses", flush=True)
     emit(rec)
-    if launches != expect or rel > SP_TOL or not torch.isfinite(logits).all():
+    if (launches != expect or moe != {"gmm": 3 * layers, "tgmm": 0} or rel > SP_TOL
+            or not torch.isfinite(logits).all()):
         raise AssertionError(f"qwen3_sp: {rec} (launches expected {expect})")
     return rec
 
@@ -3550,6 +3896,7 @@ def _sft_full_case(name: str, lora: int = 0, align: float = 0.0) -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     launches = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32}
+    moe = _moe_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = _profile(lambda: step(state, batch))
     rec = {"case": name, "lora_rank": lora, "align_weight": align, **_sft_counts(params),
@@ -3557,7 +3904,7 @@ def _sft_full_case(name: str, lora: int = 0, align: float = 0.0) -> dict:
            "num_targets": float(m["num_targets"]), "step_s": step_s,
            "sft_step_s": sum(step_s[1:]) / (len(step_s) - 1), "max_memory_allocated_gb": peak_gb,
            "idle_share": profile["idle_share"], "profile_one_step": profile,
-           "launches": launches}
+           "launches": launches, "moe_launches": moe}
     if "align_loss" in m:
         rec["align_loss"] = float(m["align_loss"])
     del state, params, step, tx, batch
@@ -3565,8 +3912,10 @@ def _sft_full_case(name: str, lora: int = 0, align: float = 0.0) -> dict:
     torch.cuda.empty_cache()
     bad = (not all(np.isfinite(losses)) or not all(b < a for a, b in zip(losses, losses[1:]))
            or peak_gb >= 80.0 or any(launches.values()))
-    if bad:  # the single-card SFT runs no kernel: its masked attention is the dense path
+    if bad:  # the single-card SFT's masked attention is the dense path: no attention kernel
         raise AssertionError(f"sft {name}: {rec}")
+    # the MoE: gmm forward and for the input's gradient; tgmm for the banks' unless frozen (LoRA)
+    _check_moe_launches(f"sft {name}", moe, SFT_CFG.num_hidden_layers, backward=not lora)
     return rec
 
 
@@ -3803,7 +4152,8 @@ def _sft_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
         rows.append((float(m["loss"]), float(m["grad_norm"])))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0 - (spy.seconds - spy_s))
-    local = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32}
+    local = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32,
+             **_moe_launches()}
     counts = torch.tensor([local[k] for k in sorted(local)], device=device)
     dist.all_reduce(counts)
     launches = dict(zip(sorted(local), counts.tolist()))
@@ -3816,9 +4166,12 @@ def _sft_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
            "worst_leaf_grad_rel_err": spy.worst}
     ring_ok = not sp or (launches["ring_step_f32"] > 0  # the f32 LM's ring
                          and (world == 1 or launches["flash_bwd_dq"] > 0))
+    layers = SFT_MESH_CFG.num_hidden_layers
+    moe_ok = (launches["gmm"] > 0 and launches["tgmm"] > 0  # the MoE's forward and backward
+              and launches["gmm"] % (3 * layers) == 0)
     rec["ok"] = (max(rec["loss_rel_err"]) <= SP_LOSS_TOL
                  and max(rec["grad_norm_rel_err"]) <= SP_GNORM_TOL
-                 and spy.worst[0][0] <= SP_GNORM_TOL and ring_ok)
+                 and spy.worst[0][0] <= SP_GNORM_TOL and ring_ok and moe_ok)
     del state, params, step, batch, tx
     gc.collect()
     torch.cuda.empty_cache()
@@ -3872,7 +4225,7 @@ def _image_pass(model: Qwen3VLModel, tmp: Path) -> dict:
     caption = engine._generate(msg)
     torch.cuda.synchronize()
     caption_s = time.perf_counter() - t0
-    launches = _launches()
+    launches, moe = _launches(), _moe_launches()
     budget = (480 * 480, 4 * 480 * 480)
     patches, grid = preprocess_image(str(path), vc.patch_size, vc.temporal_patch_size,
                                      vc.spatial_merge_size, *budget, device="cuda")
@@ -3887,7 +4240,7 @@ def _image_pass(model: Qwen3VLModel, tmp: Path) -> dict:
     rec = {"image": list(STILL_SHAPE), "grid": list(grid), "visual_tokens": n_vis,
            "prompt_len": int(ids.shape[1]), "features_shape": list(h.shape),
            "caption_s": caption_s, "features_s": features_s, "caption_chars": len(caption),
-           "launches": launches}
+           "launches": launches, "moe_launches": moe}
     want = {**{k: 0 for k in launches}, "flash_d72": vc.depth,
             "flash_causal": model.cfg.text.num_hidden_layers}
     size = smart_resize(STILL_SHAPE[0], STILL_SHAPE[1], vc.patch_size * vc.spatial_merge_size,
@@ -3897,6 +4250,7 @@ def _image_pass(model: Qwen3VLModel, tmp: Path) -> dict:
             or tuple(h.shape) != (1, ids.shape[1], model.cfg.text.hidden_size)
             or not torch.isfinite(h).all()):
         raise AssertionError(f"vlm image pass: {rec}")
+    _check_moe_launches("vlm image pass", moe, model.cfg.text.num_hidden_layers)
     return rec
 
 
@@ -3912,17 +4266,19 @@ def _ar_extract(model: Qwen3VLModel, vae: dict) -> dict:
     path = ar_feature_extract.extract_row(engine, row, 0, vae["dir"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = _launches()
+    launches, moe = _launches(), _moe_launches()
     with np.load(path, allow_pickle=True) as f:
         keys = sorted(f.files)
         shape = list(f["vlm_last_hidden_states"].shape)
-    rec = {"keys": keys, "vlm_shape": shape, "wall_s": wall_s, "launches": launches}
+    rec = {"keys": keys, "vlm_shape": shape, "wall_s": wall_s, "launches": launches,
+           "moe_launches": moe}
     # source caption and features read the clip, the target caption is text only
     want = {**{k: 0 for k in launches}, "flash_d72": 2 * model.cfg.vision.depth,
             "flash_causal": 3 * model.cfg.text.num_hidden_layers}
     if (launches != want or shape[1:] != [model.cfg.text.hidden_size]
             or not {"vlm_last_hidden_states", "source_caption", "target_caption"} <= set(keys)):
         raise AssertionError(f"ar_feature_extract: {rec}")
+    _check_moe_launches("ar_feature_extract", moe, model.cfg.text.num_hidden_layers)
     return rec
 
 
@@ -4688,12 +5044,13 @@ def _eval_vlm_pass(model: Qwen3VLModel, clip: Path) -> dict:
              "options": ["noise", "a dog", "a car"], "answer": "A", "category": "video"}]
     (d / "eval_questions.jsonl").write_text("\n".join(json.dumps(r) for r in rows) + "\n")
     engine = Qwen3VLEngine.from_model(model, VLMConfig(), _image_tokenizer())
-    per_row, real = [], eval_vlm_tool.qwen3vl_greedy_decode
+    per_row, moe_rows, real = [], [], eval_vlm_tool.qwen3vl_greedy_decode
 
     def counted(*args, **kw):
         _reset_launches()
         out = real(*args, **kw)
         per_row.append(_launches())
+        moe_rows.append(_moe_launches())
         return out
 
     args = eval_vlm_tool.parse_args(["--questions", str(d / "eval_questions.jsonl"),
@@ -4719,6 +5076,7 @@ def _eval_vlm_pass(model: Qwen3VLModel, clip: Path) -> dict:
     rec = {"rows": len(rows), "summary": summary, "eval_s": eval_s,
            "predictions": [r["prediction"] for r in results], "launches_per_row": per_row,
            "launches": {k: sum(r[k] for r in per_row) for k in want},
+           "moe_launches": {k: sum(r[k] for r in moe_rows) for k in ("gmm", "tgmm")},
            "video_grid": list(g_card), "preprocess_video_max_levels": float(lv.max()),
            "preprocess_video_over_1_level_share": float((lv > 1.0 + 1e-4).mean()),
            "tolerance_levels": PV_MAX_LEVELS, "tolerance_over_1_share": PV_OVER1_SHARE}
@@ -4727,6 +5085,8 @@ def _eval_vlm_pass(model: Qwen3VLModel, clip: Path) -> dict:
             or g_card != g_cpu or lv.max() > PV_MAX_LEVELS + 1e-4
             or (lv > 1.0 + 1e-4).mean() > PV_OVER1_SHARE):
         raise AssertionError(f"vlm eval_vlm: {rec}")
+    for r in moe_rows:
+        _check_moe_launches("vlm eval_vlm row", r, model.cfg.text.num_hidden_layers)
     return rec
 
 
@@ -4744,6 +5104,13 @@ def _serve_alone() -> int:
         phase_eval_videos(served, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+def _gmm_alone() -> int:
+    """`chip_smoke.py gmm`: the grouped products' phase alone."""
+    phase_device()
+    phase_gmm(torch.Generator(device="cuda").manual_seed(0))
     return 0
 
 
@@ -4805,6 +5172,8 @@ def main(argv) -> int:
         return _i2v_alone()
     if argv[:1] == ["serve"]:
         return _serve_alone()
+    if argv[:1] == ["gmm"]:
+        return _gmm_alone()
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
     if argv[:1] == ["stream"]:
@@ -4840,7 +5209,7 @@ def main(argv) -> int:
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
                          "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor', 'qwen3_sp', "
-                         "'i2v', 'stream', 'stream_train' or 'serve')")
+                         "'i2v', 'stream', 'stream_train', 'serve' or 'gmm')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -4865,6 +5234,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     qk = T("qk_prep", phase_qk_prep, gen)
     fl = T("flash", phase_flash, gen)
     ft = T("flash_train", phase_flash_train, gen)
+    grouped = T("gmm", phase_gmm, gen)
     T("tiny", phase_tiny)
     T("tiny_vlm", phase_tiny_vlm)
     T("tiny_train", phase_tiny_train)
@@ -4898,7 +5268,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     sp_train = T("sp_train", phase_sp_train, train.pop("ref"), gen)
     lora = T("lora", phase_lora, train, tmp)
     ada = T("adafactor", phase_adafactor, train)
-    T("sft", phase_sft, tmp)
+    sft = T("sft", phase_sft, tmp)
     stream_train = T("stream_train", phase_stream_train)
     emit({"phase": "times", "seconds": seconds, "total_s": sum(seconds.values())})
     text = vlm["text_only"]
@@ -4936,6 +5306,16 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                       "qwen3_sp": text["qwen3_sp"]["launches"]["ring_step"]},
         "ring_step_f32": {
             "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["ring_step_f32"]},
+        "gmm": {"vlm": vlm["moe_launches"]["gmm"],
+                "eval_vlm": vlm["eval_vlm"]["moe_launches"]["gmm"],
+                "text_only": text["moe_launches"]["gmm"],
+                "qwen3_sp": text["qwen3_sp"]["moe_launches"]["gmm"],
+                "vlm_image": vlm["image"]["moe_launches"]["gmm"],
+                "ar_feature_extract": ar["moe_launches"]["gmm"],
+                "sft": sum(c["moe_launches"]["gmm"] for c in sft["cases"]),
+                "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["gmm"]},
+        "tgmm": {"sft": sum(c["moe_launches"]["tgmm"] for c in sft["cases"]),
+                 "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["tgmm"]},
         **{k: {"train": train_rows[k], "lora": lora["launches"][k], "adafactor": ada["launches"][k],
                "data_pipeline_train": vlm["pipeline_train"]["launches"][k],
                **{path: n[k] for path, n in stream_train["launches"].items()},
@@ -4994,6 +5374,17 @@ def _all_phases(dev: dict, tmp: Path) -> int:
          "launches": launches["ring_step_f32"], "max_abs_err": f32_ring["max_abs_err"],
          "ms": f32_ring["ms"], "plain_ms": f32_ring["plain_ms"], "bound_ms": f32_ring["bound_ms"],
          "bound_by": f32_ring["bound_by"], "library_ms": f32_ring["library_ms"]})
+    replaces = {"gmm": "jax/experimental/pallas/ops/tpu/megablox/gmm.py:314 (gmm) via "
+                       "omnivideo_tpu/models/qwen3vl/text_model.py:135",
+                "tgmm": "jax/experimental/pallas/ops/tpu/megablox/gmm.py:573 (tgmm) via "
+                        "omnivideo_tpu/models/qwen3vl/text_model.py:135"}
+    for name, rec in (("gmm", grouped["gmm"]), ("tgmm", grouped["tgmm"])):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "omnivideo_tpu_torch/csrc/gmm.cu",
+             "replaces": replaces[name], "launches": launches[name],
+             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+             "library_ms": rec["library_ms"]})
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     idle = {(k["name"], p) for k in kernels for p, n in k["launches_by_path"].items() if n == 0}

@@ -4,8 +4,10 @@ modules import jax).
 
 Field names and defaults equal the JAX package's, so a config converts
 with `dataclasses.asdict`. Dropped: the JAX dispatch knobs (`attn_impl`,
-`moe_impl`, `attn_block_q`): the port always runs the flash kernel on CUDA
-and its plain twin on the CPU, and the MoE as per-expert products.
+`moe_impl`, `attn_block_q`): the tensor's device picks the kernel or its
+plain twin, so the port runs the flash kernel and the MoE's grouped GEMM
+(JAX's megablox `gmm`, ops/gmm.py) on CUDA and their plain twins on the
+CPU.
 """
 
 from __future__ import annotations

@@ -3,15 +3,14 @@ omnivideo_tpu/models/qwen3vl/text_model.py).
 
 GQA attention with per-head q/k RMS-norm; SwiGLU MLP or a softmax-routed
 top-k MoE (HF Qwen3MoeSparseMoeBlock semantics). `moe` sorts the
-(token, slot) pairs by expert, runs each expert's three products on its
-contiguous row segment with `torch.matmul`, and scatter-adds the weighted
-outputs back: O(k·T·D·M) work, E/k× less than the dense mixture. The
-segment bounds come to the host once per layer (one sync); each token's k
-weighted outputs are summed in slot order, so a forward is bitwise
-repeatable on the card. The stacked expert banks are taken apart once per
-call (`unbind`), so under autograd each bank's gradient is stacked once
-rather than a zero bank allocated per expert; the segments' outputs are
-concatenated in expert order. `moe_dense`, every expert on every token,
+(token, slot) pairs by expert, counts each expert's rows on the device, and
+runs the three products as grouped matrix products over the whole expert
+banks (`ops/gmm.py` `GroupedMatmul`: the kernel of row 9 on the card, its
+plain twin on the CPU; under autograd its backward is row 9b and row 9
+with the bank transposed), then puts the weighted outputs back: O(k·T·D·M)
+work, E/k× less than the dense mixture, and nothing waits on the host.
+Each token's k weighted outputs are summed in slot order, so a forward is
+bitwise repeatable on the card. `moe_dense`, every expert on every token,
 stays as the exact oracle the tests use.
 
 `qwen3_forward` and `qwen3_forward_sp` run in inference mode;
@@ -27,7 +26,7 @@ as one unit.
 
 Parameter names follow the HF checkpoint's `model.language_model.*`; the
 stacked expert weights keep the JAX layout ([E, D, M] for gate/up, [E, M, D]
-for down), so each segment is `rows @ w[e]`.
+for down), so each group's rows are `rows @ w[e]`.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...configs.qwen3vl import Qwen3TextConfig
+from ...ops.gmm import GroupedMatmul
 from ...ops.lora import has_lora, lora_delta
 from ..wan_dit import Gain
 
@@ -125,8 +125,10 @@ def router(mlp: Qwen3MoE, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 
 @torch.profiler.record_function("qwen3vl.moe")
 def moe(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
-    """Grouped MoE over expert-contiguous row segments (profiler range
-    "qwen3vl.moe"). x: [B, L, D]."""
+    """Grouped MoE over expert-contiguous rows (profiler range
+    "qwen3vl.moe"). x: [B, L, D]. The group sizes stay on the device:
+    `scatter_add_` counts them, where `torch.bincount` on the card reads
+    its input's max back to the host."""
     B, L, D = x.shape
     xt = x.reshape(B * L, D)
     k = mlp.cfg.num_experts_per_tok
@@ -134,23 +136,17 @@ def moe(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)  # pairs grouped by expert
     tok_of = order // k
-    counts = torch.bincount(flat_e, minlength=mlp.cfg.num_experts).tolist()  # host sync
-    xs = xt[tok_of]
-    gate, up, down = (w.unbind(0) for w in (mlp.experts_gate, mlp.experts_up, mlp.experts_down))
-    outs = []
-    start = 0
-    for e, n in enumerate(counts):
-        if n:
-            seg = xs[start:start + n]
-            outs.append((F.silu(seg @ gate[e]) * (seg @ up[e])) @ down[e])
-            start += n
-    o = torch.cat(outs)
+    sizes = torch.zeros(mlp.cfg.num_experts, dtype=torch.int32, device=x.device)
+    sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    xs = xt.index_select(0, tok_of)
+    h = F.silu(GroupedMatmul.apply(xs, mlp.experts_gate, sizes)) * GroupedMatmul.apply(
+        xs, mlp.experts_up, sizes)
+    o = GroupedMatmul.apply(h, mlp.experts_down, sizes)
     o = o * topv.reshape(-1)[order][:, None].to(o.dtype)
     # back to (token, slot) order, then each token's k outputs summed in slot
     # order: deterministic, where an index_add_ on the card sums in whatever
     # order its atomics land
-    slots = torch.empty_like(o)
-    slots[order] = o
+    slots = torch.empty_like(o).index_copy_(0, order, o)
     return slots.view(B * L, k, D).sum(1).reshape(B, L, D)
 
 

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_train.cu", "adaln.cu", "ring_step.cu",
-           "ring_step_f32.cu")
+           "ring_step_f32.cu", "gmm.cu")
 HEADERS = ("hopper_common.cuh", "flash_fwd_hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "adaln_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_float, _c_void_p],
     "ring_step_launch": [_c_void_p] * 7 + [_c_int] * 10 + [_c_float, _c_void_p],
     "ring_step_f32_launch": [_c_void_p] * 7 + [_c_int] * 10 + [_c_float, _c_void_p],
+    "gmm_meta_words": [_c_int],
+    "gmm_launch": [_c_void_p] * 5 + [_c_int] * 6 + [_c_void_p],
+    "tgmm_launch": [_c_void_p] * 5 + [_c_int] * 5 + [_c_void_p],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,175 @@
+"""Grouped matrix products of the Qwen3 MoE: `gmm` (row 9) and `tgmm` (row 9b).
+
+Port of JAX's megablox grouped GEMM as the JAX package calls it
+(omnivideo_tpu/models/qwen3vl/text_model.py:129 `_grouped_matmul`,
+moe_impl="megablox": megablox gmm.py:314 `gmm`, gmm.py:573 `tgmm`) and of
+megablox's custom VJP (ops.py:22, `_gmm_bwd` at ops.py:63). Rows are
+expert-contiguous: group e owns rows [off_e, off_e + group_sizes[e]) of the
+lhs, off the exclusive scan of `group_sizes` (clamped to [0, m]).
+
+- `gmm(lhs [m, k], rhs [E, k, n], group_sizes [E] int32)` → [m, n] in lhs's
+  dtype: each group's rows times rhs[e] (with `transpose_rhs`, rhs
+  [E, n, k] and rhs[e]ᵀ). Rows past the sum of the group sizes are zero,
+  as `jax.lax.ragged_dot` gives them.
+- `tgmm(lhs [m, k], rhs [m, n], group_sizes)` → [E, k, n]: out[e] =
+  lhs[rows_e]ᵀ · rhs[rows_e], zero for an empty group. Megablox takes lhs
+  already transposed ([k, m]); this takes the [m, k] rows as they are.
+- `GroupedMatmul` (autograd): forward `gmm`; backward `gmm(dy, rhs,
+  transpose_rhs=True)` for lhs and `tgmm(lhs, dy)` for rhs, as `_gmm_bwd`.
+
+Products accumulate in f32 and round once to the operands' dtype (bf16 or
+f32, no TF32). On a CUDA tensor the wrappers launch the kernels of
+`csrc/gmm.cu` (bound and design there), which build their work list on the
+device, so nothing waits on the host; they raise for operands the kernels do
+not take. Only a CPU tensor goes to the plain twins `gmm_plain` /
+`tgmm_plain` (per-group `torch.matmul`, which read the group sizes on the
+host). Each wrapper counts its kernel launches (`gmm.launches`,
+`tgmm.launches`). megablox's `group_offset` and `existing_out` (sharded
+experts) are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+
+MAX_GROUPS = 1024  # the work-list kernel scans the group sizes in one block
+_VEC = {torch.bfloat16: 8, torch.float32: 4}  # elements of a 16-byte chunk
+
+
+def _row_ends(group_sizes: torch.Tensor, m: int) -> list:
+    """Each group's end row, clamped to [0, m] (a host read: plain twins only)."""
+    return torch.cumsum(group_sizes.clamp_min(0).long(), 0).clamp_max(m).tolist()
+
+
+def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+              transpose_rhs: bool = False) -> torch.Tensor:
+    """Plain PyTorch twin of `gmm`: one f32 matmul per group, rounded once."""
+    m = lhs.shape[0]
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    out = lhs.new_zeros(m, n)
+    start = 0
+    for e, end in enumerate(_row_ends(group_sizes, m)):
+        if end > start:
+            w = rhs[e].float()
+            out[start:end] = (lhs[start:end].float() @ (w.T if transpose_rhs else w)).to(out.dtype)
+        start = end
+    return out
+
+
+def tgmm_plain(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of `tgmm`: one f32 matmul per group, rounded once."""
+    m, k = lhs.shape
+    out = lhs.new_zeros(group_sizes.shape[0], k, rhs.shape[1])
+    start = 0
+    for e, end in enumerate(_row_ends(group_sizes, m)):
+        if end > start:
+            out[e] = (lhs[start:end].float().T @ rhs[start:end].float()).to(out.dtype)
+        start = end
+    return out
+
+
+def _check_shapes(what: str, lhs, rhs, group_sizes, rhs_dim: int) -> None:
+    if lhs.dim() != 2 or rhs.dim() != rhs_dim or group_sizes.dim() != 1:
+        raise ValueError(f"{what}: lhs must be 2-D, rhs {rhs_dim}-D and group_sizes 1-D, got "
+                         f"{tuple(lhs.shape)}, {tuple(rhs.shape)}, {tuple(group_sizes.shape)}")
+    if group_sizes.dtype != torch.int32:
+        raise ValueError(f"{what}: group_sizes must be int32, got {group_sizes.dtype}")
+
+
+def _check_kernel_operands(what: str, lhs, rhs, group_sizes, widths) -> None:
+    """Raise for CUDA operands the kernels do not take."""
+    if not (lhs.is_cuda and rhs.device == lhs.device and group_sizes.device == lhs.device):
+        raise ValueError(f"{what}: lhs, rhs and group_sizes must share one CUDA device, got "
+                         f"{lhs.device}, {rhs.device}, {group_sizes.device}")
+    if lhs.dtype not in _VEC or rhs.dtype != lhs.dtype:
+        raise ValueError(f"{what}: the kernel takes bf16 or f32 operands of one dtype, got "
+                         f"{lhs.dtype} and {rhs.dtype}")
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        raise RuntimeError(f"{what}: the kernel's output has no autograd history; train "
+                           "through ops.gmm.GroupedMatmul")
+    for t in (lhs, rhs, group_sizes):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+    for t in (lhs, rhs):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be 16-byte aligned")
+    vec = _VEC[lhs.dtype]
+    if any(w % vec for w in widths):
+        raise ValueError(f"{what}: widths {widths} must be multiples of {vec} for {lhs.dtype}")
+    if not 1 <= group_sizes.shape[0] <= MAX_GROUPS:
+        raise ValueError(f"{what}: 1 to {MAX_GROUPS} groups, got {group_sizes.shape[0]}")
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+        transpose_rhs: bool = False) -> torch.Tensor:
+    """lhs [m, k] × rhs [E, k, n] (transpose_rhs: [E, n, k]) over the groups
+    → [m, n] in lhs's dtype; the kernel on CUDA, `gmm_plain` on the CPU."""
+    _check_shapes("gmm", lhs, rhs, group_sizes, 3)
+    m, k = lhs.shape
+    E, rk, n = (rhs.shape[0], rhs.shape[2], rhs.shape[1]) if transpose_rhs else rhs.shape
+    if rk != k or group_sizes.shape[0] != E:
+        raise ValueError(f"gmm: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)} (transpose_rhs="
+                         f"{transpose_rhs}) and {group_sizes.shape[0]} group sizes do not fit")
+    if lhs.device.type == "cpu":
+        return gmm_plain(lhs, rhs, group_sizes, transpose_rhs)
+    _check_kernel_operands("gmm", lhs, rhs, group_sizes, (k, n))
+    out = torch.empty(m, n, dtype=lhs.dtype, device=lhs.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _kernels.library()
+    meta = torch.empty(lib.gmm_meta_words(E), dtype=torch.int32, device=lhs.device)
+    code = lib.gmm_launch(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+                          meta.data_ptr(), m, k, n, E, int(transpose_rhs),
+                          int(lhs.dtype == torch.float32),
+                          torch.cuda.current_stream(lhs.device).cuda_stream)
+    _kernels.check(code, "gmm")
+    gmm.launches += 1
+    return out
+
+
+def tgmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Per group lhs[rows_e]ᵀ · rhs[rows_e] → [E, k, n] in lhs's dtype; the
+    kernel on CUDA, `tgmm_plain` on the CPU."""
+    _check_shapes("tgmm", lhs, rhs, group_sizes, 2)
+    (m, k), n, E = lhs.shape, rhs.shape[1], group_sizes.shape[0]
+    if rhs.shape[0] != m:
+        raise ValueError(f"tgmm: lhs {tuple(lhs.shape)} and rhs {tuple(rhs.shape)} differ in rows")
+    if lhs.device.type == "cpu":
+        return tgmm_plain(lhs, rhs, group_sizes)
+    _check_kernel_operands("tgmm", lhs, rhs, group_sizes, (k, n))
+    out = torch.empty(E, k, n, dtype=lhs.dtype, device=lhs.device)
+    if k == 0 or n == 0:
+        return out
+    lib = _kernels.library()
+    meta = torch.empty(lib.gmm_meta_words(E), dtype=torch.int32, device=lhs.device)
+    code = lib.tgmm_launch(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+                           meta.data_ptr(), m, k, n, E, int(lhs.dtype == torch.float32),
+                           torch.cuda.current_stream(lhs.device).cuda_stream)
+    _kernels.check(code, "tgmm")
+    tgmm.launches += 1
+    return out
+
+
+gmm.launches = 0
+tgmm.launches = 0
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """y = gmm(lhs, rhs, group_sizes) with megablox's VJP (ops.py:63
+    `_gmm_bwd`): d lhs = gmm(dy, rhs, transpose_rhs=True), d rhs =
+    tgmm(lhs, dy); each launched only where its input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        return gmm(lhs, rhs, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        dy = dy.to(lhs.dtype).contiguous()
+        d_lhs = gmm(dy, rhs, group_sizes, transpose_rhs=True) if ctx.needs_input_grad[0] else None
+        d_rhs = tgmm(lhs, dy, group_sizes) if ctx.needs_input_grad[1] else None
+        return d_lhs, d_rhs, None

@@ -42,6 +42,9 @@ MANGLED = {  # row → the entry function as ptxas names it
                    "EPKfPKvS1_S1_S1_S1_S1_PfPviiiif",
     "ring_step_f32": "_ZN49_GLOBAL__N__ba5cd9de_16_ring_step_f32_cu_7d4311e220ring_step_f32_kernel"
                      "ENS_4MapsENS_4StepE",
+    "gmm": "_ZN42_GLOBAL__N__1b2c3d4e_6_gmm_cu_5f6a7b8c10gmm_kernelI13__nv_bfloat16Lb0EEEvPKT_S5_"
+           "PS3_PKiiiiii",
+    "tgmm": "_ZN42_GLOBAL__N__1b2c3d4e_6_gmm_cu_5f6a7b8c11tgmm_kernelIfEEvPKT_S4_PS2_PKiii",
 }
 _NS = "(anonymous namespace)::"
 DEMANGLED = {  # row → the kernel as the profiler names it
@@ -67,6 +70,10 @@ DEMANGLED = {  # row → the kernel as the profiler names it
                    "void const*, void const*, void const*, float*, void*, int, int, int, int, "
                    "int, float)",
     "ring_step_f32": f"{_NS}ring_step_f32_kernel({_NS}Maps, {_NS}Step)",
+    "gmm": f"void {_NS}gmm_kernel<__nv_bfloat16, true>(__nv_bfloat16 const*, "
+           "__nv_bfloat16 const*, __nv_bfloat16*, int const*, int, int, int, int, int)",
+    "tgmm": f"void {_NS}tgmm_kernel<float>(float const*, float const*, float*, int const*, int, "
+            "int)",
 }
 
 
@@ -96,6 +103,7 @@ def test_kernel_class_from_demangled_name(row):
 
 @pytest.mark.parametrize("name,cls", [
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float> >", "elementwise"),
+    (f"{_NS}gmm_meta_kernel(int const*, int, int, int*)", "other"),  # rows 9/9b's work list
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256x64_warpgroupsize2x1x1", "gemm"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float> >", "reduce"),
     (FWD + "INS_8InferOutILi96EEEEEvNS0_4MapsET_f", "other"),  # no such row
@@ -189,7 +197,7 @@ def test_safetensors_writer_reads_back(tmp_path):
                                          ("qwen3_sp", "phase_vlm"), ("sft", "phase_sft"),
                                          ("i2v", "_i2v_alone"), ("stream", "_stream_alone"),
                                          ("stream_train", "_stream_train_alone"),
-                                         ("serve", "_serve_alone")])
+                                         ("serve", "_serve_alone"), ("gmm", "_gmm_alone")])
 def test_phase_commands(monkeypatch, phase, entry):
     """`python3 chip_smoke.py <phase>` runs that phase alone (lora and
     adafactor after the train phase, their AdamW yardstick; qwen3_sp inside
@@ -203,7 +211,7 @@ def test_phase_commands(monkeypatch, phase, entry):
     for name in ("phase_device", "phase_profile", "phase_sp", "_sp_train_alone", "t2v_pipeline",
                  "phase_train", "phase_lora", "phase_adafactor", "phase_vlm", "write_clip",
                  "phase_tiny_sft", "phase_sft", "_i2v_alone", "_stream_alone",
-                 "_stream_train_alone", "_serve_alone"):
+                 "_stream_train_alone", "_serve_alone", "_gmm_alone"):
         monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name, **k: calls.append(_n) or (
             (None, torch.zeros(1), torch.Generator()) if _n == "t2v_pipeline" else 0))
     monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.zeros(1))

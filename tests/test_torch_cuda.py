@@ -33,6 +33,11 @@ the plain twin's (f32 sums in another order); the ring backward's dq/dk/dv
 as the training kernels'. Where K/V rows past kv_len
 (or a ring step's step_lens) hold NaN, the forward kernels' outputs are
 finite and held to the plain twin on the same inputs with those rows zeroed.
+gmm and tgmm (the MoE's grouped products): bf16 within 4 bf16 ulps of each
+output row's (tgmm: each group's block's) max |plain|, f32 within 1e-5 of
+it (f32 products summed in another order; the bf16 tensor cores add their
+products in an order of their own before the f32 accumulator); rows past
+the group sum exactly zero; the inference MoE runs with no host sync.
 """
 
 import numpy as np
@@ -51,6 +56,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
+from omnivideo_tpu_torch.ops.gmm import GroupedMatmul, gmm, gmm_plain, tgmm, tgmm_plain
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
@@ -923,3 +929,142 @@ def test_exported_dit_on_the_card_equals_eager(cuda, residual, tmp_path):
     assert prog_n == tuple(b - a for a, b in zip(c1, c2))
     assert prog_n == (8, 4, 7 if residual == "float32" else 0)
     assert torch.equal(got, want)
+
+
+GMM_F32_TOL = 1e-5
+GMM_BF16_ULPS = 4.0
+GMM_CASES = {  # (m, group sizes)
+    "routed": (300, [40, 0, 97, 1, 0, 62, 100, 0]),      # empty experts, boundaries mid-tile
+    "one_expert_all_rows": (200, [0, 0, 200, 0]),
+    "m_not_a_tile_multiple": (131, [64, 67]),
+    "sum_below_m": (290, [30, 0, 100, 5]),               # rows 135.. are zero
+    "decode": (8, [1, 0, 1, 1, 1, 0, 1, 1, 1, 1]),
+    "all_empty": (40, [0, 0, 0]),
+}
+
+
+def _gmm_err(out, ref, dtype):
+    """max |out − ref| over each row's max |ref|: f32 relative, bf16 in ulps."""
+    if dtype == torch.bfloat16:
+        return float(_row_ulps(out, ref).max()) if out.numel() else 0.0
+    rmax = ref.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return float(((out.float() - ref.float()).abs() / rmax).max()) if out.numel() else 0.0
+
+
+def _gmm_ok(out, ref, dtype):
+    return _gmm_err(out, ref, dtype) <= (GMM_BF16_ULPS if dtype == torch.bfloat16
+                                         else GMM_F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_gmm_kernel_matches_plain(cuda, dtype, case, transpose_rhs):
+    m, sizes = GMM_CASES[case]
+    E, k, n = len(sizes), 264, 200  # neither a multiple of the 128-wide tiles
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    lhs = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    rhs = torch.randn(*((E, n, k) if transpose_rhs else (E, k, n)), generator=gen,
+                      device=cuda).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    n0 = gmm.launches
+    out = gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    torch.cuda.synchronize()
+    assert gmm.launches == n0 + 1 and out.shape == (m, n) and out.dtype == dtype
+    ref = gmm_plain(lhs, rhs, gs, transpose_rhs)
+    total = min(sum(sizes), m)
+    assert torch.count_nonzero(out[total:]) == 0
+    assert _gmm_ok(out[:total], ref[:total], dtype), _gmm_err(out[:total], ref[:total], dtype)
+    again = gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    assert torch.equal(again, out)  # no atomics: bit for bit
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(GMM_CASES))
+def test_tgmm_kernel_matches_plain(cuda, dtype, case):
+    m, sizes = GMM_CASES[case]
+    E, k, n = len(sizes), 264, 200
+    gen = torch.Generator(device=cuda).manual_seed(m + 1)
+    lhs = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    rhs = torch.randn(m, n, generator=gen, device=cuda).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    n0 = tgmm.launches
+    out = tgmm(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert tgmm.launches == n0 + 1 and out.shape == (E, k, n) and out.dtype == dtype
+    ref = tgmm_plain(lhs, rhs, gs)
+    for e, size in enumerate(sizes):
+        if size and sum(sizes[:e]) < m:
+            assert _gmm_ok(out[e].reshape(1, -1), ref[e].reshape(1, -1), dtype), e
+        else:
+            assert torch.count_nonzero(out[e]) == 0, e
+
+
+def test_grouped_matmul_backward_on_the_card(cuda):
+    """GroupedMatmul's backward launches gmm (the bank transposed) and tgmm,
+    and gives the plain twins' gradients (f32, as the SFT's banks)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    sizes = [50, 0, 77, 129]
+    lhs = torch.randn(256, 64, generator=gen, device=cuda, requires_grad=True)
+    rhs = torch.randn(4, 64, 96, generator=gen, device=cuda, requires_grad=True)
+    w = torch.randn(256, 96, generator=gen, device=cuda)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    g0, t0 = gmm.launches, tgmm.launches
+    (GroupedMatmul.apply(lhs, rhs, gs) * w).sum().backward()
+    assert (gmm.launches - g0, tgmm.launches - t0) == (2, 1)
+    ref_l = gmm_plain(w, rhs.detach(), gs, transpose_rhs=True)
+    ref_r = tgmm_plain(lhs.detach(), w, gs)
+    assert _gmm_ok(lhs.grad, ref_l, torch.float32)
+    for e in range(4):
+        if sizes[e]:
+            assert _gmm_ok(rhs.grad[e].reshape(1, -1), ref_r[e].reshape(1, -1), torch.float32)
+
+
+def test_gmm_kernels_refuse_bad_operands(cuda):
+    gs = torch.tensor([4, 4], dtype=torch.int32, device=cuda)
+    lhs = torch.zeros(8, 16, device=cuda, dtype=torch.bfloat16)
+    rhs = torch.zeros(2, 16, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(ValueError, match="one dtype"):
+        gmm(lhs, rhs.float(), gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2), gs)
+    with pytest.raises(ValueError, match="multiples"):
+        gmm(torch.zeros(8, 12, device=cuda, dtype=torch.bfloat16),
+            torch.zeros(2, 12, 8, device=cuda, dtype=torch.bfloat16), gs)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gmm(lhs, rhs, gs.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        gmm(torch.zeros(8 * 16 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 16), rhs, gs)
+    with pytest.raises(RuntimeError, match="GroupedMatmul"):
+        gmm(lhs.float().requires_grad_(True), rhs.float(), gs)
+
+
+def test_moe_runs_without_a_host_sync(cuda):
+    """The inference MoE on the card (routing, group sizes, three gmm
+    launches, the slot sum) under set_sync_debug_mode("error"): any op that
+    waits on the host raises."""
+    from omnivideo_tpu_torch.configs.qwen3vl import Qwen3TextConfig
+    from omnivideo_tpu_torch.models.qwen3vl import text_model as vlm_text
+
+    cfg = Qwen3TextConfig(vocab_size=64, hidden_size=256, num_hidden_layers=1,
+                          num_attention_heads=2, num_key_value_heads=1, num_experts=16,
+                          num_experts_per_tok=4, moe_intermediate_size=128)
+    lm = vlm_text.Qwen3LM(cfg, torch.bfloat16, cuda, torch.Generator(device=cuda).manual_seed(0))
+    mlp = lm.language_model.layers[0].mlp
+    x = torch.randn(1, 300, 256, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    x = x.bfloat16()
+    with torch.inference_mode():
+        ref = vlm_text.moe_dense(mlp, x).float()
+        vlm_text.moe(mlp, x)  # builds the kernels outside the check
+        torch.cuda.synchronize()
+        n0 = gmm.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = vlm_text.moe(mlp, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert gmm.launches == n0 + 3
+        rel = float((y.float() - ref).abs().max() / ref.abs().max())
+    assert rel <= 2e-2, rel  # bf16 products, the k outputs summed in bf16 (chip_smoke MOE_TOL)

@@ -2,8 +2,8 @@
 
 - importing it and running a tiny CPU forward loads neither jax nor
   omnivideo_tpu;
-- no module of it imports them, calls a library attention or
-  torch.compile (AST scan);
+- no module of it imports them, calls a library attention, torch's grouped
+  GEMM (`_grouped_mm`) or torch.compile (AST scan);
 - importing the host side of the main path (the generate CLI, the Qwen3-VL
   engine, the loader, the readers and the video IO) and of the SFT and
   data-prepare tools (the sft_vlm CLI, the conversation data, the PNG
@@ -30,7 +30,7 @@ PKG = Path(__file__).resolve().parents[1] / "omnivideo_tpu_torch"
 FORBIDDEN_MODULES = ("jax", "jaxlib", "omnivideo_tpu")
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "compile", "flash_attn",
                    "cudnn_attention", "_scaled_dot_product_flash_attention",
-                   "_scaled_dot_product_cudnn_attention", "load_inline")
+                   "_scaled_dot_product_cudnn_attention", "load_inline", "_grouped_mm")
 
 
 def test_import_and_forward_load_no_jax():
