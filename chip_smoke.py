@@ -50,10 +50,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             (8 rows), the SFT's f32 step (16,384 rows: forward, the input's
             gradient through the transposed bank, the bank's by tgmm), tgmm
             in bf16; one expert with every row, group sizes summing below m
-            (those rows exactly zero), half the experts empty; bf16 rows
-            within GMM_BF16_ULPS of each row's max, f32 within GMM_F32_TOL,
-            tgmm per group's block; ms, plain_ms, bound_ms, and
-            torch._grouped_mm's ms beside them as a yardstick;
+            (those rows exactly zero), half the experts empty, the few-row
+            schedule at 1 and 64 rows, tgmm with each group's neighbours
+            1000x larger and NaN past the sum; bf16 rows within
+            GMM_BF16_ULPS of each row's max, f32 within GMM_F32_TOL, tgmm
+            per group's block, the same bits on a second call; each case's
+            schedule (ops.gmm.gmm_schedule), ms through the wrapper,
+            kernel_ms (the profiler's device time), plain_ms, bound_ms (f32:
+            three TF32 products, FFMA's beside it), and torch._grouped_mm's
+            ms beside them as a yardstick;
   tiny      a small generate() on the card (kernels) against the same
             weights and noise on the CPU (plain versions);
   tiny_vlm  a small Qwen3-VL (vision head dim 72, text head dim 128) on the
@@ -403,7 +408,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
-from omnivideo_tpu_torch.ops.gmm import gmm, gmm_plain, tgmm, tgmm_plain
+from omnivideo_tpu_torch.ops.gmm import gmm, gmm_plain, gmm_schedule, tgmm, tgmm_plain
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
     ring_finish,
@@ -593,8 +598,9 @@ def kernel_row(name: str):
     Hopper forward mainloop `attn_fwd_kernel` serves five rows, told apart by
     its epilogue policy's type: InferOut<128> row 1, CausalOut row 2,
     InferOut<72> row 3a, LseOut row 3b, RingCarry row 8. The MoE's grouped
-    products: `gmm_kernel` row 9, `tgmm_kernel` row 9b (their one-block
-    work-list kernel `gmm_meta_kernel` files under no row)."""
+    products: row 9 is `gmm_wgmma_kernel` (bf16, many rows),
+    `gmm_splitk_kernel` (bf16, few rows) and `gmm_tf32_kernel` (f32); row 9b
+    `tgmm_wgmma_kernel` (bf16) and `tgmm_tf32_kernel` (f32)."""
     if "attn_fwd_kernel" in name:
         if "RingCarry" in name:
             return "ring_step"
@@ -608,8 +614,9 @@ def kernel_row(name: str):
         return None
     for key, row in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
                      ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln"),
-                     ("ring_step_f32", "ring_step_f32"), ("tgmm_kernel", "tgmm"),
-                     ("gmm_kernel", "gmm")):
+                     ("ring_step_f32", "ring_step_f32"), ("tgmm_wgmma_kernel", "tgmm"),
+                     ("tgmm_tf32_kernel", "tgmm"), ("gmm_wgmma_kernel", "gmm"),
+                     ("gmm_splitk_kernel", "gmm"), ("gmm_tf32_kernel", "gmm")):
         if key in name:
             return row
     return None
@@ -617,18 +624,24 @@ def kernel_row(name: str):
 
 def ptxas_by_kernel(log: str) -> dict:
     """{kernel: {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}
-    for every kernel of the port's table, from nvcc's -Xptxas -v log."""
+    for every kernel of the port's table, from nvcc's -Xptxas -v log; a row
+    that several entry functions serve (rows 9, 9b) takes the most of each."""
     out, name = {}, None
+
+    def most(key, v):
+        row = out.setdefault(name, {})
+        row[key] = max(row.get(key, v), v)
+
     for ln in log.splitlines():
         f = re.search(r"Compiling entry function '(\w+)'", ln)
         if f:
             name = kernel_row(f.group(1))
         elif name and "spill stores" in ln:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
-            out.setdefault(name, {}).update(spill_stores=int(st), spill_loads=int(ld))
+            most("spill_stores", int(st))
+            most("spill_loads", int(ld))
         elif name and "Used" in ln and "registers" in ln:
-            out.setdefault(name, {})["registers"] = int(re.search(r"Used (\d+) registers",
-                                                                  ln).group(1))
+            most("registers", int(re.search(r"Used (\d+) registers", ln).group(1)))
     return out
 
 
@@ -1267,14 +1280,47 @@ def _grouped_mm_ms(a: torch.Tensor, b: torch.Tensor, sizes: torch.Tensor, reps: 
         return None, str(exc).splitlines()[0][:160]
 
 
+def _kernel_ms(fn, reps: int) -> float:
+    """Device time of the kernels that fn() launches, per call, from
+    torch.profiler over reps calls: where the host takes longer than the card
+    (the decode's few rows), cuda_ms reads the host's enqueue rate instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def _gmm_bound(nbytes: float, ops: float, dtype) -> dict:
+    """The least time: bytes at HBM's rate, or the operations at bf16's
+    tensor-core rate, or (f32) three TF32 products each, the split the
+    kernels run (FFMA's bound beside it)."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS / 3
+    by_ops = ops / peak
+    rec = {"bound_ms": max(nbytes / HBM_BYTES_PER_S, by_ops) * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= by_ops else "operations"}
+    if dtype == torch.float32:
+        rec["bound_ffma_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+    return rec
+
+
 def _gmm_case(name: str, lhs, rhs, sizes, transpose=False, reps=20) -> dict:
     """gmm against gmm_plain on the same operands: the rows of the groups
-    within each row's limit, the rows past the group sum exactly zero; the
-    kernel timed at its wrapper, the plain twin, torch._grouped_mm; the
-    bound from this data (the experts hit, the rows routed)."""
+    within each row's limit, the rows past the group sum exactly zero, the
+    same bits on a second call; the schedule the wrapper picks; the kernel
+    timed at its wrapper (and its device time alone), the plain twin,
+    torch._grouped_mm; the bound from this data (the experts hit, the rows
+    routed)."""
     m, k = lhs.shape
     out = gmm(lhs, rhs, sizes, transpose_rhs=transpose)
     ref = gmm_plain(lhs, rhs, sizes, transpose)
+    again = gmm(lhs, rhs, sizes, transpose_rhs=transpose)
     torch.cuda.synchronize()
     n = out.shape[1]
     total = min(int(sizes.sum()), m)
@@ -1282,33 +1328,36 @@ def _gmm_case(name: str, lhs, rhs, sizes, transpose=False, reps=20) -> dict:
     zero_tail = bool(torch.count_nonzero(out[total:]) == 0)
     esize = lhs.element_size()
     nbytes = (int((sizes > 0).sum()) * k * n + total * k + m * n) * esize
-    ops = 2.0 * total * k * n
-    peak = BF16_FLOPS if lhs.dtype == torch.bfloat16 else F32_FLOPS
     lib_ms, lib_why = _grouped_mm_ms(lhs, rhs.transpose(1, 2) if transpose else rhs, sizes,
                                      reps)
+    fn = lambda: gmm(lhs, rhs, sizes, transpose_rhs=transpose)  # noqa: E731
+    sched = gmm_schedule(m, k, n, sizes.numel(), lhs.dtype,
+                         torch.cuda.get_device_properties(lhs.device).multi_processor_count)
     rec = {"case": name, "op": "gmm", "dtype": str(lhs.dtype).split(".")[-1], "m": m, "k": k,
            "n": n, "groups": sizes.numel(), "groups_hit": int((sizes > 0).sum()),
-           "rows_routed": total, "transpose_rhs": transpose, "max_row_err": err,
-           "limit": _gmm_limit(lhs.dtype), "max_abs_err": float((out - ref).abs().max()),
-           "rows_past_sum_zero": zero_tail,
-           "ms": cuda_ms(lambda: gmm(lhs, rhs, sizes, transpose_rhs=transpose), reps),
+           "rows_routed": total, "transpose_rhs": transpose, "schedule": sched._asdict(),
+           "max_row_err": err, "limit": _gmm_limit(lhs.dtype),
+           "max_abs_err": float((out - ref).abs().max()), "rows_past_sum_zero": zero_tail,
+           "repeat_bitwise": bool(torch.equal(out, again)),
+           "ms": cuda_ms(fn, reps), "kernel_ms": _kernel_ms(fn, reps),
            "plain_ms": cuda_ms(lambda: gmm_plain(lhs, rhs, sizes, transpose), 1, 0),
-           "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
-           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
-           "library_ms": lib_ms}
+           **_gmm_bound(nbytes, 2.0 * total * k * n, lhs.dtype), "library_ms": lib_ms}
     if lib_why:
         rec["library_why_none"] = lib_why
-    rec["ok"] = err <= rec["limit"] and zero_tail and bool(torch.isfinite(out).all())
+    rec["ok"] = (err <= rec["limit"] and zero_tail and rec["repeat_bitwise"]
+                 and bool(torch.isfinite(out).all()))
     return rec
 
 
 def _tgmm_case(name: str, lhs, dy, sizes, reps=10) -> dict:
     """tgmm against tgmm_plain: each group's [k, n] block within the limit
-    of its own max, an empty group's block exactly zero; timed as gmm."""
+    of its own max, an empty group's block exactly zero, the same bits on a
+    second call; timed as gmm."""
     m, k = lhs.shape
     n, E = dy.shape[1], sizes.numel()
     out = tgmm(lhs, dy, sizes)
     ref = tgmm_plain(lhs, dy, sizes)
+    again = tgmm(lhs, dy, sizes)
     torch.cuda.synchronize()
     hit = (sizes > 0).nonzero().flatten()
     err = _gmm_row_err(out[hit].reshape(len(hit), -1), ref[hit].reshape(len(hit), -1))
@@ -1316,21 +1365,21 @@ def _tgmm_case(name: str, lhs, dy, sizes, reps=10) -> dict:
     total = min(int(sizes.sum()), m)
     esize = lhs.element_size()
     nbytes = (total * (k + n) + E * k * n) * esize
-    ops = 2.0 * total * k * n
-    peak = BF16_FLOPS if lhs.dtype == torch.bfloat16 else F32_FLOPS
     lib_ms, lib_why = _grouped_mm_ms(lhs.T, dy, sizes, reps)
+    fn = lambda: tgmm(lhs, dy, sizes)  # noqa: E731
     rec = {"case": name, "op": "tgmm", "dtype": str(lhs.dtype).split(".")[-1], "m": m, "k": k,
            "n": n, "groups": E, "groups_hit": len(hit), "rows_routed": total,
+           "schedule": {"kind": "wgmma" if lhs.dtype == torch.bfloat16 else "tf32"},
            "max_block_err": err, "limit": _gmm_limit(lhs.dtype),
            "max_abs_err": float((out - ref).abs().max()), "empty_groups_zero": empty_zero,
-           "ms": cuda_ms(lambda: tgmm(lhs, dy, sizes), reps),
+           "repeat_bitwise": bool(torch.equal(out, again)),
+           "ms": cuda_ms(fn, reps), "kernel_ms": _kernel_ms(fn, reps),
            "plain_ms": cuda_ms(lambda: tgmm_plain(lhs, dy, sizes), 1, 0),
-           "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
-           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations",
-           "library_ms": lib_ms}
+           **_gmm_bound(nbytes, 2.0 * total * k * n, lhs.dtype), "library_ms": lib_ms}
     if lib_why:
         rec["library_why_none"] = lib_why
-    rec["ok"] = err <= rec["limit"] and empty_zero and bool(torch.isfinite(out).all())
+    rec["ok"] = (err <= rec["limit"] and empty_zero and rec["repeat_bitwise"]
+                 and bool(torch.isfinite(out).all()))
     return rec
 
 
@@ -1342,7 +1391,10 @@ def phase_gmm(gen: torch.Generator) -> dict:
     16,384 rows: the forward, the input's gradient through the transposed
     bank and the bank's gradient by tgmm), tgmm in bf16 at the prefill's
     rows; edge cases: one expert with every row, group sizes summing below
-    m (the rows past are zero), half the experts never routed. Returns
+    m (the rows past are zero), half the experts never routed, the few-row
+    schedule at 1 and 64 rows, and tgmm where each group's neighbours hold
+    rows 1000x larger and the rows past the sum NaN (a row of another group
+    in a group's last step would miss the limit by far). Returns
     {"gmm": the prefill gate/up case, "tgmm": the SFT's bank gradient,
     "cases": all}."""
     cfg = QWEN3_VL_30B_A3B.text
@@ -1363,6 +1415,24 @@ def phase_gmm(gen: torch.Generator) -> dict:
     cases.append(_gmm_case("decode_gate_up", xs1, up, sizes1, reps=200))
     cases.append(_gmm_case("decode_down", h[:xs1.shape[0]].contiguous(), down, sizes1,
                            reps=200))
+    one_row = torch.zeros(E, dtype=torch.int32, device="cuda")
+    one_row[5] = 1
+    cases.append(_gmm_case("decode_1_row", xs1[:1].contiguous(), up, one_row, reps=200))
+    x8, tok8, sizes8 = _routed(8, E, k, gen)  # 8 tokens: 64 rows, the few-row schedule's most
+    cases.append(_gmm_case("decode_64_rows", x8.to(bf)[tok8], up, sizes8, reps=100))
+    leak_x, leak_h = xs.clone(), h.clone()
+    bounds = torch.cumsum(sizes, 0).tolist()
+    for e in range(1, E, 2):  # every other group's rows 1000x larger
+        lo = bounds[e - 1]
+        leak_x[lo:bounds[e]] *= 1000
+        leak_h[lo:bounds[e]] *= 1000
+    leak_sizes = sizes.clone()
+    leak_sizes[int((sizes > 0).nonzero().max())] = 0  # the last hit group's rows: NaN, past the sum
+    tail = int(leak_sizes.sum())
+    leak_x[tail:], leak_h[tail:] = float("nan"), float("nan")
+    cases.append(_tgmm_case("tgmm_neighbours_1000x_nan_tail_bf16", leak_x, leak_h, leak_sizes,
+                            reps=3))
+    del leak_x, leak_h
     one = torch.zeros(E, dtype=torch.int32, device="cuda")
     one[3] = 1000
     cases.append(_gmm_case("one_expert_all_rows", xs[:1000].contiguous(), up, one))

@@ -16,457 +16,1078 @@
 // to the operands' type (bf16 or f32), as megablox's f32 acc_scratch does.
 // gmm writes the rows past the sum of the group sizes as zero (what
 // jax.lax.ragged_dot gives them; megablox leaves them unwritten unless the
-// experts are sharded); tgmm writes an empty group's block as zero. No
-// atomics: every output element is written by one thread, so a call is
-// bitwise repeatable.
+// experts are sharded); tgmm writes an empty group's block as zero. No float
+// atomics: every output element is summed by one thread in a fixed order,
+// so a call is bitwise repeatable.
 //
-// Bound on the H100. gmm at the Qwen3-VL-30B-A3B prefill (m = 11,848 rows of
-// top-8 over 1,481 tokens, E = 128, 2,048 → 768) is memory-bound: 403 MB of
-// expert weights against 3.7e10 FLOP (~0.14 ms at 3.35 TB/s, 0.04 ms of bf16
-// tensor-core time); the decode (m = 8) reads 8 experts' weights, ~25 MB. The
-// SFT's f32 products (m = 16,384) are bound by FFMA (67 TFLOP/s): no TF32,
-// as in every f32 path of the port.
+// One launch a call. Every block scans the group sizes itself (warp 0, from
+// a copy in shared memory) into the rows of each group and, where the
+// schedule needs it, the work list (megablox's
+// make_group_metadata, gmm.py:79); nothing is read back to the host and no
+// second kernel builds the list.
 //
-// Design. The work list is built on the device, so nothing is read back to
-// the host: `gmm_meta_kernel` (one block) scans the group sizes and counts
-// each group's 128-row tiles (tiles are aligned to multiples of 128 rows,
-// so a group boundary inside a tile puts that tile in both groups'
-// lists), as megablox's make_group_metadata (gmm.py:79) does. The main grid
-// is sized by the static bound ceil(m / 128) + E − 1 of that list, and a
-// block past the list's real length exits; ceil(m / 128) more blocks zero
-// the rows past the group sum. A block finds its group by a binary search
-// of the tile prefix sums, masks its loads to the group's rows (other rows
-// read as zero through cp.async's zero fill) and stores only those rows.
-// Each block computes a 128 × 128 tile of out through a two-stage cp.async
-// pipeline of 16-byte chunks, every operand copied in its own layout:
-// bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulators, 8 warps
-// of 64 × 32), its fragments read from shared memory as 32-bit words where
-// the contraction is contiguous and as two 16-bit reads otherwise; f32 by
-// FFMA, 8 × 8 outputs a thread. tgmm runs one block per (group, 128 rows of
-// k, 128 columns of n), looping over the group's rows. Simple and right
-// first: no TMA, no wgmma, no persistent grid (a later PR's work).
+// Bounds on the H100 at Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
+// 768 → 2,048) and what each schedule does about them:
+// - bf16 gmm at many rows (the prefill: 11,848 rows, ~80 experts hit) is
+//   bound by bytes: each hit expert's 3 MB bank once, the rows and the output
+//   (~318 MB, 0.095 ms at 3.35 TB/s, against 0.04 ms of bf16 tensor-core
+//   time). `gmm_wgmma_kernel`: a persistent grid (one block an SM) walks the
+//   work list of (group, 128 rows from the group's first row) × 256 output
+//   columns, neighbouring blocks on one group's tiles so that its bank is read
+//   from HBM about once and then from the 50 MB L2. A producer warp keeps 4
+//   stages of 64-deep k panels in flight by TMA (128-byte swizzle, a 2-D map
+//   over the rows and a 3-D map over the bank, so a box never crosses into
+//   the next expert; the k tail and rows past m zero-filled); two consumer
+//   warpgroups run wgmma m64n256k16 on them, the bank read MN-major through
+//   the transpose bit (K-major under transpose_rhs). A tile starts at its
+//   group's first row, so the rows of the next group inside it are
+//   multiplied and not stored (megablox masks its stores the same way), and
+//   the producer runs into the next tile's loads under the consumers'
+//   epilogue.
+// - bf16 gmm at few rows (m <= 64, the decode: 8 rows, one a group) is a
+//   weight stream: 8 banks, 25 MB, 7.5 µs at 3.35 TB/s. `gmm_splitk_kernel`:
+//   the wrapper picks it from the static m and a number of k splits S (<= 8)
+//   that fills the SMs with up to three 72 KiB blocks each; block (group j,
+//   128 columns, split s) streams its share of the bank through 3 TMA stages
+//   into wgmma m64n128k16 (64 rows from the group's first), and the S blocks
+//   of a tile form a thread-block cluster that sums its f32 partials through
+//   distributed shared memory in split order, so the result is the same bits
+//   every run with no workspace and no counter.
+// - bf16 tgmm (the bank gradient at the prefill's rows) is bound by writing
+//   the whole [E, k, n] output (403 MB of ~470, 0.14 ms). `tgmm_wgmma_kernel`:
+//   a persistent grid over (group, 128 rows of k, 256 columns of n); both
+//   operands are read MN-major along the contraction (the group's rows)
+//   through the transpose bits, in 64-row TMA steps from the group's first
+//   row. The last step of a group holds the next group's rows: the consumers
+//   zero them in both operands before wgmma reads the stage (then
+//   fence.proxy.async), so no foreign row, and no NaN in one, reaches the sum.
+//   An empty group's tiles are written as zero without a load.
+// - f32 (the SFT: 16,384 rows, 2,048 → 768) runs on the tensor cores as
+//   TF32 with a three-product split (below), held to f32: 3 × 5.15e10 FLOP at
+//   495 TFLOP/s is 0.312 ms at the forward, where FFMA's bound is 0.769 ms.
+//   `gmm_tf32_kernel` / `tgmm_tf32_kernel` take the bf16 kernels' persistent
+//   walks at 128 × 128 tiles and 32-deep stages (3 of 64 KiB), with the work
+//   in the split and the layouts: see the TF32 section.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
 
+#include <atomic>
 #include <type_traits>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kTile = 128;     // rows and columns of an output tile
-constexpr int kThreads = 256;  // 8 warps
+namespace cg = cooperative_groups;
+
 constexpr int kMaxGroups = 1024;
+constexpr unsigned kAllLanes = 0xffffffffu;
 
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int BK = 32;  // contraction per stage
-  static constexpr int VEC = 8;  // elements per 16-byte chunk
-};
-template <>
-struct Cfg<float> {
-  static constexpr int BK = 16;
-  static constexpr int VEC = 4;
+// ---- the group scan ----------------------------------------------------------
+
+struct Scan {
+  int rows_end;  // min(sum of the sizes, m)
+  int count;     // the sum of count() over the groups
 };
 
-// One operand's stage in shared memory: kTile output rows × BK contraction,
-// contraction-contiguous (KC: [kTile][BK + VEC]) or row-contiguous
-// ([BK][kTile + VEC]); the VEC padding keeps the fragment reads free of
-// bank conflicts and every row 16-byte aligned.
-template <typename T, bool KC>
-struct Tile {
-  static constexpr int BK = Cfg<T>::BK;
-  static constexpr int VEC = Cfg<T>::VEC;
-  static constexpr int LD = KC ? BK + VEC : kTile + VEC;
-  static constexpr int SIZE = KC ? kTile * LD : BK * LD;
-  __device__ static int at(int r, int kk) { return KC ? r * LD + kk : kk * LD + r; }
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled, nothing is read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// Copy one stage: 512 chunks of 16 bytes, two a thread. src(r, kk) gives the
-// global address of the chunk at output row r, contraction kk (a multiple
-// of VEC along the contiguous axis), or nullptr where it lies outside the
-// operand or the group; `base` is any valid address for those.
-template <typename T, bool KC, typename Src>
-__device__ __forceinline__ void load_stage(T* s, const T* base, Src src) {
-  using L = Tile<T, KC>;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    int r, kk;
-    if (KC) {
-      r = c / (L::BK / L::VEC);
-      kk = (c % (L::BK / L::VEC)) * L::VEC;
-    } else {
-      kk = c / (kTile / L::VEC);
-      r = (c % (kTile / L::VEC)) * L::VEC;
-    }
-    const T* g = src(r, kk);
-    cp_async16(s + L::at(r, kk), g ? g : base, g != nullptr);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else {
-    return __float2bfloat16(v);
-  }
-}
-
-// Elements (r, kk) and (r, kk + 1) of a bf16 stage as one 32-bit fragment
-// register, the lower contraction index in the lower half.
-template <bool KC>
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* s, int r, int kk) {
-  using L = Tile<__nv_bfloat16, KC>;
-  if (KC) return *reinterpret_cast<const uint32_t*>(s + L::at(r, kk));
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(s + L::at(r, kk));
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(s + L::at(r, kk + 1));
-  return lo | (hi << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The accumulators of one thread and the products of one stage.
-// bf16: warp w owns rows (w / 4)·64 + [0, 64) and columns (w % 4)·32 +
-// [0, 32): 4 × 4 m16n8 tiles, acc[mi][ni][0..3] at rows +g, +g+8 and
-// columns +2c, +2c+1 (g = lane / 4, c = lane % 4), the PTX fragment layout.
-// f32: thread (tx, ty) = (t % 16, t / 16) owns rows ty + 16i, columns
-// tx + 16j, i, j < 8.
-template <typename T>
-struct Core;
-
-template <>
-struct Core<__nv_bfloat16> {
-  float acc[4][4][4];
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-  }
-  template <bool A_KC, bool B_KC>
-  __device__ void step(const __nv_bfloat16* sa, const __nv_bfloat16* sb) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, c = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-#pragma unroll
-    for (int ks = 0; ks < Cfg<__nv_bfloat16>::BK; ks += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm + mi * 16 + g;
-        a[mi][0] = pair<A_KC>(sa, r, ks + 2 * c);
-        a[mi][1] = pair<A_KC>(sa, r + 8, ks + 2 * c);
-        a[mi][2] = pair<A_KC>(sa, r, ks + 2 * c + 8);
-        a[mi][3] = pair<A_KC>(sa, r + 8, ks + 2 * c + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = wn + ni * 8 + g;
-        b[ni][0] = pair<B_KC>(sb, col, ks + 2 * c);
-        b[ni][1] = pair<B_KC>(sb, col, ks + 2 * c + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-  // put(r, col, v0, v1): the tile's row r, columns col and col + 1 (col even)
-  template <typename Put>
-  __device__ void store(Put put) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, c = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int r = wm + mi * 16 + g, col = wn + ni * 8 + 2 * c;
-        put(r, col, acc[mi][ni][0], acc[mi][ni][1]);
-        put(r + 8, col, acc[mi][ni][2], acc[mi][ni][3]);
-      }
-  }
-};
-
-template <>
-struct Core<float> {
-  float acc[8][8];
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  template <bool A_KC, bool B_KC>
-  __device__ void step(const float* sa, const float* sb) {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int kk = 0; kk < Cfg<float>::BK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sa[Tile<float, A_KC>::at(ty + 16 * i, kk)];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = sb[Tile<float, B_KC>::at(tx + 16 * j, kk)];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-  // put(r, col, v): one element
-  template <typename Put>
-  __device__ void store(Put put) const {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) put(ty + 16 * i, tx + 16 * j, acc[i][j]);
-  }
-};
-
-// One tile of out = A · B over `steps` stages of the contraction: a_src and
-// b_src give the global chunk addresses of stage t (see load_stage).
-template <typename T, bool A_KC, bool B_KC, typename ASrc, typename BSrc>
-__device__ __forceinline__ void mainloop(Core<T>& core, int steps, const T* a_base,
-                                         const T* b_base, ASrc a_src, BSrc b_src) {
-  using TA = Tile<T, A_KC>;
-  using TB = Tile<T, B_KC>;
-  __shared__ __align__(16) T sa[2][TA::SIZE];
-  __shared__ __align__(16) T sb[2][TB::SIZE];
-  core.zero();
-  if (steps <= 0) return;
-  load_stage<T, A_KC>(sa[0], a_base, [&](int r, int kk) { return a_src(0, r, kk); });
-  load_stage<T, B_KC>(sb[0], b_base, [&](int r, int kk) { return b_src(0, r, kk); });
-  cp_async_commit();
-  for (int t = 0; t < steps; ++t) {
-    if (t + 1 < steps) {
-      const int s = (t + 1) & 1;
-      load_stage<T, A_KC>(sa[s], a_base, [&](int r, int kk) { return a_src(t + 1, r, kk); });
-      load_stage<T, B_KC>(sb[s], b_base, [&](int r, int kk) { return b_src(t + 1, r, kk); });
-    }
-    cp_async_commit();  // an empty group on the last stage keeps the count uniform
-    cp_async_wait1();   // stage t has landed
-    __syncthreads();
-    core.template step<A_KC, B_KC>(sa[t & 1], sb[t & 1]);
-    __syncthreads();  // stage t is read before the next iteration refills it
-  }
-}
-
-// The device-side work list: meta[0..E] = group row offsets (clamped to
-// [0, m]; meta[E] = min(sum, m)), meta[E+1..2E+1] = each group's first tile
-// in the list and (last) the list's length. One block of a power of two
-// ≥ E threads; Hillis–Steele scans in shared memory.
-__global__ void gmm_meta_kernel(const int* __restrict__ sizes, int E, int m,
-                                int* __restrict__ meta) {
-  __shared__ long long rows[kMaxGroups];
-  __shared__ int tiles[kMaxGroups];
-  const int e = threadIdx.x;
-  const long long g = e < E ? max(sizes[e], 0) : 0;
-  rows[e] = g;
+// The group sizes copied into shared memory by the whole block (one round
+// trip), then scanned by warp 0: for each group e its rows [start, end) and
+// the exclusive prefix of count(start, end) over the groups before it;
+// visit(e, start, end, prefix) runs once a group on the lane that holds it.
+// Call from every thread; the result is valid in warp 0 (publish it through
+// shared memory), and the caller synchronises before reading what visit wrote.
+template <typename Count, typename Visit>
+__device__ __forceinline__ Scan scan_groups(const int* __restrict__ sizes, int* s_sizes, int E,
+                                            int m, Count count, Visit visit) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x) s_sizes[e] = max(sizes[e], 0);
   __syncthreads();
-  for (int d = 1; d < blockDim.x; d <<= 1) {
-    const long long v = e >= d ? rows[e - d] : 0;
-    __syncthreads();
-    rows[e] += v;
-    __syncthreads();
+  Scan res{0, 0};
+  if (threadIdx.x >= 32) return res;
+  const int lane = threadIdx.x;
+  long long rows = 0;
+  int tiles = 0;
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    const long long g = e < E ? s_sizes[e] : 0;
+    long long incl = g;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long v = __shfl_up_sync(kAllLanes, incl, d);
+      if (lane >= d) incl += v;
+    }
+    const int start = static_cast<int>(min(rows + incl - g, static_cast<long long>(m)));
+    const int end = static_cast<int>(min(rows + incl, static_cast<long long>(m)));
+    const int c = e < E ? count(start, end) : 0;
+    int cincl = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kAllLanes, cincl, d);
+      if (lane >= d) cincl += v;
+    }
+    if (e < E) visit(e, start, end, tiles + cincl - c);
+    rows += __shfl_sync(kAllLanes, incl, 31);
+    tiles += __shfl_sync(kAllLanes, cincl, 31);
   }
-  const int start = static_cast<int>(min(rows[e] - g, static_cast<long long>(m)));
-  const int end = static_cast<int>(min(rows[e], static_cast<long long>(m)));
-  const int mine = end > start ? (end - 1) / kTile - start / kTile + 1 : 0;
-  tiles[e] = mine;
-  __syncthreads();
-  for (int d = 1; d < blockDim.x; d <<= 1) {
-    const int v = e >= d ? tiles[e - d] : 0;
-    __syncthreads();
-    tiles[e] += v;
-    __syncthreads();
+  res.rows_end = static_cast<int>(min(rows, static_cast<long long>(m)));
+  res.count = tiles;
+  return res;
+}
+
+// the last group whose first work slot is at or before `slot` (first[] non-decreasing)
+__device__ __forceinline__ int group_of(const int* first, int E, int slot) {
+  int lo = 0, hi = E - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= slot)
+      lo = mid;
+    else
+      hi = mid - 1;
   }
-  if (e < E) {
-    meta[e] = start;
-    meta[E + 1 + e] = tiles[e] - mine;
+  return lo;
+}
+
+// rows [r0, m) of out [m, n] set to zero, the grid's blocks sharing the
+// 16-byte chunks (n % 8 == 0 for bf16, % 4 for f32: each row is whole chunks)
+template <typename T>
+__device__ __forceinline__ void zero_rows(T* out, int r0, int m, int n) {
+  const size_t chunks = static_cast<size_t>(m - r0) * n * sizeof(T) / 16;
+  uint4* p = reinterpret_cast<uint4*>(out + static_cast<size_t>(r0) * n);
+  for (size_t c = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; c < chunks;
+       c += static_cast<size_t>(gridDim.x) * blockDim.x)
+    p[c] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// ---- bf16 on wgmma: shared pieces -------------------------------------------
+
+constexpr int kBK = 64;                 // contraction per stage: one 128-byte swizzled row
+constexpr uint32_t kBox = 64 * 128;     // a 64 x 64 bf16 TMA box, 8 KiB
+constexpr uint32_t kSbo = 1024;         // next 8 rows of a swizzled box
+constexpr uint32_t kDescHi = wgmma_desc_hi(kSbo);
+
+struct Maps {
+  CUtensorMap a, b, c;  // lhs, rhs, and tgmm's output
+};
+
+struct Args {
+  const int* sizes;
+  __nv_bfloat16* out;
+  int E, m, k, n;
+};
+
+// A box at `addr` as a wgmma operand at k16 step kk: K-major (the
+// contraction along the 128-byte row: the start steps 32 bytes) or MN-major
+// (the contraction down the rows: the start steps 16 rows, 2048 bytes; the
+// next 64 columns are the next box, kBox bytes on).
+template <bool MN>
+__device__ __forceinline__ uint64_t box_desc(uint32_t addr, int kk) {
+  return MN ? wgmma_desc(wgmma_desc_lo(addr + kk * 2048, kBox), kDescHi)
+            : wgmma_desc(wgmma_desc_lo(addr + kk * 32, 16), kDescHi);
+}
+
+// kStages stages of `stage_bytes` from `base` and their full / empty barriers
+template <int kStages>
+struct Ring {
+  unsigned char* base;  // 1024-byte aligned
+  uint32_t stage_bytes;
+  uint64_t* bars;  // 2 · kStages
+  __device__ unsigned char* stage(int s) const { return base + s * stage_bytes; }
+  __device__ uint64_t* full(int s) const { return bars + s; }
+  __device__ uint64_t* empty(int s) const { return bars + kStages + s; }
+  __device__ void init(int consumer_warps) const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), consumer_warps);
+    }
+    mbar_fence_init();
   }
-  if (e == E - 1) {
-    meta[E] = end;
-    meta[2 * E + 1] = tiles[e];
+  // one arrival a consumer warp: the stage may be refilled
+  __device__ void release(int s) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(s));
+  }
+};
+
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ __align__(1024) unsigned char gmm_smem[];
+  const uint32_t a = smem_u32(gmm_smem);
+  return gmm_smem + (((a + 1023) & ~1023u) - a);
+}
+
+// rows r0..63 of one 64 x 64 box set to zero (a swizzle moves 16-byte chunks
+// only within a 128-byte row), by the 128 threads of a warpgroup
+__device__ __forceinline__ void zero_box_rows(unsigned char* box, int r0, int t) {
+  uint4* p = reinterpret_cast<uint4*>(box + r0 * 128);
+  for (int i = t; i < (64 - r0) * 8; i += 128) p[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// store one consumer's 64 x N f32 accumulator (the PTX layout: entry 4i + 2h
+// + c at row (t / 32)·16 + lane / 4 + 8h, column 8i + 2·(lane % 4) + c) as T
+// (bf16 or f32) at o, rows below `rows` and columns below `cols` only (cols
+// even)
+template <typename T, int NACC>
+__device__ __forceinline__ void store_acc(const float (&acc)[NACC], T* o, size_t ld, int rows,
+                                          int cols, int t) {
+  const int lane = t % 32;
+  const int r = (t / 32) * 16 + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= rows) continue;
+    T* row = o + static_cast<size_t>(r + 8 * h) * ld;
+#pragma unroll
+    for (int i = 0; i < NACC / 4; ++i) {
+      const int c = 8 * i + c0;
+      if (c >= cols) continue;
+      const float x = acc[4 * i + 2 * h], y = acc[4 * i + 2 * h + 1];
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(row + c) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(x, y);
+    }
   }
 }
 
-// gmm: blockIdx.x < work_slots is a slot of the work list (one 128-row tile
-// of one group), else a 128-row tile whose rows past the group sum are
-// zeroed; blockIdx.y picks 128 output columns.
-template <typename T, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs, T* __restrict__ out,
-           const int* __restrict__ meta, int E, int m, int k, int n, int work_slots) {
-  const int* offs = meta;
-  const int* first = meta + E + 1;
-  const int slot = blockIdx.x;
-  const int n0 = blockIdx.y * kTile;
-  if (slot >= work_slots) {
-    const int z = slot - work_slots;
-    const int lo = max(offs[E], z * kTile), hi = min(m, (z + 1) * kTile);
-    const T zero = from_f32<T>(0.f);
-    for (int i = threadIdx.x; i < (hi - lo) * kTile; i += kThreads) {
-      const int col = n0 + i % kTile;
-      if (col < n) out[static_cast<size_t>(lo + i / kTile) * n + col] = zero;
+// The block's work list in shared memory, from the group sizes (`s_sizes`:
+// E ints of scratch): offs[0..E] each group's first row (offs[E] where the
+// rows end) and, where `first` is given, first[0..E] the exclusive prefix of
+// each group's ceil(size / kRows) tiles (first[E] the list's length).
+// Published by the caller's next __syncthreads.
+template <int kRows>
+__device__ __forceinline__ void work_list(const int* sizes, int* s_sizes, int E, int m, int* offs,
+                                          int* first) {
+  const Scan sc = scan_groups(
+      sizes, s_sizes, E, m, [](int s, int e) { return e > s ? (e - s + kRows - 1) / kRows : 0; },
+      [&](int e, int s, int, int f) {
+        offs[e] = s;
+        if (first != nullptr) first[e] = f;
+      });
+  if (threadIdx.x == 0) {
+    offs[E] = sc.rows_end;
+    if (first != nullptr) first[E] = sc.count;
+  }
+}
+
+// work item `item` of a gmm walk over CT column tiles: the group, its tile's
+// first row and first column
+struct RowTile {
+  int e, row0, n0;
+};
+template <int kRows, int kCols>
+__device__ __forceinline__ RowTile row_tile(const int* offs, const int* first, int E, int item,
+                                            int CT) {
+  const int slot = item / CT, e = group_of(first, E, slot);
+  return {e, offs[e] + (slot - first[e]) * kRows, (item % CT) * kCols};
+}
+
+// work item `item` of a tgmm walk over KB x NB tiles of each group's block
+struct BankTile {
+  int e, k0, n0;
+};
+template <int kRows, int kCols>
+__device__ __forceinline__ BankTile bank_tile(int item, int KB, int NB) {
+  const int kb = item % (KB * NB);
+  return {item / (KB * NB), (kb / NB) * kRows, (kb % NB) * kCols};
+}
+
+// ---- gmm at many rows: persistent, warp-specialised, wgmma n256 -----------------
+
+namespace wide {
+constexpr int kBM = 128, kBN = 256, kStages = 4;
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr uint32_t kA = 2 * kBox;             // A: 128 rows (two boxes of 64) x 64
+constexpr uint32_t kStage = kA + 4 * kBox;    // B: 256 columns x 64, 48 KiB a stage
+constexpr uint32_t kBarOff = kStages * kStage;
+constexpr uint32_t kListOff = kBarOff + 2 * kStages * sizeof(uint64_t);
+constexpr size_t kSmemBytes = kListOff + 2 * (kMaxGroups + 1) * sizeof(int) + 1024;
+static_assert(kSmemBytes <= 232448, "the stages fit a block's shared memory");
+static_assert(kStage % 1024 == 0, "boxes on 1024-byte boundaries");
+}  // namespace wide
+
+// tgmm: the wide kernel's stages, three of them, and each consumer's 64 x 256
+// output staged for its TMA store
+namespace tg {
+constexpr int kStages = 3;
+constexpr uint32_t kOut = 4 * kBox;  // 64 rows x 256 columns, four boxes
+constexpr uint32_t kOutOff = kStages * wide::kStage;
+constexpr uint32_t kBarOff = kOutOff + 2 * kOut;
+constexpr uint32_t kListOff = kBarOff + 2 * kStages * sizeof(uint64_t);
+constexpr size_t kSmemBytes = kListOff + (kMaxGroups + 1) * sizeof(int) + 1024;
+static_assert(kSmemBytes <= 232448, "the stages fit a block's shared memory");
+}  // namespace tg
+
+// One tile: out[row0 + [0, 128)][n0 + [0, 256)] of group e, the rows of the
+// group only. Work item i (of len · CT, len the work list's length) is slot
+// i / CT of the list, columns (i % CT)·256; the list gives a group
+// ceil(size / 128) slots from its first row.
+template <bool TRANS>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ Maps maps, const Args args) {
+  using namespace wide;
+  unsigned char* base = aligned_smem();
+  const Ring<kStages> ring{base, kStage, reinterpret_cast<uint64_t*>(base + kBarOff)};
+  int* offs = reinterpret_cast<int*>(base + kListOff);  // [E + 1]
+  int* first = offs + kMaxGroups + 1;                   // [E + 1]
+  const int E = args.E;
+  work_list<kBM>(args.sizes, reinterpret_cast<int*>(base), E, args.m, offs, first);
+  if (threadIdx.x == 0) ring.init(8);
+  fence_proxy_async();  // the sizes' copy in stage 0 before TMA overwrites it
+  __syncthreads();
+  zero_rows(args.out, offs[E], args.m, args.n);
+  const int CT = (args.n + kBN - 1) / kBN, KT = (args.k + kBK - 1) / kBK;
+  const int items = first[E] * CT;
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread starts every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const RowTile tl = row_tile<kBM, kBN>(offs, first, E, item, CT);
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % kStages;
+          unsigned char* st = ring.stage(s);
+          mbar_wait(ring.empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(ring.full(s), kStage);
+          tma_load_3d(st, &maps.a, ring.full(s), kt * kBK, tl.row0, 0);
+          tma_load_3d(st + kBox, &maps.a, ring.full(s), kt * kBK, tl.row0 + 64, 0);
+          if (TRANS) {  // rhs [E, n, k]: one box of 256 rows of n
+            tma_load_3d(st + kA, &maps.b, ring.full(s), kt * kBK, tl.n0, tl.e);
+          } else {  // rhs [E, k, n]: four boxes of 64 columns
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+              tma_load_3d(st + kA + p * kBox, &maps.b, ring.full(s), tl.n0 + 64 * p, kt * kBK,
+                          tl.e);
+          }
+        }
+      }
     }
     return;
   }
-  if (slot >= first[E]) return;
-  int lo = 0, hi = E - 1;  // the last group whose first tile is at or before this slot
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (first[mid] <= slot) lo = mid;
-    else hi = mid - 1;
-  }
-  const int e = lo;
-  const int start = offs[e], end = offs[e + 1];
-  const int row0 = (start / kTile + slot - first[e]) * kTile;
-  const int r0 = max(start, row0), r1 = min(end, row0 + kTile);
-  const T* w = rhs + static_cast<size_t>(e) * k * n;
-  constexpr int BK = Cfg<T>::BK;
-  auto a_src = [&](int t, int r, int kk) -> const T* {
-    const int row = row0 + r, kc = t * BK + kk;
-    return row >= r0 && row < r1 && kc < k ? lhs + static_cast<size_t>(row) * k + kc : nullptr;
-  };
-  auto b_src = [&](int t, int r, int kk) -> const T* {  // r: output column
-    const int col = n0 + r, kc = t * BK + kk;
-    if (col >= n || kc >= k) return nullptr;
-    return TRANS ? w + static_cast<size_t>(col) * k + kc : w + static_cast<size_t>(kc) * n + col;
-  };
-  Core<T> core;
-  mainloop<T, true, TRANS>(core, (k + BK - 1) / BK, lhs, w, a_src, b_src);
-  if constexpr (std::is_same<T, float>::value) {
-    core.store([&](int r, int col, float v) {
-      const int row = row0 + r, c = n0 + col;
-      if (row >= r0 && row < r1 && c < n) out[static_cast<size_t>(row) * n + c] = v;
-    });
-  } else {
-    core.store([&](int r, int col, float v0, float v1) {
-      const int row = row0 + r, c = n0 + col;  // n % 8 == 0: c < n implies c + 1 < n
-      if (row >= r0 && row < r1 && c < n)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * n + c) =
-            __floats2bfloat162_rn(v0, v1);
-    });
+
+  setmaxnreg_inc<kConsumerRegs>();  // consumer warpgroups: 64 rows of the tile each
+  const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+  int it = 0;
+  float acc[128];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const RowTile tl = row_tile<kBM, kBN>(offs, first, E, item, CT);
+    const int rows = min(kBM, offs[tl.e + 1] - tl.row0) - cw * 64;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % kStages;
+      const uint32_t a = smem_u32(ring.stage(s)) + cw * kBox, b = a - cw * kBox + kA;
+      mbar_wait(ring.full(s), (it / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss_n256<0, TRANS ? 0 : 1>(acc, box_desc<false>(a, kk), box_desc<!TRANS>(b, kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (kt > 0) ring.release((it - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    ring.release((it - 1) % kStages);
+    store_acc(acc, args.out + static_cast<size_t>(tl.row0 + cw * 64) * args.n + tl.n0, args.n,
+              rows, args.n - tl.n0, t);
   }
 }
 
-// tgmm: block (e, kb, nb) computes out[e][kb·128 + [0, 128)][nb·128 + [0, 128)]
-// = lhs[rows_e, k-slice]ᵀ · rhs[rows_e, n-slice], zero for an empty group.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tgmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs, T* __restrict__ out,
-            const int* __restrict__ meta, int k, int n) {
-  const int e = blockIdx.x, k0 = blockIdx.y * kTile, n0 = blockIdx.z * kTile;
-  const int start = meta[e], end = meta[e + 1];
-  constexpr int BK = Cfg<T>::BK;
-  auto a_src = [&](int t, int r, int kk) -> const T* {  // r: output row (k), kk: row of lhs
-    const int row = start + t * BK + kk, kc = k0 + r;
-    return row < end && kc < k ? lhs + static_cast<size_t>(row) * k + kc : nullptr;
-  };
-  auto b_src = [&](int t, int r, int kk) -> const T* {  // r: output column (n)
-    const int row = start + t * BK + kk, col = n0 + r;
-    return row < end && col < n ? rhs + static_cast<size_t>(row) * n + col : nullptr;
-  };
-  Core<T> core;
-  mainloop<T, false, false>(core, (end - start + BK - 1) / BK, lhs, rhs, a_src, b_src);
-  T* o = out + static_cast<size_t>(e) * k * n;
-  if constexpr (std::is_same<T, float>::value) {
-    core.store([&](int r, int col, float v) {
-      const int kr = k0 + r, c = n0 + col;
-      if (kr < k && c < n) o[static_cast<size_t>(kr) * n + c] = v;
-    });
-  } else {
-    core.store([&](int r, int col, float v0, float v1) {
-      const int kr = k0 + r, c = n0 + col;
-      if (kr < k && c < n)
-        *reinterpret_cast<__nv_bfloat162*>(o + static_cast<size_t>(kr) * n + c) =
-            __floats2bfloat162_rn(v0, v1);
-    });
+// ---- tgmm: persistent, warp-specialised, wgmma n256 on MN-major operands ------
+
+// A consumer's 64 x 256 accumulator as bf16 into its four swizzled output
+// boxes (chunk c of row r at c ^ (r & 7), as TMA reads a 128-byte-swizzled
+// box; a warp's 8 rows hit 8 different chunks, so no bank conflict).
+__device__ __forceinline__ void stage_out(const float (&acc)[128], unsigned char* ob, int t) {
+  const int lane = t % 32;
+  const int r = (t / 32) * 16 + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = (8 * i + c0) % 64;  // column in box i / 8
+      const uint32_t off = (i / 8) * kBox + row * 128 + ((((c >> 3) ^ row) & 7) << 4) + (c & 7) * 2;
+      *reinterpret_cast<uint32_t*>(ob + off) =
+          pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+    }
   }
 }
 
-cudaError_t launch_meta(const void* sizes, void* meta, int E, int m, cudaStream_t st) {
-  if (E < 1 || E > kMaxGroups) return cudaErrorInvalidValue;
-  int threads = 32;
-  while (threads < E) threads <<= 1;
-  gmm_meta_kernel<<<1, threads, 0, st>>>(static_cast<const int*>(sizes), E, m,
-                                        static_cast<int*>(meta));
+// One tile: out[e][k0 + [0, 128)][n0 + [0, 256)] = lhs[rows_e, k0..]ᵀ ·
+// rhs[rows_e, n0..], over 64-row steps from the group's first row. Work item
+// i is group i / (KB·NB), then 128 rows of k, then 256 columns of n. Each
+// consumer stages its half of the tile in shared memory and one thread
+// stores it by TMA (clipped at k and n), which drains under the next tile.
+__global__ void __launch_bounds__(wide::kThreads, 1)
+tgmm_wgmma_kernel(const __grid_constant__ Maps maps, const Args args) {
+  using wide::kA;
+  using wide::kBM;
+  using wide::kBN;
+  using wide::kStage;
+  using namespace tg;
+  unsigned char* base = aligned_smem();
+  const Ring<kStages> ring{base, kStage, reinterpret_cast<uint64_t*>(base + kBarOff)};
+  int* offs = reinterpret_cast<int*>(base + kListOff);  // [E + 1]
+  const int E = args.E;
+  work_list<kBM>(args.sizes, reinterpret_cast<int*>(base), E, args.m, offs, nullptr);
+  if (threadIdx.x == 0) ring.init(8);
+  fence_proxy_async();
+  __syncthreads();
+  const int KB = (args.k + kBM - 1) / kBM, NB = (args.n + kBN - 1) / kBN;
+  const int items = E * KB * NB;
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<wide::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const BankTile tl = bank_tile<kBM, kBN>(item, KB, NB);
+        for (int r0 = offs[tl.e]; r0 < offs[tl.e + 1]; r0 += kBK, ++it) {
+          const int s = it % kStages;
+          unsigned char* st = ring.stage(s);
+          mbar_wait(ring.empty(s), ((it / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(ring.full(s), kStage);
+          tma_load_3d(st, &maps.a, ring.full(s), tl.k0, r0, 0);
+          tma_load_3d(st + kBox, &maps.a, ring.full(s), tl.k0 + 64, r0, 0);
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            tma_load_3d(st + kA + p * kBox, &maps.b, ring.full(s), tl.n0 + 64 * p, r0, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<wide::kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+  unsigned char* ob = base + kOutOff + cw * kOut;
+  int it = 0;
+  float acc[128];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const BankTile tl = bank_tile<kBM, kBN>(item, KB, NB);
+    const int end = offs[tl.e + 1];
+    int r0 = offs[tl.e];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (; r0 < end; r0 += kBK, ++it) {
+      const int s = it % kStages;
+      unsigned char* st = ring.stage(s);
+      mbar_wait(ring.full(s), (it / kStages) & 1);
+      if (end - r0 < kBK) {  // the group's last step: the next group's rows read as zero
+        zero_box_rows(st + cw * kBox, end - r0, t);
+        zero_box_rows(st + kA + (2 * cw) * kBox, end - r0, t);
+        zero_box_rows(st + kA + (2 * cw + 1) * kBox, end - r0, t);
+        fence_proxy_async();
+        named_bar_sync(1, 256);
+      }
+      const uint32_t a = smem_u32(st) + cw * kBox, b = smem_u32(st) + kA;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss_n256<1, 1>(acc, box_desc<true>(a, kk), box_desc<true>(b, kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (r0 > offs[tl.e]) ring.release((it - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (end > offs[tl.e]) ring.release((it - 1) % kStages);
+    const int row0 = tl.k0 + cw * 64;
+    if (row0 >= args.k) continue;  // this consumer's rows are all past k
+    if (t == 0) bulk_wait_read();  // the previous tile's store has read the staging
+    named_bar_sync(2 + cw, 128);
+    stage_out(acc, ob, t);
+    fence_proxy_async();  // the generic writes before the TMA store reads them
+    named_bar_sync(2 + cw, 128);
+    if (t == 0) {
+      for (int p = 0; p < 4 && tl.n0 + 64 * p < args.n; ++p)
+        tma_store_3d(&maps.c, ob + p * kBox, tl.n0 + 64 * p, row0, tl.e);
+      bulk_commit();
+    }
+  }
+  if (t == 0) bulk_wait();
+}
+
+// ---- gmm at few rows: split k, the splits reduced in a cluster ----------------
+
+namespace narrow {
+constexpr int kBM = 64, kBN = 128, kStages = 3;
+constexpr int kThreads = 160;  // a consumer warpgroup and a producer warp
+constexpr uint32_t kStage = kBox + 2 * kBox;  // A 64 rows x 64, B 128 columns x 64: 24 KiB
+constexpr uint32_t kFoundOff = kStages * kStage + 2 * kStages * sizeof(uint64_t);
+constexpr size_t kSmemBytes = kFoundOff + 4 * sizeof(int) + 1024;
+static_assert(kBM * kBN * sizeof(float) <= kStages * kStage, "the partial fits the stages");
+static_assert(kSmemBytes * 3 <= 228 * 1024 - 3 * 1024, "three blocks fit an SM");
+}  // namespace narrow
+
+// Block (tile, split) with tile = j·CT + (128-column tile), blockIdx.x =
+// tile·S + split; the S splits of a tile are one cluster. Group j is the
+// j-th group with rows (m <= 64, so its rows fit one 64-row tile from its
+// first row); split s takes k steps [s·P, s·P + P).
+template <bool TRANS>
+__global__ void __launch_bounds__(narrow::kThreads, 3)
+gmm_splitk_kernel(const __grid_constant__ Maps maps, const Args args, int S, int P, int CT) {
+  using namespace narrow;
+  unsigned char* base = aligned_smem();
+  const Ring<kStages> ring{base, kStage,
+                           reinterpret_cast<uint64_t*>(base + kStages * kStage)};
+  int* found = reinterpret_cast<int*>(base + kFoundOff);  // e, start, end, rows_end
+  const int split = blockIdx.x % S, tile = blockIdx.x / S;
+  const int j = tile / CT, n0 = (tile % CT) * kBN;
+  const Scan sc = scan_groups(
+      args.sizes, reinterpret_cast<int*>(base), args.E, args.m,
+      [](int s, int e) { return e > s ? 1 : 0; },
+      [&](int e, int s, int end, int f) {
+        if (end > s && f == j) {
+          found[0] = e;
+          found[1] = s;
+          found[2] = end;
+        }
+      });
+  if (threadIdx.x == 0) {
+    found[3] = sc.count > j ? sc.rows_end : -sc.rows_end - 1;  // the sign: is there a group j
+    ring.init(4);
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const bool has_group = found[3] >= 0;
+  zero_rows(args.out, has_group ? found[3] : -found[3] - 1, args.m, args.n);
+  if (!has_group) return;  // the whole cluster: j is the cluster's
+  const int e = found[0], start = found[1], rows = found[2] - start;
+  const int KT = (args.k + kBK - 1) / kBK;
+  const int kt0 = split * P, kt1 = min(KT, kt0 + P);
+  float* part = reinterpret_cast<float*>(base);  // [kBM][kBN], over the stages once drained
+
+  if (threadIdx.x >= 128) {  // producer warp
+    if (threadIdx.x == 128) {
+      for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+        const int s = i % kStages;
+        unsigned char* st = ring.stage(s);
+        mbar_wait(ring.empty(s), ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(ring.full(s), kStage);
+        tma_load_3d(st, &maps.a, ring.full(s), kt * kBK, start, 0);
+        if (TRANS) {
+          tma_load_3d(st + kBox, &maps.b, ring.full(s), kt * kBK, n0, e);
+        } else {
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            tma_load_3d(st + kBox + p * kBox, &maps.b, ring.full(s), n0 + 64 * p, kt * kBK, e);
+        }
+      }
+    }
+    __syncwarp();
+  } else {  // consumer warpgroup
+    const int t = threadIdx.x;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int s = i % kStages;
+      const uint32_t a = smem_u32(ring.stage(s)), b = a + kBox;
+      mbar_wait(ring.full(s), (i / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss_n128<0, TRANS ? 0 : 1>(acc, box_desc<false>(a, kk), box_desc<!TRANS>(b, kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (i > 0) ring.release((i - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    // every stage has landed and been read: the partial goes over them
+    const int lane = t % 32, r = (t / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h >= rows) continue;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        *reinterpret_cast<float2*>(part + (r + 8 * h) * kBN + 8 * q + 2 * (lane % 4)) =
+            make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's partial is written
+  const int cols = min(kBN, args.n - n0);
+  for (int idx = split * kThreads + threadIdx.x; idx < rows * kBN; idx += S * kThreads) {
+    const int r = idx / kBN, c = idx % kBN;
+    if (c >= cols) continue;
+    float sum = 0.f;
+    for (int q = 0; q < S; ++q) sum += cluster.map_shared_rank(part, q)[idx];
+    args.out[static_cast<size_t>(start + r) * args.n + n0 + c] = __float2bfloat16(sum);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// ---- f32 on the tensor cores: TF32 with a three-product split ------------------
+//
+// An f32 x is hi + lo with hi = tf32(x) and lo = tf32(x − hi), both rounded to
+// nearest (tf32_round), so every operand the tensor cores read is an exact tf32
+// value; a product is a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (the small terms
+// first), leaving out a_lo·b_lo, ~2^-21 of |a|·|b| a term (ring_step_f32.cu's
+// split). wgmma on .tf32 reads K-major operands only, so A goes to the
+// tensor cores from registers (each consumer reads and splits its fragments
+// from the raw stage, K-major for gmm, a transposed read for tgmm) and B from
+// K-major hi and lo panels that producer warps 1-3 write from the raw stage
+// (the bank of gmm and both tgmm operands run MN-major: transposed there).
+// The tensor cores round their accumulator toward zero, so each 32-deep
+// stage's 12 products start from zero and fold into an f32 register sum by
+// round-to-nearest adds.
+
+namespace tf {
+constexpr int kBM = 128, kBN = 128, kKStep = 32;  // kKStep f32: one 128-byte swizzled row
+constexpr int kStages = 3;
+constexpr int kThreads = 384;
+constexpr int kPrepWarps = 3;
+constexpr uint32_t kBox32 = 32 * 128;  // 32 rows x 32 f32, 4 KiB
+// a stage: A as TMA wrote it, B as TMA wrote it, B's K-major hi and lo panels
+constexpr uint32_t kARaw = 0, kBRaw = 4 * kBox32, kBHi = 8 * kBox32, kBLo = 12 * kBox32;
+constexpr uint32_t kStage = 16 * kBox32;  // 64 KiB
+constexpr uint32_t kBarOff = kStages * kStage;
+constexpr uint32_t kListOff = kBarOff + 3 * kStages * sizeof(uint64_t);
+constexpr size_t kSmemBytes = kListOff + 2 * (kMaxGroups + 1) * sizeof(int) + 1024;
+static_assert(kSmemBytes <= 232448, "the stages fit a block's shared memory");
+
+// byte offset of (row r, f32 column c < 32) in a 128-byte-swizzled panel
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
+__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
+  float4 hi;
+  split(x.x, hi.x, lo.x);
+  split(x.y, hi.y, lo.y);
+  split(x.z, hi.z, lo.z);
+  split(x.w, hi.w, lo.w);
+  return hi;
+}
+
+// Producer warp w (0..kPrepWarps-1), lane = k, writes B's hi and lo panels
+// ([128 columns of n][32 of k], K-major) from the raw stage: MN, four boxes
+// of [32 k][32 n] (transposed here), or K-major [128 n][32 k] as it is. Rows
+// of k at or past `kvalid` are written as zero.
+template <bool MN>
+__device__ __forceinline__ void prep_b(unsigned char* st, int w, int lane, int kvalid) {
+  if (MN) {
+    const bool live = lane < kvalid;
+    for (int c4 = w; c4 < kBN / 4; c4 += kPrepWarps) {
+      const float4 x = live ? *reinterpret_cast<const float4*>(
+                                  st + kBRaw + (c4 / 8) * kBox32 + lane * 128 +
+                                  ((((c4 % 8) ^ lane) & 7) << 4))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 lo;
+      const float4 hi = split4(x, lo);
+      const float h[4] = {hi.x, hi.y, hi.z, hi.w}, l[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t o = swz(4 * c4 + e, lane);
+        *reinterpret_cast<float*>(st + kBHi + o) = h[e];
+        *reinterpret_cast<float*>(st + kBLo + o) = l[e];
+      }
+    }
+  } else {
+    for (int i = w * 32 + lane; i < kBN * 8; i += kPrepWarps * 32) {
+      const uint32_t o = (i / 8) * 128 + ((((i % 8) ^ (i / 8)) & 7) << 4);
+      float4 lo;
+      const float4 hi = split4(*reinterpret_cast<const float4*>(st + kBRaw + o), lo);
+      *reinterpret_cast<float4*>(st + kBHi + o) = hi;
+      *reinterpret_cast<float4*>(st + kBLo + o) = lo;
+    }
+  }
+}
+
+// A consumer's A fragments of one stage, split: (hi, lo)[kk] for the four k8
+// steps, rows r and r + 8 of its 64, k columns 8kk + t and 8kk + t + 4 (t =
+// lane % 4). gmm: its 64 rows K-major (one 8 KiB box of 64 rows at `a`);
+// tgmm: columns 64cw.. of four MN boxes [32 k][32 columns] at `a`, k at or
+// past `kvalid` read as zero.
+template <bool MN>
+__device__ __forceinline__ void load_a(uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
+                                       const unsigned char* a, int cw, int r, int t,
+                                       int kvalid) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r + 8 * (q & 1), k = 8 * kk + t + 4 * (q >> 1);
+      float x;
+      if (MN) {
+        const int col = 64 * cw + row;
+        x = k < kvalid ? *reinterpret_cast<const float*>(a + (col / 32) * kBox32 + swz(k, col % 32))
+                       : 0.f;
+      } else {
+        x = *reinterpret_cast<const float*>(a + swz(row, k));
+      }
+      float hi, lo;
+      split(x, hi, lo);
+      ah[kk][q] = __float_as_uint(hi);
+      al[kk][q] = __float_as_uint(lo);
+    }
+}
+
+// sum += this stage's product (64 x 128): 12 wgmma from zero, then a
+// round-to-nearest fold
+__device__ __forceinline__ void mma_stage(float (&sum)[64], float (&acc)[64],
+                                          const uint32_t (&ah)[4][4], const uint32_t (&al)[4][4],
+                                          uint32_t bhi, uint32_t blo) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tf32_rs_n128(acc, al[kk], box_desc<false>(bhi, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n128(acc, ah[kk], box_desc<false>(blo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_tf32_rs_n128(acc, ah[kk], box_desc<false>(bhi, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(acc);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+}
+
+struct Args {
+  const int* sizes;
+  float* out;
+  int E, m, k, n;
+};
+
+// the stages and their full / ready / empty barriers
+struct Stages {
+  unsigned char* base;
+  __device__ unsigned char* stage(int s) const { return base + s * kStage; }
+  __device__ uint64_t* bar(int i) const {
+    return reinterpret_cast<uint64_t*>(base + kBarOff) + i;
+  }
+  __device__ uint64_t* full(int s) const { return bar(s); }
+  __device__ uint64_t* ready(int s) const { return bar(kStages + s); }
+  __device__ uint64_t* empty(int s) const { return bar(2 * kStages + s); }
+  __device__ void init() const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), kPrepWarps);
+      mbar_init(empty(s), 8);
+    }
+    mbar_fence_init();
+  }
+};
+
+}  // namespace tf
+
+// gmm on f32: a persistent grid over the work list of (group, 128 rows from
+// its first row) × 128 columns, as gmm_wgmma_kernel's, k in 32-deep stages.
+template <bool TRANS>
+__global__ void __launch_bounds__(tf::kThreads, 1)
+gmm_tf32_kernel(const __grid_constant__ Maps maps, const tf::Args args) {
+  using namespace tf;
+  unsigned char* base = aligned_smem();
+  const Stages sm{base};
+  int* offs = reinterpret_cast<int*>(base + kListOff);  // [E + 1]
+  int* first = offs + kMaxGroups + 1;                   // [E + 1]
+  const int E = args.E;
+  work_list<kBM>(args.sizes, reinterpret_cast<int*>(base), E, args.m, offs, first);
+  if (threadIdx.x == 0) sm.init();
+  fence_proxy_async();
+  __syncthreads();
+  zero_rows(args.out, offs[E], args.m, args.n);
+  const int CT = (args.n + kBN - 1) / kBN, KT = (args.k + kKStep - 1) / kKStep;
+  const int items = first[E] * CT;
+
+  if (threadIdx.x < 128) {  // producer warpgroup: warp 0 loads, warps 1-3 prepare B
+    setmaxnreg_dec<wide::kProducerRegs>();
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const RowTile tl = row_tile<kBM, kBN>(offs, first, E, item, CT);
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % kStages, ph = (it / kStages) & 1;
+        unsigned char* st = sm.stage(s);
+        if (w == 0) {
+          if (lane == 0) {
+            mbar_wait(sm.empty(s), ph ^ 1);
+            mbar_arrive_expect_tx(sm.full(s), 8 * kBox32);
+            tma_load_3d(st + kARaw, &maps.a, sm.full(s), kt * kKStep, tl.row0, 0);
+            tma_load_3d(st + kARaw + 2 * kBox32, &maps.a, sm.full(s), kt * kKStep,
+                        tl.row0 + 64, 0);
+            if (TRANS) {
+              tma_load_3d(st + kBRaw, &maps.b, sm.full(s), kt * kKStep, tl.n0, tl.e);
+            } else {
+#pragma unroll
+              for (int p = 0; p < 4; ++p)
+                tma_load_3d(st + kBRaw + p * kBox32, &maps.b, sm.full(s), tl.n0 + 32 * p,
+                            kt * kKStep, tl.e);
+            }
+          }
+        } else {
+          mbar_wait(sm.full(s), ph);
+          prep_b<!TRANS>(st, w - 1, lane, kKStep);
+          fence_proxy_async();  // the generic writes before wgmma reads them
+          __syncwarp();
+          if (lane == 0) mbar_arrive(sm.ready(s));
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<wide::kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int r = (t / 32) * 16 + lane / 4;
+  int it = 0;
+  float sum[64], acc[64];
+  uint32_t ah[4][4], al[4][4];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const RowTile tl = row_tile<kBM, kBN>(offs, first, E, item, CT);
+    const int rows = min(kBM, offs[tl.e + 1] - tl.row0) - cw * 64;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int s = it % kStages, ph = (it / kStages) & 1;
+      unsigned char* st = sm.stage(s);
+      mbar_wait(sm.full(s), ph);
+      load_a<false>(ah, al, st + kARaw + cw * 2 * kBox32, cw, r, lane % 4, kKStep);
+      mbar_wait(sm.ready(s), ph);
+      mma_stage(sum, acc, ah, al, smem_u32(st + kBHi), smem_u32(st + kBLo));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(s));
+    }
+    store_acc(sum, args.out + static_cast<size_t>(tl.row0 + cw * 64) * args.n + tl.n0, args.n,
+              rows, args.n - tl.n0, t);
+  }
+}
+
+// tgmm on f32: a persistent grid over (group, 128 rows of k, 128 columns of
+// n), the group's rows in 32-row stages from its first; rows past the group
+// read as zero in both operands.
+__global__ void __launch_bounds__(tf::kThreads, 1)
+tgmm_tf32_kernel(const __grid_constant__ Maps maps, const tf::Args args) {
+  using namespace tf;
+  unsigned char* base = aligned_smem();
+  const Stages sm{base};
+  int* offs = reinterpret_cast<int*>(base + kListOff);  // [E + 1]
+  const int E = args.E;
+  work_list<kBM>(args.sizes, reinterpret_cast<int*>(base), E, args.m, offs, nullptr);
+  if (threadIdx.x == 0) sm.init();
+  fence_proxy_async();
+  __syncthreads();
+  const int KB = (args.k + kBM - 1) / kBM, NB = (args.n + kBN - 1) / kBN;
+  const int items = E * KB * NB;
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<wide::kProducerRegs>();
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const BankTile tl = bank_tile<kBM, kBN>(item, KB, NB);
+      const int end = offs[tl.e + 1];
+      for (int r0 = offs[tl.e]; r0 < end; r0 += kKStep, ++it) {
+        const int s = it % kStages, ph = (it / kStages) & 1;
+        unsigned char* st = sm.stage(s);
+        if (w == 0) {
+          if (lane == 0) {
+            mbar_wait(sm.empty(s), ph ^ 1);
+            mbar_arrive_expect_tx(sm.full(s), 8 * kBox32);
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              tma_load_3d(st + kARaw + p * kBox32, &maps.a, sm.full(s), tl.k0 + 32 * p, r0, 0);
+              tma_load_3d(st + kBRaw + p * kBox32, &maps.b, sm.full(s), tl.n0 + 32 * p, r0, 0);
+            }
+          }
+        } else {
+          mbar_wait(sm.full(s), ph);
+          prep_b<true>(st, w - 1, lane, end - r0);
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(sm.ready(s));
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<wide::kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128, lane = t % 32;
+  const int r = (t / 32) * 16 + lane / 4;
+  int it = 0;
+  float sum[64], acc[64];
+  uint32_t ah[4][4], al[4][4];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const BankTile tl = bank_tile<kBM, kBN>(item, KB, NB);
+    const int end = offs[tl.e + 1];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    for (int r0 = offs[tl.e]; r0 < end; r0 += kKStep, ++it) {
+      const int s = it % kStages, ph = (it / kStages) & 1;
+      unsigned char* st = sm.stage(s);
+      mbar_wait(sm.full(s), ph);
+      load_a<true>(ah, al, st + kARaw, cw, r, lane % 4, end - r0);
+      mbar_wait(sm.ready(s), ph);
+      mma_stage(sum, acc, ah, al, smem_u32(st + kBHi), smem_u32(st + kBLo));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(s));
+    }
+    store_acc(sum,
+              args.out + (static_cast<size_t>(tl.e) * args.k + tl.k0 + cw * 64) * args.n + tl.n0,
+              args.n, args.k - tl.k0 - cw * 64, args.n - tl.n0, t);
+  }
+}
+
+// ---- host ------------------------------------------------------------------------
+
+// the kernel's dynamic shared memory raised to `bytes`, once a device
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static std::atomic<unsigned> done{0};  // bit d: set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+template <bool TRANS>
+cudaError_t launch_wide(const void* lhs, const void* rhs, const Args& args, int sms,
+                        cudaStream_t st) {
+  Maps maps;
+  if (!encode_rows_map(&maps.a, lhs, args.m, args.k, 64) ||
+      !(TRANS ? encode_bank_map(&maps.b, rhs, args.E, args.n, args.k, wide::kBN)
+              : encode_bank_map(&maps.b, rhs, args.E, args.k, args.n, kBK)))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<gmm_wgmma_kernel<TRANS>>(wide::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // the work list holds at most ceil(m / 128) + min(E, m) slots
+  const long long slots = (args.m + wide::kBM - 1) / wide::kBM + min(args.E, args.m);
+  const long long items = slots * ((args.n + wide::kBN - 1) / wide::kBN);
+  const int grid = static_cast<int>(max(1LL, min(static_cast<long long>(sms), items)));
+  gmm_wgmma_kernel<TRANS><<<grid, wide::kThreads, wide::kSmemBytes, st>>>(maps, args);
   return cudaGetLastError();
 }
 
-template <typename T, bool TRANS>
-void launch_gmm(const void* lhs, const void* rhs, void* out, const void* meta, int m, int k,
-                int n, int E, cudaStream_t st) {
-  const int row_tiles = (m + kTile - 1) / kTile;
-  const int work_slots = row_tiles + E - 1;  // the work list's static bound
-  const dim3 grid(work_slots + row_tiles, (n + kTile - 1) / kTile);
-  gmm_kernel<T, TRANS><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(lhs), static_cast<const T*>(rhs), static_cast<T*>(out),
-      static_cast<const int*>(meta), E, m, k, n, work_slots);
+template <bool TRANS>
+cudaError_t launch_narrow(const void* lhs, const void* rhs, const Args& args, int splits,
+                          cudaStream_t st) {
+  const int KT = (args.k + kBK - 1) / kBK;
+  if (splits < 1 || splits > 8 || splits > KT || args.m > narrow::kBM)
+    return cudaErrorInvalidValue;
+  Maps maps;
+  if (!encode_rows_map(&maps.a, lhs, args.m, args.k, narrow::kBM) ||
+      !(TRANS ? encode_bank_map(&maps.b, rhs, args.E, args.n, args.k, narrow::kBN)
+              : encode_bank_map(&maps.b, rhs, args.E, args.k, args.n, kBK)))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<gmm_splitk_kernel<TRANS>>(narrow::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int CT = (args.n + narrow::kBN - 1) / narrow::kBN;
+  const int P = (KT + splits - 1) / splits;
+  const int groups = min(args.E, args.m);  // at most this many groups have rows
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits * groups * CT);
+  cfg.blockDim = dim3(narrow::kThreads);
+  cfg.dynamicSmemBytes = narrow::kSmemBytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gmm_splitk_kernel<TRANS>, maps, args, splits, P, CT);
 }
 
-template <typename T>
-void launch_tgmm(const void* lhs, const void* rhs, void* out, const void* meta, int k, int n,
-                 int E, cudaStream_t st) {
-  const dim3 grid(E, (k + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  tgmm_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(lhs),
-                                            static_cast<const T*>(rhs), static_cast<T*>(out),
-                                            static_cast<const int*>(meta), k, n);
+template <bool TRANS>
+cudaError_t launch_tf32(const void* lhs, const void* rhs, const tf::Args& args, int sms,
+                        cudaStream_t st) {
+  Maps maps;
+  if (!encode_rows_map(&maps.a, lhs, args.m, args.k, 64, true) ||
+      !(TRANS ? encode_bank_map(&maps.b, rhs, args.E, args.n, args.k, tf::kBN, true)
+              : encode_bank_map(&maps.b, rhs, args.E, args.k, args.n, tf::kKStep, true)))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<gmm_tf32_kernel<TRANS>>(tf::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const long long slots = (args.m + tf::kBM - 1) / tf::kBM + min(args.E, args.m);
+  const long long items = slots * ((args.n + tf::kBN - 1) / tf::kBN);
+  const int grid = static_cast<int>(max(1LL, min(static_cast<long long>(sms), items)));
+  gmm_tf32_kernel<TRANS><<<grid, tf::kThreads, tf::kSmemBytes, st>>>(maps, args);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Words of int32 scratch the caller allocates for `meta` (the work list).
-extern "C" int gmm_meta_words(int E) { return 2 * E + 2; }
-
 // out [m, n] = the grouped product of lhs [m, k] and rhs [E, k, n] (with
-// transpose_rhs, rhs [E, n, k]); group_sizes [E] int32 on the device. All
-// contiguous, 16-byte aligned, k and n multiples of 8 (bf16) or 4 (f32).
+// transpose_rhs, rhs [E, n, k]); group_sizes [E] int32 on the device, 1 <= E
+// <= 1024. All contiguous, 16-byte aligned, k and n multiples of 8 (bf16) or
+// 4 (f32). One launch. bf16: splits = 0 runs the many-row schedule on a grid
+// of at most `sms` blocks, splits = S in 1..8 the few-row one (m <= 64), k
+// split S ways; f32 runs the TF32 kernel on at most `sms` blocks. Returns the
+// CUDA error code.
 extern "C" int gmm_launch(const void* lhs, const void* rhs, const void* group_sizes, void* out,
-                          void* meta, int m, int k, int n, int E, int transpose_rhs, int is_f32,
-                          void* stream) {
+                          int m, int k, int n, int E, int transpose_rhs, int is_f32, int splits,
+                          int sms, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_meta(group_sizes, meta, E, m, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (E < 1 || E > kMaxGroups || m < 1 || k < 1 || n < 1 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   if (is_f32) {
-    if (transpose_rhs) launch_gmm<float, true>(lhs, rhs, out, meta, m, k, n, E, st);
-    else launch_gmm<float, false>(lhs, rhs, out, meta, m, k, n, E, st);
+    const tf::Args args{static_cast<const int*>(group_sizes), static_cast<float*>(out), E, m, k,
+                        n};
+    err = transpose_rhs ? launch_tf32<true>(lhs, rhs, args, sms, st)
+                        : launch_tf32<false>(lhs, rhs, args, sms, st);
   } else {
-    if (transpose_rhs) launch_gmm<__nv_bfloat16, true>(lhs, rhs, out, meta, m, k, n, E, st);
-    else launch_gmm<__nv_bfloat16, false>(lhs, rhs, out, meta, m, k, n, E, st);
+    const Args args{static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out), E,
+                    m, k, n};
+    if (splits > 0)
+      err = transpose_rhs ? launch_narrow<true>(lhs, rhs, args, splits, st)
+                          : launch_narrow<false>(lhs, rhs, args, splits, st);
+    else
+      err = transpose_rhs ? launch_wide<true>(lhs, rhs, args, sms, st)
+                          : launch_wide<false>(lhs, rhs, args, sms, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
-// out [E, k, n] = per group lhs[rows_e]ᵀ · rhs[rows_e], lhs [m, k], rhs [m, n].
+// out [E, k, n] = per group lhs[rows_e]ᵀ · rhs[rows_e], lhs [m, k], rhs [m, n];
+// one launch on a grid of at most `sms` blocks. Returns the CUDA error code.
 extern "C" int tgmm_launch(const void* lhs, const void* rhs, const void* group_sizes, void* out,
-                           void* meta, int m, int k, int n, int E, int is_f32, void* stream) {
+                           int m, int k, int n, int E, int is_f32, int sms, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_meta(group_sizes, meta, E, m, st);
+  if (E < 1 || E > kMaxGroups || m < 1 || k < 1 || n < 1 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  cudaError_t err;
+  long long items;
+  if (is_f32) {
+    if (!encode_rows_map(&maps.a, lhs, m, k, tf::kKStep, true) ||
+        !encode_rows_map(&maps.b, rhs, m, n, tf::kKStep, true))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = allow_smem<tgmm_tf32_kernel>(tf::kSmemBytes);
+    items = static_cast<long long>(E) * ((k + tf::kBM - 1) / tf::kBM) *
+            ((n + tf::kBN - 1) / tf::kBN);
+  } else {
+    if (!encode_rows_map(&maps.a, lhs, m, k, kBK) || !encode_rows_map(&maps.b, rhs, m, n, kBK) ||
+        !encode_bank_map(&maps.c, out, E, k, n, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = allow_smem<tgmm_wgmma_kernel>(tg::kSmemBytes);
+    items = static_cast<long long>(E) * ((k + wide::kBM - 1) / wide::kBM) *
+            ((n + wide::kBN - 1) / wide::kBN);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (is_f32) launch_tgmm<float>(lhs, rhs, out, meta, k, n, E, st);
-  else launch_tgmm<__nv_bfloat16>(lhs, rhs, out, meta, k, n, E, st);
+  const int grid = static_cast<int>(min(static_cast<long long>(sms), items));
+  if (is_f32) {
+    const tf::Args args{static_cast<const int*>(group_sizes), static_cast<float*>(out), E, m, k,
+                        n};
+    tgmm_tf32_kernel<<<grid, tf::kThreads, tf::kSmemBytes, st>>>(maps, args);
+  } else {
+    const Args args{static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(out), E, m,
+                    k, n};
+    tgmm_wgmma_kernel<<<grid, wide::kThreads, tg::kSmemBytes, st>>>(maps, args);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,25 +17,75 @@ lhs, off the exclusive scan of `group_sizes` (clamped to [0, m]).
 - `GroupedMatmul` (autograd): forward `gmm`; backward `gmm(dy, rhs,
   transpose_rhs=True)` for lhs and `tgmm(lhs, dy)` for rhs, as `_gmm_bwd`.
 
-Products accumulate in f32 and round once to the operands' dtype (bf16 or
-f32, no TF32). On a CUDA tensor the wrappers launch the kernels of
-`csrc/gmm.cu` (bound and design there), which build their work list on the
-device, so nothing waits on the host; they raise for operands the kernels do
-not take. Only a CPU tensor goes to the plain twins `gmm_plain` /
-`tgmm_plain` (per-group `torch.matmul`, which read the group sizes on the
-host). Each wrapper counts its kernel launches (`gmm.launches`,
+Products accumulate in f32 and round once to the operands' dtype: bf16 on
+the tensor cores, f32 on them too as TF32 with a three-product hi/lo split
+held to f32 (within 1e-5 of each row's max, as the plain twin's own f32
+products in another order). On a CUDA tensor the wrappers make one launch
+of a kernel of `csrc/gmm.cu` (bound and design there), which scans the group
+sizes on the device, so nothing waits on the host; they raise for operands
+the kernels do not take. `gmm_schedule` picks the kernel from the static
+shape alone: bf16 at m <= DECODE_ROWS rows streams the banks with k split
+over a cluster of blocks, bf16 at more rows runs the persistent wgmma
+kernel, f32 the TF32 one. Only a CPU tensor goes to the plain twins
+`gmm_plain` / `tgmm_plain` (per-group `torch.matmul`, which read the group
+sizes on the host). Each wrapper counts its kernel launches (`gmm.launches`,
 `tgmm.launches`). megablox's `group_offset` and `existing_out` (sharded
 experts) are not ported.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from . import _kernels
 
-MAX_GROUPS = 1024  # the work-list kernel scans the group sizes in one block
+MAX_GROUPS = 1024  # every block scans the group sizes in shared memory
 _VEC = {torch.bfloat16: 8, torch.float32: 4}  # elements of a 16-byte chunk
+DECODE_ROWS = 64  # at most this many rows: every group's rows fit one 64-row tile
+SPLIT_BLOCKS_PER_SM = 3  # the split-k kernel's blocks resident on an SM (72 KiB each)
+MAX_SPLITS = 8  # a cluster's portable size
+_K_STEP = 64  # contraction per pipeline stage
+_SPLIT_TILE_N = 128  # output columns of a split-k block
+
+
+class Schedule(NamedTuple):
+    """How one `gmm` call runs: `kind` "split_k" (bf16, m <= DECODE_ROWS),
+    "wgmma" (bf16) or "tf32" (f32); `splits` the k splits of the split-k
+    kernel (0 otherwise), each of `steps` k steps of 64; `blocks` its grid
+    (0: the persistent kernels size theirs on the card, at most one an SM)."""
+
+    kind: str
+    splits: int
+    steps: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def gmm_schedule(m: int, k: int, n: int, E: int, dtype: torch.dtype, sms: int) -> Schedule:
+    """The kernel and grid of `gmm` at this static shape on a card with
+    `sms` SMs: the few-row kernel takes at most min(E, m) groups × 128-column
+    tiles × splits blocks, the most splits (<= MAX_SPLITS, <= the k steps)
+    that keep them within one wave of SPLIT_BLOCKS_PER_SM blocks an SM; no
+    value read from the card."""
+    if dtype == torch.float32:
+        return Schedule("tf32", 0, 0, 0)
+    if m > DECODE_ROWS:
+        return Schedule("wgmma", 0, 0, 0)
+    k_steps = math.ceil(k / _K_STEP)
+    tiles = min(E, m) * math.ceil(n / _SPLIT_TILE_N)
+    splits = max(1, min(MAX_SPLITS, k_steps, SPLIT_BLOCKS_PER_SM * sms // tiles))
+    steps = math.ceil(k_steps / splits)
+    splits = math.ceil(k_steps / steps)  # no split without a step
+    return Schedule("split_k", splits, steps, splits * tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _row_ends(group_sizes: torch.Tensor, m: int) -> list:
@@ -115,15 +165,15 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     if lhs.device.type == "cpu":
         return gmm_plain(lhs, rhs, group_sizes, transpose_rhs)
     _check_kernel_operands("gmm", lhs, rhs, group_sizes, (k, n))
+    if m == 0 or n == 0 or k == 0:
+        return torch.zeros(m, n, dtype=lhs.dtype, device=lhs.device)
     out = torch.empty(m, n, dtype=lhs.dtype, device=lhs.device)
-    if m == 0 or n == 0:
-        return out
-    lib = _kernels.library()
-    meta = torch.empty(lib.gmm_meta_words(E), dtype=torch.int32, device=lhs.device)
-    code = lib.gmm_launch(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-                          meta.data_ptr(), m, k, n, E, int(transpose_rhs),
-                          int(lhs.dtype == torch.float32),
-                          torch.cuda.current_stream(lhs.device).cuda_stream)
+    sms = _sm_count(lhs.device.index)
+    sched = gmm_schedule(m, k, n, E, lhs.dtype, sms)
+    code = _kernels.library().gmm_launch(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, k, n, E,
+        int(transpose_rhs), int(lhs.dtype == torch.float32), sched.splits, sms,
+        torch.cuda.current_stream(lhs.device).cuda_stream)
     _kernels.check(code, "gmm")
     gmm.launches += 1
     return out
@@ -139,14 +189,13 @@ def tgmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> tor
     if lhs.device.type == "cpu":
         return tgmm_plain(lhs, rhs, group_sizes)
     _check_kernel_operands("tgmm", lhs, rhs, group_sizes, (k, n))
+    if m == 0 or k == 0 or n == 0:
+        return torch.zeros(E, k, n, dtype=lhs.dtype, device=lhs.device)
     out = torch.empty(E, k, n, dtype=lhs.dtype, device=lhs.device)
-    if k == 0 or n == 0:
-        return out
-    lib = _kernels.library()
-    meta = torch.empty(lib.gmm_meta_words(E), dtype=torch.int32, device=lhs.device)
-    code = lib.tgmm_launch(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-                           meta.data_ptr(), m, k, n, E, int(lhs.dtype == torch.float32),
-                           torch.cuda.current_stream(lhs.device).cuda_stream)
+    code = _kernels.library().tgmm_launch(
+        lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, k, n, E,
+        int(lhs.dtype == torch.float32), _sm_count(lhs.device.index),
+        torch.cuda.current_stream(lhs.device).cuda_stream)
     _kernels.check(code, "tgmm")
     tgmm.launches += 1
     return out

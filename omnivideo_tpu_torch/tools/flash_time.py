@@ -1,7 +1,8 @@
-"""Time the flash-attention kernels of one checkout at the main paths' shapes.
+"""Time the flash-attention kernels (and the MoE's grouped products) of one
+checkout at the main paths' shapes.
 
     PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
-        [--which fwd|bwd|fwd_lse|ring|ring_f32|all ...]
+        [--which fwd|bwd|fwd_lse|ring|ring_f32|gmm|all ...]
 
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
@@ -26,6 +27,20 @@ at the Qwen3 SFT's `--sp` shapes (32 heads, f32 q/k/v, token-causal): the
 world-1 step's own shard [2, 2048, 32, 128], and a 4-card run's per-rank
 [2, 512, 32, 128] own shard and an earlier shard (every key visible); its
 bound is three tf32 products of the visible pairs' FLOPs at 495 TFLOP/s.
+`gmm` times the MoE's grouped products (rows 9 and 9b) through the
+`ops.gmm.gmm` / `tgmm` wrappers, whose signature every checkout since they
+were added shares, at Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
+768 → 2,048) with a seeded skewed routing: the prefill's gate/up and down
+(1,481 tokens, 11,848 rows, bf16), the decode's (8 rows), the SFT's f32
+forward and input gradient (2,048 tokens, 16,384 rows; the bank transposed
+for the gradient), and tgmm in bf16 at the prefill's rows and in f32 at the
+SFT's; each with its bound from the routed data (the experts hit: bytes at
+3.35 TB/s, or the FLOPs at 989 TFLOP/s bf16, or f32 as three tf32 products at
+495 TFLOP/s, with FFMA's 67 TFLOP/s bound beside it), the kernel
+time a call from torch.profiler and the host's enqueue time a call (the
+event time `ms` is the larger of the two), and, for bf16,
+`torch._grouped_mm`'s time on the same operands (a yardstick the port never
+calls).
 Each case prints one JSON line with the device time per launch
 (CUDA events) of `rounds` rounds of `reps` launches each, after one untimed
 round, and the bound: the case's matmul FLOPs over the H100's 989 TFLOP/s.
@@ -39,9 +54,11 @@ checkout's kernels on first use.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import subprocess
+import time
 
 import torch
 
@@ -66,6 +83,19 @@ RING_F32_CASES = (  # (case, q rows = keys, my, src, n), token-causal, 32 heads
     ("ring_f32_rank4_earlier", 512, 2, 1, 4),
 )
 N, D = 12, 128
+GMM_CASES = (  # (case, op, tokens, dtype, k, n, transpose_rhs)
+    ("prefill_gate_up", "gmm", 1481, torch.bfloat16, 2048, 768, False),
+    ("prefill_down", "gmm", 1481, torch.bfloat16, 768, 2048, False),
+    ("decode_gate_up", "gmm", 1, torch.bfloat16, 2048, 768, False),
+    ("decode_down", "gmm", 1, torch.bfloat16, 768, 2048, False),
+    ("sft_forward_f32", "gmm", 2048, torch.float32, 2048, 768, False),
+    ("sft_input_grad_f32", "gmm", 2048, torch.float32, 768, 2048, True),
+    ("tgmm_prefill_bf16", "tgmm", 1481, torch.bfloat16, 2048, 768, False),
+    ("tgmm_sft_f32", "tgmm", 2048, torch.float32, 2048, 768, False),
+)
+EXPERTS, TOP_K = 128, 8
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # FFMA
 BF16_FLOPS = 989e12  # the H100 SXM's dense bf16 tensor-core rate
 TF32_FLOPS = 495e12  # dense tf32; the f32 ring step takes three tf32 products per product
 ROUND_FLOP = 2e13  # least work per `fwd` round: ~20 ms at the bf16 rate
@@ -209,12 +239,86 @@ def _ring_f32(args, smi, gen) -> None:
         del q, k, v, m, l, acc
 
 
+def _device_and_host(fn, reps: int) -> tuple:
+    """(ms of kernel time a call, from torch.profiler's device time of every
+    kernel the calls launch; µs of host time a call to enqueue them). Where
+    the host takes longer than the card, the event time of `_time` is the
+    host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return dev_us / reps / 1e3, host_us
+
+
+def _routed_sizes(tokens: int, gen) -> torch.Tensor:
+    """Group sizes of a seeded top-8 routing over 128 experts, skewed as a
+    trained router's (some experts popular, some never hit)."""
+    logits = torch.randn(tokens, EXPERTS, generator=gen, device="cuda")
+    logits += 1.5 * torch.randn(EXPERTS, generator=gen, device="cuda")
+    flat = torch.topk(logits, TOP_K, dim=-1).indices.reshape(-1)
+    return torch.bincount(flat, minlength=EXPERTS).to(torch.int32)
+
+
+def _gmm(args, smi, gen) -> None:
+    gmm_mod = importlib.import_module("omnivideo_tpu_torch.ops.gmm")  # the module, not `gmm`
+    for name, op, tokens, dtype, k, n, trans in GMM_CASES:
+        sizes = _routed_sizes(tokens, gen)
+        m = tokens * TOP_K
+        lhs = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        hit, esize = int((sizes > 0).sum()), lhs.element_size()
+        if op == "gmm":
+            rhs = (torch.randn(EXPERTS, *((n, k) if trans else (k, n)), generator=gen,
+                               device="cuda") * 0.02).to(dtype)
+            fn = lambda: gmm_mod.gmm(lhs, rhs, sizes, transpose_rhs=trans)  # noqa: E731
+            nbytes = (hit * k * n + m * k + m * n) * esize
+            lib_args = (lhs, rhs.transpose(1, 2) if trans else rhs)
+        else:
+            rhs = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+            fn = lambda: gmm_mod.tgmm(lhs, rhs, sizes)  # noqa: E731
+            nbytes = (m * (k + n) + EXPERTS * k * n) * esize
+            lib_args = (lhs.T, rhs)
+        flop = 2.0 * m * k * n
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS / 3  # f32: 3 tf32 products
+        reps = args.reps * (20 if tokens == 1 else 1)
+        rec = {"case": name, "op": op, "dtype": str(dtype).split(".")[-1], "m": m, "k": k,
+               "n": n, "experts_hit": hit, "transpose_rhs": trans,
+               "ms": _time(fn, reps, args.rounds),
+               **dict(zip(("kernel_ms", "host_us"), _device_and_host(fn, reps))),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, flop / peak) * 1e3,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flop / peak else "operations"}
+        if dtype == torch.float32:
+            rec["bound_ffma_ms"] = max(nbytes / HBM_BYTES_PER_S, flop / F32_FLOPS) * 1e3
+        schedule = getattr(gmm_mod, "gmm_schedule", None)
+        if op == "gmm" and schedule is not None:
+            rec["schedule"] = schedule(m, k, n, EXPERTS, dtype, torch.cuda.get_device_properties(
+                0).multi_processor_count)._asdict()
+        grouped_mm = getattr(torch, "_grouped_mm", None)
+        if dtype == torch.bfloat16 and grouped_mm is not None:
+            offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+            rec["library_ms"] = _time(lambda: grouped_mm(*lib_args, offs=offs), reps, args.rounds)
+        print(json.dumps({**rec, "package": gmm_mod.__file__, "nvidia_smi": smi}), flush=True)
+        del lhs, rhs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--which", nargs="+",
-                    choices=("fwd", "bwd", "fwd_lse", "ring", "ring_f32", "all"),
+                    choices=("fwd", "bwd", "fwd_lse", "ring", "ring_f32", "gmm", "all"),
                     default=["fwd"])
     ap.add_argument("--cases", nargs="+", choices=[c[0] for c in FWD_CASES],
                     help="only these `fwd` cases (default: all)")
@@ -232,6 +336,8 @@ def main() -> None:
         _ring(args, smi, gen)
     if {"ring_f32", "all"} & set(args.which):
         _ring_f32(args, smi, gen)
+    if {"gmm", "all"} & set(args.which):
+        _gmm(args, smi, gen)
 
 
 if __name__ == "__main__":

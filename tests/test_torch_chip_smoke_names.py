@@ -25,6 +25,7 @@ import chip_smoke
 
 ROOT = Path(__file__).resolve().parents[1]
 FWD = "_ZN45_GLOBAL__N__ef34e349_12_flash_fwd_cu_532615524fwdh15attn_fwd_kernel"
+GMM_NS = "_ZN42_GLOBAL__N__1b2c3d4e_6_gmm_cu_5f6a7b8c"
 MANGLED = {  # row → the entry function as ptxas names it
     "flash_fwd": FWD + "INS_8InferOutILi128EEEEEvNS0_4MapsET_f",
     "flash_d72": FWD + "INS_8InferOutILi72EEEEEvNS0_4MapsET_f",
@@ -42,10 +43,16 @@ MANGLED = {  # row → the entry function as ptxas names it
                    "EPKfPKvS1_S1_S1_S1_S1_PfPviiiif",
     "ring_step_f32": "_ZN49_GLOBAL__N__ba5cd9de_16_ring_step_f32_cu_7d4311e220ring_step_f32_kernel"
                      "ENS_4MapsENS_4StepE",
-    "gmm": "_ZN42_GLOBAL__N__1b2c3d4e_6_gmm_cu_5f6a7b8c10gmm_kernelI13__nv_bfloat16Lb0EEEvPKT_S5_"
-           "PS3_PKiiiiii",
-    "tgmm": "_ZN42_GLOBAL__N__1b2c3d4e_6_gmm_cu_5f6a7b8c11tgmm_kernelIfEEvPKT_S4_PS2_PKiii",
+    "gmm": GMM_NS + "16gmm_wgmma_kernelILb0EEEvNS_4MapsENS_4ArgsE",
+    "tgmm": GMM_NS + "17tgmm_wgmma_kernelENS_4MapsENS_4ArgsE",
 }
+ROW9_MANGLED = (  # every entry function of rows 9 and 9b, with its row
+    (GMM_NS + "16gmm_wgmma_kernelILb1EEEvNS_4MapsENS_4ArgsE", "gmm"),
+    (GMM_NS + "17gmm_splitk_kernelILb0EEEvNS_4MapsENS_4ArgsEiii", "gmm"),
+    (GMM_NS + "15gmm_tf32_kernelILb1EEEvNS_4MapsENS_2tf4ArgsE", "gmm"),
+    (GMM_NS + "17tgmm_wgmma_kernelENS_4MapsENS_4ArgsE", "tgmm"),
+    (GMM_NS + "16tgmm_tf32_kernelENS_4MapsENS_2tf4ArgsE", "tgmm"),
+)
 _NS = "(anonymous namespace)::"
 DEMANGLED = {  # row → the kernel as the profiler names it
     "flash_fwd": f"void {_NS}fwdh::attn_fwd_kernel<{_NS}InferOut<128> >({_NS}fwdh::Maps, "
@@ -70,10 +77,8 @@ DEMANGLED = {  # row → the kernel as the profiler names it
                    "void const*, void const*, void const*, float*, void*, int, int, int, int, "
                    "int, float)",
     "ring_step_f32": f"{_NS}ring_step_f32_kernel({_NS}Maps, {_NS}Step)",
-    "gmm": f"void {_NS}gmm_kernel<__nv_bfloat16, true>(__nv_bfloat16 const*, "
-           "__nv_bfloat16 const*, __nv_bfloat16*, int const*, int, int, int, int, int)",
-    "tgmm": f"void {_NS}tgmm_kernel<float>(float const*, float const*, float*, int const*, int, "
-            "int)",
+    "gmm": f"void {_NS}gmm_splitk_kernel<true>({_NS}Maps, {_NS}Args, int, int, int)",
+    "tgmm": f"{_NS}tgmm_wgmma_kernel({_NS}Maps, {_NS}Args)",
 }
 
 
@@ -103,7 +108,7 @@ def test_kernel_class_from_demangled_name(row):
 
 @pytest.mark.parametrize("name,cls", [
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float> >", "elementwise"),
-    (f"{_NS}gmm_meta_kernel(int const*, int, int, int*)", "other"),  # rows 9/9b's work list
+    (f"{_NS}gmm_meta_kernel(int const*, int, int, int*)", "other"),  # not a product
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x256x64_warpgroupsize2x1x1", "gemm"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float> >", "reduce"),
     (FWD + "INS_8InferOutILi96EEEEEvNS0_4MapsET_f", "other"),  # no such row
@@ -123,6 +128,21 @@ def test_ptxas_by_kernel_reports_each_row(row):
     got = chip_smoke.ptxas_by_kernel(log)
     assert set(got) == set(rows)
     assert got[row] == {"registers": 100 + i, "spill_stores": 8 * i, "spill_loads": 16 * i}
+
+
+@pytest.mark.parametrize("name,row", ROW9_MANGLED)
+def test_kernel_row_of_each_grouped_product(name, row):
+    assert chip_smoke.kernel_row(name) == row
+
+
+def test_ptxas_by_kernel_takes_the_most_over_a_rows_kernels():
+    """Rows 9 and 9b are served by several entry functions: the report
+    keeps each row's most registers and spills, whichever kernel has them."""
+    log = "".join(_ptxas_block(name, 90 + 20 * i, 4 * (i % 2))
+                  for i, (name, _) in enumerate(ROW9_MANGLED))
+    got = chip_smoke.ptxas_by_kernel(log)
+    assert got == {"gmm": {"registers": 130, "spill_stores": 4, "spill_loads": 8},
+                   "tgmm": {"registers": 170, "spill_stores": 4, "spill_loads": 8}}
 
 
 @pytest.mark.parametrize("line,hit", [

@@ -56,7 +56,14 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
-from omnivideo_tpu_torch.ops.gmm import GroupedMatmul, gmm, gmm_plain, tgmm, tgmm_plain
+from omnivideo_tpu_torch.ops.gmm import (
+    GroupedMatmul,
+    gmm,
+    gmm_plain,
+    gmm_schedule,
+    tgmm,
+    tgmm_plain,
+)
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
@@ -1018,6 +1025,118 @@ def test_grouped_matmul_backward_on_the_card(cuda):
     for e in range(4):
         if sizes[e]:
             assert _gmm_ok(rhs.grad[e].reshape(1, -1), ref_r[e].reshape(1, -1), torch.float32)
+
+
+def _gmm_matches_plain(cuda, m, sizes, k, n, dtype, transpose_rhs, kind, seed, tail=0.0):
+    """gmm on the card against gmm_plain: `kind` is the schedule the wrapper
+    picks, the rows of the groups within the limit, the rows past the group
+    sum exactly zero (they hold `tail` in lhs: NaN must not reach a group's
+    row), the same bits on a second call."""
+    E = len(sizes)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    lhs = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    total = min(sum(sizes), m)
+    lhs[total:] = tail
+    rhs = torch.randn(*((E, n, k) if transpose_rhs else (E, k, n)), generator=gen,
+                      device=cuda).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    sched = gmm_schedule(m, k, n, E, dtype, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert sched.kind == kind
+    n0 = gmm.launches
+    out = gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    torch.cuda.synchronize()
+    assert gmm.launches == n0 + 1 and out.shape == (m, n) and out.dtype == dtype
+    ref = gmm_plain(lhs, rhs, gs, transpose_rhs)
+    assert torch.count_nonzero(out[total:]) == 0
+    assert torch.isfinite(out).all()
+    assert _gmm_ok(out[:total], ref[:total], dtype), _gmm_err(out[:total], ref[:total], dtype)
+    assert torch.equal(gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs), out)
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_gmm_few_rows_split_k(cuda, m, transpose_rhs):
+    """The decode's schedule (bf16, m <= 64): one-row groups among empty ones
+    at Qwen3-VL-30B-A3B's widths, k split over a cluster; and a call whose
+    group sizes sum below m."""
+    sizes = [1, 0] * m
+    _gmm_matches_plain(cuda, m, sizes, 2048, 768, torch.bfloat16, transpose_rhs, "split_k", m)
+    _gmm_matches_plain(cuda, m, sizes, 768, 2048, torch.bfloat16, transpose_rhs, "split_k", m + 1)
+    if m > 1:
+        short = [1, 0] * (m - 1) + [0, 0]
+        _gmm_matches_plain(cuda, m, short, 2048, 768, torch.bfloat16, transpose_rhs, "split_k",
+                           m + 2, tail=float("nan"))
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gmm_many_rows_boundaries(cuda, dtype, transpose_rhs):
+    """A group boundary inside a 128-row tile (37 rows, then 400: four tiles
+    from row 37), an empty group, a group larger than several tiles, and
+    rows past the sum holding NaN."""
+    kind = "wgmma" if dtype == torch.bfloat16 else "tf32"
+    _gmm_matches_plain(cuda, 760, [37, 400, 0, 263], 2048, 768, dtype, transpose_rhs, kind, 3,
+                       tail=float("nan"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,kind", [(8, "split_k"), (300, "wgmma")])
+def test_gmm_widths_not_tile_multiples(cuda, dtype, m, kind):
+    """k and n multiples of 8 but not of the 64-deep panel or the 128/256-
+    wide tiles."""
+    kind = kind if dtype == torch.bfloat16 else "tf32"
+    sizes = [3, 0, 2, 3] if m == 8 else [100, 0, 150, 50]
+    for k, n in ((72, 40), (136, 264)):
+        for transpose_rhs in (False, True):
+            _gmm_matches_plain(cuda, m, sizes, k, n, dtype, transpose_rhs, kind, k + n)
+
+
+@pytest.mark.parametrize("m", [8, 3000])
+def test_gmm_one_and_1024_groups(cuda, m):
+    """E = 1 (every row one expert's) and E = 1024 (the most the scan takes,
+    most of them empty)."""
+    gen = np.random.default_rng(m)
+    many = [0] * 1024
+    for e in gen.choice(1024, size=min(m, 200), replace=False):
+        many[e] = m // min(m, 200)
+    kind = "split_k" if m <= 64 else "wgmma"
+    for transpose_rhs in (False, True):
+        _gmm_matches_plain(cuda, m, [m], 256, 128, torch.bfloat16, transpose_rhs, kind, 1)
+        _gmm_matches_plain(cuda, m, many, 128, 64, torch.bfloat16, transpose_rhs, kind, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tgmm_neighbour_rows_do_not_leak(cuda, dtype):
+    """tgmm where each group's neighbours hold rows 1000x larger and the rows
+    past the group sum hold NaN: a group's block sums its own rows only (a
+    neighbour's row in a 64-row step would miss the limit by far), an empty
+    group's block is zero, and E = 1 and 1024 run too."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    sizes = [37, 0, 130, 1, 64, 70, 5]
+    m, k, n = 400, 264, 200
+    lhs = torch.randn(m, k, generator=gen, device=cuda)
+    rhs = torch.randn(m, n, generator=gen, device=cuda)
+    start = 0
+    for e, size in enumerate(sizes):
+        if e % 2:
+            lhs[start:start + size] *= 1000
+            rhs[start:start + size] *= 1000
+        start += size
+    lhs[start:] = float("nan")
+    rhs[start:] = float("nan")
+    lhs, rhs = lhs.to(dtype), rhs.to(dtype)
+    for gs_list in (sizes, [start], [0] * 1000 + sizes + [0] * 17):
+        gs = torch.tensor(gs_list, dtype=torch.int32, device=cuda)
+        out = tgmm(lhs, rhs, gs)
+        torch.cuda.synchronize()
+        ref = tgmm_plain(lhs, rhs, gs)
+        for e, size in enumerate(gs_list):
+            if size:
+                assert _gmm_ok(out[e].reshape(1, -1), ref[e].reshape(1, -1), dtype), (e, _gmm_err(
+                    out[e].reshape(1, -1), ref[e].reshape(1, -1), dtype))
+            else:
+                assert torch.count_nonzero(out[e]) == 0, e
+        assert torch.equal(tgmm(lhs, rhs, gs), out)
 
 
 def test_gmm_kernels_refuse_bad_operands(cuda):

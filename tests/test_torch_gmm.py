@@ -29,9 +29,13 @@ from torch_qwen3vl_tiny import build, scale_err, tiny_config
 from omnivideo_tpu.models.qwen3vl import text_model as jtext
 from omnivideo_tpu_torch.models.qwen3vl import text_model as ptext
 from omnivideo_tpu_torch.ops.gmm import (
+    DECODE_ROWS,
+    MAX_SPLITS,
+    SPLIT_BLOCKS_PER_SM,
     GroupedMatmul,
     gmm,
     gmm_plain,
+    gmm_schedule,
     tgmm,
     tgmm_plain,
 )
@@ -241,3 +245,43 @@ def test_wrappers_check_shapes():
             transpose_rhs=True)
     with pytest.raises(ValueError, match="rows"):
         tgmm(lhs, torch.zeros(5, 4), torch.tensor([3, 3], dtype=torch.int32))
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("m,k,n,E", [(1, 2048, 768, 128), (8, 2048, 768, 128),
+                                     (8, 768, 2048, 128), (64, 2048, 768, 128),
+                                     (8, 264, 200, 10), (3, 72, 40, 4), (8, 128, 64, 1024)])
+def test_gmm_schedule_splits_k_at_few_rows(m, k, n, E):
+    """bf16 at m <= DECODE_ROWS: the split-k kernel, its splits within a
+    cluster's portable size and the k steps, none of them empty, and its
+    blocks within one wave of SPLIT_BLOCKS_PER_SM an SM unless one split
+    alone is more."""
+    sched = gmm_schedule(m, k, n, E, torch.bfloat16, H100_SMS)
+    k_steps = -(-k // 64)
+    tiles = min(E, m) * -(-n // 128)
+    assert sched.kind == "split_k"
+    assert 1 <= sched.splits <= min(MAX_SPLITS, k_steps)
+    assert sched.steps * sched.splits >= k_steps > sched.steps * (sched.splits - 1)
+    assert sched.blocks == sched.splits * tiles
+    assert sched.blocks <= max(tiles, SPLIT_BLOCKS_PER_SM * H100_SMS)
+
+
+def test_gmm_schedule_at_the_decode():
+    """The Qwen3-VL-30B-A3B decode (8 rows, top-8 of 128 experts) on 132 SMs:
+    gate/up splits its 32 k steps 8 ways, down its 12 three ways; both fill
+    384 of the 396 block slots."""
+    assert tuple(gmm_schedule(8, 2048, 768, 128, torch.bfloat16, H100_SMS)) == (
+        "split_k", 8, 4, 384)
+    assert tuple(gmm_schedule(8, 768, 2048, 128, torch.bfloat16, H100_SMS)) == (
+        "split_k", 3, 4, 384)
+
+
+@pytest.mark.parametrize("m", [DECODE_ROWS + 1, 11848])
+def test_gmm_schedule_many_rows_and_f32(m):
+    """Past DECODE_ROWS bf16 runs the persistent wgmma kernel; f32 runs the
+    TF32 kernel at any m; neither depends on anything but the static shape."""
+    assert gmm_schedule(m, 2048, 768, 128, torch.bfloat16, H100_SMS).kind == "wgmma"
+    for rows in (1, m):
+        assert gmm_schedule(rows, 2048, 768, 128, torch.float32, H100_SMS).kind == "tf32"
