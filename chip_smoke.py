@@ -20,6 +20,8 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py serve      # e2e (VLM features seeded), then serve, export and
                                      # eval_videos on its pipeline
     python3 chip_smoke.py gmm        # the MoE's grouped products (rows 9, 9b) alone
+    python3 chip_smoke.py vlm_fsdp   # the vlm model, then vlm_fsdp: with 2+ cards its
+                                     # multi-card part runs
 
 Phases, each printing one JSON line; any failure raises (non-zero exit):
   device    card name and power limit, torch/CUDA versions, precision
@@ -49,7 +51,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             draw: the vlm phase's prefill (11,848 rows, bf16), a decode step
             (8 rows), the SFT's f32 step (16,384 rows: forward, the input's
             gradient through the transposed bank, the bank's by tgmm), tgmm
-            in bf16; one expert with every row, group sizes summing below m
+            in bf16; the prefill's and the decode's gate/up and down at the
+            widths of the banks split over 2 and 4 cards (vlm_fsdp: n and k
+            384 or 192); one expert with every row, group sizes summing below m
             (those rows exactly zero), half the experts empty, the few-row
             schedule at 1 and 64 rows, tgmm with each group's neighbours
             1000x larger and NaN past the sum; bf16 rows within
@@ -100,8 +104,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             per row; the summary's keys; preprocess_video on the card
             within PV_MAX_LEVELS of the CPU); stage 2: ar_feature_extract's per-row
             function with that engine on the stage-1 file (54 flash_d72 and
-            three flash_causal per layer); then the text-only pass (text_only
-            below) on its text stack; the model is freed, and one T2V-1.3B
+            three flash_causal per layer); then vlm_fsdp below on the
+            model as built, then the text-only pass (text_only below) on
+            its text stack; the model is freed, and one T2V-1.3B
             train step (the train phase's settings) reads the extracted
             file through training/dataset.py (its launches asserted);
   text_only the vlm model's text stack as a text-only Qwen3 (qwen3_forward
@@ -113,6 +118,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   qwen3_sp  qwen3_forward_sp on a NCCL group of world 1 (a token-causal
             ring_step launch per layer) against qwen3_forward on the same weights,
             SP_TOL of scale (run from the text-only pass);
+  vlm_fsdp  the sharded Qwen3-VL engine (generate --vlm_fsdp) on the vlm
+            model: an NCCL group of world 1, the model's MoEs given its
+            ExpertShard through Qwen3VLEngine.from_model (the f32 combine,
+            the group's all-reduce and the cross-rank routing check at
+            every MoE layer), feature forward and 16-token decode within
+            VLM_FSDP_TOL of scale of the unsharded run and its tokens up to
+            a near-tie, launches per pass asserted (3 gmm a MoE layer); the
+            all-reduce's ms at a prefill's and a decode step's rows; a
+            seeded transformers-layout checkpoint (fused gate_up_proj) of
+            the model's first 2 text layers read as rank 1 of 4, every
+            tensor bit-equal to its source's slice, its load seconds and
+            rate. Alone with 2+ cards (`chip_smoke.py vlm_fsdp`): min(4,
+            count) ranks hold their shards of the 24-layer model, features
+            within VLM_FSDP_TOL and tokens up to a near-tie of the
+            unsharded run, features and tokens bit-equal across the ranks;
+            then at 48 layers each rank's peak memory, bytes held, vision_s,
+            prefill_s, decode ms/token and all-reduce ms; and the
+            checkpoint read as each rank's shard;
   e2e       OmniVideoX2XUnified.random_init(T2V_1_3B) at full width and depth,
             832x480, 81 frames, 2 UniPC steps, CFG 5.0, conditioned on the
             vlm phase's features (ar_vision_input), VAE decode to uint8, with
@@ -362,6 +385,7 @@ from omnivideo_tpu_torch.configs.qwen3vl import (
     Qwen3VLConfig,
     Qwen3VLVisionConfig,
 )
+from omnivideo_tpu_torch.io.hf_reader import load_qwen3vl_dir
 from omnivideo_tpu_torch.io.jax_bridge import to_torch
 from omnivideo_tpu_torch.models.qwen3vl import full_model as vlm_full
 from omnivideo_tpu_torch.models.qwen3vl import text_model as vlm_text
@@ -423,6 +447,14 @@ from omnivideo_tpu_torch.ops.ring_attention import (
 from omnivideo_tpu_torch.ops.qk_prep import qk_prep, qk_prep_plain, row_tiles
 from omnivideo_tpu_torch.ops.rope import rope_3d_tables
 from omnivideo_tpu_torch.parallel.distributed import maybe_initialize_distributed
+from omnivideo_tpu_torch.parallel.expert_shard import (
+    ExpertShard,
+    expert_slice,
+    shard_bytes,
+    shard_experts,
+    shard_plan,
+    vlm_group,
+)
 from omnivideo_tpu_torch.parallel.mesh import create_mesh
 from omnivideo_tpu_torch.parallel.sharding import shard_params
 from omnivideo_tpu_torch.pipelines.i2v import WanI2V
@@ -1234,6 +1266,7 @@ GMM_BF16_ULPS = 4.0  # bf16 out of f32 sums: the tensor cores add the products o
 # as the flash rows
 GMM_F32_TOL = 1e-5  # f32, of each row's max |plain|: the same products summed in another order
 GMM_TOKENS = (1481, 1, 2048)  # the vlm phase's prompt (L), a decode step, the SFT's batch
+VLM_SPLITS = (2, 4)  # vlm_fsdp's cards: each holds 768 / n of every expert's columns
 
 
 def _routed(tokens: int, experts: int, k: int, gen: torch.Generator, skew: float = 1.5):
@@ -1394,7 +1427,10 @@ def phase_gmm(gen: torch.Generator) -> dict:
     m (the rows past are zero), half the experts never routed, the few-row
     schedule at 1 and 64 rows, and tgmm where each group's neighbours hold
     rows 1000x larger and the rows past the sum NaN (a row of another group
-    in a group's last step would miss the limit by far). Returns
+    in a group's last step would miss the limit by far); the prefill's and
+    the decode's products at vlm_fsdp's split widths (768 / n columns of
+    each bank, n in VLM_SPLITS: the wide kernel's last 256-column tile
+    partial, the split-k kernel over 3 or 6 k steps). Returns
     {"gmm": the prefill gate/up case, "tgmm": the SFT's bank gradient,
     "cases": all}."""
     cfg = QWEN3_VL_30B_A3B.text
@@ -1433,6 +1469,15 @@ def phase_gmm(gen: torch.Generator) -> dict:
     cases.append(_tgmm_case("tgmm_neighbours_1000x_nan_tail_bf16", leak_x, leak_h, leak_sizes,
                             reps=3))
     del leak_x, leak_h
+    for n in VLM_SPLITS:  # rank 0's columns of the banks split over n cards (vlm_fsdp)
+        w = M // n
+        up_n, down_n, h_n = up[:, :, :w].contiguous(), down[:, :w].contiguous(), h[:, :w]
+        cases.append(_gmm_case(f"split{n}_prefill_gate_up", xs, up_n, sizes))
+        cases.append(_gmm_case(f"split{n}_prefill_down", h_n.contiguous(), down_n, sizes))
+        cases.append(_gmm_case(f"split{n}_decode_gate_up", xs1, up_n, sizes1, reps=200))
+        cases.append(_gmm_case(f"split{n}_decode_down", h_n[:xs1.shape[0]].contiguous(), down_n,
+                               sizes1, reps=200))
+        del up_n, down_n, h_n
     one = torch.zeros(E, dtype=torch.int32, device="cuda")
     one[3] = 1000
     cases.append(_gmm_case("one_expert_all_rows", xs[:1000].contiguous(), up, one))
@@ -1510,68 +1555,26 @@ def _vlm_per_expert_check(model, ids, patches, grid, feats, toks) -> dict:
     the first near-tie. The free run's gaps (`feats`, `toks`: the port's own
     routing) are reported beside them: a router near-tie flipped by a bf16
     rounding swaps a token's expert, which says nothing about the kernels."""
-    route, moe_fn, sample = vlm_text.router, vlm_text.moe, vlm_full.sample_token
-    calls, margins, used = [], [], [0]
-
-    def record(mlp, xt):
-        topv, topi, probs = route(mlp, xt)
-        calls.append(topi)
-        return topv, topi, probs
-
-    def replay(mlp, xt):
-        topv, topi, probs = route(mlp, xt)
-        if used[0] < len(calls) and calls[used[0]].shape == topi.shape:
-            topi = calls[used[0]]
-            topv = probs.gather(1, topi)
-            if mlp.cfg.norm_topk_prob:
-                topv = topv / topv.sum(-1, keepdim=True)
-        used[0] += 1
-        return topv, topi, probs
-
-    def spy(logits, *args):
-        top2 = logits.float().topk(2).values
-        margins.append(float((top2[0] - top2[1]) / logits.float().abs().max()))
-        return sample(logits, *args)
-
-    out = {}
+    moe_fn = vlm_text.moe
+    vlm_text.moe = _moe_per_expert
     try:
-        for name, moe_impl, router_impl in (("per_expert", _moe_per_expert, record),
-                                            ("replayed", moe_fn, replay)):
-            vlm_text.moe, vlm_text.router = moe_impl, router_impl
-            vlm_full.sample_token = spy if name == "per_expert" else sample
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            f = extract_features(model, ids, patches, grid, drop_idx=SYSTEM_PREFIX)
-            torch.cuda.synchronize()
-            features_s = time.perf_counter() - t0
-            timings = {}
-            t = qwen3vl_greedy_decode(model, ids, patches, grid, max_new_tokens=VLM_NEW_TOKENS,
-                                      timings=timings)
-            out[name] = {"features": f["vlm_last_hidden_states"], "tokens": np.asarray(t),
-                         "features_s": features_s, **timings}
+        ref = _vlm_run(model, ids, patches, grid)
     finally:
-        vlm_text.moe, vlm_text.router, vlm_full.sample_token = moe_fn, route, sample
-    ref = out["per_expert"]
-
-    def first_gap(t):
-        d = np.nonzero(np.asarray(t) != ref["tokens"])[0]
-        return int(d[0]) if len(d) else None
-
-    scale = ref["features"].abs().max()
-    rel = float((out["replayed"]["features"] - ref["features"]).abs().max() / scale)
-    first, free_first = first_gap(out["replayed"]["tokens"]), first_gap(toks)
-    rec = {"features_rel_err_replayed": rel, "tolerance_rel": VLM_PATH_TOL,
-           "features_rel_err_own_routing": float((feats - ref["features"]).abs().max() / scale),
+        vlm_text.moe = moe_fn
+    replayed = _vlm_run(model, ids, patches, grid, replay=ref["routing"])
+    held = _held_to(replayed, ref)
+    free = _held_to({"features": feats, "tokens": toks}, ref)
+    rec = {"features_rel_err_replayed": held["features_rel_err"], "tolerance_rel": VLM_PATH_TOL,
+           "features_rel_err_own_routing": free["features_rel_err"],
            "tokens_per_expert": ref["tokens"].tolist(),
-           "tokens_replayed": out["replayed"]["tokens"].tolist(),
-           "first_divergence_replayed": first, "first_divergence_own_routing": free_first,
-           "per_expert_margins": margins, "near_tie": VLM_NEAR_TIE,
-           "router_calls": len(calls), "replayed_calls": used[0],
+           "tokens_replayed": replayed["tokens"].tolist(),
+           "first_divergence_replayed": held["first_divergence"],
+           "first_divergence_own_routing": free["first_divergence"],
+           "per_expert_margins": ref["margins"], "near_tie": VLM_NEAR_TIE,
+           "router_calls": len(ref["routing"]),
            "per_expert_features_s": ref["features_s"], "per_expert_prefill_s": ref["prefill_s"],
            "per_expert_decode_ms_per_token": ref["decode_s"] / ref["decode_steps"] * 1e3}
-    del out
-    if (rel > VLM_PATH_TOL or used[0] != len(calls)
-            or (first is not None and margins[first] >= VLM_NEAR_TIE)):
+    if held["features_rel_err"] > VLM_PATH_TOL or not held["tokens_agree_up_to_near_tie"]:
         raise AssertionError(f"vlm per-expert check: {rec}")
     return rec
 
@@ -1656,16 +1659,7 @@ def phase_vlm(clip: Path) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
-    # the captioning pixel budget (480²…4·480²) keeps 832x480
-    size = smart_resize(SIZE[1], SIZE[0], vc.patch_size * vc.spatial_merge_size,
-                        480 * 480, 4 * 480 * 480)
-    frames = np.random.default_rng(0).integers(0, 256, (VLM_FRAMES, *size, 3), dtype=np.uint8)
-    patches, grid = frames_to_patches(frames, vc.patch_size, vc.temporal_patch_size,
-                                      vc.spatial_merge_size)
-    if size != (SIZE[1], SIZE[0]) or grid != VLM_GRID:
-        raise AssertionError(f"vlm: resize {size}, grid {grid}")
-    ids = vlm_prompt_ids(cfg, grid)
-    patches = torch.from_numpy(patches).cuda()
+    ids, patches, grid = vlm_inputs(cfg)
 
     guard = []  # the vision tower's softmax guard, one device flag per block
     bound_fn = flash_mod.softmax_bound
@@ -1720,6 +1714,9 @@ def phase_vlm(clip: Path) -> dict:
     image = _image_pass(model, clip.parent)
     eval_vlm = _eval_vlm_pass(model, clip)
     ar = _ar_extract(model, vae)
+    fsdp = phase_vlm_fsdp(model, ids, patches, grid, clip.parent)  # before text_only adapts it
+    shutil.rmtree(fsdp.pop("ckpt_dir"), ignore_errors=True)
+    del fsdp["ref"]
     text = phase_text_only(model, ids, patches, grid)
     steps = timings["decode_steps"]
     rec = {"phase": "vlm", "config": "QWEN3_VL_30B_A3B", "text_layers": cfg.text.num_hidden_layers,
@@ -1739,9 +1736,11 @@ def phase_vlm(clip: Path) -> dict:
            "profile": profile, "engine": engine, "image": image, "eval_vlm": eval_vlm,
            "vae_feature_extract": {k: v for k, v in vae.items() if k not in ("dir", "manifest")},
            "ar_feature_extract": ar, "text_only_launches": text["launches"],
-           "qwen3_sp_launches": text["qwen3_sp"]["launches"]}
+           "qwen3_sp_launches": text["qwen3_sp"]["launches"],
+           "vlm_fsdp_launches": {**fsdp["launches"], **fsdp["moe_launches"]}}
     emit(rec)
     rec["text_only"] = text
+    rec["vlm_fsdp"] = fsdp
     rec["features"] = h
     del model, feats, patches
     gc.collect()
@@ -1749,6 +1748,396 @@ def phase_vlm(clip: Path) -> dict:
     rec["pipeline_train"] = _pipeline_train_step(vae["dir"])
     emit({"phase": "vlm", "part": "pipeline_train", **rec["pipeline_train"]})
     return rec
+
+
+VLM_FSDP_TOL = VLM_PATH_TOL  # vlm_fsdp's features vs the unsharded model's on the same
+# routing, of scale: the same kernels, but each MoE layer sums its k weighted outputs in f32 and
+# rounds once to bf16 where the unsharded MoE rounds each weighted output and sums in bf16
+# (across cards the down products' columns are summed in parts too); one rounding step at the
+# largest bf16 feature is already up to 2^-7 = 7.8e-3 of scale, and 24 layers carry the flipped
+# roundings through attention, the norms and the residual, as VLM_PATH_TOL says
+VLM_FSDP_CKPT_LAYERS = 2  # text layers of vlm_fsdp's seeded reference-layout checkpoint
+
+
+def _hf_vlm_config(cfg: Qwen3VLConfig) -> dict:
+    """config.json of a Qwen3-VL checkpoint of `cfg` (the fields the reader
+    takes, under transformers' names)."""
+    t, v = dataclasses.asdict(cfg.text), dataclasses.asdict(cfg.vision)
+    t["rope_scaling"] = {"rope_type": "default", "mrope_section": list(cfg.mrope_section),
+                         "mrope_interleaved": True}
+    for k in ("rope_dtype", "hidden_act"):
+        v.pop(k)
+    v["deepstack_visual_indexes"] = list(v["deepstack_visual_indexes"])
+    return {"text_config": t, "vision_config": v, "video_token_id": cfg.video_token_id,
+            "image_token_id": cfg.image_token_id,
+            "vision_start_token_id": cfg.vision_start_token_id}
+
+
+def write_vlm_dir(model: Qwen3VLModel, layers: int, d: Path) -> int:
+    """The model's vision tower, embedding, head and first `layers` text
+    layers as a Qwen3-VL-MoE checkpoint dir in transformers' layout: the
+    Conv3d patch embedding, each MoE's banks fused as `experts.gate_up_proj`
+    [E, D, 2M] and `experts.down_proj` [E, M, D]. Returns the bytes written."""
+    cfg = dataclasses.replace(model.cfg, text=dataclasses.replace(model.cfg.text,
+                                                                  num_hidden_layers=layers))
+    vc, out = cfg.vision, {}
+    for name, p in model.named_parameters():
+        if name.startswith("language_model.layers.") and int(name.split(".")[2]) >= layers:
+            continue
+        if name == "visual.patch_embed.weight":
+            out["model.visual.patch_embed.proj.weight"] = p.view(
+                p.shape[0], vc.in_channels, vc.temporal_patch_size, vc.patch_size, vc.patch_size)
+        elif name == "visual.patch_embed.bias":
+            out["model.visual.patch_embed.proj.bias"] = p
+        elif name.endswith("experts_gate"):
+            up = dict(model.named_parameters())[name[:-4] + "up"]
+            out["model." + name[:-len("experts_gate")] + "experts.gate_up_proj"] = torch.cat(
+                [p, up], -1)
+        elif name.endswith("experts_down"):
+            out["model." + name[:-len("experts_down")] + "experts.down_proj"] = p
+        elif not name.endswith("experts_up"):
+            out[name if name.startswith("lm_head") else "model." + name] = p
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps(_hf_vlm_config(cfg)))
+    return write_safetensors(d / "model.safetensors", out)
+
+
+class _Routing:
+    """Inside the `with`, every MoE call's chosen experts are recorded
+    (`calls`), or with `replay` a record is replayed call by call: each
+    call's own router probabilities, the recorded experts (a router near-tie
+    that a bf16 rounding flips swaps a token's expert, which says nothing
+    about the path under test)."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay, self.used = (replay or []), replay is not None, 0
+
+    def __enter__(self) -> "_Routing":
+        self.route, vlm_text.router = vlm_text.router, self._route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        vlm_text.router = self.route
+
+    def _route(self, mlp, xt):
+        topv, topi, probs = self.route(mlp, xt)
+        if not self.replay:
+            self.calls.append(topi.cpu())
+        elif self.used < len(self.calls) and self.calls[self.used].shape == topi.shape:
+            topi = self.calls[self.used].to(topi.device)
+            topv = probs.gather(1, topi)
+            if mlp.cfg.norm_topk_prob:
+                topv = topv / topv.sum(-1, keepdim=True)
+        self.used += 1
+        return topv, topi, probs
+
+
+def _vlm_run(model, ids, patches, grid, replay=None) -> dict:
+    """The feature forward and a VLM_NEW_TOKENS greedy decode: features,
+    tokens, each choice's margin (the top two logits' gap over the largest
+    |logit|), the decode's timings, each pass's launches and the routing
+    (recorded, or `replay`ed)."""
+    sample, margins = vlm_full.sample_token, []
+
+    def spy(logits, *args):
+        top2 = logits.float().topk(2).values
+        margins.append(float((top2[0] - top2[1]) / logits.float().abs().max()))
+        return sample(logits, *args)
+
+    timings, counts = {}, {}
+    vlm_full.sample_token = spy
+    try:
+        with _Routing(replay) as routing:
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = extract_features(model, ids, patches, grid, drop_idx=SYSTEM_PREFIX)[
+                "vlm_last_hidden_states"]
+            torch.cuda.synchronize()
+            features_s = time.perf_counter() - t0
+            counts["features"] = {**_launches(), **_moe_launches()}
+            _reset_launches()
+            toks = qwen3vl_greedy_decode(model, ids, patches, grid,
+                                         max_new_tokens=VLM_NEW_TOKENS, timings=timings)
+            counts["decode"] = {**_launches(), **_moe_launches()}
+    finally:
+        vlm_full.sample_token = sample
+    if replay is not None and routing.used != len(replay):
+        raise AssertionError(f"vlm_fsdp: {routing.used} MoE calls replayed {len(replay)} records")
+    keep = ("flash_causal", "flash_d72", "gmm", "tgmm")
+    return {"features": h, "tokens": np.asarray(toks), "margins": margins,
+            "routing": routing.calls, "features_s": features_s, **timings,
+            "launches_per_pass": {p: {k: c[k] for k in keep} for p, c in counts.items()}}
+
+
+def _held_to(run: dict, ref: dict) -> dict:
+    """A run's features and tokens against a reference run's: the
+    features' largest gap over their scale, the first differing token and
+    whether the reference's choice there was a near-tie (led by less than
+    VLM_NEAR_TIE)."""
+    d = np.nonzero(np.asarray(run["tokens"]) != ref["tokens"])[0]
+    first = int(d[0]) if len(d) else None
+    gap = (run["features"].float().cpu() - ref["features"].float().cpu()).abs().max()
+    return {"features_rel_err": float(gap / ref["features"].float().abs().max()),
+            "first_divergence": first,
+            "tokens_agree_up_to_near_tie": first is None or ref["margins"][first] < VLM_NEAR_TIE}
+
+
+def _sharded_vlm_pass(model, ids, patches, grid, ref: dict) -> dict:
+    """A model whose MoEs hold an ExpertShard: its own run (each pass's
+    launches, the routing checks across the group counted) and a run with
+    the unsharded run's routing replayed, whose features must lie within
+    VLM_FSDP_TOL of scale of `ref`'s and tokens agree up to a near-tie.
+    Returns the record (the own run's features under "features")."""
+    checks = vlm_text.check_routing.calls
+    own = _vlm_run(model, ids, patches, grid)
+    checks = vlm_text.check_routing.calls - checks
+    replayed = _vlm_run(model, ids, patches, grid, replay=ref["routing"])
+    layers, depth = model.cfg.text.num_hidden_layers, model.cfg.vision.depth
+    steps = own["decode_steps"]
+    rec = {"replayed_routing": _held_to(replayed, ref), "own_routing": _held_to(own, ref),
+           "tolerance_rel": VLM_FSDP_TOL, "tokens": own["tokens"].tolist(),
+           "features_s": own["features_s"], "vision_s": own["vision_s"],
+           "prefill_s": own["prefill_s"], "decode_ms_per_token": own["decode_s"] / steps * 1e3,
+           "decode_steps": steps, "routing_checks": checks,
+           "launches_per_pass": own["launches_per_pass"],
+           "launches": {k: sum(p[k] for p in own["launches_per_pass"].values())
+                        for k in ("flash_causal", "flash_d72")},
+           "moe_launches": {k: sum(p[k] for p in own["launches_per_pass"].values())
+                            for k in ("gmm", "tgmm")}}
+    want = {"features": {"flash_causal": layers, "flash_d72": depth, "gmm": 3 * layers,
+                         "tgmm": 0},
+            "decode": {"flash_causal": layers, "flash_d72": depth,
+                       "gmm": 3 * layers * (steps + 1), "tgmm": 0}}
+    held = rec["replayed_routing"]
+    if (own["launches_per_pass"] != want or held["features_rel_err"] > VLM_FSDP_TOL
+            or not held["tokens_agree_up_to_near_tie"] or not torch.isfinite(own["features"]).all()
+            or tuple(own["features"].shape) != tuple(ref["features"].shape)
+            or checks != layers * (steps + 2)):
+        raise AssertionError(f"vlm_fsdp: {rec}, launches per pass expected {want}, "
+                             f"{layers * (steps + 2)} routing checks")
+    rec["features"] = own["features"]
+    return rec
+
+
+def _vlm_fsdp_load(d: Path, nbytes: int, shard, src=None) -> dict:
+    """`load_qwen3vl_dir` of the checkpoint at `d` as `shard`'s rank: its
+    seconds and the rate of the file's bytes; with `src` (the model the
+    dir was written from), every parameter bit-equal to the same slice of
+    the source."""
+    gc.collect()
+    rss0 = _host_rss_gb()
+    torch.cuda.synchronize()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        loaded = load_qwen3vl_dir(str(d), "cuda", shard=shard)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    held = shard_bytes(loaded)
+    rec = {"file_gb": nbytes / 1e9, "load_s": load_s, "file_gb_per_s": nbytes / 1e9 / load_s,
+           "replicated_gb": held["replicated"] / 1e9, "sharded_gb": held["sharded"] / 1e9,
+           "host_rss_rise_gb": rss.peak_gb - rss0}
+    if src is not None:
+        want = dict(src.named_parameters())
+        plan = shard_plan(loaded)
+        differ = [k for k, p in loaded.named_parameters()
+                  if not torch.equal(_bits(p), _bits(
+                      (expert_slice(want[k], plan[k], shard) if plan[k] is not None
+                       else want[k]).contiguous()))]
+        rec["bit_equal_to_source_slice"] = not differ
+        if differ:
+            raise AssertionError(f"vlm_fsdp load: {len(differ)} tensors differ: {differ[:8]}")
+    del loaded
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_vlm_fsdp(model, ids, patches, grid, tmp: Path) -> dict:
+    """The sharded engine path on this card: the unsharded run of the vlm
+    model (its routing recorded), then an NCCL group of world 1 and the
+    model's MoEs given its ExpertShard through Qwen3VLEngine.from_model
+    (1 of 1: the f32 combine, the group's all-reduce and the routing check
+    at every MoE layer), run as `_sharded_vlm_pass` holds it, and the
+    all-reduce timed; then a seeded reference-layout checkpoint of the
+    model's first VLM_FSDP_CKPT_LAYERS text layers (fused gate_up_proj)
+    read as rank 1 of 4, each tensor bit-equal to its source's slice. The
+    model is left unsharded. Returns the record, with the checkpoint dir
+    and the unsharded run under "ckpt_dir" and "ref"."""
+    t_start = time.perf_counter()
+    ref = _vlm_run(model, ids, patches, grid)
+    maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        engine = Qwen3VLEngine.from_model(model, VLMConfig(max_new_tokens=VLM_NEW_TOKENS),
+                                          StandInTokenizer(),
+                                          shard=vlm_group(1, check_routing=True))
+        run = _sharded_vlm_pass(engine.model, ids, patches, grid, ref)
+        ar_ms = _all_reduce_ms(ids.shape[1], engine.model.language_model.layers[0].mlp.shard)
+    finally:
+        shard_experts(model, None)
+        dist.destroy_process_group()
+    ckpt = tmp / "vlm_ckpt"
+    t0 = time.perf_counter()
+    nbytes = write_vlm_dir(model, VLM_FSDP_CKPT_LAYERS, ckpt)
+    write_s = time.perf_counter() - t0
+    load = _vlm_fsdp_load(ckpt, nbytes, ExpertShard(1, 4), src=model)
+    run.pop("features")
+    rec = {"phase": "vlm_fsdp", "config": "QWEN3_VL_30B_A3B",
+           "text_layers": model.cfg.text.num_hidden_layers, "world": 1, "backend": "nccl",
+           **run, "all_reduce_ms": ar_ms,
+           "ckpt": {"text_layers": VLM_FSDP_CKPT_LAYERS, "layout": "fused gate_up_proj",
+                    "write_s": write_s, "read_as": "rank 1 of 4", **load},
+           "seconds": time.perf_counter() - t_start}
+    emit(rec)
+    rec["ckpt_dir"], rec["ckpt_bytes"], rec["ref"] = ckpt, nbytes, ref
+    return rec
+
+
+def _all_reduce_ms(L: int, shard, reps: int = 20) -> dict:
+    """The MoE's all-reduce over the shard's group, CUDA events: a prefill
+    layer's [L, 2048] f32 and a decode step's [1, 2048]."""
+    out = {}
+    for name, rows in (("prefill", L), ("decode", 1)):
+        t = torch.ones(rows, QWEN3_VL_30B_A3B.text.hidden_size, device="cuda")
+        out[name] = cuda_ms(lambda: dist.all_reduce(t, group=shard.group), reps)  # noqa: B023
+    return out
+
+
+def _vlm_fsdp_rank(rank, world, port, tmp):
+    """One rank of the multi-card vlm_fsdp run, on its own card: the
+    VLM_LAYERS-deep model as its shard of a group of every rank, run as
+    `_sharded_vlm_pass` runs it (its own routing, checked across the ranks
+    at every MoE call, and the unsharded run's replayed), the runs written
+    to `tmp`; then at the full 48 layers (seeded alike, no check): peak
+    memory, the bytes held, vision_s, prefill_s, decode ms/token and the
+    all-reduce's ms; then the reference-layout checkpoint read as its
+    shard."""
+    maybe_initialize_distributed(f"localhost:{port}", world, rank, device="cuda", local_rank=rank)
+    try:
+        inp = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
+        ids, grid, patches = inp["ids"], inp["grid"], inp["patches"].cuda()
+        shard = vlm_group(world, check_routing=True)
+        quiet = dataclasses.replace(shard, check_routing=False)
+        rec = {"rank": rank}
+        for layers in (VLM_LAYERS, QWEN3_VL_30B_A3B.text.num_hidden_layers):
+            cfg = dataclasses.replace(QWEN3_VL_30B_A3B, text=dataclasses.replace(
+                QWEN3_VL_30B_A3B.text, num_hidden_layers=layers))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = Qwen3VLModel.random_init(cfg, seed=0, device="cuda",
+                                             shard=shard if layers == VLM_LAYERS else quiet)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            held = shard_bytes(model)
+            if layers == VLM_LAYERS:
+                checks = vlm_text.check_routing.calls
+                own = _vlm_run(model, ids, patches, grid)
+                checks = vlm_text.check_routing.calls - checks
+                replayed = _vlm_run(model, ids, patches, grid, replay=inp["ref"]["routing"])
+                torch.save({name: {k: (v.cpu() if torch.is_tensor(v) else v)
+                                   for k, v in run.items() if k != "routing"}
+                            for name, run in (("own", own), ("replayed", replayed))},
+                           Path(tmp) / f"rank{rank}.pt")
+                run = own
+            else:
+                run = _vlm_run(model, ids, patches, grid)
+                checks = None
+            rec[str(layers)] = {
+                "init_s": init_s, "replicated_gb": held["replicated"] / 1e9,
+                "sharded_gb": held["sharded"] / 1e9,
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "vision_s": run["vision_s"], "prefill_s": run["prefill_s"],
+                "decode_ms_per_token": run["decode_s"] / run["decode_steps"] * 1e3,
+                "decode_steps": run["decode_steps"], "routing_checks": checks,
+                "launches_per_pass": run["launches_per_pass"],
+                "all_reduce_ms": _all_reduce_ms(ids.shape[1], quiet)}
+            del model, run
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["load"] = _vlm_fsdp_load(Path(inp["ckpt_dir"]), inp["ckpt_bytes"], quiet)
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def vlm_fsdp_multi_card(world: int, ids, patches, grid, ref: dict, ckpt: Path,
+                        ckpt_bytes: int) -> dict:
+    """Spawn `world` ranks (`_vlm_fsdp_rank`, one card each). Every rank's
+    VLM_LAYERS-deep run with the unsharded run's routing replayed is held
+    to `ref` (VLM_FSDP_TOL of scale, tokens up to a near-tie); its own run
+    (the routing checked across the ranks at every MoE call) must give
+    every rank the same features and tokens, bit for bit, and three gmm
+    launches a MoE layer a pass. Returns the per-rank records."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_vlm_fsdp"))
+    try:
+        torch.save({"ids": ids, "grid": grid, "patches": patches.cpu(), "ckpt_dir": str(ckpt),
+                    "ckpt_bytes": ckpt_bytes, "ref": {"routing": ref["routing"]}},
+                   tmp / "inputs.pt")
+        mp.spawn(_vlm_fsdp_rank, args=(world, _free_port(), str(tmp)), nprocs=world)
+        recs = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+        runs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    layers = VLM_LAYERS
+    for rec, run in zip(recs, runs):
+        rec["replayed_routing"] = _held_to(run["replayed"], ref)
+        rec["own_routing"] = _held_to(run["own"], ref)
+        rec["features_bit_equal_to_rank0"] = bool(torch.equal(run["own"]["features"],
+                                                              runs[0]["own"]["features"]))
+        rec["tokens_equal_to_rank0"] = bool((run["own"]["tokens"]
+                                             == runs[0]["own"]["tokens"]).all())
+        r = rec[str(layers)]
+        steps = r["decode_steps"]
+        if (rec["replayed_routing"]["features_rel_err"] > VLM_FSDP_TOL
+                or not rec["replayed_routing"]["tokens_agree_up_to_near_tie"]
+                or not rec["features_bit_equal_to_rank0"] or not rec["tokens_equal_to_rank0"]
+                or r["routing_checks"] != layers * (steps + 2)
+                or r["launches_per_pass"]["features"]["gmm"] != 3 * layers
+                or r["launches_per_pass"]["decode"]["gmm"] != 3 * layers * (steps + 1)):
+            raise AssertionError(f"vlm_fsdp on {world} cards: {rec}")
+    return {"world": world, "ranks": recs}
+
+
+def _vlm_fsdp_alone() -> int:
+    """`chip_smoke.py vlm_fsdp`: the vlm phase's model (VLM_LAYERS deep) and
+    prompt, then phase_vlm_fsdp on this card; with 2+ cards, the model is
+    freed and min(4, count) ranks run `_vlm_fsdp_rank`."""
+    phase_device()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        cfg = dataclasses.replace(QWEN3_VL_30B_A3B, text=dataclasses.replace(
+            QWEN3_VL_30B_A3B.text, num_hidden_layers=VLM_LAYERS))
+        model = Qwen3VLModel.random_init(cfg, seed=0, device="cuda")
+        ids, patches, grid = vlm_inputs(cfg)
+        rec = phase_vlm_fsdp(model, ids, patches, grid, tmp)
+        count = torch.cuda.device_count()
+        if count < 2:
+            print(f"vlm_fsdp: the multi-card part did not run: this machine has {count} CUDA "
+                  "device (it needs 2 or more, one per rank)", flush=True)
+            return 0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        multi = vlm_fsdp_multi_card(min(4, count), ids, patches, grid, rec["ref"],
+                                    rec["ckpt_dir"], rec["ckpt_bytes"])
+        emit({"phase": "vlm_fsdp", "part": "multi_card", **multi})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+def vlm_inputs(cfg: Qwen3VLConfig):
+    """The vlm phase's prompt: 6 seeded 832x480 frames (the captioning
+    pixel budget keeps the size) → patches on the card, grid VLM_GRID, the
+    synthetic ids."""
+    vc = cfg.vision
+    size = smart_resize(SIZE[1], SIZE[0], vc.patch_size * vc.spatial_merge_size,
+                        480 * 480, 4 * 480 * 480)
+    frames = np.random.default_rng(0).integers(0, 256, (VLM_FRAMES, *size, 3), dtype=np.uint8)
+    patches, grid = frames_to_patches(frames, vc.patch_size, vc.temporal_patch_size,
+                                      vc.spatial_merge_size)
+    if size != (SIZE[1], SIZE[0]) or grid != VLM_GRID:
+        raise AssertionError(f"vlm: resize {size}, grid {grid}")
+    return vlm_prompt_ids(cfg, grid), torch.from_numpy(patches).cuda(), grid
 
 
 def t2v_pipeline(cfg: PipelineConfig, device, **pipe_kw):
@@ -1873,14 +2262,18 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
                                8: torch.int64}[t.element_size()])
 
 
+LOAD_RSS_RISE_GB = 0.3  # the staging buffers (2 × 64 MiB) and the reader's own objects
+
+
 def phase_load(expert, tmp: Path) -> dict:
     """The seeded T2V-1.3B expert (the e2e phase's) written in the diffusers
     layout (`low_noise_model/wan_model/diffusion_pytorch_model.safetensors`
     by `write_safetensors`, the companions as `.bin` pickles), then
     `load_expert` onto the card: every tensor bit-equal to its source; the
     load's seconds and GB/s, and how far the host's resident set rose
-    during it (each tensor is read once through a pinned staging buffer of
-    `STAGING_BYTES`, so it should stay far below the file's size)."""
+    during it: each tensor is read once through two pinned staging buffers
+    of `STAGING_BYTES`, used in turn, so it must stay under LOAD_RSS_RISE_GB,
+    far below the file's size."""
     root = tmp / "ckpt_1_3b"
     sub = root / T2V_1_3B.low_noise_checkpoint
     (sub / "wan_model").mkdir(parents=True)
@@ -1919,6 +2312,8 @@ def phase_load(expert, tmp: Path) -> dict:
     torch.cuda.empty_cache()
     if differ or set(c_src) != set(c_got):
         raise AssertionError(f"load: {len(differ)} tensors differ from their source: {differ[:8]}")
+    if rec["host_rss_rise_gb"] > LOAD_RSS_RISE_GB:
+        raise AssertionError(f"load: the host's resident set rose by {rec['host_rss_rise_gb']} GB")
     return rec
 
 
@@ -5244,6 +5639,8 @@ def main(argv) -> int:
         return _serve_alone()
     if argv[:1] == ["gmm"]:
         return _gmm_alone()
+    if argv[:1] == ["vlm_fsdp"]:
+        return _vlm_fsdp_alone()
     if argv[:1] == ["sp_train"]:
         return _sp_train_alone()
     if argv[:1] == ["stream"]:
@@ -5279,7 +5676,7 @@ def main(argv) -> int:
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv} (only 'profile', 'sp', "
                          "'sp_train', 'sft_sp', 'sft', 'lora', 'adafactor', 'qwen3_sp', "
-                         "'i2v', 'stream', 'stream_train', 'serve' or 'gmm')")
+                         "'i2v', 'stream', 'stream_train', 'serve', 'gmm' or 'vlm_fsdp')")
     dev = phase_device()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -5359,11 +5756,13 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                       "tiny_i2v": tiny_i2v["launches"]["flash_fwd"],
                       "i2v": i2v["launches"]["flash_fwd"], "stream": stream["launches"]["flash_fwd"]},
         "flash_causal": {"vlm": vlm["launches"]["flash_causal"],
+                         "vlm_fsdp": vlm["vlm_fsdp"]["launches"]["flash_causal"],
                          "eval_vlm": vlm["eval_vlm"]["launches"]["flash_causal"],
                          "text_only": text["launches"]["flash_causal"],
                          "vlm_image": vlm["image"]["launches"]["flash_causal"],
                          "ar_feature_extract": ar["launches"]["flash_causal"]},
         "flash_d72": {"vlm": vlm["launches"]["flash_d72"],
+                      "vlm_fsdp": vlm["vlm_fsdp"]["launches"]["flash_d72"],
                       "eval_vlm": vlm["eval_vlm"]["launches"]["flash_d72"],
                       "vision_lora": text["launches"]["flash_d72"],
                       "vlm_image": vlm["image"]["launches"]["flash_d72"],
@@ -5377,6 +5776,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
         "ring_step_f32": {
             "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["ring_step_f32"]},
         "gmm": {"vlm": vlm["moe_launches"]["gmm"],
+                "vlm_fsdp": vlm["vlm_fsdp"]["moe_launches"]["gmm"],
                 "eval_vlm": vlm["eval_vlm"]["moe_launches"]["gmm"],
                 "text_only": text["moe_launches"]["gmm"],
                 "qwen3_sp": text["qwen3_sp"]["moe_launches"]["gmm"],

@@ -15,7 +15,11 @@ omnivideo_tpu/models/qwen3vl/{engine.py `jax_cfg_from_dict`, full_model.py
   (per-expert `experts.<e>.{gate,up,down}_proj.weight`, or the fused
   `experts.gate_up_proj` [E, D, 2M] and `experts.down_proj` [E, M, D] of
   transformers' Qwen3-VL-MoE), and `lm_head` taken from the embedding when
-  the checkpoint ties them (as the JAX conversion does);
+  the checkpoint ties them (as the JAX conversion does). Into a model whose
+  MoEs hold a shard (parallel/expert_shard.py) each bank lands as the
+  rank's columns: `expert_take` makes the reader copy only those to the
+  card (gate and up split out of the fused tensor first), and a whole bank
+  given anyway is sliced;
 - `FastTokenizer` reads `tokenizer.json` with the `tokenizers` package,
   imported when one is built.
 """
@@ -32,7 +36,8 @@ import torch
 
 from ..configs.qwen3vl import Qwen3TextConfig, Qwen3VLConfig, Qwen3VLVisionConfig
 from ..models.qwen3vl.full_model import Qwen3VLModel
-from .safetensors import DTYPES, iter_safetensors, read_header
+from ..parallel.expert_shard import SPLIT_DIMS, ExpertShard, expert_slice
+from .safetensors import DTYPES, Take, iter_safetensors, read_header
 
 
 def _shard_files(model_dir: str) -> List[Path]:
@@ -47,11 +52,12 @@ def _shard_files(model_dir: str) -> List[Path]:
     return files
 
 
-def iter_hf_safetensors(model_dir: str, prefix_filter: Optional[str] = None, device="cuda"
-                        ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(name, tensor on `device`) over every shard of a checkpoint dir."""
+def iter_hf_safetensors(model_dir: str, prefix_filter: Optional[str] = None, device="cuda",
+                        take: Optional[Take] = None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, tensor on `device`) over every shard of a checkpoint dir;
+    `take` reads slices of chosen tensors (io/safetensors.py)."""
     for f in _shard_files(model_dir):
-        yield from iter_safetensors(f, device, prefix_filter)
+        yield from iter_safetensors(f, device, prefix_filter, take=take)
 
 
 def load_hf_safetensors(model_dir: str, prefix_filter: Optional[str] = None, device="cuda"
@@ -139,12 +145,36 @@ _EXPERT = r"(language_model\.layers\.\d+\.mlp\.)experts\.(\d+)\.(gate|up|down)_p
 _FUSED = r"(language_model\.layers\.\d+\.mlp\.)experts\.(gate_up|down)_proj$"
 
 
+def expert_take(shard: Optional[ExpertShard]) -> Optional[Take]:
+    """The reader's `take` for a rank's columns of the expert banks in
+    either HF layout (None without a shard): fused gate_up [E, D, 2M] → the
+    columns of gate and of up, down [E, M, D] → its rows; per expert, gate
+    and up [M, D] → rows, down [D, M] → columns."""
+    if shard is None or shard.n == 1:
+        return None
+
+    def take(name: str, shape):
+        if m := re.search(_FUSED, name):
+            if m[2] == "down":
+                return 1, [shard.cols(shape[1])]
+            M = shape[-1] // 2
+            lo, hi = shard.cols(M)
+            return len(shape) - 1, [(lo, hi), (M + lo, M + hi)]
+        if m := re.search(_EXPERT, name):
+            dim = 1 if m[3] == "down" else 0
+            return dim, [shard.cols(shape[dim])]
+        return None
+
+    return take
+
+
 @torch.no_grad()
 def load_qwen3vl_hf(model: Qwen3VLModel, items: Iterable[Tuple[str, torch.Tensor]]
                     ) -> Qwen3VLModel:
     """Copy HF Qwen3VLForConditionalGeneration-named tensors into `model`,
-    casting to each parameter's dtype. Every parameter must be filled and
-    every name used (KeyError otherwise)."""
+    casting to each parameter's dtype; a whole expert bank given to a
+    sharded MoE is sliced to its columns. Every parameter must be filled
+    and every name used (KeyError otherwise)."""
     params = dict(model.named_parameters())
     filled = {name: 0 for name in params}
 
@@ -152,6 +182,10 @@ def load_qwen3vl_hf(model: Qwen3VLModel, items: Iterable[Tuple[str, torch.Tensor
         if name not in params:
             raise KeyError(f"checkpoint tensor for {name!r}, which the model does not have")
         dst = params[name] if index is None else params[name][index]
+        dim = SPLIT_DIMS.get(name.rsplit(".", 1)[-1])
+        if dim is not None and src.numel() != dst.numel():
+            shard = model.get_submodule(name.rsplit(".", 1)[0]).shard
+            src = expert_slice(src, dim - (index is not None), shard)
         if src.numel() != dst.numel():
             raise ValueError(f"{name}: {tuple(src.shape)} does not fit {tuple(dst.shape)}")
         dst.copy_(src.reshape(dst.shape))
@@ -175,12 +209,24 @@ def load_qwen3vl_hf(model: Qwen3VLModel, items: Iterable[Tuple[str, torch.Tensor
                 put(f"{m[1]}experts_up", src[..., half:])
         else:
             put(key, src)
+        del src  # the card holds one source tensor at a time
     if "lm_head.weight" in params and not filled["lm_head.weight"]:
         put("lm_head.weight", params["language_model.embed_tokens.weight"])
     missing = sorted(n for n, p in params.items() if filled[n] != p.numel())
     if missing:
         raise KeyError(f"checkpoint leaves parameters unfilled: {missing[:8]}")
     return model
+
+
+def load_qwen3vl_dir(model_dir: str, device="cuda", vision_rope_dtype: str = "float32",
+                     shard: Optional[ExpertShard] = None) -> Qwen3VLModel:
+    """A Qwen3-VL checkpoint dir → `Qwen3VLModel` on `device` in the dtype
+    the checkpoint stores; with `shard`, the rank's columns of every bank,
+    the only part of them read onto the card."""
+    cfg = qwen3vl_config_from_hf(load_hf_config(model_dir), vision_rope_dtype)
+    model = Qwen3VLModel(cfg, checkpoint_dtype(model_dir), device, shard=shard)
+    return load_qwen3vl_hf(model, iter_hf_safetensors(model_dir, device=model.device,
+                                                      take=expert_take(shard)))
 
 
 class FastTokenizer:

@@ -21,8 +21,9 @@ pytree (stacked `layers`), and `pipeline_from_jax` assembles an x2x pipeline
 port's UnifiedParams names. `qwen3vl_params_to_state_dict` / `load_qwen3vl`
 do the same for the Qwen3-VL param tree of `qwen3vl_hf_to_params` (scanned
 `blocks`/`layers` stacks split per layer, `lm_head` and the deepstack
-mergers carried), `qwen3_params_to_state_dict` for the text-only Qwen3
-tree. LoRA adapters (training/lora.py) ride along in both layouts: a dense
+mergers carried; with `shard=(rank, n)` the expert banks are that rank's
+columns, parallel/expert_shard.py), `qwen3_params_to_state_dict` for the
+text-only Qwen3 tree. LoRA adapters (training/lora.py) ride along in both layouts: a dense
 site's stacked `lora_a/lora_b/lora_scale` leaves and the bare `{name}_lora_*`
 siblings become each layer's `<linear>.lora_a/.lora_b/.lora_scale` (JAX's
 orientation kept), and the loaders attach the adapters they name.
@@ -33,7 +34,7 @@ the port's streamed trainer states (training/streaming.py).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +49,7 @@ from ..models.vae2_1 import Wan21VAE
 from ..models.wan_dit import WanDiT
 from ..pipelines.x2x import ExpertParams, OmniVideoX2XUnified
 from ..ops.lora import has_lora
+from ..parallel.expert_shard import SPLIT_DIMS, ExpertShard
 from ..training.lora import set_adapter
 from .torch_convert import load_strict, unwrap_state_dict
 
@@ -291,9 +293,12 @@ def load_unified(model: nn.Module, sd: Mapping[str, Any]) -> nn.Module:
     return load_strict(with_adapters(model, sd), sd)
 
 
-def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
+def qwen3vl_params_to_state_dict(params, shard: Optional[Tuple[int, int]] = None
+                                 ) -> Dict[str, np.ndarray]:
     """JAX Qwen3-VL param tree ({'vision', 'text'}, numpy or jax arrays) →
-    the port's parameter names (HF names; Linear weights [out, in])."""
+    the port's parameter names (HF names; Linear weights [out, in]); with
+    `shard` = (rank, n), rank's columns of every expert bank, for a model
+    built with `ExpertShard(rank, n)`."""
     sd: Dict[str, np.ndarray] = {}
 
     def lin(name, kernel, bias=None, tree=None, key=None, i=None):
@@ -329,7 +334,7 @@ def qwen3vl_params_to_state_dict(params) -> Dict[str, np.ndarray]:
         for port, key in (("attn.qkv", "qkv"), ("attn.proj", "proj"),
                           ("mlp.linear_fc1", "mlp_fc1"), ("mlp.linear_fc2", "mlp_fc2")):
             lin(f"{p}.{port}", blocks[f"{key}_w"][i], blocks[f"{key}_b"][i], blocks, f"{key}_w", i)
-    _qwen3_text(params["text"], sd, lin)
+    _qwen3_text(params["text"], sd, lin, shard)
     return sd
 
 
@@ -348,9 +353,12 @@ def qwen3_params_to_state_dict(params) -> Dict[str, np.ndarray]:
     return sd
 
 
-def _qwen3_text(txt, sd: Dict[str, np.ndarray], lin) -> None:
+def _qwen3_text(txt, sd: Dict[str, np.ndarray], lin,
+                shard: Optional[Tuple[int, int]] = None) -> None:
     """The Qwen3 text tree into `sd` under the port's names (`lin` writes
-    a Linear and its bare LoRA siblings)."""
+    a Linear and its bare LoRA siblings); `shard` (rank, n) slices the
+    expert banks."""
+    es = ExpertShard(*shard) if shard is not None else None
     sd["language_model.embed_tokens.weight"] = _np(txt["embed"])
     sd["language_model.norm.weight"] = _np(txt["norm"])
     if "lm_head" in txt:
@@ -368,7 +376,12 @@ def _qwen3_text(txt, sd: Dict[str, np.ndarray], lin) -> None:
         if "experts" in mlp:
             lin(f"{p}.mlp.gate", _np(mlp["gate"])[i])
             for part in ("gate", "up", "down"):
-                sd[f"{p}.mlp.experts_{part}"] = _np(mlp["experts"][part])[i]
+                bank = _np(mlp["experts"][part])[i]
+                if es is not None:
+                    dim = SPLIT_DIMS[f"experts_{part}"]
+                    lo, hi = es.cols(bank.shape[dim])
+                    bank = np.ascontiguousarray(bank[(slice(None),) * dim + (slice(lo, hi),)])
+                sd[f"{p}.mlp.experts_{part}"] = bank
         else:
             for part in ("gate", "up", "down"):
                 lin(f"{p}.mlp.{part}_proj", _np(mlp[part])[i], None, mlp, part, i)

@@ -7,9 +7,13 @@ A file is an 8-byte little-endian header length n, then n bytes of JSON
 count from the end of the header.
 
 Each tensor is read once, straight into its own memory: on the CPU with
-`readinto` into the new tensor, on a card through one pinned staging buffer
-of `STAGING_BYTES`, so a 62 GB checkpoint is never held in host memory,
-let alone twice. The file is not mapped: on the card's machine a mapped
+`readinto` into the new tensor, on a card through two pinned staging
+buffers of `STAGING_BYTES`, each with an event, so the read of the next
+chunk overlaps the copy of the last one and a 62 GB checkpoint is never
+held in host memory, let alone twice. `take` reads a slice of chosen
+tensors (ranges along one dim, concatenated: a rank's columns of an
+expert bank, io/hf_reader.py): the whole bytes pass through the staging
+buffers and only the slice is copied to the card. The file is not mapped: on the card's machine a mapped
 file stayed resident in full while it was read, `MADV_DONTNEED` or not
 (`PERF.md` §6: the resident set rose by 2.83 GB over the load of
 a 2.84 GB expert). BF16 stays `torch.bfloat16`; a tensor at any byte
@@ -23,7 +27,7 @@ import json
 import math
 import struct
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -68,13 +72,102 @@ def _read_into(f, dst: torch.Tensor) -> None:
         got += n
 
 
+# take(name, shape) → None (the whole tensor) or (dim, [(start, stop), ...]):
+# those ranges along dim, concatenated in order
+Take = Callable[[str, Tuple[int, ...]], Optional[Tuple[int, Sequence[Tuple[int, int]]]]]
+
+
+class _Staging:
+    """Two host buffers (and, for slices, two packing buffers), page-locked
+    for a card, used in turn: a buffer is refilled only after the event
+    recorded behind its last copy to the card has passed."""
+
+    def __init__(self, dev: torch.device):
+        self.dev, self.turn, self.pin = dev, 0, dev.type == "cuda"
+        self.bufs = [self._buffer() for _ in range(2)]
+        self.packs = [None, None]
+        self.events = [None, None]
+
+    def _buffer(self) -> torch.Tensor:
+        return torch.empty(STAGING_BYTES, dtype=torch.uint8, pin_memory=self.pin)
+
+    def next(self) -> int:
+        i, self.turn = self.turn, self.turn ^ 1
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        return i
+
+    def pack(self, i: int) -> torch.Tensor:
+        if self.packs[i] is None:
+            self.packs[i] = self._buffer()
+        return self.packs[i]
+
+    def copy(self, i: int, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """dst ← src (in buffer i), asynchronously to a card."""
+        dst.copy_(src, non_blocking=self.pin)
+        if self.pin:
+            self.events[i] = torch.cuda.Event()
+            self.events[i].record(torch.cuda.current_stream(self.dev))
+
+
+def _read_whole(f, raw: torch.Tensor, staging: Optional[_Staging]) -> None:
+    """The tensor's bytes at the file's position into `raw` (uint8)."""
+    if raw.device.type == "cpu":
+        _read_into(f, raw)
+        return
+    for off in range(0, raw.numel(), STAGING_BYTES):
+        n = min(STAGING_BYTES, raw.numel() - off)
+        i = staging.next()
+        _read_into(f, staging.bufs[i][:n])
+        staging.copy(i, raw[off:off + n], staging.bufs[i][:n])
+
+
+def _read_slice(f, out: torch.Tensor, shape, dim: int, ranges, staging: _Staging) -> None:
+    """The file's tensor of `shape` at the file's position, its `ranges`
+    along `dim` concatenated into `out`: whole slabs (one index of the dims
+    before `dim`; a Qwen3-VL bank's largest is 3 MB) are staged, their
+    ranges packed, the packed rows copied."""
+    es = out.element_size()
+    outer, size = math.prod(shape[:dim]), shape[dim]
+    inner = math.prod(shape[dim + 1:]) * es  # bytes per index of dim
+    taken, slab = out.shape[dim], size * inner
+    if slab > STAGING_BYTES:
+        raise ValueError(f"a slice along dim {dim} of {tuple(shape)} reads slabs of {slab} bytes, "
+                         f"more than a staging buffer's {STAGING_BYTES}")
+    dst = out.reshape(outer, -1).view(torch.uint8)  # [outer, taken · inner]
+    per = STAGING_BYTES // slab  # slabs a staging buffer holds
+    for o0 in range(0, outer, per):
+        rows = min(per, outer - o0)
+        i = staging.next()
+        buf = staging.bufs[i][:rows * slab]
+        _read_into(f, buf)
+        src = buf.view(rows, size, inner)
+        pack = staging.pack(i)[:rows * taken * inner].view(rows, taken, inner)
+        at = 0
+        for a, b in ranges:
+            pack[:, at:at + b - a] = src[:, a:b]
+            at += b - a
+        staging.copy(i, dst[o0:o0 + rows], pack.view(rows, -1))
+
+
+def _take_ranges(shape, want) -> Tuple[int, list, Tuple[int, ...]]:
+    dim, ranges = want
+    ranges = [(int(a), int(b)) for a, b in ranges]
+    if not all(0 <= a < b <= shape[dim] for a, b in ranges):
+        raise ValueError(f"ranges {ranges} of dim {dim} do not fit {tuple(shape)}")
+    taken = list(shape)
+    taken[dim] = sum(b - a for a, b in ranges)
+    return dim, ranges, tuple(taken)
+
+
 def iter_safetensors(path: PathLike, device="cuda", prefix_filter: Optional[str] = None,
-                     into: Optional[Callable[[str], Optional[torch.Tensor]]] = None
-                     ) -> Iterator[Tuple[str, torch.Tensor]]:
+                     into: Optional[Callable[[str], Optional[torch.Tensor]]] = None,
+                     take: Optional[Take] = None) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor) for every tensor of one file (those whose names start
     with `prefix_filter`, if given), in file order, each in memory of its
     own on `device`; where into(name) gives a CPU tensor of the same dtype
-    and size, the tensor is read into that one instead."""
+    and size, the tensor is read into that one instead; where take(name,
+    shape) names ranges along a dim, only those (`Take`)."""
     dev = resolve_device(device)
     header, _, start = read_header(path)
     entries = sorted(((e["data_offsets"][0], name, e) for name, e in header.items()
@@ -86,24 +179,26 @@ def iter_safetensors(path: PathLike, device="cuda", prefix_filter: Optional[str]
         for _, name, e in entries:
             begin, end = (start + o for o in e["data_offsets"])
             dtype, shape = DTYPES[e["dtype"]], tuple(e["shape"])
-            out = into(name) if into is not None else None
-            if (out is None or out.device.type != "cpu" or out.dtype != dtype
-                    or out.numel() != math.prod(shape) or not out.is_contiguous()):
-                out = torch.empty(shape, dtype=dtype, device=dev)
-            if end > size or end - begin != out.numel() * out.element_size():
+            if end > size or end - begin != math.prod(shape) * dtype.itemsize:
                 raise ValueError(f"{path}: {name} {e} does not fit the file")
-            raw = out.reshape(-1).view(torch.uint8)
-            f.seek(begin)
-            if out.device.type == "cpu":
-                _read_into(f, raw)
+            want = take(name, shape) if take is not None else None
+            if want is not None:
+                dim, ranges, taken = _take_ranges(shape, want)
+                out = torch.empty(taken, dtype=dtype, device=dev)
             else:
-                if staging is None:
-                    staging = torch.empty(STAGING_BYTES, dtype=torch.uint8, pin_memory=True)
-                for off in range(0, raw.numel(), STAGING_BYTES):
-                    n = min(STAGING_BYTES, raw.numel() - off)
-                    _read_into(f, staging[:n])
-                    raw[off:off + n].copy_(staging[:n])
+                out = into(name) if into is not None else None
+                if (out is None or out.device.type != "cpu" or out.dtype != dtype
+                        or out.numel() != math.prod(shape) or not out.is_contiguous()):
+                    out = torch.empty(shape, dtype=dtype, device=dev)
+            if staging is None and (want is not None or out.device.type != "cpu"):
+                staging = _Staging(dev)
+            f.seek(begin)
+            if want is not None:
+                _read_slice(f, out, shape, dim, ranges, staging)
+            else:
+                _read_whole(f, out.reshape(-1).view(torch.uint8), staging)
             yield name, out
+            del out  # the caller's reference is the only one while the next is read
 
 
 def load_safetensors(path: PathLike, device="cuda", prefix_filter: Optional[str] = None

@@ -23,8 +23,16 @@ array, an .npy/.npz or a PNG) is resized to the caption budget and becomes
 a (1, h, w) grid behind `<|image_pad|>` tokens.
 
 Backends keep the JAX names: "jax" is the native path; "hf" (transformers'
-own torch model) is not ported and raises, as does `fsdp` > 1 (ROADMAP §1
-item 4: sharding the KV-cached decode).
+own torch model) is not ported and raises.
+
+`fsdp` = n > 1 (generate `--vlm_fsdp n`, one process a card) splits the
+MoE's expert banks over n consecutive ranks of the process group
+(parallel/expert_shard.py): each rank reads only its M / n columns of every
+bank from the checkpoint and holds everything else whole, runs every pass,
+and all-reduces each MoE layer's f32 partial sums, so every rank of the
+group ends with the same captions and features. A run without a process
+group, with n not dividing its world, or with M / n not a multiple of 8 is
+refused before any weight is read.
 
 The pixel budgets are the JAX engine's: the caption passes resize to
 480²…4·480² pixels, the feature pass to 480…1,920 pixels (so a 720p or
@@ -47,8 +55,10 @@ import torch
 
 from ...configs import prompts as P
 from ...device import resolve_device
-from ...io.hf_reader import (FastTokenizer, checkpoint_dtype, iter_hf_safetensors,
-                             load_hf_config, load_qwen3vl_hf, qwen3vl_config_from_hf)
+from ...configs.qwen3vl import Qwen3TextConfig
+from ...io.hf_reader import (FastTokenizer, load_hf_config, load_qwen3vl_dir,
+                             qwen3vl_config_from_hf)
+from ...parallel.expert_shard import ExpertShard, check_split, shard_experts, vlm_group
 from .full_model import Qwen3VLModel, qwen3vl_forward, qwen3vl_greedy_decode
 from .preprocess import build_chat_ids, preprocess_image, preprocess_video_timestamps
 
@@ -107,7 +117,7 @@ class VLMConfig:
     video_nframes: int = 6
     max_new_tokens: int = 512
     temperature: float = 0.0  # greedy, the reference's default
-    fsdp: int = 1
+    fsdp: int = 1  # > 1: the expert banks split over this many consecutive ranks
     # vision-tower RoPE mix precision: the JAX engine's inference default
     # bf16; "float32" is the parity mode of HF's f32 rope
     vision_rope_dtype: str = "bfloat16"
@@ -120,9 +130,22 @@ def _check_config(cfg: VLMConfig) -> None:
                                   "ported; the port runs the native path, backend 'jax'")
     if cfg.backend != "jax":
         raise ValueError(f"unknown VLM backend {cfg.backend!r}")
-    if cfg.fsdp > 1:
-        raise NotImplementedError("VLM fsdp > 1 is not ported (ROADMAP §1 item 4: sharding "
-                                  "the KV-cached decode)")
+    if cfg.fsdp < 1:
+        raise ValueError(f"VLM fsdp must be ≥ 1, got {cfg.fsdp}")
+
+
+def vlm_shard(cfg: VLMConfig, text: Qwen3TextConfig) -> Optional[ExpertShard]:
+    """This rank's `ExpertShard` for `cfg.fsdp` > 1 (None for 1), the group
+    made from the default process group; raises for a dense text model, a
+    width the kernels cannot split, no process group or a world n does not
+    divide."""
+    if cfg.fsdp == 1:
+        return None
+    if not text.num_experts:
+        raise ValueError(f"VLM fsdp {cfg.fsdp} splits the MoE's expert banks; this model's text "
+                         "layers are dense")
+    check_split(text.moe_intermediate_size, cfg.fsdp)
+    return vlm_group(cfg.fsdp)
 
 
 def checkpoint_eos(model_path: str, cfg_dict: dict) -> Optional[int]:
@@ -143,23 +166,31 @@ class Qwen3VLEngine:
     synchronized wall seconds of the last call of each public flow
     ("source_caption_s", "target_caption_s", "features_s")."""
 
-    def __init__(self, cfg: VLMConfig):
+    def __init__(self, cfg: VLMConfig, shard: Optional[ExpertShard] = None):
+        """Load `cfg.model_path`; `shard` (default: `vlm_shard`'s for
+        cfg.fsdp) splits the expert banks."""
         _check_config(cfg)
         dev = resolve_device(cfg.device)
         cfg_dict = load_hf_config(cfg.model_path)
+        text = qwen3vl_config_from_hf(cfg_dict).text
+        shard = shard if shard is not None else vlm_shard(cfg, text)
         tokenizer = FastTokenizer(cfg.model_path)
-        model = Qwen3VLModel(qwen3vl_config_from_hf(cfg_dict, cfg.vision_rope_dtype),
-                             checkpoint_dtype(cfg.model_path), dev)
-        load_qwen3vl_hf(model, iter_hf_safetensors(cfg.model_path, device=dev))
+        model = load_qwen3vl_dir(cfg.model_path, dev, cfg.vision_rope_dtype, shard)
         self._setup(model, cfg, tokenizer, checkpoint_eos(cfg.model_path, cfg_dict))
 
     @classmethod
     def from_model(cls, model: Qwen3VLModel, cfg: VLMConfig, tokenizer,
-                   eos_token_id: Optional[int] = None) -> "Qwen3VLEngine":
+                   eos_token_id: Optional[int] = None,
+                   shard: Optional[ExpertShard] = None) -> "Qwen3VLEngine":
         """An engine over `model` (already on its device) and `tokenizer`
         (any object with the FastTokenizer API); eos defaults to the
-        tokenizer's."""
+        tokenizer's. `shard` (default: `vlm_shard`'s for cfg.fsdp > 1)
+        splits the model's banks in place, or joins banks already built as
+        that rank's columns to its group."""
         _check_config(cfg)
+        shard = shard if shard is not None else vlm_shard(cfg, model.cfg.text)
+        if shard is not None:
+            shard_experts(model, shard)
         engine = cls.__new__(cls)
         engine._setup(model, cfg, tokenizer, eos_token_id)
         return engine

@@ -18,6 +18,11 @@ Qwen3VL's `hidden_states[-1]`, which the reference extracts as the
 conditioning features. `qwen3vl_greedy_decode` stops computing once the eos
 token was emitted (the rest is eos padding, as the JAX scan emits) and skips
 the forward whose token would never be returned.
+
+A model built with `shard` (parallel/expert_shard.py) holds the rank's
+columns of every expert bank and everything else whole; the forward and
+the decode run unchanged on every rank of the group (the KV cache whole on
+each), the MoE all-reducing its f32 partial sums.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 from ...configs.qwen3vl import Qwen3VLConfig
 from ...device import resolve_device
 from ...ops.flash_attention import flash_attention
+from ...parallel.expert_shard import SPLIT_DIMS, ExpertShard, expert_slice
 from ..wan_dit import AffineNorm, Gain
 from .text_model import (Qwen3MoE, Qwen3TextModel, cached_attention, lin, lm_logits,
                          mlp_block, qkv_rope, rms)
@@ -44,16 +50,19 @@ class Qwen3VLModel(nn.Module):
     """Vision tower + text decoder + lm_head (HF Qwen3VLForConditionalGeneration
     layout). Built from a seed with normal(0.02) weights, unit norm gains
     and zero biases, directly on `device` in `dtype` (no host copy of the
-    weights is made); real weights load through io/jax_bridge.py."""
+    weights is made); real weights load through io/hf_reader.py or
+    io/jax_bridge.py. With `shard`, the MoE banks are the rank's columns,
+    each the same slice of the unsharded model's bank from the same seed."""
 
     def __init__(self, cfg: Qwen3VLConfig, dtype: torch.dtype = torch.bfloat16, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shard: Optional[ExpertShard] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         meta = torch.device("meta")  # allocate once, on `dev`, below
         self.visual = Qwen3VLVision(cfg.vision, dtype, meta)
-        self.language_model = Qwen3TextModel(cfg.text, dtype, meta)
+        self.language_model = Qwen3TextModel(cfg.text, dtype, meta, shard)
         self.lm_head = (None if cfg.text.tie_word_embeddings else
                         nn.Linear(cfg.text.hidden_size, cfg.text.vocab_size, bias=False,
                                   dtype=dtype, device=meta))
@@ -62,9 +71,10 @@ class Qwen3VLModel(nn.Module):
 
     @classmethod
     def random_init(cls, cfg: Qwen3VLConfig, seed: int = 0, device="cuda",
-                    dtype: torch.dtype = torch.bfloat16) -> "Qwen3VLModel":
+                    dtype: torch.dtype = torch.bfloat16,
+                    shard: Optional[ExpertShard] = None) -> "Qwen3VLModel":
         dev = resolve_device(device)
-        return cls(cfg, dtype, dev, torch.Generator(device=dev).manual_seed(seed))
+        return cls(cfg, dtype, dev, torch.Generator(device=dev).manual_seed(seed), shard)
 
     @property
     def device(self) -> torch.device:
@@ -78,8 +88,18 @@ class Qwen3VLModel(nn.Module):
                 if getattr(m, "bias", None) is not None:
                     m.bias.zero_()
             elif isinstance(m, Qwen3MoE):
-                for p in (m.experts_gate, m.experts_up, m.experts_down):
-                    p.normal_(0.0, INIT_STD, generator=generator)
+                M = m.cfg.moe_intermediate_size
+                for name, dim in SPLIT_DIMS.items():
+                    p = getattr(m, name)
+                    if p.shape[dim] == M:
+                        p.normal_(0.0, INIT_STD, generator=generator)
+                    else:  # a shard: the whole bank's draw, one bank at a time, sliced
+                        full = list(p.shape)
+                        full[dim] = M
+                        draw = torch.empty(full, dtype=p.dtype, device=p.device)
+                        p.copy_(expert_slice(draw.normal_(0.0, INIT_STD, generator=generator),
+                                             dim, m.shard))
+                        del draw
             elif isinstance(m, Gain):
                 m.weight.fill_(1.0)
             elif isinstance(m, AffineNorm):

@@ -11,7 +11,11 @@ with the bank transposed), then puts the weighted outputs back: O(k·T·D·M)
 work, E/k× less than the dense mixture, and nothing waits on the host.
 Each token's k weighted outputs are summed in slot order, so a forward is
 bitwise repeatable on the card. `moe_dense`, every expert on every token,
-stays as the exact oracle the tests use.
+stays as the exact oracle the tests use. With an `ExpertShard`
+(parallel/expert_shard.py, `generate --vlm_fsdp n`) a MoE holds M/n columns
+of every bank: the routing is the same on every rank, the three products
+run on the narrower banks, and the partial outputs are weighted and summed
+in f32, all-reduced over the shard's group and cast once (`moe_partial`).
 
 `qwen3_forward` and `qwen3_forward_sp` run in inference mode;
 `qwen3_forward_trainable` and `qwen3_forward_sp_trainable` (the SFT step,
@@ -35,12 +39,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ...configs.qwen3vl import Qwen3TextConfig
 from ...ops.gmm import GroupedMatmul
 from ...ops.lora import has_lora, lora_delta
+from ...parallel.expert_shard import ExpertShard
 from ..wan_dit import Gain
 
 
@@ -97,12 +103,14 @@ class Qwen3MLP(nn.Module):
 
 
 class Qwen3MoE(nn.Module):
-    """Router (`gate`, D → E) and the stacked expert weights."""
+    """Router (`gate`, D → E) and the stacked expert weights; with `shard`,
+    the rank's M / n columns of each bank."""
 
-    def __init__(self, cfg: Qwen3TextConfig, dtype, device):
+    def __init__(self, cfg: Qwen3TextConfig, dtype, device, shard: Optional[ExpertShard] = None):
         super().__init__()
-        D, E, M = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
-        self.cfg = cfg
+        D, E = cfg.hidden_size, cfg.num_experts
+        M = cfg.moe_intermediate_size // (shard.n if shard is not None else 1)
+        self.cfg, self.shard = cfg, shard
         self.gate = nn.Linear(D, E, bias=False, dtype=dtype, device=device)
         self.experts_gate = nn.Parameter(torch.empty(E, D, M, dtype=dtype, device=device))
         self.experts_up = nn.Parameter(torch.empty(E, D, M, dtype=dtype, device=device))
@@ -123,36 +131,81 @@ def router(mlp: Qwen3MoE, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     return topv, topi, probs
 
 
-@torch.profiler.record_function("qwen3vl.moe")
-def moe(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
-    """Grouped MoE over expert-contiguous rows (profiler range
-    "qwen3vl.moe"). x: [B, L, D]. The group sizes stay on the device:
-    `scatter_add_` counts them, where `torch.bincount` on the card reads
-    its input's max back to the host."""
-    B, L, D = x.shape
-    xt = x.reshape(B * L, D)
+def _expert_rows(mlp: Qwen3MoE, xt: torch.Tensor):
+    """Route xt [T, D] and run the three grouped products over the
+    expert-contiguous (token, slot) rows → (outputs [T·k, D] in sorted
+    order, the sort, the top weights [T, k] f32, the top experts). The group
+    sizes stay on the device: `scatter_add_` counts them, where
+    `torch.bincount` on the card reads its input's max back to the host."""
     k = mlp.cfg.num_experts_per_tok
     topv, topi, _ = router(mlp, xt)
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)  # pairs grouped by expert
-    tok_of = order // k
-    sizes = torch.zeros(mlp.cfg.num_experts, dtype=torch.int32, device=x.device)
+    sizes = torch.zeros(mlp.cfg.num_experts, dtype=torch.int32, device=xt.device)
     sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
-    xs = xt.index_select(0, tok_of)
+    xs = xt.index_select(0, order // k)
     h = F.silu(GroupedMatmul.apply(xs, mlp.experts_gate, sizes)) * GroupedMatmul.apply(
         xs, mlp.experts_up, sizes)
-    o = GroupedMatmul.apply(h, mlp.experts_down, sizes)
-    o = o * topv.reshape(-1)[order][:, None].to(o.dtype)
-    # back to (token, slot) order, then each token's k outputs summed in slot
-    # order: deterministic, where an index_add_ on the card sums in whatever
-    # order its atomics land
+    return GroupedMatmul.apply(h, mlp.experts_down, sizes), order, topv, topi
+
+
+def _slot_sum(o: torch.Tensor, order: torch.Tensor, k: int) -> torch.Tensor:
+    """Sorted rows back to (token, slot) order, then each token's k outputs
+    summed in slot order: deterministic, where an index_add_ on the card
+    sums in whatever order its atomics land."""
     slots = torch.empty_like(o).index_copy_(0, order, o)
-    return slots.view(B * L, k, D).sum(1).reshape(B, L, D)
+    return slots.view(-1, k, o.shape[-1]).sum(1)
+
+
+def check_routing(topi: torch.Tensor, group) -> None:
+    """Raise unless every rank of `group` chose the same experts (the
+    element-wise min and max over the group equal this rank's choice)."""
+    lo, hi = topi.clone(), topi.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    if not (torch.equal(lo, topi) and torch.equal(hi, topi)):
+        raise RuntimeError("the MoE's routing differs across the ranks of its expert group")
+    check_routing.calls += 1
+
+
+check_routing.calls = 0
+
+
+def moe_partial(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the MoE over x [B, L, D] → [B, L, D] f32: its
+    columns' down products weighted by the router in f32 and summed over
+    the k slots in slot order (the whole MoE for an unsharded model)."""
+    B, L, D = x.shape
+    o, order, topv, topi = _expert_rows(mlp, x.reshape(B * L, D))
+    shard = mlp.shard
+    if shard is not None and shard.check_routing and shard.group is not None:
+        check_routing(topi, shard.group)
+    o = o.float() * topv.reshape(-1)[order][:, None]
+    return _slot_sum(o, order, mlp.cfg.num_experts_per_tok).reshape(B, L, D)
+
+
+@torch.profiler.record_function("qwen3vl.moe")
+def moe(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
+    """Grouped MoE over expert-contiguous rows (profiler range
+    "qwen3vl.moe"). x: [B, L, D]. Unsharded, the outputs are weighted and
+    summed in x's dtype; with a shard, `moe_partial`'s f32 sum is
+    all-reduced over the shard's group and cast once."""
+    shard = mlp.shard
+    if shard is not None:
+        y = moe_partial(mlp, x)
+        if shard.group is not None:
+            dist.all_reduce(y, group=shard.group)
+        return y.to(x.dtype)
+    B, L, D = x.shape
+    o, order, topv, _ = _expert_rows(mlp, x.reshape(B * L, D))
+    o = o * topv.reshape(-1)[order][:, None].to(o.dtype)
+    return _slot_sum(o, order, mlp.cfg.num_experts_per_tok).reshape(B, L, D)
 
 
 def moe_dense(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
     """Exact all-experts oracle with a one-hot combine, O(E·T·D·M): the
-    reference semantics the tests hold `moe` to."""
+    reference semantics the tests hold `moe` to. With a shard, over the
+    rank's columns, combined in f32 and all-reduced as `moe` does."""
     B, L, D = x.shape
     xt = x.reshape(B * L, D)
     topv, topi, probs = router(mlp, xt)
@@ -160,17 +213,23 @@ def moe_dense(mlp: Qwen3MoE, x: torch.Tensor) -> torch.Tensor:
     g = torch.einsum("td,edm->etm", xt, mlp.experts_gate)
     u = torch.einsum("td,edm->etm", xt, mlp.experts_up)
     o = torch.einsum("etm,emd->etd", F.silu(g) * u, mlp.experts_down)
-    return torch.einsum("te,etd->td", w.to(o.dtype), o).reshape(B, L, D)
+    if mlp.shard is None:
+        return torch.einsum("te,etd->td", w.to(o.dtype), o).reshape(B, L, D)
+    y = torch.einsum("te,etd->td", w, o.float())
+    if mlp.shard.group is not None:
+        dist.all_reduce(y, group=mlp.shard.group)
+    return y.to(x.dtype).reshape(B, L, D)
 
 
 class Qwen3DecoderLayer(nn.Module):
-    def __init__(self, cfg: Qwen3TextConfig, dtype, device):
+    def __init__(self, cfg: Qwen3TextConfig, dtype, device,
+                 shard: Optional[ExpertShard] = None):
         super().__init__()
         self.cfg = cfg
         self.input_layernorm = Gain(cfg.hidden_size, device)
         self.post_attention_layernorm = Gain(cfg.hidden_size, device)
         self.self_attn = Qwen3Attention(cfg, dtype, device)
-        self.mlp = (Qwen3MoE(cfg, dtype, device) if cfg.num_experts
+        self.mlp = (Qwen3MoE(cfg, dtype, device, shard) if cfg.num_experts
                     else Qwen3MLP(cfg, dtype, device))
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, attend,
@@ -191,14 +250,16 @@ class Qwen3DecoderLayer(nn.Module):
 
 
 class Qwen3TextModel(nn.Module):
-    """Embedding, decoder layers and the final norm (no head)."""
+    """Embedding, decoder layers and the final norm (no head); `shard`
+    splits the MoE banks."""
 
-    def __init__(self, cfg: Qwen3TextConfig, dtype, device):
+    def __init__(self, cfg: Qwen3TextConfig, dtype, device,
+                 shard: Optional[ExpertShard] = None):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype,
                                          device=device)
-        self.layers = nn.ModuleList(Qwen3DecoderLayer(cfg, dtype, device)
+        self.layers = nn.ModuleList(Qwen3DecoderLayer(cfg, dtype, device, shard)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = Gain(cfg.hidden_size, device)
 

@@ -29,8 +29,12 @@ over a cluster of blocks, bf16 at more rows runs the persistent wgmma
 kernel, f32 the TF32 one. Only a CPU tensor goes to the plain twins
 `gmm_plain` / `tgmm_plain` (per-group `torch.matmul`, which read the group
 sizes on the host). Each wrapper counts its kernel launches (`gmm.launches`,
-`tgmm.launches`). megablox's `group_offset` and `existing_out` (sharded
-experts) are not ported.
+`tgmm.launches`). megablox's `group_offset` and `existing_out` serve experts
+split over devices by E (a device's first group, and the other devices'
+rows kept); the port splits the banks over cards by their width M instead
+(parallel/expert_shard.py, `generate --vlm_fsdp`), so every card holds all
+E groups of narrower banks and these calls run unchanged: neither is
+needed, and neither is ported.
 """
 
 from __future__ import annotations

@@ -48,6 +48,18 @@ every row and rank 0 writes the outputs:
         --sp_mode ring --ring_impl pallas --task t2v-1.3B --random_weights \\
         --input samples/t2v_example.jsonl --output_dir outputs/gen
 
+`--vlm_fsdp n` splits the Qwen3-VL MoE's expert banks over n processes,
+one card each (models/qwen3vl/engine.py, parallel/expert_shard.py): each
+rank reads its M / n columns of every bank and all the rest of the
+checkpoint, and every rank of the group ends with the same captions and
+features. Consecutive ranks form world / n such groups; the DiT stage then
+runs as without the flag (or on the mesh of `--sp_size`/`--fsdp_size`/
+`--tp_size`, which may share the processes):
+
+    torchrun --nproc_per_node 4 -m omnivideo_tpu_torch.tools.generate --vlm_fsdp 4 \\
+        --vlm_path <Qwen3-VL-30B-A3B dir> --task t2v-1.3B --ckpt_dir <dir> \\
+        --input samples/input_list.jsonl --output_dir outputs/gen
+
 `--lora_adapters <npz>` merges LoRA adapters (finetune
 `--lora_adapter_export`, or a file JAX's CLI wrote) into every distinct
 expert before any sharding, so the denoise runs plain weights.
@@ -72,8 +84,8 @@ pseudo-context per prompt (no checkpoint, no text encoder); `--tiny` shrinks
 the model (head dim 128, the kernels' head dim), its umT5 (width 48, 2
 layers, a 256-token vocabulary: a tiny checkpoint dir's) and the workload.
 The device defaults to cuda (kernels); `--device cpu` runs the plain twins.
-Flags of the JAX CLI that the port does not run yet raise
-NotImplementedError naming what they wait for.
+The JAX CLI's `--max_steps_per_call` (a TPU dispatch workaround) and
+`--vlm_backend hf` raise NotImplementedError saying why.
 """
 
 from __future__ import annotations
@@ -94,7 +106,8 @@ import torch.distributed as dist
 from omnivideo_tpu_torch.configs import SIZE_CONFIGS, WAN_CONFIGS
 from omnivideo_tpu_torch.configs.base import T5Config
 from omnivideo_tpu_torch.device import resolve_device
-from omnivideo_tpu_torch.models.qwen3vl.engine import Qwen3VLEngine, VLMConfig
+from omnivideo_tpu_torch.io.hf_reader import load_hf_config, qwen3vl_config_from_hf
+from omnivideo_tpu_torch.models.qwen3vl.engine import Qwen3VLEngine, VLMConfig, vlm_shard
 from omnivideo_tpu_torch.models.wan_dit import SPConfig
 from omnivideo_tpu_torch.parallel.distributed import add_distributed_args, maybe_initialize_distributed
 from omnivideo_tpu_torch.parallel.mesh import axis_index, axis_size, create_mesh
@@ -110,9 +123,6 @@ from omnivideo_tpu_torch.utils.video import (
 
 # flag → (value meaning "off", why it is not ported)
 NOT_PORTED = {
-    "vlm_fsdp": (1, "FSDP2 over the Qwen3-VL MoE: the model fits one card, and sharding its "
-                    "KV-cached decode (an all-gather per token) is queued last in ROADMAP §1 "
-                    "item 4"),
     "max_steps_per_call": (None, "a TPU dispatch-time workaround the card does not need"),
 }
 
@@ -174,7 +184,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Qwen3-VL HF checkpoint dir: caption expansion + feature extraction")
     p.add_argument("--vlm_backend", default="jax", choices=["hf", "jax"],
                    help="jax: the native engine (JAX's name for it); hf is not ported")
-    p.add_argument("--vlm_fsdp", type=int, default=1)
+    p.add_argument("--vlm_fsdp", type=int, default=1,
+                   help="split the VLM's expert banks over this many processes, one card each "
+                        "(consecutive ranks; the experts' width / n a multiple of 8)")
     p.add_argument("--max_steps_per_call", type=int, default=None)
     p.add_argument("--dp_rank", type=int, default=None,
                    help="this run's share of the rows: row i when i %% dp_world_size == "
@@ -205,6 +217,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--layer_stream is the single-device path (no --sp_size/--fsdp_size/--tp_size)")
     if not args.random_weights and not args.ckpt_dir:
         p.error("--ckpt_dir is required without --random_weights")
+    if args.vlm_fsdp < 1:
+        p.error("--vlm_fsdp must be ≥ 1")
+    if args.vlm_fsdp > 1 and not args.vlm_path:
+        p.error("--vlm_fsdp splits the VLM of --vlm_path: give --vlm_path")
     return args
 
 
@@ -230,12 +246,14 @@ def read_clip(path: str, frame_num: int, size, target_fps: float, device="cuda",
     return clip
 
 
-def vlm_stage(args, rows: List[dict], ids: List[str], device: torch.device) -> Dict[str, dict]:
+def vlm_stage(args, rows: List[dict], ids: List[str], device: torch.device,
+              shard=None) -> Dict[str, dict]:
     """The Qwen3-VL engine over every row (source caption, target caption,
     features), then freed: {id: {"ar_vision_input": [L, D] f32 on the host,
-    "target_caption", "timings"}}."""
+    "target_caption", "timings"}}. `shard`: this rank's split of the
+    expert banks (`--vlm_fsdp`)."""
     engine = Qwen3VLEngine(VLMConfig(model_path=args.vlm_path, backend=args.vlm_backend,
-                                     fsdp=args.vlm_fsdp, device=str(device)))
+                                     fsdp=args.vlm_fsdp, device=str(device)), shard=shard)
     out, feats = {}, None
     for sample_id, row in zip(ids, rows):
         engine.timings.clear()
@@ -272,13 +290,16 @@ def run(args: argparse.Namespace) -> List[dict]:
     "path" (the file written, rank 0 only), "timings", "latents" (on the
     host)}."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    sp = mesh = None
+    sp = mesh = shard = None
     n = args.fsdp_size * args.sp_size * args.tp_size
     joined = False  # whether this run started the process group (and so ends it)
+    if (n > 1 or args.vlm_fsdp > 1) and not dist.is_initialized():
+        joined = maybe_initialize_distributed(args.coordinator, args.num_processes,
+                                              args.process_id, device=args.device)
+    if args.vlm_fsdp > 1:  # every refusal before any weight is read
+        text = qwen3vl_config_from_hf(load_hf_config(args.vlm_path)).text
+        shard = vlm_shard(VLMConfig(fsdp=args.vlm_fsdp), text)
     if n > 1:
-        if not dist.is_initialized():
-            joined = maybe_initialize_distributed(args.coordinator, args.num_processes,
-                                                  args.process_id, device=args.device)
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world != n:
             raise ValueError(f"--fsdp_size {args.fsdp_size} --sp_size {args.sp_size} --tp_size "
@@ -319,25 +340,25 @@ def run(args: argparse.Namespace) -> List[dict]:
     # this run's rows, with their indices in the file (the seed is base_seed + index)
     mine = [i for i in range(len(rows)) if i % dp_world == dp_rank]
     rows, ids = [rows[i] for i in mine], [ids[i] for i in mine]
-    vlm = vlm_stage(args, rows, ids, device) if args.vlm_path else {}
+    vlm = vlm_stage(args, rows, ids, device, shard) if args.vlm_path else {}
 
     impl = dict(qk_impl=args.qk_impl, ew_impl=args.ew_impl, residual_dtype=args.residual_dtype,
                 sp=sp)
     if args.layer_stream:
         impl.update(layer_stream=True, stream_quant=args.stream_quant,
                     stream_group=args.stream_group)
-    shard = mesh if args.fsdp_size > 1 or args.tp_size > 1 else None
+    dit_shard = mesh if args.fsdp_size > 1 or args.tp_size > 1 else None
     adapters = load_adapters_npz(args.lora_adapters) if args.lora_adapters else None
     if args.random_weights:
         pipe = OmniVideoX2XUnified.random_init(cfg, device=device, **impl)
         if adapters is not None:
             for expert in {id(e): e for e in (pipe.low_noise, pipe.high_noise)}.values():
                 merge_adapters(expert.wan, adapters)
-        if shard is not None:
-            pipe.shard(shard)
+        if dit_shard is not None:
+            pipe.shard(dit_shard)
     else:
         pipe = load_pipeline(cfg, args.ckpt_dir, dtype=cfg.torch_param_dtype, device=device,
-                             mesh=shard, adapters=adapters, **impl)
+                             mesh=dit_shard, adapters=adapters, **impl)
     if adapters is not None:
         logging.info("LoRA adapters merged from %s (%d sites)", args.lora_adapters,
                      len(adapters))

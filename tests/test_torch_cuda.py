@@ -1187,3 +1187,51 @@ def test_moe_runs_without_a_host_sync(cuda):
         assert gmm.launches == n0 + 3
         rel = float((y.float() - ref).abs().max() / ref.abs().max())
     assert rel <= 2e-2, rel  # bf16 products, the k outputs summed in bf16 (chip_smoke MOE_TOL)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("m,kind", [(8, "split_k"), (11848, "wgmma")])
+def test_gmm_at_the_split_expert_widths(cuda, shards, m, kind):
+    """Row 9 at the widths of Qwen3-VL-30B-A3B's banks split over 2 and 4
+    cards (`--vlm_fsdp`): gate/up [128, 2048, 768/n] and down [128, 768/n,
+    2048] (n = 384 or 192: the wide kernel's last 256-column tile partial;
+    k = 384 or 192: 6 or 3 of the split-k kernel's 64-deep steps), at a
+    decode step's 8 rows and the prefill's 11,848 (1,481 tokens, top-8),
+    the group sizes of a seeded skewed routing."""
+    E, D, w = 128, 2048, 768 // shards
+    rng = np.random.default_rng(m + shards)
+    p = rng.dirichlet(np.full(E, 0.3))
+    sizes = rng.multinomial(m, p).tolist()
+    _gmm_matches_plain(cuda, m, sizes, D, w, torch.bfloat16, False, kind, 21 + shards)
+    _gmm_matches_plain(cuda, m, sizes, w, D, torch.bfloat16, False, kind, 22 + shards)
+
+
+def test_sharded_moe_launches_row_9_on_the_card(cuda):
+    """A MoE split over two in-process shards (no group: each gives its f32
+    partial sum) launches gmm three times a shard; the partials add up to
+    the whole MoE's all-experts oracle (MOE_TOL, as the unsharded MoE)."""
+    from omnivideo_tpu_torch.configs.qwen3vl import Qwen3TextConfig
+    from omnivideo_tpu_torch.models.qwen3vl import text_model as vlm_text
+    from omnivideo_tpu_torch.parallel.expert_shard import ExpertShard, shard_experts
+
+    cfg = Qwen3TextConfig(vocab_size=64, hidden_size=256, num_hidden_layers=1,
+                          num_attention_heads=2, num_key_value_heads=1, num_experts=16,
+                          num_experts_per_tok=4, moe_intermediate_size=128)
+    x = torch.randn(1, 300, 256, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1)).bfloat16()
+    parts = []
+    with torch.inference_mode():
+        for r in range(2):
+            lm = vlm_text.Qwen3LM(cfg, torch.bfloat16, cuda,
+                                  torch.Generator(device=cuda).manual_seed(0))
+            if r == 0:
+                ref = vlm_text.moe_dense(lm.language_model.layers[0].mlp, x).float()
+            shard_experts(lm, ExpertShard(r, 2))
+            mlp = lm.language_model.layers[0].mlp
+            assert mlp.experts_gate.shape == (16, 256, 64) and mlp.experts_down.shape == (16, 64, 256)
+            n0 = gmm.launches
+            parts.append(vlm_text.moe_partial(mlp, x))
+            torch.cuda.synchronize()
+            assert gmm.launches == n0 + 3
+    rel = float(((parts[0] + parts[1]) - ref).abs().max() / ref.abs().max())
+    assert rel <= 2e-2, rel

@@ -91,9 +91,23 @@ def test_read_clip_samples_and_pads(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--vlm_fsdp", "2"], ["--max_steps_per_call", "3"],
                                   ["--vlm_backend", "hf"]])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        generate.parse_args(["--input", "x.jsonl", "--random_weights"] + flag)
+def test_unported_flags_raise(tmp_path, flag, monkeypatch):
+    """The flags the port does not run raise NotImplementedError; `--vlm_fsdp
+    2` runs, and without a process group it is refused before any weight is
+    read (the dir holds Qwen3-VL-30B-A3B's config.json alone)."""
+    if flag[0] != "--vlm_fsdp":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            generate.parse_args(["--input", "x.jsonl", "--random_weights"] + flag)
+        return
+    from omnivideo_tpu_torch.configs.qwen3vl import QWEN3_VL_30B_A3B
+    from torch_io_tiny import hf_config_dict
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    (tmp_path / "config.json").write_text(json.dumps(hf_config_dict(QWEN3_VL_30B_A3B)))
+    with pytest.raises(ValueError, match="needs an initialised process group"):
+        generate.main(["--input", "x.jsonl", "--random_weights", "--device", "cpu",
+                       "--vlm_path", str(tmp_path), "--output_dir", str(tmp_path)] + flag)
 
 
 @pytest.mark.parametrize("flag", [["--stream_quant", "int8"], ["--stream_group", "2"],

@@ -197,10 +197,10 @@ def test_from_model_and_unported_options(engines):
     assert other._eos == 155
     assert (other.predict_target_video_caption("", "tok9 no")
             == ours.predict_target_video_caption("", "tok9 no"))
-    for cfg, err in ((engine.VLMConfig(backend="hf"), NotImplementedError),
-                     (engine.VLMConfig(fsdp=2), NotImplementedError),
-                     (engine.VLMConfig(backend="vllm"), ValueError)):
-        with pytest.raises(err):
+    for cfg, err, match in ((engine.VLMConfig(backend="hf"), NotImplementedError, "not ported"),
+                            (engine.VLMConfig(fsdp=2), ValueError, "dense"),  # no experts to split
+                            (engine.VLMConfig(backend="vllm"), ValueError, "unknown")):
+        with pytest.raises(err, match=match):
             engine.Qwen3VLEngine.from_model(ours.model, cfg, ours.tokenizer)
     with pytest.raises(FileNotFoundError):  # the image path reads the file it is given
         ours._generate([{"role": "user", "content": [{"type": "image", "image": "x.png"}]}])

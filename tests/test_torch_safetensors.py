@@ -3,7 +3,7 @@ written from the file format, against the `safetensors` package and the JAX
 package's `load_hf_safetensors`: every dtype it reads, `__metadata__`, a
 sharded checkpoint dir with `model.safetensors.index.json` and
 `prefix_filter`, a tensor whose offset is not a multiple of its element
-size, and entries that do not fit the file. Every tensor bit-equal, BF16
+size, entries that do not fit the file, and `take`'s slices. Every tensor bit-equal, BF16
 kept as torch.bfloat16."""
 
 import json
@@ -16,6 +16,7 @@ from safetensors.torch import load_file, save_file
 
 from omnivideo_tpu.io.hf_reader import load_hf_safetensors as jax_load_hf_safetensors
 from omnivideo_tpu_torch.io.hf_reader import load_hf_safetensors
+from omnivideo_tpu_torch.io import safetensors as st
 from omnivideo_tpu_torch.io.safetensors import iter_safetensors, load_safetensors, read_header
 
 
@@ -124,3 +125,37 @@ def test_bad_entries_raise(tmp_path, entry, match):
     _write_raw(tmp_path / "bad.safetensors", {"t": entry}, bytes(16))
     with pytest.raises(ValueError, match=match):
         load_safetensors(tmp_path / "bad.safetensors", device="cpu")
+
+
+@pytest.mark.parametrize("staging", [None, 200])
+def test_take_reads_ranges_of_a_dim(tmp_path, monkeypatch, staging):
+    """`take` (a rank's columns of an expert bank, io/hf_reader.py): the
+    named ranges of one dim, concatenated, bit for bit as slicing the whole
+    tensor gives them; other tensors whole. `staging` shrinks the staging
+    buffers to 200 bytes, so that the slabs (one index of the dims before
+    the dim) of a tensor fill several buffers, and the 384-byte slab of
+    "rows" is refused with its reason."""
+    if staging is not None:
+        monkeypatch.setattr(st, "STAGING_BYTES", staging)
+    rng = np.random.default_rng(3)
+    src = {"gate_up": torch.from_numpy(rng.standard_normal((3, 5, 16)).astype(np.float32))
+           .to(torch.bfloat16),
+           "down": torch.from_numpy(rng.standard_normal((3, 8, 5)).astype(np.float32)),
+           "rows": torch.from_numpy(rng.standard_normal((16, 6)).astype(np.float32)),
+           "whole": torch.arange(7, dtype=torch.int64)}
+    want = {"gate_up": (2, [(2, 4), (10, 12)]), "down": (1, [(4, 8)]), "rows": (0, [(2, 6)])}
+    save_file(src, str(tmp_path / "m.safetensors"))
+    if staging is not None:
+        with pytest.raises(ValueError, match="more than a staging buffer"):
+            list(iter_safetensors(tmp_path / "m.safetensors", "cpu",
+                                  take=lambda name, shape: want.get(name)))
+        del want["rows"]
+    got = dict(iter_safetensors(tmp_path / "m.safetensors", "cpu",
+                                take=lambda name, shape: want.get(name)))
+    for name, (dim, ranges) in want.items():
+        ref = torch.cat([src[name].narrow(dim, a, b - a) for a, b in ranges], dim)
+        assert _bits_equal(got[name], ref), name
+    assert _bits_equal(got["whole"], src["whole"])
+    with pytest.raises(ValueError, match="do not fit"):
+        list(iter_safetensors(tmp_path / "m.safetensors", "cpu",
+                              take=lambda name, shape: (0, [(0, 99)])))

@@ -112,12 +112,21 @@ def test_dp_split_takes_its_rows_and_seeds(runs, monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--sp_size", "2", "--sp_mode", "hybrid"], "fsdp"),
     (["--sp_size", "2", "--tp_size", "2"], "exclude"),
-    (["--vlm_fsdp", "2"], "Qwen3-VL MoE"),
+    (["--vlm_fsdp", "64"], "multiple of 8"),
 ])
-def test_unported_parallel_flags_raise(flags, match, capsys):
-    """Combinations the CLI refuses, and the one flag still waiting."""
-    with pytest.raises((NotImplementedError, SystemExit)) as err:
-        generate.parse_args(ARGS + ["--input", "x.jsonl"] + flags)
+def test_unported_parallel_flags_raise(flags, match, capsys, tmp_path):
+    """Combinations the CLI refuses; `--vlm_fsdp 64` at Qwen3-VL-30B-A3B's
+    config (its experts' 768 columns would leave 12 a rank, which the
+    grouped products do not take) is refused before any process group or
+    weight is needed (the dir holds the config.json alone)."""
+    from omnivideo_tpu_torch.configs.qwen3vl import QWEN3_VL_30B_A3B
+    from torch_io_tiny import hf_config_dict
+
+    (tmp_path / "config.json").write_text(json.dumps(hf_config_dict(QWEN3_VL_30B_A3B)))
+    argv = ARGS + ["--input", "x.jsonl", "--vlm_path", str(tmp_path), "--output_dir",
+                   str(tmp_path)] + flags
+    with pytest.raises((ValueError, SystemExit)) as err:
+        generate.run(generate.parse_args(argv))
     assert match in str(err.value) + capsys.readouterr().err
 
 
