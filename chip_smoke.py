@@ -12,8 +12,10 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py adafactor  # the train phase, then adafactor
     python3 chip_smoke.py qwen3_sp   # the vlm phase, with its text-only pass and qwen3_sp
     python3 chip_smoke.py sft        # tiny_sft, then sft
-    python3 chip_smoke.py sft_sp     # the f32 ring step's cases, then the SFT step
-                                     # under --sp at world 1 beside its single-card step
+    python3 chip_smoke.py sft_sp     # the f32 ring step's and backward's cases, then the
+                                     # SFT step under --sp at world 1 beside its one-card
+                                     # step: with 2+ cards the SFT modes and
+                                     # qwen3_forward_sp across the cards too
     python3 chip_smoke.py i2v        # flash, then tiny_i2v, i2v, vae22 and xlm
     python3 chip_smoke.py stream     # cli and a14b (experts kept on the host), then stream
     python3 chip_smoke.py stream_train  # the streamed trainers' phase alone
@@ -280,15 +282,27 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             train_step_s and peak memory; (c) with 2+ cards, min(4, count)
             spawned NCCL ranks run sp ring, sp Ulysses, fsdp, tp (where the
             heads and FFN divide) and on 4 cards dp2 x fsdp2 the same way,
-            then generate under fsdp and tp against the non-SP generate
+            then qwen3_forward_sp on the SFT model in f32 and bf16 (a ring
+            of min(4, count); on 4 cards also ring 2 x Ulysses 2) against
+            each card's one-card qwen3_forward (SP_TOL of scale), then
+            generate under fsdp and tp against the non-SP generate
             (SP_TOL of scale); with one card a line says why (c) did not run.
             The VLM's SFT beside it: the token-causal ring backward over 4
             in-process shards of [1, 2048, 32, 128] (rows 4 and 5 on the
-            earlier shards) against the plain loop and, per head within
-            GRAD_TOL, the dense causal backward; the SFT step on the full-
-            width 2-layer, 16-expert Qwen3 (batch 2 × 2048, rows of unequal
-            target counts) under --sp at world 1 (NCCL, row 8) and on 2+
-            cards under --sp, --fsdp and (4 cards) --dp 2 --fsdp 2, held to
+            earlier shards), bf16 and f32, against the plain loop and, per
+            head, the dense f32 causal backward (GRAD_TOL for bf16; for f32
+            BWD_F32_TOL against the plain loop and BWD_F32_DENSE_TOL against
+            the dense backward, with the f32 kernels launched 6 times each
+            and no bf16 backward kernel); rows 4 and 5 on f32 operands
+            (csrc/flash_train_f32.cu) against flash_bwd_plain at a 4-card
+            run's earlier-shard shape [2, 512, 32, 128] and the in-process
+            [1, 512, 32, 128], each kernel timed beside f32 SDPA's backward;
+            the SFT step on the full-width 2-layer, 16-expert Qwen3 (batch
+            2 × 2048, rows of unequal target counts) under --sp at world 1
+            (NCCL, row 8) and on 2+
+            cards under --sp (the f32 backward kernels on each rank's
+            earlier shards, 2 × 6 × 2 launches each on 4 cards, no bf16
+            backward kernel), --fsdp and (4 cards) --dp 2 --fsdp 2, held to
             the single-card step as the train modes are; the f32 LM's ring
             runs the f32 step kernel (csrc/ring_step_f32.cu), held to
             ring_step_plain within RING_F32_TOL of each output row's max
@@ -421,6 +435,7 @@ from omnivideo_tpu_torch.models.xlm_roberta import (
 from omnivideo_tpu_torch.ops import _kernels
 from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 from omnivideo_tpu_torch.ops.flash_attention import (
+    BWD_KERNELS,
     flash_attention,
     flash_attention_plain,
     flash_attention_train,
@@ -580,8 +595,10 @@ ENGINE_GRIDS = {"caption": (3, 44, 80), "features": (3, 2, 2)}  # 720p after sma
 # 704x1280 at 480²…4·480² pixels, 32x32 at 480…1,920 (the JAX engine's budgets)
 D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
 KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_causal", "flash_d72", "flash_fwd_lse",
-               "flash_bwd_dq", "flash_bwd_dkv", "fused_adaln", "ring_step", "ring_step_f32",
-               "gmm", "tgmm")
+               "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+               "fused_adaln", "ring_step", "ring_step_f32", "gmm", "tgmm")
+TRAIN_ROWS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")  # the DiT trainer's kernels
+BWD_F32_ROWS = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")  # rows 4 and 5 on f32 operands
 
 
 def emit(obj) -> None:
@@ -632,7 +649,8 @@ def kernel_row(name: str):
     InferOut<72> row 3a, LseOut row 3b, RingCarry row 8. The MoE's grouped
     products: row 9 is `gmm_wgmma_kernel` (bf16, many rows),
     `gmm_splitk_kernel` (bf16, few rows) and `gmm_tf32_kernel` (f32); row 9b
-    `tgmm_wgmma_kernel` (bf16) and `tgmm_tf32_kernel` (f32)."""
+    `tgmm_wgmma_kernel` (bf16) and `tgmm_tf32_kernel` (f32). Rows 4 and 5 on
+    f32 operands are `flash_bwd_dq_f32_kernel` and `flash_bwd_dkv_f32_kernel`."""
     if "attn_fwd_kernel" in name:
         if "RingCarry" in name:
             return "ring_step"
@@ -644,7 +662,9 @@ def kernel_row(name: str):
         if m:
             return {"128": "flash_fwd", "72": "flash_d72"}.get(m.group(1))
         return None
-    for key, row in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
+    for key, row in (("flash_bwd_dkv_f32", "flash_bwd_dkv_f32"),
+                     ("flash_bwd_dq_f32", "flash_bwd_dq_f32"),
+                     ("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
                      ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln"),
                      ("ring_step_f32", "ring_step_f32"), ("tgmm_wgmma_kernel", "tgmm"),
                      ("tgmm_tf32_kernel", "tgmm"), ("gmm_wgmma_kernel", "gmm"),
@@ -1807,10 +1827,12 @@ class _Routing:
     (`calls`), or with `replay` a record is replayed call by call: each
     call's own router probabilities, the recorded experts (a router near-tie
     that a bf16 rounding flips swaps a token's expert, which says nothing
-    about the path under test)."""
+    about the path under test). `rows` picks the recorded tokens a call
+    sees (a sequence-parallel rank's share of the one-card record)."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, rows: torch.Tensor | None = None):
         self.calls, self.replay, self.used = (replay or []), replay is not None, 0
+        self.rows = rows
 
     def __enter__(self) -> "_Routing":
         self.route, vlm_text.router = vlm_text.router, self._route
@@ -1823,11 +1845,13 @@ class _Routing:
         topv, topi, probs = self.route(mlp, xt)
         if not self.replay:
             self.calls.append(topi.cpu())
-        elif self.used < len(self.calls) and self.calls[self.used].shape == topi.shape:
-            topi = self.calls[self.used].to(topi.device)
-            topv = probs.gather(1, topi)
-            if mlp.cfg.norm_topk_prob:
-                topv = topv / topv.sum(-1, keepdim=True)
+        elif self.used < len(self.calls):
+            rec = self.calls[self.used] if self.rows is None else self.calls[self.used][self.rows]
+            if rec.shape == topi.shape:
+                topi = rec.to(topi.device)
+                topv = probs.gather(1, topi)
+                if mlp.cfg.norm_topk_prob:
+                    topv = topv / topv.sum(-1, keepdim=True)
         self.used += 1
         return topv, topi, probs
 
@@ -3316,7 +3340,13 @@ def _tiny_train_config() -> PipelineConfig:
 
 
 def _train_launches() -> dict:
-    return dict(flash_attention_train.launches)
+    """The DiT trainer's kernels (rows 3b, 4 and 5)."""
+    return {k: flash_attention_train.launches[k] for k in TRAIN_ROWS}
+
+
+def _bwd_f32_launches() -> dict:
+    """Rows 4 and 5 on f32 operands (the f32 ring backward's earlier shards)."""
+    return {k: flash_attention_train.launches[k] for k in BWD_F32_ROWS}
 
 
 def _reset_train_launches() -> None:
@@ -3511,22 +3541,33 @@ SP_LOSS_TOL = 2e-3  # rel, a mesh step's loss vs the single-card step's: the sam
 # the same tokens, sums over ranks in another order (the tiny train's card-vs-CPU limit)
 SP_GNORM_TOL = 1e-2  # rel, grad_norm; and per leaf ‖g − g_ref‖/‖g_ref‖ (the flash_train
 # limit: the ring's backward recomputes p from its own LSE, bf16 p and ds at other points)
+BWD_F32_TOL = 1e-5  # ‖g − g_plain‖/‖g_plain‖ per (batch row, head), rows 4 and 5 on f32
+# operands vs flash_bwd_plain on f32 (TF32 off): f32-accurate products (three tf32 products,
+# tests/test_torch_flash_bwd_f32_split.py) summed in other orders
+BWD_F32_DENSE_TOL = 1e-4  # the f32 ring backward vs the dense f32 causal backward, the same
+# norm: the ring's forward LSE comes from the f32 step kernel (RING_F32_TOL)
 
 
 def _ring_bwd_case(name, q, k, v, do, n, kv=None, causal=None, reps=3) -> dict:
     """The ring backward over n in-process shards (ring_flash_backward_shards,
-    rows 4 and 5 per step) from the ring forward's outputs and LSEs, held
-    per (batch row, head) to the same loop with flash_bwd_plain and, for
-    the non-causal cases, to flash_bwd over the whole sequence (row 3b's
-    LSE); row 4 and row 5 launches per ring backward asserted."""
+    rows 4 and 5 per step: on bf16 operands, or on f32 operands, as q/k/v/dO
+    come) from the ring forward's outputs and LSEs, held per (batch row,
+    head) to the same loop with flash_bwd_plain (GRAD_TOL for bf16,
+    BWD_F32_TOL for f32) and, for the non-causal bf16 cases, to flash_bwd
+    over the whole sequence (row 3b's LSE); the dtype's row 4 and row 5
+    launches per ring backward asserted, the other dtype's none."""
     B, L, N, D = q.shape
+    f32 = q.dtype == torch.float32
+    names = BWD_KERNELS[q.dtype]
+    others = BWD_KERNELS[torch.bfloat16 if f32 else torch.float32]
+    tol = BWD_F32_TOL if f32 else GRAD_TOL
     qs, ks, vs, dos = (_shards(t, n) for t in (q, k, v, do))
     fwd = ring_flash_attention_shards(qs, ks, vs, kv_lens=kv, causal=causal, return_lse=True)
     outs, lses = [f[0] for f in fwd], [f[1] for f in fwd]
     _reset_train_launches()
     grads = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, kv, causal)
     torch.cuda.synchronize()
-    launches = _train_launches()
+    launches = dict(flash_attention_train.launches)
     steps = {None: n * n, "block": n * (n + 1) // 2, "token": n * (n - 1) // 2}[causal]
     plain = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, kv, causal,
                                        bwd=flash_bwd_plain)
@@ -3534,22 +3575,24 @@ def _ring_bwd_case(name, q, k, v, do, n, kv=None, causal=None, reps=3) -> dict:
     err_plain = {t: float(_grad_rel(cat(grads, i), cat(plain, i)).max())
                  for i, t in enumerate(("dq", "dk", "dv"))}
     err_whole = None
-    if causal is None:
+    if causal is None and not f32:
         o_w, lse_w = flash_fwd_lse(q, k, v, kv)
         whole = flash_bwd(q, k, v, do, lse_w, flash_delta(do, o_w), kv)
         err_whole = {t: float(_grad_rel(cat(grads, i), whole[i]).max())
                      for i, t in enumerate(("dq", "dk", "dv"))}
         del o_w, lse_w, whole
     rec = {"phase": "sp_train", "part": "ring_backward", "case": name, "q": [B, L, N, D],
-           "shards": n, "kv_lens": kv.tolist() if kv is not None else None, "causal": causal,
-           "launches": {k: launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")},
-           "launches_expected": steps, "max_rel_err_per_head_vs_plain": err_plain,
-           "max_rel_err_per_head_vs_whole": err_whole, "tolerance": GRAD_TOL,
+           "dtype": str(q.dtype).replace("torch.", ""), "shards": n,
+           "kv_lens": kv.tolist() if kv is not None else None, "causal": causal,
+           "launches": {k: launches[k] for k in names}, "launches_expected": steps,
+           "launches_other_dtype": {k: launches[k] for k in others},
+           "max_rel_err_per_head_vs_plain": err_plain,
+           "max_rel_err_per_head_vs_whole": err_whole, "tolerance": tol,
            "max_abs_err": max(float((cat(grads, i) - cat(plain, i)).abs().max())
                               for i in range(3))}
-    bad = (max(err_plain.values()) > GRAD_TOL
+    bad = (max(err_plain.values()) > tol
            or (err_whole is not None and max(err_whole.values()) > GRAD_TOL)
-           or launches["flash_bwd_dq"] != steps or launches["flash_bwd_dkv"] != steps
+           or any(launches[k] != steps for k in names) or any(launches[k] for k in others)
            or not all(torch.isfinite(g).all() for gs in grads for g in gs))
     if bad:
         raise AssertionError(f"sp_train ring backward {name}: {rec}")
@@ -3559,7 +3602,8 @@ def _ring_bwd_case(name, q, k, v, do, n, kv=None, causal=None, reps=3) -> dict:
     rec["plain_ms_per_rank"] = cuda_ms(lambda: ring_flash_backward_shards(
         qs, ks, vs, outs, lses, dos, kv, causal, bwd=flash_bwd_plain), 1, 0) / n
     # bound per rank from this run's data: the kernels' steps (the token mode's own-shard
-    # step is plain torch), each operand read once per step
+    # step is plain torch), each operand read once per step; f32 operands take three tf32
+    # products each at the tf32 rate
     Ls = L // n
     pairs = 0
     for r in range(n):
@@ -3571,8 +3615,9 @@ def _ring_bwd_case(name, q, k, v, do, n, kv=None, causal=None, reps=3) -> dict:
             pairs += B * Ls * live
     row = N * D
     stat = B * N * Ls * 4
-    nbytes = steps * ((4 * B * Ls) * row * 2 + 2 * stat + 3 * B * Ls * row * 4)
-    t_ops = 14 * N * D * pairs / BF16_FLOPS * 1e3 / n
+    esize, flop_per, rate = (4, 3 * 14, TF32_FLOPS) if f32 else (2, 14, BF16_FLOPS)
+    nbytes = steps * ((4 * B * Ls) * row * esize + 2 * stat + 3 * B * Ls * row * 4)
+    t_ops = flop_per * N * D * pairs / rate * 1e3 / n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3 / n
     rec.update(bound_ms_per_rank=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
@@ -3692,6 +3737,7 @@ def _sp_train_rank(rank, world, port, tmp, modes, gen_modes, sft_modes):
         recs = {m: _train_mode(m, world, ref) for m in modes}
         sft_ref = torch.load(Path(tmp) / "sft_ref.pt", mmap=True)
         recs.update({"sft_" + m: _sft_mode(m, world, sft_ref) for m in sft_modes})
+        recs.update(_qwen3_sp_modes(world))
         lats = {}
         if gen_modes:
             base, ctx, _ = t2v_pipeline(T2V_1_3B, "cuda", with_vae=False)
@@ -3722,31 +3768,104 @@ def _sp_train_rank(rank, world, port, tmp, modes, gen_modes, sft_modes):
         dist.destroy_process_group()
 
 
-def _sp_train_multi_card(world: int, ref: dict, sft_ref: dict) -> dict:
+def _qwen3_sp_modes(world: int) -> dict:
+    """On each of `world` NCCL ranks: qwen3_forward_sp on the sp_train SFT
+    model (SFT_MESH_CFG, seeded weights) in f32 and in bf16 over the 2 ×
+    SFT_SEQ ids, as a ring of `world` and, on 4 cards, as ring 2 × Ulysses
+    2, each held to this card's own one-card qwen3_forward on the same
+    weights within SP_TOL of scale (f32 through the dense causal path, which
+    the causal flash kernel's bf16 operands would round; bf16 through row
+    2), with the one-card run's routing replayed on the rank's tokens (in
+    bf16 the two attention kernels round differently, which flips router
+    near-ties: the gap with the rank's own routing is reported beside it),
+    and the dtype's ring step kernel launched world × ring × layers times
+    over the ranks in the timed run and the other dtype's never."""
+    layers = SFT_MESH_CFG.num_hidden_layers
+    gen = torch.Generator(device="cuda").manual_seed(SP_SEED)
+    ids = torch.randint(SFT_MESH_CFG.vocab_size, (2, SFT_SEQ), generator=gen, device="cuda")
+    meshes = {f"ring{world}": (dict(sp=world), None)}
+    if world == 4:
+        meshes["ring2_ulysses2"] = (dict(fsdp=2, sp=2), "fsdp")
+    recs = {}
+    f32 = _sft_model(SFT_MESH_CFG, 1).lm.requires_grad_(False)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = f32 if dtype == torch.float32 else f32.to(torch.bfloat16)  # in place
+        kernel, other = (("ring_step_f32", "ring_step") if dtype == torch.float32
+                         else ("ring_step", "ring_step_f32"))
+        mask = torch.ones_like(ids) if dtype == torch.float32 else None
+        with _Routing() as routing:
+            ref = qwen3_forward(model, ids, mask)[1]
+        for name, (kw, ulysses) in meshes.items():
+            mesh = create_mesh(**kw)
+            Ll = SFT_SEQ // world  # this rank's tokens of each batch row, from `start`
+            nu, iu = (1, 0) if ulysses is None else (kw[ulysses], mesh.get_local_rank(ulysses))
+            start = (mesh.get_local_rank("seq") * nu + iu) * Ll
+            rows = (torch.arange(ids.shape[0])[:, None] * SFT_SEQ + start
+                    + torch.arange(Ll)[None, :]).reshape(-1)
+            with torch.inference_mode():
+                qwen3_forward_sp(model, ids, mesh, ulysses_axis=ulysses)  # warm-up
+                _reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, own = qwen3_forward_sp(model, ids, mesh, ulysses_axis=ulysses)
+                torch.cuda.synchronize()
+                sp_s = time.perf_counter() - t0
+                local = {"ring_step": ring_step.launches, "ring_step_f32": ring_step.launches_f32}
+                with _Routing(routing.calls, rows):
+                    _, logits = qwen3_forward_sp(model, ids, mesh, ulysses_axis=ulysses)
+            counts = torch.tensor([local[k] for k in sorted(local)], device="cuda")
+            dist.all_reduce(counts)
+            launches = dict(zip(sorted(local), counts.tolist()))
+            rel = _scale_rel(logits, ref)
+            expect = world * kw["sp"] * layers
+            recs[f"qwen3_sp_{name}_{str(dtype).replace('torch.', '')}"] = {
+                "world": world, "mesh": kw, "ulysses_axis": ulysses, "seq_len": SFT_SEQ,
+                "forward_s": sp_s, "logits_rel_err": rel,
+                "logits_rel_err_own_routing": _scale_rel(own, ref), "tolerance_rel": SP_TOL,
+                "launches_all_ranks": launches, "launches_expected": {kernel: expect, other: 0},
+                "ok": (rel <= SP_TOL and bool(torch.isfinite(logits).all())
+                       and launches[kernel] == expect and launches[other] == 0)}
+            del logits, own
+        del ref
+    del model, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _sp_train_multi_card(world: int, ref: dict | None, sft_ref: dict) -> dict:
     """(c): spawn `world` NCCL ranks, one card each: the train modes (sp
     ring, sp Ulysses, fsdp, tp where the heads and FFN divide, dp2×fsdp2 on
     4 cards) held to the single-card step, the SFT modes (sp, fsdp,
-    dp2×fsdp2 on 4 cards) held to the single-card SFT step, then generate
-    under fsdp and tp held to the non-SP generate (SP_TOL of scale)."""
+    dp2×fsdp2 on 4 cards) held to the single-card SFT step, qwen3_forward_sp
+    in f32 and bf16 (`_qwen3_sp_modes`), then generate under fsdp and tp
+    held to the non-SP generate (SP_TOL of scale). Without `ref` (the train
+    phase's step) only the SFT modes and qwen3_forward_sp run."""
     cfg = T2V_1_3B
-    modes = ["ring", "ulysses", "fsdp"]
-    if cfg.dit.num_heads % world == 0 and cfg.dit.ffn_dim % world == 0:
-        modes.append("tp")
-    if world == 4:
-        modes.append("dp2_fsdp2")
-    gen_modes = ["fsdp"] + (["tp"] if "tp" in modes else [])
+    modes, gen_modes = [], []
+    if ref is not None:
+        modes = ["ring", "ulysses", "fsdp"]
+        if cfg.dit.num_heads % world == 0 and cfg.dit.ffn_dim % world == 0:
+            modes.append("tp")
+        if world == 4:
+            modes.append("dp2_fsdp2")
+        gen_modes = ["fsdp"] + (["tp"] if "tp" in modes else [])
     sft_modes = ["sp", "fsdp"] + (["dp2_fsdp2"] if world == 4 else [])
-    pipe, ctx, gen = t2v_pipeline(cfg, "cuda", with_vae=False, qk_impl="unfused")
-    features = torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen, device="cuda")
-    lat_ref, _, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
-    lat_ref = lat_ref.float().cpu()
-    del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
+    if gen_modes:
+        pipe, ctx, gen = t2v_pipeline(cfg, "cuda", with_vae=False, qk_impl="unfused")
+        features = torch.randn(1450, QWEN3_VL_30B_A3B.text.hidden_size, generator=gen,
+                               device="cuda")
+        lat_ref, _, _ = _sp_generate(pipe, ctx, features, SIZE, FRAMES)
+        lat_ref = lat_ref.float().cpu()
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_train"))
     try:
-        torch.save(features.cpu(), tmp / "features.pt")
-        torch.save(dict(ref, grads=ref["grads"][:1]), tmp / "ref.pt")  # leaves: step 1
+        if gen_modes:
+            torch.save(features.cpu(), tmp / "features.pt")
+        # leaves: step 1
+        torch.save(dict(ref, grads=ref["grads"][:1]) if ref else {}, tmp / "ref.pt")
         torch.save(sft_ref, tmp / "sft_ref.pt")
         mp.spawn(_sp_train_rank, args=(world, _free_port(), str(tmp), modes, gen_modes,
                                        sft_modes), nprocs=world)
@@ -3771,6 +3890,8 @@ def phase_sp_train(ref: dict, gen: torch.Generator) -> dict:
     first two steps); (c) with 2+ cards, min(4, count) spawned ranks."""
     ring_bwd = _sp_train_ring_backward(gen)
     ring_bwd["sft_token"] = _sft_ring_backward(gen)
+    ring_bwd["sft_token_f32"] = _sft_ring_backward(gen, torch.float32)
+    bwd_f32 = _bwd_f32_case(gen)
     ring_f32 = _ring_f32_case(gen)
     sft_ref = _sft_reference()
     recs = {}
@@ -3800,7 +3921,8 @@ def phase_sp_train(ref: dict, gen: torch.Generator) -> dict:
     bad = [m for m, r in {**recs, **(multi or {})}.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"sp_train: modes {bad} failed: {rec}")
-    return {"ring_backward": ring_bwd, "ring_step_f32": ring_f32, **rec}
+    return {"ring_backward": ring_bwd, "flash_bwd_f32": bwd_f32, "ring_step_f32": ring_f32,
+            **rec}
 
 
 
@@ -3914,7 +4036,7 @@ def phase_lora(adamw: dict, tmp: Path) -> dict:
     if (not finite or not base_equal or moved == 0 or any(p != expect for p in per_step)
             or peak_gb >= 80.0):
         raise AssertionError(f"lora: {rec} (launches expected {expect} per step)")
-    rec["launches"] = {k: sum(p[k] for p in per_step) for k in flash_attention_train.launches}
+    rec["launches"] = {k: sum(p[k] for p in per_step) for k in TRAIN_ROWS}
     rec["generate"] = _lora_generate(adapters, ad_path, tmp)
     rec["finetune_cli"] = _lora_finetune_cli(tmp)
     return rec
@@ -4121,7 +4243,7 @@ def phase_adafactor(adamw: dict) -> dict:
             or not checks["factored_stacked"]["factored"]
             or checks["unfactored_stacked"]["factored"]):
         raise AssertionError(f"adafactor: {rec} (launches expected {expect} per step)")
-    rec["launches"] = {k: sum(p[k] for p in per_step) for k in flash_attention_train.launches}
+    rec["launches"] = {k: sum(p[k] for p in per_step) for k in TRAIN_ROWS}
     return rec
 
 
@@ -4230,8 +4352,8 @@ def phase_qwen3_sp(model, ids_t: torch.Tensor, ref_logits: torch.Tensor) -> dict
            "logits_rel_err": rel, "tolerance_rel": SP_TOL, "launches": launches,
            "moe_launches": moe, "multi_card": None}
     if count >= 2:
-        print(f"qwen3_sp: the {min(4, count)}-rank run is not part of this script (ROADMAP "
-              "§1 item 4); the CPU tests hold the ring of 4 and ring × Ulysses", flush=True)
+        print(f"qwen3_sp: the {min(4, count)}-rank run is in sp_train's multi-card part "
+              "(on the SFT model, f32 and bf16)", flush=True)
     emit(rec)
     if (launches != expect or moe != {"gmm": 3 * layers, "tgmm": 0} or rel > SP_TOL
             or not torch.isfinite(logits).all()):
@@ -4360,7 +4482,8 @@ def _sft_full_case(name: str, lora: int = 0, align: float = 0.0) -> dict:
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32}
+    launches = {**_launches(), **_train_launches(), **_bwd_f32_launches(),
+                "ring_step_f32": ring_step.launches_f32}
     moe = _moe_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     profile = _profile(lambda: step(state, batch))
@@ -4456,17 +4579,24 @@ def phase_sft(tmp: Path) -> dict:
     return rec
 
 
-def _sft_ring_backward(gen: torch.Generator) -> dict:
+def _sft_ring_backward(gen: torch.Generator, dtype=torch.bfloat16) -> dict:
     """The token-causal ring backward (rows 4 and 5 on the earlier shards)
     over RING_N in-process shards of an SFT batch's attention, SFT_RING_Q:
-    against the plain loop (`_ring_bwd_case`) and, per (batch row, head)
-    within GRAD_TOL of its norm, against the dense causal backward of the
-    whole sequence in f32 (autograd)."""
+    against the plain loop (`_ring_bwd_case`) and, per (batch row, head),
+    against the dense causal backward of the whole sequence in f32
+    (autograd, TF32 off): bf16 q/k/v/dO within GRAD_TOL of its norm; f32
+    ones, as the f32 LM's ring gives them (rows 4 and 5 on f32 operands),
+    within BWD_F32_DENSE_TOL."""
     B, L, N, D = SFT_RING_Q
-    q, k = _normed(B, L, N, D, gen), _normed(B, L, N, D, gen)
-    v = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
-    do = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
-    rec = _ring_bwd_case("sft_token", q, k, v, do, RING_N, causal="token")
+    if dtype == torch.float32:
+        q, k, v, do = (torch.randn(B, L, N, D, generator=gen, device="cuda") for _ in range(4))
+        name, tol = "sft_token_f32", BWD_F32_DENSE_TOL
+    else:
+        q, k = _normed(B, L, N, D, gen), _normed(B, L, N, D, gen)
+        v = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        name, tol = "sft_token", GRAD_TOL
+    rec = _ring_bwd_case(name, q, k, v, do, RING_N, causal="token")
     qs, ks, vs, dos = (_shards(t, RING_N) for t in (q, k, v, do))
     fwd = ring_flash_attention_shards(qs, ks, vs, causal="token", return_lse=True)
     grads = ring_flash_backward_shards(qs, ks, vs, [f[0] for f in fwd], [f[1] for f in fwd],
@@ -4479,11 +4609,84 @@ def _sft_ring_backward(gen: torch.Generator) -> dict:
     err = {t: float(_grad_rel(torch.cat([g[i] for g in grads], 1), leaves[i].grad).max())
            for i, t in enumerate(("dq", "dk", "dv"))}
     rec["max_rel_err_per_head_vs_dense_causal"] = err
+    rec["tolerance_vs_dense_causal"] = tol
     del leaves, s_, o, grads, fwd
     torch.cuda.empty_cache()
-    if max(err.values()) > GRAD_TOL:
+    if max(err.values()) > tol:
         raise AssertionError(f"sp_train SFT ring backward: {rec}")
     return rec
+
+
+BWD_F32_CASES = (  # (case, q = k = v = dO shape): every key visible, no kv_lens
+    ("rank4_earlier", (2, SFT_SEQ // 4, 32, 128)),  # the 4-card SFT --sp step's earlier shards
+    ("in_process", (1, SFT_SEQ // 4, 32, 128)),  # sft_token_f32's shards (SFT_RING_Q / 4)
+)
+
+
+def _bwd_f32_case(gen: torch.Generator) -> dict:
+    """Rows 4 and 5 on f32 operands at the shapes the f32 ring backward gives
+    them (BWD_F32_CASES): flash_bwd launches the f32 kernels (and no bf16
+    one), held per (batch row, head) to flash_bwd_plain on the same f32
+    inputs (TF32 off) within BWD_F32_TOL, bit-equal on a rerun; each kernel
+    timed alone, beside the plain twin and f32 SDPA's backward on the same
+    q/k/v (its kernel named by the profiler). Bound: three tf32 products of
+    6·B·N·L²·D (dq) and 8·B·N·L²·D (dk/dv) FLOPs at the tf32 rate, or the
+    f32 bytes (q, k, v, dO, LSE and delta read once, the gradients written
+    once) where those take longer. The first case is the kernels line's."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("sp_train flash_bwd_f32: the plain twin must run in full f32")
+    cases = []
+    for name, (B, L, N, D) in BWD_F32_CASES:
+        q, k, v, do = (torch.randn(B, L, N, D, generator=gen, device="cuda") for _ in range(4))
+        o, lse = flash_fwd_lse_plain(q, k, v)
+        delta = flash_delta(do, o)
+        _reset_train_launches()
+        grads = flash_bwd(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        launches = dict(flash_attention_train.launches)
+        ref = flash_bwd_plain(q, k, v, do, lse, delta)
+        err = {t: float(_grad_rel(g, r).max()) for t, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+        again = flash_bwd(q, k, v, do, lse, delta)
+        deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
+        rec = {"phase": "sp_train", "part": "flash_bwd_f32", "case": name, "q": [B, L, N, D],
+               "launches": launches, "max_rel_err_per_head": err, "tolerance": BWD_F32_TOL,
+               "deterministic": deterministic,
+               "max_abs_err": {t: float((g - r).abs().max())
+                               for t, g, r in zip(("dq", "dk", "dv"), grads, ref)}}
+        want = {**{kn: 0 for kn in flash_attention_train.launches}, **{kn: 1 for kn in BWD_F32_ROWS}}
+        if (max(err.values()) > BWD_F32_TOL or launches != want or not deterministic
+                or not all(torch.isfinite(g).all() for g in grads)):
+            raise AssertionError(f"sp_train flash_bwd_f32 {name}: {rec}")
+        del again, ref
+        outs = {"flash_bwd_dq_f32": (torch.empty_like(q),),
+                "flash_bwd_dkv_f32": (torch.empty_like(k), torch.empty_like(v))}
+        rec["ms"] = {kn: cuda_ms(_bwd_launcher(kn, q, k, v, do, lse, delta, None, outs[kn],
+                                               D**-0.5), 20) for kn in BWD_F32_ROWS}
+        rec["plain_ms"] = cuda_ms(lambda: flash_bwd_plain(q, k, v, do, lse, delta), 1, 0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,  # noqa: E731
+                                               retain_graph=True)
+        rec["library_ms"] = cuda_ms(sdpa_bwd, 10)
+        top = _profile(sdpa_bwd)["top_kernels_ms"]  # empty where the profiler traced no kernel
+        rec["library_kernel"] = top[0][0] if top else "not traced"
+        stat = B * N * L * 4
+        nbytes = {"flash_bwd_dq_f32": 4 * B * L * N * D * 4 + 2 * stat + B * L * N * D * 4,
+                  "flash_bwd_dkv_f32": 4 * B * L * N * D * 4 + 2 * stat + 2 * B * L * N * D * 4}
+        flop = {"flash_bwd_dq_f32": 6 * B * N * L * L * D, "flash_bwd_dkv_f32": 8 * B * N * L * L * D}
+        rec["bound_ms"], rec["bound_by"], rec["share_of_bound"] = {}, {}, {}
+        for kn in BWD_F32_ROWS:
+            t_ops = 3 * flop[kn] / TF32_FLOPS * 1e3
+            t_bytes = nbytes[kn] / HBM_BYTES_PER_S * 1e3
+            rec["bound_ms"][kn] = max(t_ops, t_bytes)
+            rec["bound_by"][kn] = "operations" if t_ops >= t_bytes else "bytes"
+            rec["share_of_bound"][kn] = rec["bound_ms"][kn] / rec["ms"][kn]
+        emit(rec)
+        cases.append(rec)
+        del q, k, v, do, o, grads, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return {**cases[0], "cases": cases}
 
 
 RING_F32_TOL = 1e-5  # of each output row's max |plain| and |LSE − LSE_plain|, the f32 step
@@ -4617,8 +4820,8 @@ def _sft_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
         rows.append((float(m["loss"]), float(m["grad_norm"])))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0 - (spy.seconds - spy_s))
-    local = {**_launches(), **_train_launches(), "ring_step_f32": ring_step.launches_f32,
-             **_moe_launches()}
+    local = {**_launches(), **_train_launches(), **_bwd_f32_launches(),
+             "ring_step_f32": ring_step.launches_f32, **_moe_launches()}
     counts = torch.tensor([local[k] for k in sorted(local)], device=device)
     dist.all_reduce(counts)
     launches = dict(zip(sorted(local), counts.tolist()))
@@ -4629,9 +4832,14 @@ def _sft_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
            "loss_rel_err": [abs(r[0] / ref["loss"][i] - 1) for i, r in enumerate(rows)],
            "grad_norm_rel_err": [abs(r[1] / ref["grad_norm"][i] - 1) for i, r in enumerate(rows)],
            "worst_leaf_grad_rel_err": spy.worst}
-    ring_ok = not sp or (launches["ring_step_f32"] > 0  # the f32 LM's ring
-                         and (world == 1 or launches["flash_bwd_dq"] > 0))
     layers = SFT_MESH_CFG.num_hidden_layers
+    # the f32 LM's ring: the f32 step kernel forward; backward, the own shard in plain
+    # torch and rows 4 and 5 on f32 operands on each rank's earlier shards, no bf16 kernel
+    earlier = SP_TRAIN_STEPS * layers * world * (world - 1) // 2
+    ring_ok = not sp or (launches["ring_step_f32"] > 0 and launches["flash_bwd_dq"] == 0
+                         and launches["flash_bwd_dkv"] == 0
+                         and launches["flash_bwd_dq_f32"] == earlier
+                         and launches["flash_bwd_dkv_f32"] == earlier)
     moe_ok = (launches["gmm"] > 0 and launches["tgmm"] > 0  # the MoE's forward and backward
               and launches["gmm"] % (3 * layers) == 0)
     rec["ok"] = (max(rec["loss_rel_err"]) <= SP_LOSS_TOL
@@ -4785,10 +4993,15 @@ def _pipeline_train_step(fdir: Path) -> dict:
 
 
 def _sft_sp_alone() -> int:
-    """`chip_smoke.py sft_sp`: the f32 ring step's cases, then the SFT step
-    under --sp on a NCCL group of world 1 beside the single-card step."""
+    """`chip_smoke.py sft_sp`: the f32 ring step's cases, rows 4 and 5 on f32
+    operands and the f32 SFT ring backward, then the SFT step under --sp on
+    a NCCL group of world 1 beside the single-card step; with 2+ cards also
+    the SFT modes and qwen3_forward_sp across min(4, count) ranks."""
     phase_device()
-    _ring_f32_case(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _ring_f32_case(gen)
+    _bwd_f32_case(gen)
+    _sft_ring_backward(gen, torch.float32)
     sft_ref = _sft_reference()
     maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
     try:
@@ -4798,8 +5011,14 @@ def _sft_sp_alone() -> int:
     emit({"phase": "sft_sp", "sft_config": "QWEN3_VL_30B_A3B.text, 2 layers, 16 experts",
           "sft_seq_len": SFT_SEQ, "single_card": {"loss": sft_ref["loss"],
                                                   "grad_norm": sft_ref["grad_norm"]}, **rec})
-    if not rec["ok"]:
-        raise AssertionError(f"sft_sp: {rec}")
+    multi = {}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        multi = _sp_train_multi_card(min(4, count), None, sft_ref)
+        emit({"phase": "sft_sp", "multi_card": multi})
+    bad = [m for m, r in {"sft_sp": rec, **multi}.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"sft_sp: modes {bad} failed")
     return 0
 
 
@@ -5087,8 +5306,7 @@ def _stream_train_case(name: str, steps: int, hold_params: bool, rule_leaves=(),
                      "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "host_rss_peak_gb": rss.peak_gb, "pinned_gb": HostBuffer.pinned_bytes / 1e9,
                      "launches_ok": all(p == _train_expect(cfg) for p in per_step),
-                     "launches": {k: sum(p[k] for p in per_step)
-                                  for k in flash_attention_train.launches}}
+                     "launches": {k: sum(p[k] for p in per_step) for k in TRAIN_ROWS}}
         if hold_params:
             with torch.no_grad():
                 if mode == "resident":
@@ -5200,8 +5418,7 @@ def _stream_lora() -> dict:
                     "adapter_tensors": len(start),
                     "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
                     "host_rss_peak_gb": rss.peak_gb, "pinned_gb": HostBuffer.pinned_bytes / 1e9,
-                    "launches": {k: sum(p[k] for p in per_step)
-                                 for k in flash_attention_train.launches},
+                    "launches": {k: sum(p[k] for p in per_step) for k in TRAIN_ROWS},
                     "launches_ok": all(p == _train_expect(cfg) for p in per_step)}
         del state, trainer, start
     r, b, q = out["resident"], out["bf16"], out["int8"]
@@ -5742,8 +5959,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
     ar = vlm["ar_feature_extract"]
     sft_ring = sp_train["ring_backward"]["sft_token"]
     gen_cli = lora["generate"]["cli_launches"]
-    train_rows = {k: sum(p[k] for p in train["launches_per_step"])
-                  for k in flash_attention_train.launches}
+    train_rows = {k: sum(p[k] for p in train["launches_per_step"]) for k in TRAIN_ROWS}
     by_path = {  # each path's own count: reset just before it, read just after
         "qk_prep": {"e2e": e2e["qk_prep"], "serve": served["launches"]["qk_prep"],
                     "export": exported["launches"]["qk_prep"],
@@ -5791,7 +6007,7 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                **{path: n[k] for path, n in stream_train["launches"].items()},
                **({"sft_ring_backward": sft_ring["launches"][k]} if k in sft_ring["launches"]
                   else {})}
-           for k in flash_attention_train.launches}}
+           for k in TRAIN_ROWS}}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     kernels = [
         {"name": "qk_prep", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/qk_prep.cu",
@@ -5855,6 +6071,22 @@ def _all_phases(dev: dict, tmp: Path) -> int:
              "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
              "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
              "library_ms": rec["library_ms"]})
+    f32_bwd = sp_train["flash_bwd_f32"]
+    sft_ring_f32 = sp_train["ring_backward"]["sft_token_f32"]["launches"]
+    multi_sft = (sp_train["multi_card"] or {}).get("sft_sp")
+    for name, line in (("flash_bwd_dq_f32", "omnivideo_tpu/ops/pallas/flash_attention.py:485"),
+                       ("flash_bwd_dkv_f32", "omnivideo_tpu/ops/pallas/flash_attention.py:530")):
+        by_path[name] = {"sft_ring_backward_f32": sft_ring_f32[name],
+                         **({"sft_sp_multi_card": multi_sft["launches_all_ranks"][name]}
+                            if multi_sft else {})}
+        outs = ("dq",) if name == "flash_bwd_dq_f32" else ("dk", "dv")
+        kernels.append(
+            {"name": name, "route": "cuda", "source": "omnivideo_tpu_torch/csrc/flash_train_f32.cu",
+             "replaces": line, "launches": sum(by_path[name].values()),
+             "max_abs_err": max(f32_bwd["max_abs_err"][o] for o in outs),
+             "ms": f32_bwd["ms"][name], "plain_ms": f32_bwd["plain_ms"],
+             "bound_ms": f32_bwd["bound_ms"][name], "bound_by": f32_bwd["bound_by"][name],
+             "library_ms": f32_bwd["library_ms"]})
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     idle = {(k["name"], p) for k in kernels for p, n in k["launches_by_path"].items() if n == 0}

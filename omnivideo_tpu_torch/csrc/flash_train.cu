@@ -103,30 +103,6 @@ __device__ __forceinline__ void init_barriers(const Smem& sm, int full_count) {
   __syncthreads();
 }
 
-// rows row0..row0+127 of one head (row stride ld floats) set to 0, rows < n
-__device__ __forceinline__ void zero_rows(float* __restrict__ g, int row0, int n, int ld) {
-  for (int i = threadIdx.x; i < kStationary * (D / 4); i += blockDim.x) {
-    const int row = row0 + i / (D / 4);
-    if (row < n)
-      *reinterpret_cast<float4*>(g + static_cast<size_t>(row) * ld + (i % (D / 4)) * 4) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// a consumer thread's rows row_a and row_a + 8 of its 64 x 128 accumulator
-__device__ __forceinline__ void store_acc(float* __restrict__ g, const float (&acc)[64], int row_a,
-                                          int n, int ld, int lane) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + r * 8;
-    if (row >= n) continue;
-    float* out = g + static_cast<size_t>(row) * ld + (lane % 4) * 2;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<float2*>(out + i * 8) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
-  }
-}
-
 // the stationary side of one consumer warpgroup: tiles i (two 128-row tiles
 // of the block) at rows row0 + 64·wg, both panels, onto `bar`
 __device__ __forceinline__ void load_stationary(const Smem& sm, int i, const CUtensorMap* map,
@@ -192,7 +168,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const int n_tiles = (kv_len + kRows - 1) / kRows;
   float* dq_bh = dq + static_cast<size_t>(b) * Lq * ld + static_cast<size_t>(h) * D;
   if (n_tiles == 0) {  // no key: zero gradient
-    zero_rows(dq_bh, q0, Lq, ld);
+    zero_head_rows(dq_bh, q0, kStationary, Lq, ld);
     return;
   }
   const Smem sm = smem_layout();
@@ -265,7 +241,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty(s));
     }
-    store_acc(dq_bh, acc, row_a, Lq, ld, lane);
+    store_head_rows(dq_bh, acc, row_a, Lq, ld, lane);
   }
 }
 
@@ -282,8 +258,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   kv_len = min(max(kv_len, 0), Lk);
   const size_t kv_off = static_cast<size_t>(b) * Lk * ld + static_cast<size_t>(h) * D;
   if (k0 >= kv_len) {  // no live key in this block: zero gradient
-    zero_rows(dk + kv_off, k0, Lk, ld);
-    zero_rows(dv + kv_off, k0, Lk, ld);
+    zero_head_rows(dk + kv_off, k0, kStationary, Lk, ld);
+    zero_head_rows(dv + kv_off, k0, kStationary, Lk, ld);
     return;
   }
   const int n_tiles = (Lq + kRows - 1) / kRows;
@@ -376,8 +352,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty(s));
     }
-    store_acc(dk + kv_off, acc_k, row_a, Lk, ld, lane);
-    store_acc(dv + kv_off, acc_v, row_a, Lk, ld, lane);
+    store_head_rows(dk + kv_off, acc_k, row_a, Lk, ld, lane);
+    store_head_rows(dv + kv_off, acc_v, row_a, Lk, ld, lane);
   }
 }
 

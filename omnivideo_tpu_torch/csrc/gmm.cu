@@ -648,25 +648,6 @@ constexpr uint32_t kListOff = kBarOff + 3 * kStages * sizeof(uint64_t);
 constexpr size_t kSmemBytes = kListOff + 2 * (kMaxGroups + 1) * sizeof(int) + 1024;
 static_assert(kSmemBytes <= 232448, "the stages fit a block's shared memory");
 
-// byte offset of (row r, f32 column c < 32) in a 128-byte-swizzled panel
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
-}
-
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - hi);
-}
-
-__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
-  float4 hi;
-  split(x.x, hi.x, lo.x);
-  split(x.y, hi.y, lo.y);
-  split(x.z, hi.z, lo.z);
-  split(x.w, hi.w, lo.w);
-  return hi;
-}
-
 // Producer warp w (0..kPrepWarps-1), lane = k, writes B's hi and lo panels
 // ([128 columns of n][32 of k], K-major) from the raw stage: MN, four boxes
 // of [32 k][32 n] (transposed here), or K-major [128 n][32 k] as it is. Rows
@@ -681,11 +662,11 @@ __device__ __forceinline__ void prep_b(unsigned char* st, int w, int lane, int k
                                   ((((c4 % 8) ^ lane) & 7) << 4))
                             : make_float4(0.f, 0.f, 0.f, 0.f);
       float4 lo;
-      const float4 hi = split4(x, lo);
+      const float4 hi = tf32_split4(x, lo);
       const float h[4] = {hi.x, hi.y, hi.z, hi.w}, l[4] = {lo.x, lo.y, lo.z, lo.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const uint32_t o = swz(4 * c4 + e, lane);
+        const uint32_t o = swz128(4 * c4 + e, lane);
         *reinterpret_cast<float*>(st + kBHi + o) = h[e];
         *reinterpret_cast<float*>(st + kBLo + o) = l[e];
       }
@@ -694,7 +675,7 @@ __device__ __forceinline__ void prep_b(unsigned char* st, int w, int lane, int k
     for (int i = w * 32 + lane; i < kBN * 8; i += kPrepWarps * 32) {
       const uint32_t o = (i / 8) * 128 + ((((i % 8) ^ (i / 8)) & 7) << 4);
       float4 lo;
-      const float4 hi = split4(*reinterpret_cast<const float4*>(st + kBRaw + o), lo);
+      const float4 hi = tf32_split4(*reinterpret_cast<const float4*>(st + kBRaw + o), lo);
       *reinterpret_cast<float4*>(st + kBHi + o) = hi;
       *reinterpret_cast<float4*>(st + kBLo + o) = lo;
     }
@@ -718,13 +699,13 @@ __device__ __forceinline__ void load_a(uint32_t (&ah)[4][4], uint32_t (&al)[4][4
       float x;
       if (MN) {
         const int col = 64 * cw + row;
-        x = k < kvalid ? *reinterpret_cast<const float*>(a + (col / 32) * kBox32 + swz(k, col % 32))
+        x = k < kvalid ? *reinterpret_cast<const float*>(a + (col / 32) * kBox32 + swz128(k, col % 32))
                        : 0.f;
       } else {
-        x = *reinterpret_cast<const float*>(a + swz(row, k));
+        x = *reinterpret_cast<const float*>(a + swz128(row, k));
       }
       float hi, lo;
-      split(x, hi, lo);
+      tf32_split(x, hi, lo);
       ah[kk][q] = __float_as_uint(hi);
       al[kk][q] = __float_as_uint(lo);
     }

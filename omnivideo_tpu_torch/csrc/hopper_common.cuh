@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels:
 // TMA tensor maps and loads, mbarriers, register reallocation and wgmma (bf16,
-// and tf32 with its rounding), the shared-memory address and bf16 packing,
-// and the ring step's carry in device memory.
+// and tf32 with its rounding and three-product split), the shared-memory
+// address and bf16 packing, the backward kernels' gradient rows and the ring
+// step's carry in device memory.
 //
 // Operand tiles live in shared memory in the layout a 128-byte-swizzled TMA
 // box writes: a panel of R rows x 64 bf16 (128 bytes a row, 16-byte chunk c
@@ -466,6 +467,55 @@ __device__ __forceinline__ float tf32_round(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
+// The three-product split: x = hi + lo with hi = tf32(x) and lo = tf32(x − hi)
+// (x − hi is exact in f32), so a product a·b to f32 accuracy is a_lo·b_hi +
+// a_hi·b_lo + a_hi·b_hi, leaving out a_lo·b_lo (~2^-21 of |a|·|b| a term)
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - hi);
+}
+
+// the split of four values: hi returned, lo through `lo`
+__device__ __forceinline__ float4 tf32_split4(float4 x, float4& lo) {
+  float4 hi;
+  tf32_split(x.x, hi.x, lo.x);
+  tf32_split(x.y, hi.y, lo.y);
+  tf32_split(x.z, hi.z, lo.z);
+  tf32_split(x.w, hi.w, lo.w);
+  return hi;
+}
+
+// byte offset of (row r, f32 column c < 32) in a 128-byte-swizzled panel
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
+// The position at which a transposed (K-major over keys) tf32 panel holds key
+// `key` of a 32-key tile: position t of each group of 8 holds key 2t, t + 4
+// key 2t + 1. A 64 x 32 f32 accumulator holds columns 2t and 2t + 1 of each
+// group in a thread's registers, which are then the A fragment's k indices t
+// and t + 4 (see tf32_frags), so no shuffle is needed.
+__device__ __forceinline__ int tf32_key_pos(int key) {
+  return (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+}
+
+// The split A fragments (h, l) of the 4 k8 steps of a product over the 32
+// columns of a 64 x 32 f32 accumulator x (entry i: row g + 8((i >> 1) & 1),
+// column 8(i / 4) + 2t + (i & 1)): slot e of step kk takes entry 4kk + 2(e &
+// 1) + (e >> 1), whose column a tf32_key_pos panel holds at the slot's k index.
+__device__ __forceinline__ void tf32_frags(const float (&x)[16], uint32_t (&h)[4][4],
+                                           uint32_t (&l)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float hi, lo;
+      tf32_split(x[4 * kk + ((e & 1) << 1) + (e >> 1)], hi, lo);
+      h[kk][e] = __float_as_uint(hi);
+      l[kk][e] = __float_as_uint(lo);
+    }
+}
+
 // d (64 x 32, f32) = (scale_d ? d : 0) + A·B; A and B K-major tf32 in shared memory
 __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
                                                   int scale_d) {
@@ -560,6 +610,39 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[NACC
   a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// ---- device: the backward kernels' gradient rows ------------------------------
+//
+// dq, dk and dv are [B, L, N, 128] f32, packed like q (row stride ld floats);
+// g points at one (b, head)'s column 0.
+
+// rows row0..row0 + rows − 1 of one head set to 0, those below n; the whole
+// block takes part
+__device__ __forceinline__ void zero_head_rows(float* __restrict__ g, int row0, int rows, int n,
+                                               int ld) {
+  for (int i = threadIdx.x; i < rows * 32; i += blockDim.x) {
+    const int row = row0 + i / 32;
+    if (row < n)
+      *reinterpret_cast<float4*>(g + static_cast<size_t>(row) * ld + (i % 32) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// a consumer thread's rows row_a and row_a + 8 of its 64 x 128 f32
+// accumulator (entry 4i + 2r + {0, 1}: row row_a + 8r, columns 8i +
+// 2(lane % 4) + {0, 1}), those below n
+__device__ __forceinline__ void store_head_rows(float* __restrict__ g, const float (&acc)[64],
+                                                int row_a, int n, int ld, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + r * 8;
+    if (row >= n) continue;
+    float* out = g + static_cast<size_t>(row) * ld + (lane % 4) * 2;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<float2*>(out + i * 8) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+  }
 }
 
 // ---- device: the ring step's carry -------------------------------------------

@@ -140,11 +140,6 @@ struct Smem {
   __device__ uint64_t* empty(int s) const { return bar(1 + 2 * kStages + s); }
 };
 
-// byte offset of (row r, column c < 32) in a 128-byte-swizzled panel
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * kRowBytes + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
-}
-
 // Is key column `col` of the visiting shard visible to q row `row`?
 __device__ __forceinline__ bool visible(const Step& st, int row, int col) {
   switch (st.mode) {
@@ -181,27 +176,18 @@ __device__ int live_tiles(const Step& st, int q0, int klen) {
   return lo;
 }
 
-__device__ __forceinline__ void split(float x, float& hi, float& lo) {
-  hi = tf32_round(x);
-  lo = tf32_round(x - hi);
-}
-
 // One stage's preparation by a producer warp (w of kPrepWarps), one lane per
 // key: K rounded to hi in place and K lo beside it; V split and transposed
 // into Vᵀ hi and Vᵀ lo at the key's permuted position, zero where the key is
 // past klen (`live` false). Each 16-byte chunk c of a key's row (columns
 // 4c..4c+3) is read once; a warp's stores to Vᵀ hit 32 positions of one row.
 __device__ __forceinline__ void prep_stage(unsigned char* stage, int key, int w, bool live) {
-  const int pos = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+  const int pos = tf32_key_pos(key);
   for (int c = w; c < kD / 4; c += kPrepWarps) {
     const uint32_t off = (c >> 3) * kKPanel + key * kRowBytes + ((((c & 7) ^ key) & 7) << 4);
     float4* kp = reinterpret_cast<float4*>(stage + kKHi + off);
-    const float4 x = *kp;
-    float4 hi, lo;
-    split(x.x, hi.x, lo.x);
-    split(x.y, hi.y, lo.y);
-    split(x.z, hi.z, lo.z);
-    split(x.w, hi.w, lo.w);
+    float4 lo;
+    const float4 hi = tf32_split4(*kp, lo);
     *kp = hi;
     *reinterpret_cast<float4*>(stage + kKLo + off) = lo;
     const float4 v = live ? *reinterpret_cast<const float4*>(stage + kVRaw + off)
@@ -210,9 +196,9 @@ __device__ __forceinline__ void prep_stage(unsigned char* stage, int key, int w,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * c + e;
-      const uint32_t vo = swz(d, pos);
+      const uint32_t vo = swz128(d, pos);
       float vh, vl;
-      split(ve[e], vh, vl);
+      tf32_split(ve[e], vh, vl);
       *reinterpret_cast<float*>(stage + kVtHi + vo) = vh;
       *reinterpret_cast<float*>(stage + kVtLo + vo) = vl;
     }
@@ -229,9 +215,9 @@ __device__ __forceinline__ void split_q(uint32_t (&qa)[16][4], unsigned char* ti
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + 8 * (e & 1), c = 8 * (kk & 3) + t + 4 * (e >> 1);
-      float* p = reinterpret_cast<float*>(tile + (kk >> 2) * kQPanel + swz(r, c));
+      float* p = reinterpret_cast<float*>(tile + (kk >> 2) * kQPanel + swz128(r, c));
       float hi, lo;
-      split(*p * qscale, hi, lo);
+      tf32_split(*p * qscale, hi, lo);
       qa[kk][e] = __float_as_uint(hi);
       *p = lo;
     }
@@ -383,7 +369,7 @@ ring_step_f32_kernel(const __grid_constant__ Maps maps, const Step st) {
           const float p = exp2f(sc[i] - m[(i >> 1) & 1]);  // a masked key: exactly 0
           l[(i >> 1) & 1] += p;
           float p_hi, p_lo;
-          split(p, p_hi, p_lo);
+          tf32_split(p, p_hi, p_lo);
           ph[kk][e] = __float_as_uint(p_hi);
           pl[kk][e] = __float_as_uint(p_lo);
         }

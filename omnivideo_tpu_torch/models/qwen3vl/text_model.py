@@ -507,7 +507,8 @@ def qwen3_forward_sp_trainable(model: nn.Module, ids: torch.Tensor, mesh,
     token-causal ring step in the model's dtype (row 8 on the card for
     bf16, the f32 step kernel for f32). Returns the global (hidden, logits),
     gathered on every rank. L % (n·nu) == 0. Under autograd the ring is the
-    trainable one (rows 4 and 5 in the backward on the earlier shards;
+    trainable one (rows 4 and 5 in the backward on the earlier shards, in
+    the model's dtype;
     parallel/ring.py dispatches on grad mode) and the gathers hand each
     rank its slice's gradient; there is no mask, so padding must sit at
     the tail."""

@@ -34,10 +34,15 @@ f32 (`flash_fwd_lse`: kernel "flash_fwd_lse", row 3b of the port's table);
 its backward takes delta = rowsum(dO·O) in f32 and recomputes p = exp(s −
 LSE) from the unscaled q in two kernels (`flash_bwd`: "flash_bwd_dq" walks
 KV for dq, "flash_bwd_dkv" walks q for dk and dv; rows 4 and 5), in
-`csrc/flash_fwd.cu` and `csrc/flash_train.cu`. On CUDA q/k/v (and dO) enter
-the kernels in bf16; o and the gradients come back in the caller's dtype,
-accumulated in f32. On the CPU the plain twins `flash_fwd_lse_plain` and
-`flash_bwd_plain` compute in the input dtype. Launch counts per kernel are in
+`csrc/flash_fwd.cu` and `csrc/flash_train.cu`. On CUDA `_FlashTrain` gives
+q/k/v (and dO) to the kernels in bf16; o and the gradients come back in the
+caller's dtype, accumulated in f32. `flash_bwd` also takes f32 q/k/v/dO, as
+the ring backward of an f32 model gives them: "flash_bwd_dq_f32" and
+"flash_bwd_dkv_f32" (`csrc/flash_train_f32.cu`, rows 4 and 5 on f32
+operands) take f32-accurate products on the TF32 tensor cores with a hi/lo
+split, p and ds kept in f32, as the Pallas kernels take them on f32 operands.
+On the CPU the plain twins `flash_fwd_lse_plain` and `flash_bwd_plain`
+compute in the input dtype. Launch counts per kernel are in
 `flash_attention_train.launches`.
 """
 
@@ -223,7 +228,11 @@ flash_attention.launches = {name: 0 for name in KERNELS.values()}
 # training: forward with LSE, backward (dq; dk, dv)
 # ---------------------------------------------------------------------------
 
-TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
+                 "flash_bwd_dkv_f32")
+# operand dtype → flash_bwd's two kernels (dq; dk, dv)
+BWD_KERNELS = {torch.bfloat16: ("flash_bwd_dq", "flash_bwd_dkv"),
+               torch.float32: ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")}
 
 
 def _plain_chunk(B: int, N: int, Lk: int) -> int:
@@ -316,12 +325,21 @@ def flash_bwd_plain(
     return dq, dk, dv
 
 
-def _check_train_operands(what: str, *tensors: torch.Tensor) -> None:
+def _check_train_operands(what: str, *tensors: torch.Tensor,
+                          dtypes=(torch.bfloat16,)) -> torch.dtype:
+    """The operands' one dtype, of `dtypes`; raises for any the kernels do
+    not take (head dim, dtype, mixed dtypes, layout)."""
     D = tensors[0].shape[-1]
     if D != 128:
         raise ValueError(f"{what}: no kernel for head_dim {D} (the training kernels take 128)")
-    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what}: the kernels take packed contiguous bf16 [B, L, N, D] operands")
+    dtype = tensors[0].dtype
+    if dtype not in dtypes or any(t.dtype != dtype for t in tensors):
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{what}: the kernels take {names} operands of one dtype, got "
+                         f"{[str(t.dtype) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: the kernels take packed contiguous [B, L, N, D] operands")
+    return dtype
 
 
 def _lens_i32(kv_lens: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
@@ -371,7 +389,9 @@ def flash_bwd(
     softmax_scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training backward (rows 4 and 5): (dq, dk, dv) f32 from the forward's
-    LSE and delta = flash_delta(dO, o), both [B, N, Lq] f32."""
+    LSE and delta = flash_delta(dO, o), both [B, N, Lq] f32. On CUDA q/k/v/dO
+    are all bf16 (`csrc/flash_train.cu`) or all f32 (`csrc/flash_train_f32.cu`,
+    f32-accurate products); mixed dtypes raise."""
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else D**-0.5
@@ -379,7 +399,7 @@ def flash_bwd(
         return flash_bwd_plain(q, k, v, do, lse, delta, kv_lens, scale)
     if not q.is_cuda:
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
-    _check_train_operands("flash_bwd", q, k, v, do)
+    dtype = _check_train_operands("flash_bwd", q, k, v, do, dtypes=tuple(BWD_KERNELS))
     if lse.shape != (B, N, Lq) or delta.shape != (B, N, Lq):
         raise ValueError(f"lse {tuple(lse.shape)} / delta {tuple(delta.shape)} != {(B, N, Lq)}")
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
@@ -394,14 +414,15 @@ def flash_bwd(
     lib = _kernels.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
-    code = lib.flash_bwd_dq_launch(*ptrs, dq.data_ptr(), lens_ptr, B, Lq, Lk, N, D,
-                                   float(scale), stream)
-    _kernels.check(code, "flash_bwd_dq")
-    flash_attention_train.launches["flash_bwd_dq"] += 1
-    code = lib.flash_bwd_dkv_launch(*ptrs, dk.data_ptr(), dv.data_ptr(), lens_ptr, B, Lq, Lk,
-                                    N, D, float(scale), stream)
-    _kernels.check(code, "flash_bwd_dkv")
-    flash_attention_train.launches["flash_bwd_dkv"] += 1
+    dq_name, dkv_name = BWD_KERNELS[dtype]
+    code = getattr(lib, dq_name + "_launch")(*ptrs, dq.data_ptr(), lens_ptr, B, Lq, Lk, N, D,
+                                             float(scale), stream)
+    _kernels.check(code, dq_name)
+    flash_attention_train.launches[dq_name] += 1
+    code = getattr(lib, dkv_name + "_launch")(*ptrs, dk.data_ptr(), dv.data_ptr(), lens_ptr, B,
+                                              Lq, Lk, N, D, float(scale), stream)
+    _kernels.check(code, dkv_name)
+    flash_attention_train.launches[dkv_name] += 1
     return dq, dk, dv
 
 

@@ -43,7 +43,8 @@ the CPU tests) can hold the kernel at the real per-rank shapes.
 The backward (`ring_flash_attention_trainable`, a torch.autograd.Function;
 JAX `ring_flash_attention_trainable`): the forward keeps the global LSE,
 and the backward runs n steps of the flash backward kernels (`flash_bwd`,
-rows 4 and 5) driven by that LSE and delta = rowsum(dO·O). dq accumulates
+rows 4 and 5, on bf16 or f32 operands as the forward took them) driven by
+that LSE and delta = rowsum(dO·O). dq accumulates
 here in f32; the visiting shard's dk/dv (f32) travel with its K/V and are
 home after the n-th transfer. Each K/V transfer is posted before the step's
 launch; each dk/dv transfer after it, and is waited on after the next
@@ -379,14 +380,6 @@ def _bwd_step(q, k, v, do, lse, delta, lens, causal, my, src, scale, bwd):
     return bwd(q, k, v, do, lse, delta, lens, scale)
 
 
-def _flash_bwd_bf16(q, k, v, do, lse, delta, lens, scale):
-    """flash_bwd (rows 4 and 5), whose kernels read bf16: f32 operands on
-    the card are rounded for them (the own-shard step keeps f32)."""
-    if q.is_cuda and q.dtype == torch.float32:
-        q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
-    return flash_bwd(q, k, v, do, lse, delta, lens, scale)
-
-
 def _check_trainable(causal, kv_lens) -> None:
     if causal not in TRAINABLE_CAUSAL:
         raise ValueError(f"the ring backward takes causal in {TRAINABLE_CAUSAL}, got {causal!r} "
@@ -452,7 +445,7 @@ def ring_flash_backward_shard(q, k, v, out, lse, do, group=None, kv_lens=None, c
         lens = None if kv_lens is None else step_lens_for(kv_lens, src, k.shape[1], n, chunks)
         if s < n - 1:
             kv_works, kv_next = exchange(kv, group)
-        g = _bwd_step(q, *kv, do, lse, delta, lens, causal, my, src, scale, _flash_bwd_bf16)
+        g = _bwd_step(q, *kv, do, lse, delta, lens, causal, my, src, scale, flash_bwd)
         if pending is not None:
             for w in pending[0]:
                 w.wait()
@@ -516,9 +509,10 @@ def ring_flash_attention_trainable(
     `ring_flash_attention_shard`; causal None, "block" or "token", kv_lens
     only with None). On CUDA q/k/v enter the forward in `operand_dtype`
     (JAX's `comm_dtype`): bf16, row 8; None keeps their dtype, so f32 q/k/v
-    take the f32 step kernel and keep f32 through the own-shard backward
-    step, and are rounded to bf16 only for the backward kernels (rows 4 and
-    5) on the other shards. The output and the gradients come back in the
+    take the f32 step kernel and stay f32 through the whole backward: the
+    own-shard step in plain torch, the other shards through the f32 backward
+    kernels (rows 4 and 5 on f32 operands, p and ds kept in f32), as JAX's
+    backward takes them. The output and the gradients come back in the
     callers' dtypes."""
     _check_trainable(causal, kv_lens)
     scale = softmax_scale if softmax_scale is not None else q.shape[-1] ** -0.5

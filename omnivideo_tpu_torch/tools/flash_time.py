@@ -2,7 +2,7 @@
 checkout at the main paths' shapes.
 
     PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
-        [--which fwd|bwd|fwd_lse|ring|ring_f32|gmm|all ...]
+        [--which fwd|bwd|bwd_f32|fwd_lse|ring|ring_f32|gmm|all ...]
 
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
@@ -27,6 +27,11 @@ at the Qwen3 SFT's `--sp` shapes (32 heads, f32 q/k/v, token-causal): the
 world-1 step's own shard [2, 2048, 32, 128], and a 4-card run's per-rank
 [2, 512, 32, 128] own shard and an earlier shard (every key visible); its
 bound is three tf32 products of the visible pairs' FLOPs at 495 TFLOP/s.
+`bwd_f32` times rows 4 and 5 on f32 operands through `flash_bwd_dq_f32_launch`
+and `flash_bwd_dkv_f32_launch` at the f32 ring backward's earlier-shard
+shapes (32 heads, every key visible): a 4-card SFT `--sp` run's per-rank
+[2, 512, 32, 128] and the in-process shards' [1, 512, 32, 128]; its bounds
+are three tf32 products of 6·B·N·L²·D (dq) and 8·B·N·L²·D (dk/dv) FLOPs.
 `gmm` times the MoE's grouped products (rows 9 and 9b) through the
 `ops.gmm.gmm` / `tgmm` wrappers, whose signature every checkout since they
 were added shares, at Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
@@ -77,6 +82,7 @@ FWD_CASES = (  # (case, B, Lq, Lk, N, D, causal)
 BWD_CASES = (("bwd_self", SEQ), ("bwd_cross", 6272))
 LSE_CASES = (("fwd_lse_self", SEQ), ("fwd_lse_cross", 6272))
 RING_CASES = (("ring_sp1", SEQ), ("ring_sp4", SEQ // 4))  # (case, q rows = keys per step)
+BWD_F32_CASES = (("bwd_f32_rank4", 2, 512), ("bwd_f32_in_process", 1, 512))  # (case, B, L)
 RING_F32_CASES = (  # (case, q rows = keys, my, src, n), token-causal, 32 heads
     ("ring_f32_sft_world1", 2048, 0, 0, 1),
     ("ring_f32_rank4_own", 512, 1, 1, 4),
@@ -239,6 +245,33 @@ def _ring_f32(args, smi, gen) -> None:
         del q, k, v, m, l, acc
 
 
+def _backward_f32(args, smi, gen) -> None:
+    n_heads, scale = 32, D**-0.5
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, B, L in BWD_F32_CASES:
+        q, k, v, do = (torch.randn(B, L, n_heads, D, generator=gen, device="cuda")
+                       for _ in range(4))
+        lse = torch.randn(B, n_heads, L, generator=gen, device="cuda").abs() + math.log(L)
+        delta = torch.randn(B, n_heads, L, generator=gen, device="cuda")
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr())
+        tail = (None, B, L, L, n_heads, D, scale, stream)
+        dq_ms = _time(lambda: _kernels.check(lib.flash_bwd_dq_f32_launch(
+            *ptrs, dq.data_ptr(), *tail), "flash_bwd_dq_f32"), args.reps, args.rounds)
+        dkv_ms = _time(lambda: _kernels.check(lib.flash_bwd_dkv_f32_launch(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *tail), "flash_bwd_dkv_f32"),
+            args.reps, args.rounds)
+        flop = 2 * B * n_heads * L * L * D  # one product
+        print(json.dumps({"case": name, "q": [B, L, n_heads, D], "Lk": L,
+                          "flash_bwd_dq_f32_ms": dq_ms, "flash_bwd_dkv_f32_ms": dkv_ms,
+                          "bound_ms": {"dq": 3 * 3 * flop / TF32_FLOPS * 1e3,
+                                       "dkv": 3 * 4 * flop / TF32_FLOPS * 1e3},
+                          "package": flash_mod.__file__, "nvidia_smi": smi}), flush=True)
+        del q, k, v, do, lse, delta, dq, dk, dv
+
+
 def _device_and_host(fn, reps: int) -> tuple:
     """(ms of kernel time a call, from torch.profiler's device time of every
     kernel the calls launch; µs of host time a call to enqueue them). Where
@@ -318,7 +351,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--which", nargs="+",
-                    choices=("fwd", "bwd", "fwd_lse", "ring", "ring_f32", "gmm", "all"),
+                    choices=("fwd", "bwd", "bwd_f32", "fwd_lse", "ring", "ring_f32", "gmm",
+                             "all"),
                     default=["fwd"])
     ap.add_argument("--cases", nargs="+", choices=[c[0] for c in FWD_CASES],
                     help="only these `fwd` cases (default: all)")
@@ -330,6 +364,8 @@ def main() -> None:
         _forward(args, smi, gen)
     if {"bwd", "all"} & set(args.which):
         _backward(args, smi, gen)
+    if {"bwd_f32", "all"} & set(args.which):
+        _backward_f32(args, smi, gen)
     if {"fwd_lse", "all"} & set(args.which):
         _fwd_lse(args, smi, gen)
     if {"ring", "all"} & set(args.which):

@@ -21,9 +21,9 @@ Under autograd `qwen3_forward_trainable` takes JAX's dense causal path
 `sft_collate` always passes an `attn_mask`, which takes that path in JAX
 too. Under `--sp` the forward is `qwen3_forward_sp_trainable`: the
 trainable token-causal ring (for the f32 LM the f32 step kernel forward,
-as JAX's ring keeps f32; rows 4 and 5 on the earlier shards backward), no
-mask, so padding sits at the tail, where it is masked out of the loss and
-cannot reach earlier positions.
+as JAX's ring keeps f32; rows 4 and 5 on f32 operands on the earlier
+shards backward), no mask, so padding sits at the tail, where it is masked
+out of the loss and cannot reach earlier positions.
 
 On a mesh (parallel/mesh.py) every process passes the same global batch;
 the step takes its data index's rows (`batch_slice`). The loss is divided

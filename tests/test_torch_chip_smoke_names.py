@@ -7,7 +7,8 @@ profiler (demangled names: device time by class). The Hopper forward
 mainloop `attn_fwd_kernel` serves five rows, told apart only by its epilogue
 policy's type, so a new policy that the names miss would be filed under
 another row; the f32 ring step (TF32 tensor cores, its own Maps and Step) is
-a kernel of its own. The names here are
+a kernel of its own, and so are rows 4 and 5 on f32 operands, whose names
+hold the bf16 rows' as a prefix. The names here are
 ptxas's and the profiler's own spelling of this repository's kernels, on
 synthetic log lines; nothing needs a card.
 The script's stand-in tokenizer and safetensors writer, which stand in for
@@ -37,6 +38,10 @@ MANGLED = {  # row → the entry function as ptxas names it
                     "E14CUtensorMap_stS0_S0_S0_PKfS2_PfPKiiiif",
     "flash_bwd_dkv": "_ZN47_GLOBAL__N__73e51205_14_flash_train_cu_c35d950c20flash_bwd_dkv_kernel"
                      "E14CUtensorMap_stS0_S0_S0_PKfS2_PfS3_PKiiiif",
+    "flash_bwd_dq_f32": "_ZN51_GLOBAL__N__28127ecd_18_flash_train_f32_cu_14af81a9"
+                        "23flash_bwd_dq_f32_kernelENS_4ArgsEPf",
+    "flash_bwd_dkv_f32": "_ZN51_GLOBAL__N__28127ecd_18_flash_train_f32_cu_14af81a9"
+                         "24flash_bwd_dkv_f32_kernelENS_4ArgsEPfS1_",
     "qk_prep": "_ZN43_GLOBAL__N__9e9c376c_10_qk_prep_cu_a100dbdc14qk_prep_kernel"
                "EPK13__nv_bfloat16S2_PKfS4_PS0_Pfiiiiif",
     "fused_adaln": "_ZN40_GLOBAL__N__4f4767a5_8_adaln_cu_0e84efa312adaln_kernel"
@@ -71,6 +76,8 @@ DEMANGLED = {  # row → the kernel as the profiler names it
     "flash_bwd_dkv": f"{_NS}flash_bwd_dkv_kernel(CUtensorMap_st, CUtensorMap_st, "
                      "CUtensorMap_st, CUtensorMap_st, float const*, float const*, float*, float*, "
                      "int const*, int, int, int, float)",
+    "flash_bwd_dq_f32": f"{_NS}flash_bwd_dq_f32_kernel({_NS}Args, float*)",
+    "flash_bwd_dkv_f32": f"{_NS}flash_bwd_dkv_f32_kernel({_NS}Args, float*, float*)",
     "qk_prep": f"{_NS}qk_prep_kernel(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
                "float const*, __nv_bfloat16*, float*, int, int, int, int, int, float)",
     "fused_adaln": f"{_NS}adaln_kernel(float const*, __nv_bfloat16 const*, void const*, "

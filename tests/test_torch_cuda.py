@@ -21,6 +21,12 @@ own norm per (batch row, head) (p and ds are rounded to bf16 before their
 products in both versions, at values that differ in the last f32 bits), and
 the autograd function's directional derivatives within 2e-2 of central
 finite differences of an f64 einsum attention (the kernels' bf16 operands).
+The backward kernels on f32 operands (rows 4 and 5 in f32): dq/dk/dv within
+1e-5 of their norm per (batch row, head) of the plain twin's on the same
+inputs with TF32 off (f32-accurate products, tests/test_torch_flash_bwd_f32_
+split.py, summed in other orders), and the f32 ring backward within 1e-4
+of the dense f32 causal backward (its forward's LSE comes from the f32 step
+kernel).
 fused_adaln: x_new bit for bit (the kernel rounds each product and sum as
 PyTorch does), y within 1 bf16 ulp of each row's max |y_plain| (bf16 out) or
 1e-5 of it (f32 out): the row mean and variance sum in another order.
@@ -379,7 +385,8 @@ def test_flash_train_kernels_match_plain(cuda, B, Lq, Lk, lens):
     grads = flash_bwd(q, k, v, do, lsep, delta, kv)
     ref = flash_bwd_plain(q, k, v, do, lsep, delta, kv)
     assert {k_: flash_attention_train.launches[k_] - n0[k_] for k_ in n0} == {
-        "flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_bwd_dq_f32": 0,
+        "flash_bwd_dkv_f32": 0}
     for g, r in zip(grads, ref):
         assert g.dtype == torch.float32
         worst = float(_grad_rel(g[live], r[live]).max())
@@ -770,6 +777,101 @@ def test_ring_backward_kernels_match_plain(cuda, causal, Ls, lens):
         dq = torch.cat([x[0] for x in got], 1)
         for b, n_b in enumerate(lens):
             assert (dq[b, n_b:] == 0).all()
+
+
+BWD_F32_TOL = 1e-5  # of each gradient's norm per (batch row, head)
+BWD_F32_CASES = [  # (B, Lq, Lk, N, kv_lens)
+    (2, 512, 512, 32, None),      # the 4-card SFT --sp step's earlier shards, every key visible
+    (2, 300, 700, 12, [433, 0]),  # kv_lens, an all-padding batch row
+    (1, 1000, 260, 40, [150]),    # 40 heads; kv_len inside the first 64-row block
+    (2, 45, 37, 12, None),        # Lq and Lk under one tile
+]
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain twins' f32 products in full f32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _f32_train_operands(B, Lq, Lk, N, lens, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    q, do = (torch.randn(B, Lq, N, 128, generator=gen, device=device) for _ in range(2))
+    k, v = (torch.randn(B, Lk, N, 128, generator=gen, device=device) for _ in range(2))
+    kv = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=device)
+    o, lse = flash_fwd_lse_plain(q, k, v, kv)
+    return q, k, v, do, lse, flash_delta(do, o), kv
+
+
+@pytest.mark.parametrize("B,Lq,Lk,N,lens", BWD_F32_CASES)
+def test_flash_bwd_f32_kernels_match_plain(cuda, no_tf32, B, Lq, Lk, N, lens):
+    """f32 q/k/v/dO launch the f32 kernels, never the bf16 ones; their dq,
+    dk and dv hold the plain twin's f32 gradients, zero rows past kv_len and
+    for a batch row without keys, and a rerun gives the same bits."""
+    args = _f32_train_operands(B, Lq, Lk, N, lens, cuda, Lq + Lk + N)
+    n0 = dict(flash_attention_train.launches)
+    grads = flash_bwd(*args)
+    assert {k_: flash_attention_train.launches[k_] - n0[k_] for k_ in n0} == {
+        "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_f32": 1,
+        "flash_bwd_dkv_f32": 1}
+    ref = flash_bwd_plain(*args)
+    live = [b for b in range(B) if lens is None or lens[b] > 0]
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        worst = float(_grad_rel(g[live], r[live]).max())
+        assert worst <= BWD_F32_TOL, (name, worst)
+    for b in range(B):
+        if lens is not None:
+            if lens[b] == 0:
+                assert (grads[0][b] == 0).all()
+            for g in grads[1:]:
+                assert (g[b, lens[b]:] == 0).all()
+    again = flash_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_flash_bwd_refuses_mixed_dtypes(cuda):
+    f32 = torch.zeros(1, 64, 2, 128, device=cuda)
+    bf16, f16 = f32.bfloat16(), f32.half()
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    for ops in ((f32, bf16, f32, f32), (bf16, bf16, bf16, f32), (f16, f16, f16, f16)):
+        with pytest.raises(ValueError, match="one dtype"):
+            flash_bwd(*ops, lse, lse)
+
+
+def test_ring_backward_f32_stays_f32(cuda, no_tf32):
+    """The token-causal ring backward over four in-process f32 shards of an
+    SFT batch's attention ([1, 2048, 32, 128], shards of 512): the earlier
+    shards' steps launch the f32 kernels (6 of each) and no bf16 backward
+    kernel; the gradients hold the same loop with flash_bwd_plain at the f32
+    limit and the dense f32 causal backward of the whole sequence within
+    1e-4 of their norm per (batch row, head)."""
+    n, (B, L, N, D) = 4, (1, 2048, 32, 128)
+    gen = torch.Generator(cuda).manual_seed(22)
+    q, k, v, do = (torch.randn(B, L, N, D, generator=gen, device=cuda) for _ in range(4))
+    qs, ks, vs, dos = ([s_.contiguous() for s_ in t.chunk(n, 1)] for t in (q, k, v, do))
+    fwd = ring_flash_attention_shards(qs, ks, vs, causal="token", return_lse=True)
+    outs, lses = [f[0] for f in fwd], [f[1] for f in fwd]
+    n0 = dict(flash_attention_train.launches)
+    got = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, None, "token")
+    steps = n * (n - 1) // 2
+    assert {k_: flash_attention_train.launches[k_] - n0[k_] for k_ in n0} == {
+        "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_f32": steps,
+        "flash_bwd_dkv_f32": steps}
+    ref = ring_flash_backward_shards(qs, ks, vs, outs, lses, dos, None, "token",
+                                     bwd=flash_bwd_plain)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    s_ = torch.einsum("bind,bjnd->bnij", leaves[0], leaves[1]) * D**-0.5
+    s_ = s_.masked_fill(torch.ones(L, L, dtype=torch.bool, device=cuda).triu(1), float("-inf"))
+    torch.einsum("bnij,bjnd->bind", torch.softmax(s_, -1), leaves[2]).backward(do)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g, r = (torch.cat([x[i] for x in t], 1) for t in (got, ref))
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert float(_grad_rel(g, r).max()) <= BWD_F32_TOL, name
+        assert float(_grad_rel(g, leaves[i].grad).max()) <= 1e-4, name
 
 
 def _tiny_streamed_dit(cuda, dtype=torch.bfloat16):
