@@ -4629,12 +4629,15 @@ def _bwd_f32_case(gen: torch.Generator) -> dict:
     one), held per (batch row, head) to flash_bwd_plain on the same f32
     inputs (TF32 off) within BWD_F32_TOL, bit-equal on a rerun; each kernel
     timed alone, beside the plain twin and f32 SDPA's backward on the same
-    q/k/v (its kernel named by the profiler). Bound: three tf32 products of
+    q/k/v (its kernel named by the profiler), with each kernel's registers
+    and spill bytes from the build's -Xptxas -v report. Bound: three tf32 products of
     6·B·N·L²·D (dq) and 8·B·N·L²·D (dk/dv) FLOPs at the tf32 rate, or the
     f32 bytes (q, k, v, dO, LSE and delta read once, the gradients written
     once) where those take longer. The first case is the kernels line's."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("sp_train flash_bwd_f32: the plain twin must run in full f32")
+    by_kernel = ptxas_by_kernel(_kernels.build_log)
+    ptxas = {kn: by_kernel.get(kn, "not reported") for kn in BWD_F32_ROWS}
     cases = []
     for name, (B, L, N, D) in BWD_F32_CASES:
         q, k, v, do = (torch.randn(B, L, N, D, generator=gen, device="cuda") for _ in range(4))
@@ -4650,7 +4653,7 @@ def _bwd_f32_case(gen: torch.Generator) -> dict:
         deterministic = all(torch.equal(a, b) for a, b in zip(grads, again))
         rec = {"phase": "sp_train", "part": "flash_bwd_f32", "case": name, "q": [B, L, N, D],
                "launches": launches, "max_rel_err_per_head": err, "tolerance": BWD_F32_TOL,
-               "deterministic": deterministic,
+               "deterministic": deterministic, "ptxas": ptxas,
                "max_abs_err": {t: float((g - r).abs().max())
                                for t, g, r in zip(("dq", "dk", "dv"), grads, ref)}}
         want = {**{kn: 0 for kn in flash_attention_train.launches}, **{kn: 1 for kn in BWD_F32_ROWS}}

@@ -494,26 +494,9 @@ __device__ __forceinline__ uint32_t swz128(int r, int c) {
 // `key` of a 32-key tile: position t of each group of 8 holds key 2t, t + 4
 // key 2t + 1. A 64 x 32 f32 accumulator holds columns 2t and 2t + 1 of each
 // group in a thread's registers, which are then the A fragment's k indices t
-// and t + 4 (see tf32_frags), so no shuffle is needed.
+// and t + 4 (ring_step_f32.cu's P), so no shuffle is needed.
 __device__ __forceinline__ int tf32_key_pos(int key) {
   return (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
-}
-
-// The split A fragments (h, l) of the 4 k8 steps of a product over the 32
-// columns of a 64 x 32 f32 accumulator x (entry i: row g + 8((i >> 1) & 1),
-// column 8(i / 4) + 2t + (i & 1)): slot e of step kk takes entry 4kk + 2(e &
-// 1) + (e >> 1), whose column a tf32_key_pos panel holds at the slot's k index.
-__device__ __forceinline__ void tf32_frags(const float (&x)[16], uint32_t (&h)[4][4],
-                                           uint32_t (&l)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float hi, lo;
-      tf32_split(x[4 * kk + ((e & 1) << 1) + (e >> 1)], hi, lo);
-      h[kk][e] = __float_as_uint(hi);
-      l[kk][e] = __float_as_uint(lo);
-    }
 }
 
 // d (64 x 32, f32) = (scale_d ? d : 0) + A·B; A and B K-major tf32 in shared memory
@@ -546,6 +529,27 @@ __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A·B; A (64 x 8 tf32) from registers,
+// B K-major tf32 in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -629,10 +633,11 @@ __device__ __forceinline__ void zero_head_rows(float* __restrict__ g, int row0, 
   }
 }
 
-// a consumer thread's rows row_a and row_a + 8 of its 64 x 128 f32
+// a consumer thread's rows row_a and row_a + 8 of its 64 x (NACC / 2) f32
 // accumulator (entry 4i + 2r + {0, 1}: row row_a + 8r, columns 8i +
-// 2(lane % 4) + {0, 1}), those below n
-__device__ __forceinline__ void store_head_rows(float* __restrict__ g, const float (&acc)[64],
+// 2(lane % 4) + {0, 1}; 128 columns for NACC 64), those below n
+template <int NACC>
+__device__ __forceinline__ void store_head_rows(float* __restrict__ g, const float (&acc)[NACC],
                                                 int row_a, int n, int ld, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -640,7 +645,7 @@ __device__ __forceinline__ void store_head_rows(float* __restrict__ g, const flo
     if (row >= n) continue;
     float* out = g + static_cast<size_t>(row) * ld + (lane % 4) * 2;
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < NACC / 4; ++i)
       *reinterpret_cast<float2*>(out + i * 8) = make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
   }
 }

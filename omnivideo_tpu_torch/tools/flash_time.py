@@ -30,7 +30,9 @@ bound is three tf32 products of the visible pairs' FLOPs at 495 TFLOP/s.
 `bwd_f32` times rows 4 and 5 on f32 operands through `flash_bwd_dq_f32_launch`
 and `flash_bwd_dkv_f32_launch` at the f32 ring backward's earlier-shard
 shapes (32 heads, every key visible): a 4-card SFT `--sp` run's per-rank
-[2, 512, 32, 128] and the in-process shards' [1, 512, 32, 128]; its bounds
+[2, 512, 32, 128], the in-process shards' [1, 512, 32, 128] and, for
+information, an 8,192-token sequence's shards over 4 cards [1, 2048, 32,
+128]; its bounds
 are three tf32 products of 6·B·N·L²·D (dq) and 8·B·N·L²·D (dk/dv) FLOPs.
 `gmm` times the MoE's grouped products (rows 9 and 9b) through the
 `ops.gmm.gmm` / `tgmm` wrappers, whose signature every checkout since they
@@ -82,7 +84,11 @@ FWD_CASES = (  # (case, B, Lq, Lk, N, D, causal)
 BWD_CASES = (("bwd_self", SEQ), ("bwd_cross", 6272))
 LSE_CASES = (("fwd_lse_self", SEQ), ("fwd_lse_cross", 6272))
 RING_CASES = (("ring_sp1", SEQ), ("ring_sp4", SEQ // 4))  # (case, q rows = keys per step)
-BWD_F32_CASES = (("bwd_f32_rank4", 2, 512), ("bwd_f32_in_process", 1, 512))  # (case, B, L)
+BWD_F32_CASES = (  # (case, B, L)
+    ("bwd_f32_rank4", 2, 512),
+    ("bwd_f32_in_process", 1, 512),
+    ("bwd_f32_shard2048", 1, 2048),  # an 8,192-token SFT sequence over 4 cards, for information
+)
 RING_F32_CASES = (  # (case, q rows = keys, my, src, n), token-causal, 32 heads
     ("ring_f32_sft_world1", 2048, 0, 0, 1),
     ("ring_f32_rank4_own", 512, 1, 1, 4),

@@ -785,6 +785,8 @@ BWD_F32_CASES = [  # (B, Lq, Lk, N, kv_lens)
     (2, 300, 700, 12, [433, 0]),  # kv_lens, an all-padding batch row
     (1, 1000, 260, 40, [150]),    # 40 heads; kv_len inside the first 64-row block
     (2, 45, 37, 12, None),        # Lq and Lk under one tile
+    (1, 200, 24, 12, None),       # one streamed key tile of 24: dq's first tile is its last
+    (1, 130, 300, 32, None),      # 2 live rows in the last stationary block: dq's swap on padding
 ]
 
 

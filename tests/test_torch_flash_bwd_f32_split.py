@@ -8,19 +8,28 @@ the kernels' arithmetic runs in torch: the split on int32 views; the tile
 order (dq walks 32-key tiles, dk/dv 32-row q tiles); each product's k8 steps
 with the tensor cores' accumulator, whose sum is rounded toward zero at every
 step; p = exp2(s·scale·log2e − LSE·log2e) and ds = p·(dp − delta)·scale in
-f32, split before their products and taken over the tile in the transposed
-panels' permuted order; and each tile's product folded into the f32 gradient
-by a rounded add. The result is held to `flash_bwd_plain` on the same f32
-inputs within 1e-5 of each gradient's norm per (batch row, head), with and
-without kv_lens, the card's limit; one TF32 pass per product misses it, and
-so does a gradient carried through the accumulator over an SFT batch's
-2,048 q rows instead of folded per tile. The index maps the kernels rely on
-are checked against the 128-byte swizzle as wgmma reads it: the K-major
-tiles, the transposed panels, and the accumulator entries that become the
-gradient products' A fragments. `flash_bwd_plain` on f32 is held in turn to
-JAX's `flash_bwd_core` in interpret mode on the same inputs. Inputs are
-seeded numpy normals at [2, 256, 2, 128].
+f32, split before their products; each tile's product folded into the f32
+gradient by a rounded add; and the data flow between the two consumer
+warpgroups: the gradients folded transposed (Gᵀ += Xᵀ·Yᵀ), dq's two half-D
+folds from one shared ds, dk/dv's pᵀ handed from one consumer to the other
+as hi + lo (the one-warpgroup form, ds as A and the tile transposed as B,
+beside it). The result is held to `flash_bwd_plain` on the same f32 inputs
+within 1e-5 of each gradient's norm per (batch row, head), with and without
+kv_lens, the card's limit; one TF32 pass per product misses it, and so does
+a gradient carried through the accumulator over an SFT batch's 2,048 q rows
+instead of folded per tile; the fold's order (two-buffer quarters, quarters
+in turn, all columns at once) leaves the bits. The index maps the kernels
+rely on are checked against the 128-byte swizzle as wgmma reads it: the
+K-major tiles, the streamed tile split in place by the producer warps, the
+stationary tile split into A fragments and its lo tile, the streamed tile
+read transposed into A fragments, the accumulator written as a B panel, the
+consumers' swap slots and transposed stores, and (the one-warpgroup form)
+the transposed panels and the accumulator entries that become A fragments.
+`flash_bwd_plain` on f32 is held in turn to JAX's `flash_bwd_core` in
+interpret mode on the same inputs. Inputs are seeded numpy normals at
+[2, 256, 2, 128].
 """
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -110,9 +119,46 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x).float()
 
 
-def emulated_bwd(q, k, v, do, lse, delta, kv_lens=None, products=3, fold=True):
+def fold_two_buffers(acc, x, bt, products):
+    """acc [..., M, C] (f64 holding f32) += x·bt to f32 accuracy (x [..., M,
+    K], bt [..., K, C]), 32 columns (a quarter) at a time in the kernels'
+    order: quarter c + 1's product, from zero, goes into the other of two
+    buffers before quarter c's rounded add, which reads the buffer quarter c
+    left."""
+    cols = torch.arange(acc.shape[-1])
+    quarters = [cols[i:i + 32] for i in range(0, len(cols), 32)]
+    buf = [None, None]
+    for c in range(len(quarters) + 1):
+        if c < len(quarters):
+            buf[c % 2] = (c, tc_product(mm3(x, bt[..., quarters[c]], products)))
+        if c > 0:
+            qc, pv = buf[(c - 1) % 2]
+            assert qc == c - 1, "a buffer was reissued before its add"
+            sl = quarters[c - 1]
+            acc[..., sl] = (acc[..., sl] + pv).float().double()
+    return acc
+
+
+def fold_tile(acc, x, bt, products):
+    """acc [..., M, C] (f64 holding f32) += x·bt to f32 accuracy, the
+    kernels' fold: the tile's product from zero over all C columns at once
+    (m64n64k8 steps), added by a rounded add."""
+    return (acc + tc_product(mm3(x, bt, products))).float().double()
+
+
+def emulated_bwd(q, k, v, do, lse, delta, kv_lens=None, products=3, fold=True, flow="ws"):
     """(dq, dk, dv) f32 as the two kernels compute them. `fold` False carries
-    each gradient through the accumulator over all tiles instead."""
+    each gradient through the accumulator over all tiles instead. `flow`
+    "ws" is the warp-specialised kernels' data flow: each gradient folded
+    transposed, Gᵀ (D x rows) += Xᵀ·Yᵀ with A = Xᵀ the split streamed tile
+    read transposed (kᵀ; dOᵀ, qᵀ) and B = ds or pᵀ, dsᵀ split into a K-major
+    panel, two blocks of 64 D rows, each tile's product from zero
+    (`fold_tile`); in dq one warpgroup forms p
+    from s and the other dp, they swap them and both form the same ds, each
+    folding its 64 D rows; in dk/dv one forms pᵀ, writes it split and folds
+    dvᵀ, the other reads it back as hi + lo, forms dsᵀ and folds dkᵀ. "one"
+    is the one-warpgroup form: ds (p, dsᵀ) as the A fragments, the tile
+    transposed as B, all 128 columns at once."""
     Bq, Lq, Nh, Dh = q.shape
     Lk = k.shape[1]
     sl2 = _f32(np.float32(SCALE) * np.float32(LOG2E))
@@ -134,6 +180,16 @@ def emulated_bwd(q, k, v, do, lse, delta, kv_lens=None, products=3, fold=True):
             col = kv0 + torch.arange(TILE)
             arg = (s.double() * sl2.double() - lse2[..., None].double()).float()  # fmaf
             p = torch.where(col < n, torch.exp2(arg), torch.zeros(()))
+            if flow == "ws":  # p (warpgroup Q) and dp (O) swapped; each forms ds
+                ds_q = p * (dp.clone() - dl[..., None]) * scale
+                ds_o = p.clone() * (dp - dl[..., None]) * scale
+                assert torch.equal(ds_q, ds_o)
+                for half, ds in enumerate((ds_q, ds_o)):  # dqᵀ += kᵀ·dsᵀ, 64 D rows each
+                    dr = slice(64 * half, 64 * half + 64)
+                    acc[..., dr] = fold_tile(
+                        acc[..., dr].transpose(1, 2), kt[..., dr].transpose(1, 2),
+                        ds.transpose(1, 2), products).transpose(1, 2)
+                continue
             ds = p * (dp - dl[..., None]) * scale
             terms = mm3(ds[..., PERM], kt[:, PERM], products)
             if fold:
@@ -156,6 +212,17 @@ def emulated_bwd(q, k, v, do, lse, delta, kv_lens=None, products=3, fold=True):
             arg = (st.double() * sl2.double() - lse2[:, colc][:, None, :].double()).float()
             p = torch.where(ok, torch.exp2(arg), torch.zeros(()))
             dlt = torch.where(ok, dl[:, colc][:, None, :], torch.zeros(()))
+            if flow == "ws":  # V writes pᵀ split; K reads it back as hi + lo, forms dsᵀ
+                p_hi, p_lo = split(p)
+                dst = (p_hi + p_lo) * (dpt - dlt) * scale
+                for dr in (slice(0, 64), slice(64, 128)):  # dvᵀ += dOᵀ·p, dkᵀ += qᵀ·ds
+                    acc_v[..., dr] = fold_tile(
+                        acc_v[..., dr].transpose(1, 2), dot[..., dr].transpose(1, 2),
+                        p.transpose(1, 2), products).transpose(1, 2)
+                    acc_k[..., dr] = fold_tile(
+                        acc_k[..., dr].transpose(1, 2), qt[..., dr].transpose(1, 2),
+                        dst.transpose(1, 2), products).transpose(1, 2)
+                continue
             dst = p * (dpt - dlt) * scale
             terms_v = mm3(p[..., PERM], dot[:, PERM], products)
             terms_k = mm3(dst[..., PERM], qt[:, PERM], products)
@@ -198,27 +265,45 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.mark.parametrize("flow", ["one", "ws"])
 @pytest.mark.parametrize("case", sorted(KV_LENS))
-def test_three_products_hold_f32(case):
-    err = _errors(case)
+def test_three_products_hold_f32(case, flow):
+    err = _errors(case, flow=flow)
     assert max(err.values()) <= TOL, err
 
 
+@pytest.mark.parametrize("flow", ["one", "ws"])
 @pytest.mark.parametrize("case", ["none", "ragged"])
-def test_one_tf32_pass_misses_f32(case):
+def test_one_tf32_pass_misses_f32(case, flow):
     """One TF32 product per matmul (~2^-11 per operand) is far off."""
-    err = _errors(case, products=1)
+    err = _errors(case, products=1, flow=flow)
     assert min(err.values()) > 20 * TOL, err
 
 
-def test_zero_rows_past_kv_len_and_without_keys():
+@pytest.mark.parametrize("case", ["none", "ragged"])
+def test_warp_specialised_flow_matches_one_warpgroup(case):
+    """The two warpgroups' data flow (dq's half-D folds from one shared ds,
+    dk/dv's pᵀ handed over as hi + lo, every fold transposed) against the
+    one-warpgroup form: the same
+    products, the same per-tile folds, each gradient within 1e-6 of its norm
+    per (batch row, head). They differ in the order of the three terms
+    within a fold (A and B swap roles) and in K's p = hi + lo (2^-22 of p)."""
+    q, k, v, do, lse, delta, _ = _inputs(13, KV_LENS[case])
+    ws = emulated_bwd(q, k, v, do, lse, delta, KV_LENS[case], flow="ws")
+    one = emulated_bwd(q, k, v, do, lse, delta, KV_LENS[case], flow="one")
+    for g, r in zip(ws, one):
+        assert float(_grad_rel(g, r).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("flow", ["one", "ws"])
+def test_zero_rows_past_kv_len_and_without_keys(flow):
     """dk/dv rows past kv_len and the dq of a batch row without keys are
     exactly zero in the emulation, as the kernels write them."""
     q, k, v, do, lse, delta, lens = _inputs(3, KV_LENS["empty_row"])
-    dq, dk, dv = emulated_bwd(q, k, v, do, lse, delta, KV_LENS["empty_row"])
+    dq, dk, dv = emulated_bwd(q, k, v, do, lse, delta, KV_LENS["empty_row"], flow=flow)
     assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
     q, k, v, do, lse, delta, lens = _inputs(3, KV_LENS["ragged"])
-    _, dk, dv = emulated_bwd(q, k, v, do, lse, delta, KV_LENS["ragged"])
+    _, dk, dv = emulated_bwd(q, k, v, do, lse, delta, KV_LENS["ragged"], flow=flow)
     for b, n in enumerate(KV_LENS["ragged"]):
         assert (dk[b, n:] == 0).all() and (dv[b, n:] == 0).all()
 
@@ -287,15 +372,34 @@ def test_kmajor_tiles_are_what_wgmma_reads(R):
     assert np.array_equal(wgmma_reads(buf, 0, R * 128, R, D), tile)
 
 
+def staging_visits(who: str) -> list:
+    """The (row, 16-byte chunk) pairs of a 32-row streamed tile that its
+    staging threads visit: "block" the one-warpgroup form's transposed
+    staging (all 128 threads, a lane a row, warp w the chunks w, w + 4, ...),
+    "producer" split_rows (producer warps 1-3, a lane a row, warp w − 1 the
+    chunks w − 1, w + 2, ...)."""
+    warps = 4 if who == "block" else 3
+    return [(lane, c) for w in range(warps) for lane in range(TILE)
+            for c in range(w, D // 4, warps)]
+
+
 def test_transposed_panels_are_what_wgmma_reads():
-    """A 32-row tile staged transposed (kᵀ in dq, qᵀ and dOᵀ in dk/dv) read
-    back as the gradient products' B operand, quarter qt of the 128 columns
+    """A 32-row tile staged transposed (kᵀ in dq, qᵀ and dOᵀ in dk/dv, the
+    one-warpgroup form's B operand of the gradient products) by the staging
+    threads' visits (each (row, chunk) once, a warp's stores to one panel row
+    on 32 banks) read back as that B operand, quarter qt of the 128 columns
     at a time: position p of column d holds the tile's row key_at(p)."""
     tile = np.random.default_rng(1).standard_normal((TILE, D)).astype(np.float32)
     buf = np.full(TILE * D, np.nan, dtype=np.float32)
-    for key in range(TILE):
-        for d in range(D):
+    visits = staging_visits("block")
+    assert sorted(visits) == [(r, c) for r in range(TILE) for c in range(D // 4)]
+    for key, c in visits:
+        for d in range(4 * c, 4 * c + 4):
             buf[swz128(d, key_pos(key)) // 4] = tile[key, d]
+    for c in range(D // 4):  # one warp's store: element e of chunk c, lanes 0..31
+        for e in range(4):
+            banks = {(swz128(4 * c + e, key_pos(lane)) // 4) % 32 for lane in range(TILE)}
+            assert len(banks) == 32
     for qt in range(4):
         got = wgmma_reads(buf, qt * 32 * 128, 0, 32, TILE)  # [32 columns of d, 32 positions]
         want = tile[PERM][:, 32 * qt:32 * qt + 32].T
@@ -308,8 +412,9 @@ def test_key_permutation_is_a_bijection():
 
 
 def test_accumulator_entries_are_the_gradient_fragments():
-    """For every lane and k8 step of a gradient product: the 64 x 32
-    accumulator entry tf32_frags puts in A slot e (i = 4kk + 2(e & 1) + (e >> 1))
+    """For every lane and k8 step of a gradient product in the one-warpgroup
+    form (and of ring_step_f32.cu's P·V): the 64 x 32 accumulator entry put
+    in A slot e (i = 4kk + 2(e & 1) + (e >> 1))
     sits in the slot's row, and its column (key or q row) is the one the
     transposed panel holds at the slot's k index. Accumulator entry i of lane
     λ: row 16w + λ/4 + 8((i >> 1) & 1), column 8(i / 4) + 2(λ % 4) + (i & 1);
@@ -323,6 +428,168 @@ def test_accumulator_entries_are_the_gradient_fragments():
                 a_row, a_k = g + 8 * (e & 1), t + 4 * (e >> 1)
                 assert acc_row == a_row
                 assert key_at(8 * kk + a_k) == acc_col
+
+
+def test_in_place_split_of_the_streamed_tile():
+    """split_rows: TMA's raw rows of a 32-row tile (rows past n as zeros, the
+    keys past kv_len) split in place, hi over the raw rows and lo beside it,
+    by the producer warps' visits: both tiles read back through the
+    descriptors as the tile's tf32 hi and lo."""
+    rng = np.random.default_rng(2)
+    tile = rng.standard_normal((TILE, D)).astype(np.float32)
+    n = 21
+    hi_slot = np.full(TILE * D, np.nan, dtype=np.float32)
+    lo_slot = np.full(TILE * D, np.nan, dtype=np.float32)
+    for r in range(TILE):  # TMA's write
+        for c in range(D // 4):
+            o = kmajor_off(TILE, r, c) // 4
+            hi_slot[o:o + 4] = tile[r, 4 * c:4 * c + 4]
+    for r, c in staging_visits("producer"):
+        o = kmajor_off(TILE, r, c) // 4
+        x = torch.tensor(hi_slot[o:o + 4] if r < n else np.zeros(4, np.float32))
+        h, l_ = split(x)
+        hi_slot[o:o + 4], lo_slot[o:o + 4] = h.numpy(), l_.numpy()
+    want_hi, want_lo = split(torch.tensor(tile) * (torch.arange(TILE) < n)[:, None])
+    assert np.array_equal(wgmma_reads(hi_slot, 0, TILE * 128, TILE, D), want_hi.numpy())
+    assert np.array_equal(wgmma_reads(lo_slot, 0, TILE * 128, TILE, D), want_lo.numpy())
+
+
+def test_stationary_split_is_the_a_fragments_and_the_lo_tile():
+    """split_stationary: each consumer thread's share of the 64-row
+    stationary tile (rows past n as zeros): hi into the A fragments of the
+    16 k8 steps (a[kk][e]: row 16w + g + 8(e & 1), column 8kk + t + 4(e >> 1),
+    the tf32 register layout), lo back in place. Every element is taken
+    once; the fragments assemble to the tile's hi and the tile reads back
+    through the descriptors as its lo."""
+    rng = np.random.default_rng(4)
+    tile = rng.standard_normal((ROWS, D)).astype(np.float32)
+    n = 50
+    buf = np.full(ROWS * D, np.nan, dtype=np.float32)
+    for r in range(ROWS):
+        for c in range(D // 4):
+            o = kmajor_off(ROWS, r, c) // 4
+            buf[o:o + 4] = tile[r, 4 * c:4 * c + 4]
+    a_hi = np.full((ROWS, D), np.nan, dtype=np.float32)
+    taken = set()
+    for w in range(4):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            r0 = 16 * w + g
+            for kk in range(16):
+                for e in range(4):
+                    r, c = r0 + 8 * (e & 1), 8 * (kk & 3) + t + 4 * (e >> 1)
+                    o = ((kk >> 2) * ROWS * 128 + swz128(r, c)) // 4
+                    h, l_ = split(torch.tensor([buf[o] if r < n else 0.0], dtype=torch.float32))
+                    a_hi[r, 8 * kk + (c - 8 * (kk & 3))] = h.item()  # row r, k index of step kk
+                    buf[o] = l_.item()
+                    taken.add((r, 8 * kk + (c - 8 * (kk & 3))))
+    assert len(taken) == ROWS * D
+    want_hi, want_lo = split(torch.tensor(tile) * (torch.arange(ROWS) < n)[:, None])
+    assert np.array_equal(a_hi, want_hi.numpy())
+    assert np.array_equal(wgmma_reads(buf, 0, ROWS * 128, ROWS, D), want_lo.numpy())
+
+
+def test_swap_slots_pair_the_same_entries():
+    """The consumers' swap of p and dp (dq) or pᵀ (dk/dv): entry i of thread t
+    at word i·128 + t of a 64 x 32 buffer, the same (row, column) of the
+    tile in both warpgroups; every word written once, and a warp's 32 words
+    for one entry on 32 banks."""
+    slots = {}
+    for t in range(128):
+        w, lane = divmod(t, 32)
+        for i in range(16):
+            at = (16 * w + lane // 4 + 8 * ((i >> 1) & 1), 8 * (i // 4) + 2 * (lane % 4) + (i & 1))
+            slots[i * 128 + t] = at
+    assert sorted(slots) == list(range(ROWS * TILE))
+    assert len(set(slots.values())) == ROWS * TILE
+    for i in range(16):
+        for w in range(4):
+            assert len({(i * 128 + 32 * w + lane) % 32 for lane in range(32)}) == 32
+
+
+def test_transposed_fragments_are_the_a_operand():
+    """frags_t: the A fragments of a fold over a split 32-row streamed tile X
+    (K-major, as split_rows leaves it) read transposed, A = Xᵀ: slot e of k8
+    step kk of a thread with rows d0, d0 + 8 (d0 = 64·block + 16w + g) is
+    X[8kk + t + 4(e >> 1)][d0 + 8(e & 1)], at panel d0 / 32, swz128(row,
+    column % 32). Every element of each 64-row block of Xᵀ is taken once."""
+    tile = np.random.default_rng(6).standard_normal((TILE, D)).astype(np.float32)
+    buf = np.full(TILE * D, np.nan, dtype=np.float32)
+    for r in range(TILE):
+        for c in range(D // 4):
+            o = kmajor_off(TILE, r, c) // 4
+            buf[o:o + 4] = tile[r, 4 * c:4 * c + 4]
+    for block in range(2):
+        at = np.full((64, TILE), np.nan, dtype=np.float32)  # Xᵀ rows 64·block..
+        for w in range(4):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                d0 = 64 * block + 16 * w + g
+                for kk in range(4):
+                    for e in range(4):
+                        row, col = 8 * kk + t + 4 * (e >> 1), d0 + 8 * (e & 1)
+                        word = ((d0 >> 5) * TILE * 128 + swz128(row, col & 31)) // 4
+                        assert np.isnan(at[col - 64 * block, row])
+                        at[col - 64 * block, row] = buf[word]  # A[m = d][k = tile row]
+        assert np.array_equal(at, tile[:, 64 * block:64 * block + 64].T)
+
+
+def test_accumulator_panel_is_the_b_operand():
+    """put_split / the dq swap: entry i of a 64 x 32 accumulator (row r0 +
+    8((i >> 1) & 1), column 8(i / 4) + 2t + (i & 1)) written at entry_off =
+    swz128(row, column) of a K-major 64 x 32 panel, read back through the
+    descriptors a fold steps, quarter c (32 rows) from c·4 KiB: B[n][k] is
+    the accumulator's row 32c + n, column k."""
+    acc = np.random.default_rng(8).standard_normal((ROWS, TILE)).astype(np.float32)
+    buf = np.full(ROWS * TILE, np.nan, dtype=np.float32)
+    for w in range(4):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            r0 = 16 * w + g
+            for i in range(16):
+                row, col = r0 + 8 * ((i >> 1) & 1), 8 * (i // 4) + 2 * t + (i & 1)
+                o = swz128(row, col) // 4
+                assert np.isnan(buf[o])
+                buf[o] = acc[row, col]
+    for c in range(2):
+        assert np.array_equal(wgmma_reads(buf, c * 32 * 128, 0, 32, TILE), acc[32 * c:32 * c + 32])
+
+
+def test_transposed_accumulators_store_each_gradient_element_once():
+    """store_t: the fold's accumulators of Gᵀ (entry 16c + i: column d0 +
+    8((i >> 1) & 1) of G, row 32c + 8(i / 4) + 2t + (i & 1)) written as G's
+    rows; dq's two consumers (d0 = 64·cw + 16w + g) and a dk/dv consumer's two
+    blocks (d0 = 64·block + 16w + g) each cover the block's 64 x 128
+    gradient once."""
+    cells = []
+    for half in range(2):  # a dq consumer, or a dk/dv consumer's block
+        for t_ in range(128):
+            w, lane = divmod(t_, 32)
+            d0 = 64 * half + 16 * w + lane // 4
+            for i in range(32):
+                row = 32 * (i // 16) + 8 * ((i % 16) // 4) + 2 * (lane % 4) + (i & 1)
+                cells.append((row, d0 + 8 * ((i >> 1) & 1)))
+    assert sorted(cells) == [(r, c) for r in range(ROWS) for c in range(D)]
+
+
+@pytest.mark.parametrize("quarters", [2, 4])
+def test_fold_order_leaves_the_bits(quarters):
+    """A fold in quarters of 32 columns issued through two buffers (quarter
+    c + 1 before quarter c's rounded add; the timed two-buffer variant),
+    the quarters one after the other, and the kept fold over all the columns
+    at once (m64n64k8) give the same bits: each column takes the same
+    products and the same add."""
+    rng = np.random.default_rng(quarters)
+    x = torch.tensor(rng.standard_normal((ROWS, TILE)).astype(np.float32))
+    bt = torch.tensor(rng.standard_normal((TILE, 32 * quarters)).astype(np.float32))
+    acc0 = torch.tensor(rng.standard_normal((ROWS, 32 * quarters))).float().double()
+    got = fold_two_buffers(acc0.clone(), x, bt, 3)
+    want = acc0.clone()
+    for c in range(quarters):
+        sl = slice(32 * c, 32 * c + 32)
+        want[:, sl] = (want[:, sl] + tc_product(mm3(x, bt[:, sl], 3))).float().double()
+    assert torch.equal(got, want)
+    assert torch.equal(fold_tile(acc0.clone(), x, bt, 3), want)
 
 
 # --- the plain twin against JAX ----------------------------------------------
