@@ -16,7 +16,8 @@ Run from the repository root on a machine with an NVIDIA H100:
                                      # SFT step under --sp at world 1 beside its one-card
                                      # step: with 2+ cards the SFT modes and
                                      # qwen3_forward_sp across the cards too
-    python3 chip_smoke.py i2v        # flash, then tiny_i2v, i2v, vae22 and xlm
+    python3 chip_smoke.py i2v        # flash (with the pair), then tiny_i2v, i2v, vae22
+                                     # and xlm
     python3 chip_smoke.py stream     # cli and a14b (experts kept on the host), then stream
     python3 chip_smoke.py stream_train  # the streamed trainers' phase alone
     python3 chip_smoke.py serve      # e2e (VLM features seeded), then serve, export and
@@ -37,7 +38,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             and i2v paths);
   flash     the flash CUDA kernel against the q-chunked flash_attention_plain
             at the DiT's shapes (bounded self- and cross-attention, self at
-            T2V-A14B's 40 heads, a forced max-tracked case, a ragged kv_lens
+            T2V-A14B's 40 heads, a forced max-tracked case, a ragged kv_lens,
+            I2V-14B's cross-attention over 257 and over 512 keys apart), and
+            the pair kernel (flash_pair) against flash_attention_pair_plain
+            at I2V-14B's [2, 32760, 40, 128] over 512 + 257 keys (three
+            reruns bit-equal, the two SDPA calls and their sum as its
+            yardstick) and with one context's guard failed
             case with one fully masked batch row, I2V-14B's split
             cross-attention: [2, 32760, 40, 128] q over the 257 CLIP keys and
             over the 512 text keys, bounded), the Qwen3 prefill's
@@ -230,14 +236,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
             ENCODE_TOL, each device's own frames within ENCODE_TOL plus
             the CPU decoder's gap between the two sets of latents (its
             witness of how far the decoder carries the latents' gap),
-            launches per forward asserted (qk_prep 2,
-            flash_fwd 3 a block, fused_adaln 3 a block + 1);
+            launches per forward asserted (qk_prep 5,
+            flash_fwd 1 and flash_pair 1 a block, fused_adaln 3 a block + 1);
   i2v       I2V-14B at full width and depth from seeded bf16 weights (~16.4B
             parameters), the full ViT-H/14 CLIP (bf16) and Wan2.1 VAE: a
             seeded 1280x720 first frame, 832x480x81, seeded 512x4096
             contexts, 2 UniPC steps at shift 5, CFG 5.0, f32 residual,
-            qk_impl and ew_impl "kernel"; launches per forward asserted (80
-            qk_prep, 120 flash_fwd, 121 fused_adaln), one profiled forward,
+            qk_impl and ew_impl "kernel"; launches per forward asserted (200
+            qk_prep, 40 flash_fwd, 40 flash_pair, 121 fused_adaln), each
+            denoise step's seconds beside one profiled forward,
             the DiT and CLIP freed, the decode to uint8 [81, 480, 832, 3];
             stage seconds and peak memory (below 80 GB);
   vae22     the Wan2.2 VAE: a tiny one on the card against the CPU (encode
@@ -437,6 +444,8 @@ from omnivideo_tpu_torch.ops import flash_attention as flash_mod
 from omnivideo_tpu_torch.ops.flash_attention import (
     BWD_KERNELS,
     flash_attention,
+    flash_attention_pair,
+    flash_attention_pair_plain,
     flash_attention_plain,
     flash_attention_train,
     flash_bwd,
@@ -444,6 +453,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     flash_delta,
     flash_fwd_lse,
     flash_fwd_lse_plain,
+    pair_bound,
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
@@ -594,8 +604,9 @@ EDIT_PROMPT = "Replace the dog with a gray rabbit."
 ENGINE_GRIDS = {"caption": (3, 44, 80), "features": (3, 2, 2)}  # 720p after smart_resize:
 # 704x1280 at 480²…4·480² pixels, 32x32 at 480…1,920 (the JAX engine's budgets)
 D72_SEQ = 30 * 52  # one temporal group of the vision tower, 1,560 patches
-KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_causal", "flash_d72", "flash_fwd_lse",
-               "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+KERNEL_ROWS = ("qk_prep", "flash_fwd", "flash_pair", "flash_causal", "flash_d72",
+               "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
+               "flash_bwd_dkv_f32",
                "fused_adaln", "ring_step", "ring_step_f32", "gmm", "tgmm")
 TRAIN_ROWS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")  # the DiT trainer's kernels
 BWD_F32_ROWS = ("flash_bwd_dq_f32", "flash_bwd_dkv_f32")  # rows 4 and 5 on f32 operands
@@ -650,7 +661,8 @@ def kernel_row(name: str):
     products: row 9 is `gmm_wgmma_kernel` (bf16, many rows),
     `gmm_splitk_kernel` (bf16, few rows) and `gmm_tf32_kernel` (f32); row 9b
     `tgmm_wgmma_kernel` (bf16) and `tgmm_tf32_kernel` (f32). Rows 4 and 5 on
-    f32 operands are `flash_bwd_dq_f32_kernel` and `flash_bwd_dkv_f32_kernel`."""
+    f32 operands are `flash_bwd_dq_f32_kernel` and `flash_bwd_dkv_f32_kernel`;
+    rows 1x and 1t as one launch `flash_pair_kernel`."""
     if "attn_fwd_kernel" in name:
         if "RingCarry" in name:
             return "ring_step"
@@ -665,6 +677,7 @@ def kernel_row(name: str):
     for key, row in (("flash_bwd_dkv_f32", "flash_bwd_dkv_f32"),
                      ("flash_bwd_dq_f32", "flash_bwd_dq_f32"),
                      ("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
+                     ("flash_pair_kernel", "flash_pair"),
                      ("qk_prep", "qk_prep"), ("adaln_kernel", "fused_adaln"),
                      ("ring_step_f32", "ring_step_f32"), ("tgmm_wgmma_kernel", "tgmm"),
                      ("tgmm_tf32_kernel", "tgmm"), ("gmm_wgmma_kernel", "gmm"),
@@ -874,6 +887,77 @@ def _flash_case(name, q, k, v, kv, normalized, causal, forced, reps, nan_tail=Fa
     return rec
 
 
+def _pair_case(name, Lq, Lt, Li, N, gen, scales=(1.0, 1.0), timed=True, reps=5) -> dict:
+    """The pair kernel (flash_pair: the i2v cross-attention over text and
+    image keys in one launch) against flash_attention_pair_plain on the same
+    inputs, through its wrapper with the row norms given (as qk_prep gives
+    them to the model): every row within FLASH_ULPS of its max, three runs
+    bit-equal, each context bounded unless its keys' RMS (`scales`) fails
+    its guard. Timed: the kernel alone at its C entry point, the wrapper,
+    the two row-1 launches it replaces (flash_fwd_launch twice, the bounds
+    made once), the plain twin, and the yardstick: two SDPA calls and their
+    bf16 sum."""
+    B, D = 2, 128
+    q = _normed(B, Lq, N, D, gen)
+    kt, ki = _normed(B, Lt, N, D, gen, scales[0]), _normed(B, Li, N, D, gen, scales[1])
+    vt, vi = (torch.randn(B, L, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+              for L in (Lt, Li))
+    norms = tuple(t.float().square().sum(-1).amax(dim=1).sqrt() for t in (q, kt, ki))
+    mb, safe = pair_bound(q, kt, ki, D**-0.5, norms)
+    wrapper = lambda: flash_attention_pair(q, kt, vt, ki, vi, qk_row_norms=norms)  # noqa: E731
+    runs = [wrapper() for _ in range(3)]
+    ref = flash_attention_pair_plain(q, kt, vt, ki, vi, None, mb, safe)
+    torch.cuda.synchronize()
+    o = runs[0]
+    bit_equal = all(torch.equal(r, o) for r in runs[1:])
+    ulps = float(row_ulps(o, ref).max())
+    bounded = [bool(b) for b in safe.tolist()]
+    rec = {"phase": "flash", "case": name, "kernel": flash_mod.PAIR_KERNEL,
+           "q": [B, Lq, N, D], "Lt": Lt, "Li": Li, "bounded": bounded,
+           "max_abs_err": float((o.float() - ref.float()).abs().max()), "max_row_ulps": ulps,
+           "tolerance_row_ulps": FLASH_ULPS, "max_abs_plain": float(ref.float().abs().max()),
+           "reruns_bit_equal": bit_equal}
+    del runs
+    if (ulps > FLASH_ULPS or not bit_equal or not torch.isfinite(o).all()
+            or bounded != [sc == 1.0 for sc in scales]):
+        raise AssertionError(f"flash {name}: {rec}")
+    if timed:
+        out = torch.empty_like(q)
+        ptrs = [t.data_ptr() for t in (q, kt, vt, ki, vi, out, mb[0], safe[0:1], mb[1], safe[1:2])]
+        lib = _kernels.library()
+        stream = torch.cuda.current_stream().cuda_stream
+        qscale = flash_mod._qscale(D**-0.5)
+        ms = cuda_ms(lambda: _kernels.check(lib.flash_pair_launch(
+            *ptrs, B, Lq, Lt, Li, N, D, qscale, stream), "flash_pair_launch"), reps)
+        ot, oi = torch.empty_like(q), torch.empty_like(q)
+
+        def two_row1():
+            for c, (k, v, oo, L) in enumerate(((kt, vt, ot, Lt), (ki, vi, oi, Li))):
+                _kernels.check(lib.flash_fwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), oo.data_ptr(), None,
+                    mb[c].data_ptr(), safe[c:c + 1].data_ptr(), B, Lq, L, N, D, 0, qscale,
+                    stream), "flash_fwd_launch")
+
+        two_ms = cuda_ms(two_row1, reps)
+        wrapper_ms = cuda_ms(wrapper, reps)
+        plain_ms = cuda_ms(lambda: flash_attention_pair_plain(q, kt, vt, ki, vi, None, mb, safe),
+                           1, 0)
+        qt, ktt, vtt, kit, vit = (t.transpose(1, 2).contiguous() for t in (q, kt, vt, ki, vi))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = cuda_ms(lambda: sdpa(qt, ktt, vtt) + sdpa(qt, kit, vit), reps)
+        del qt, ktt, vtt, kit, vit, ot, oi, out
+        # each input read once and the output written once; every (row, key) pair is live
+        flops = 4 * B * N * Lq * (Lt + Li) * D
+        nbytes = 2 * (2 * B * Lq * N * D + 2 * B * (Lt + Li) * N * D)
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        rec.update(reps=reps, ms=ms, wrapper_ms=wrapper_ms, two_row1_ms=two_ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   share_of_bound=max(t_ops, t_bytes) / ms, tflops=flops / ms / 1e9)
+    emit(rec)
+    return rec
+
+
 def phase_flash(gen: torch.Generator) -> dict:
     """Cases per kernel instantiation; returns {kernel: its main-path case}."""
     main = {}
@@ -900,6 +984,11 @@ def phase_flash(gen: torch.Generator) -> dict:
     # I2V-14B's split cross-attention: the 257 CLIP tokens (a 1-key tail tile) and 512 text
     run("i2v_cross_image", 2, SEQ, 257, 40, 128, 1.0, None, True, False)
     run("i2v_cross_text", 2, SEQ, 512, 40, 128, 1.0, None, True, False)
+    # ... and both in one launch, as the i2v DiT runs them; and with the
+    # image keys' guard failed (that context max-tracked, the text bounded)
+    main["flash_pair"] = _pair_case("i2v_cross_pair", SEQ, 512, 257, 40, gen)
+    _pair_case("i2v_cross_pair_image_max_tracked", 8190, 512, 257, 40, gen, scales=(1.0, 4.0),
+               timed=False)
     # the Qwen3 text prefill (causal, max-tracked, K/V repeated to 32 heads)
     L = vlm_prompt_len()
     run("causal_prefill", 1, L, L, 32, 128, 1.0, None, False, True)
@@ -1690,7 +1779,7 @@ def phase_vlm(clip: Path) -> dict:
         return mb, safe
 
     per_pass = {"flash_d72": vc.depth, "flash_causal": cfg.text.num_hidden_layers,
-                "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0, "ring_step": 0}
+                "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0, "ring_step": 0, "flash_pair": 0}
     total = {k: 0 for k in per_pass}
     flash_mod.softmax_bound = spy
     try:
@@ -2208,7 +2297,7 @@ def phase_e2e(ar_vision: torch.Tensor) -> dict:
             or vae_bf16["mean_levels"] > VAE_BF16_MEAN_LEVELS):
         raise AssertionError(f"e2e: the bf16 VAE decode strays from the f32 one: {vae_bf16}")
     expect = {"qk_prep": 120 * STEPS, "flash_fwd": 60 * STEPS, "flash_causal": 0, "flash_d72": 0,
-              "fused_adaln": 0, "ring_step": 0}
+              "fused_adaln": 0, "ring_step": 0, "flash_pair": 0}
     shape = tuple(frames.shape)
     if launches != expect or shape != (FRAMES, SIZE[1], SIZE[0], 3):
         raise AssertionError(f"e2e: launches {launches} (expected {expect}), frames {shape}")
@@ -2619,7 +2708,7 @@ def phase_sp(pipe, ctx, features) -> dict:
     rel = float((lat_sp - lat_ref).abs().max() / lat_ref.abs().max())
     layers = cfg.dit.num_layers
     expect = {"ring_step": layers * STEPS, "flash_fwd": layers * STEPS, "qk_prep": 0,
-              "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0}
+              "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0, "flash_pair": 0}
     rec = {"phase": "sp", "config": "T2V_1_3B", "size": list(SIZE), "frames": FRAMES,
            "steps": STEPS, "world": 1, "mode": "ring", "ring_impl": "pallas",
            "latent_rel_err": rel, "tolerance_rel": SP_TOL, "denoise_step_s": step_sp,
@@ -2858,7 +2947,7 @@ def phase_a14b(ar_vision: torch.Tensor, keep_host: bool = False) -> dict:
     per_fwd = 3 * cfg.dit.num_layers + 1
     expect = {"qk_prep": 4 * cfg.dit.num_layers * A14B_STEPS,
               "flash_fwd": 2 * cfg.dit.num_layers * A14B_STEPS, "flash_causal": 0,
-              "flash_d72": 0, "fused_adaln": per_fwd * A14B_STEPS, "ring_step": 0}
+              "flash_d72": 0, "fused_adaln": per_fwd * A14B_STEPS, "ring_step": 0, "flash_pair": 0}
     dit = pipe.high_noise.wan
     with torch.inference_mode():
         x2 = torch.cat([latents, latents]).bfloat16()
@@ -2950,11 +3039,12 @@ class _PerForward:
 
 
 def _i2v_expect(cfg: PipelineConfig) -> dict:
-    """Launches per i2v forward: per block the self-attention's fused
-    prologue (qk_prep on q and k) and three flash launches (self, text, image),
-    the three AdaLN sandwiches; and the head's."""
+    """Launches per i2v forward: per block the fused prologue (qk_prep on the
+    self-attention's q and k, the cross-attention's q, text and image keys),
+    the self-attention's flash launch, the cross-attention's one pair launch
+    (text and image keys), the three AdaLN sandwiches; and the head's."""
     n = cfg.dit.num_layers
-    return {"qk_prep": 2 * n, "flash_fwd": 3 * n, "fused_adaln": 3 * n + 1}
+    return {"qk_prep": 5 * n, "flash_fwd": n, "flash_pair": n, "fused_adaln": 3 * n + 1}
 
 
 def phase_tiny_i2v() -> dict:
@@ -3078,12 +3168,16 @@ def phase_i2v() -> dict:
            "launches": launches,
            "per_forward": per_forward, "expected_per_forward": expect,
            "frames_shape": list(shape), "frames_mean": float(frames.float().mean()),
+           "step_s_beside_profiled_forward": {
+               "step_s": timings["step_s"],
+               "profiled_forward_wall_ms": profile["wall_ms_traced"],
+               "profiled_forward_busy_ms": profile["device_busy_ms"]},
            "denoise_peak_gb": denoise_peak, "allocated_after_free_gb": after_free_gb,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "profile_one_forward": profile}
     emit(rec)
     want = {"qk_prep": expect["qk_prep"] * I2V_STEPS, "flash_fwd": expect["flash_fwd"] * I2V_STEPS,
-            "flash_causal": 0, "flash_d72": 0,
+            "flash_pair": expect["flash_pair"] * I2V_STEPS, "flash_causal": 0, "flash_d72": 0,
             "fused_adaln": expect["fused_adaln"] * I2V_STEPS, "ring_step": 0}
     if (launches != want or per_forward != [expect] * I2V_STEPS
             or shape != (FRAMES, SIZE[1], SIZE[0], 3) or rec["max_memory_allocated_gb"] >= 80.0
@@ -3705,7 +3799,8 @@ def _train_mode(mode: str, world: int, ref: dict, device: str = "cuda") -> dict:
               "flash_bwd_dq": (1 + n if ring else 2) * layers,
               "flash_bwd_dkv": (1 + n if ring else 2) * layers,
               "ring_step": 2 * n * layers if ring else 0,
-              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0}
+              "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0,
+              "flash_pair": 0}
     rec = {"mode": mode, "world": world, "loss": [r[0] for r in rows],
            "grad_norm": [r[1] for r in rows], "step_s": step_s, "train_step_s": step_s[-1],
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -3979,7 +4074,7 @@ def _train_expect(cfg) -> dict:
     n_attn = 2 * cfg.dit.num_layers
     return {"flash_fwd_lse": 2 * n_attn, "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
             "qk_prep": 0, "flash_fwd": 0, "flash_causal": 0, "flash_d72": 0, "fused_adaln": 0,
-            "ring_step": 0}
+            "ring_step": 0, "flash_pair": 0}
 
 
 def phase_lora(adamw: dict, tmp: Path) -> dict:
@@ -4259,7 +4354,7 @@ def phase_text_only(model: Qwen3VLModel, ids: np.ndarray, patches: torch.Tensor,
     layers = model.cfg.text.num_hidden_layers
     ids_t = torch.as_tensor(ids, device="cuda")
     per = {"flash_causal": layers, "flash_fwd": 0, "qk_prep": 0, "fused_adaln": 0,
-           "flash_d72": 0, "ring_step": 0}
+           "flash_d72": 0, "ring_step": 0, "flash_pair": 0}
     counts, moe_counts, out = [], [], {}
 
     def run(tag):
@@ -4346,7 +4441,7 @@ def phase_qwen3_sp(model, ids_t: torch.Tensor, ref_logits: torch.Tensor) -> dict
         dist.destroy_process_group()
     rel = _scale_rel(logits, ref_logits)
     expect = {"ring_step": layers, "flash_causal": 0, "flash_fwd": 0, "qk_prep": 0,
-              "flash_d72": 0, "fused_adaln": 0}
+              "flash_d72": 0, "fused_adaln": 0, "flash_pair": 0}
     count = torch.cuda.device_count()
     rec = {"phase": "qwen3_sp", "world": 1, "seq_len": int(ids_t.shape[1]), "forward_s": sp_s,
            "logits_rel_err": rel, "tolerance_rel": SP_TOL, "launches": launches,
@@ -5551,7 +5646,7 @@ def phase_serve(pipe, tmp: Path) -> dict:
 
     layers = T2V_1_3B.dit.num_layers
     expect = {"qk_prep": 4 * layers * STEPS, "flash_fwd": 2 * layers * STEPS, "flash_causal": 0,
-              "flash_d72": 0, "fused_adaln": 0, "ring_step": 0}
+              "flash_d72": 0, "fused_adaln": 0, "ring_step": 0, "flash_pair": 0}
     reqs = {}
     try:
         with _ServedFrames() as written:
@@ -5651,7 +5746,7 @@ def phase_export(pipe, tmp: Path) -> dict:
     ulps = float(row_ulps(out, ref).max())
     layers = T2V_1_3B.dit.num_layers
     expect = {"qk_prep": 4 * layers, "flash_fwd": 2 * layers, "flash_causal": 0, "flash_d72": 0,
-              "fused_adaln": 0, "ring_step": 0}
+              "fused_adaln": 0, "ring_step": 0, "flash_pair": 0}
     rec = {"phase": "export", "config": "T2V_1_3B", "x": list(xs), "ctx": list(cs),
            "residual_dtype": "bfloat16", "export_s": export_s, "save_s": save_s,
            "load_s": load_s, "artifact_bytes": nbytes, "program_ms": prog_ms,
@@ -5986,6 +6081,8 @@ def _all_phases(dev: dict, tmp: Path) -> int:
                       "vision_lora": text["launches"]["flash_d72"],
                       "vlm_image": vlm["image"]["launches"]["flash_d72"],
                       "ar_feature_extract": ar["launches"]["flash_d72"]},
+        "flash_pair": {"tiny_i2v": tiny_i2v["launches"]["flash_pair"],
+                       "i2v": i2v["launches"]["flash_pair"]},
         "fused_adaln": {"a14b": a14b["launches"]["fused_adaln"],
                         "tiny_i2v": tiny_i2v["launches"]["fused_adaln"],
                         "i2v": i2v["launches"]["fused_adaln"],
@@ -6027,6 +6124,13 @@ def _all_phases(dev: dict, tmp: Path) -> int:
              "launches": launches[name], "max_abs_err": rec["max_abs_err"],
              "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    rec = fl["flash_pair"]
+    kernels.append(
+        {"name": "flash_pair", "route": "cuda", "source": "omnivideo_tpu_torch/csrc/flash_pair.cu",
+         "replaces": "omnivideo_tpu/ops/pallas/flash_attention.py:42",
+         "launches": launches["flash_pair"], "max_abs_err": rec["max_abs_err"],
+         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     outputs = {"flash_fwd_lse": ("o",), "flash_bwd_dq": ("dq",), "flash_bwd_dkv": ("dk", "dv")}
     replaces = {"flash_fwd_lse": "omnivideo_tpu/ops/pallas/flash_attention.py:42",
                 "flash_bwd_dq": "omnivideo_tpu/ops/pallas/flash_attention.py:485",

@@ -57,10 +57,14 @@ reference's `img_emb.proj.{0,1,3,4}`) to the embedded context. Each block's
 cross-attention then takes the first IMG_TOKENS (257) context tokens as the
 image, with their own `k_img`, `v_img` and `norm_k_img`: two attentions
 over the text and over the image tokens, each without kv_lens and bounded
-under qk_norm, summed in the attention's dtype before `o`. That split
-cross-attention never takes the fused prologue (JAX's `"k_img" not in ca`
-guard): q and both keys go through the unfused rms_norm chain. The i2v
-model has no tensor-parallel path (`k_img`/`v_img` are not split).
+under qk_norm, summed in the attention's dtype before `o`. Under "kernel"
+(outside autograd) q, the text keys and the image keys take the fused
+qk_prep prologue and the two attentions run as one `flash_attention_pair`
+launch on their row-norm bounds, where JAX's `"k_img" not in ca` guard
+takes the unfused chain and two calls (ROADMAP §3); under "unfused", and
+under grad, q and both keys go through the unfused rms_norm chain and two
+`attention` calls, as in JAX. The i2v model has no tensor-parallel path
+(`k_img`/`v_img` are not split).
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import WanDiTConfig
 from ..device import resolve_device
 from ..ops.attention import attention
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_pair
 from ..ops.fused_adaln import fused_adaln
 from ..ops.lora import has_lora, lora_delta
 from ..ops.norms import layer_norm, rms_norm
@@ -281,6 +285,12 @@ IMG_TOKENS = 257  # CLIP ViT-H/14 tokens at 224 (cls + 16×16 patches) heading t
 CLIP_DIM = 1280  # their width, img_emb's input
 
 
+def _wants_grad(module: nn.Module, *inputs: torch.Tensor) -> bool:
+    """Whether autograd records a call of `module` on `inputs`."""
+    return torch.is_grad_enabled() and (any(t.requires_grad for t in inputs)
+                                        or any(p.requires_grad for p in module.parameters()))
+
+
 class WanAttention(nn.Module):
     """q/k/v/o projections and the q/k RMS gains; with `img` also the i2v
     cross-attention's image key/value projections and key gain."""
@@ -346,6 +356,22 @@ class WanBlock(nn.Module):
         v = v.view(v.shape[0], v.shape[1], N, hd)
         return flash_attention(q, k, v, kv_lens=kv_lens, assume_normalized=True,
                                qk_row_norms=(qn, kn))
+
+    def _fused_pair_attn(self, ca: WanAttention, xq: torch.Tensor,
+                         ctx: torch.Tensor) -> torch.Tensor:
+        """The i2v cross-attention in one launch: q, the text keys and the
+        image keys through qk_prep (no RoPE), their row-norm bounds to
+        `flash_attention_pair` over the text (context from IMG_TOKENS) and
+        the image tokens (the first IMG_TOKENS)."""
+        cfg = self.cfg
+        N, hd = cfg.num_heads, cfg.head_dim
+        txt, im = ctx[:, IMG_TOKENS:], ctx[:, :IMG_TOKENS]
+        q, qn = qk_prep(dense(ca.q, xq), ca.norm_q.weight, None, None, N, cfg.eps)
+        kt, knt = qk_prep(dense(ca.k, txt), ca.norm_k.weight, None, None, N, cfg.eps)
+        ki, kni = qk_prep(dense(ca.k_img, im), ca.norm_k_img.weight, None, None, N, cfg.eps)
+        vt = dense(ca.v, txt).view(txt.shape[0], txt.shape[1], N, hd)
+        vi = dense(ca.v_img, im).view(im.shape[0], im.shape[1], N, hd)
+        return flash_attention_pair(q, kt, vt, ki, vi, qk_row_norms=(qn, knt, kni))
 
     def _norm(self, x: torch.Tensor, gain: torch.Tensor, tp) -> torch.Tensor:
         """q/k RMS norm: over the local dim, or under TP (`tp`: the 'tensor'
@@ -417,6 +443,8 @@ class WanBlock(nn.Module):
             o = self._fused_attn(aux, dense(ca.q, xq), ca.norm_q.weight, False,
                                  dense(ca.k, ctx), ca.norm_k.weight, False,
                                  dense(ca.v, ctx), None)
+        elif fuse_qk and not _wants_grad(ca, xq, ctx):  # under grad: the two training calls
+            o = self._fused_pair_attn(ca, xq, ctx)
         else:
             q = self._norm(dense(ca.q, xq), ca.norm_q.weight, tp)
             n_loc = q.shape[-1] // hd

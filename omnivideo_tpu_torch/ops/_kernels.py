@@ -30,8 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_train.cu", "flash_train_f32.cu", "adaln.cu",
-           "ring_step.cu", "ring_step_f32.cu", "gmm.cu")
+SOURCES = ("qk_prep.cu", "flash_fwd.cu", "flash_pair.cu", "flash_train.cu", "flash_train_f32.cu",
+           "adaln.cu", "ring_step.cu", "ring_step_f32.cu", "gmm.cu")
 HEADERS = ("hopper_common.cuh", "flash_fwd_hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +52,7 @@ _SIGNATURES = {
     "flash_fwd_launch": [_c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
                          _c_int, _c_int, _c_int, _c_int, _c_float, _c_void_p],
+    "flash_pair_launch": [_c_void_p] * 10 + [_c_int] * 6 + [_c_float, _c_void_p],
     "flash_fwd_lse_launch": [_c_void_p] * 6 + [_c_int] * 5 + [_c_float, _c_void_p],
     "flash_bwd_dq_launch": [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p],
     "flash_bwd_dkv_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_float, _c_void_p],

@@ -27,6 +27,16 @@ on CUDA. Bound and design: see the kernel source. The CUDA kernel's output
 has no autograd history, so on CUDA it raises when grad mode is on and an
 input requires grad.
 
+`flash_attention_pair` is the i2v DiT's split cross-attention, JAX's two
+bounded calls on one q (text keys, image keys) and the sum of their outputs,
+in one launch: the registered op `omnivideo::flash_attention_pair`, the
+kernel `csrc/flash_pair.cu` on CUDA (launch count "flash_pair" in
+`flash_attention.launches`; head dim 128, bf16, no grad, or it raises), its
+plain twin `flash_attention_pair_plain` (two `flash_attention_plain` calls,
+each output in q's dtype, added in f32 and rounded once) on the CPU. Each
+context keeps its own bound and guard (`pair_bound`, from qk_prep's row
+norms where given).
+
 Training (the custom VJP `flash_attention` → `_fa_fwd` / `_fa_bwd`):
 `flash_attention_train` is a torch.autograd.Function. Its forward runs the
 max-tracked softmax and keeps the natural-log row logsumexp LSE [B, N, Lq]
@@ -61,6 +71,7 @@ LN2 = float(np.float32(1.0 / LOG2E))  # m (log2 units) → natural log, as JAX's
 GUARD = 120.0  # largest safe 2·bound+2, in log2 units (f32 exp2 flushes below −126)
 # (head dim, causal) → the kernel instantiation that serves it
 KERNELS = {(128, False): "flash_fwd", (128, True): "flash_causal", (72, False): "flash_d72"}
+PAIR_KERNEL = "flash_pair"  # flash_attention_pair's kernel (csrc/flash_pair.cu)
 PLAIN_LOGITS_BUDGET = 1 << 28  # f32 logits per q chunk of the plain version
 
 
@@ -221,7 +232,138 @@ def _(q, k, v, kv_lens, mb, safe, softmax_scale, causal):
     return torch.empty_like(q)
 
 
-flash_attention.launches = {name: 0 for name in KERNELS.values()}
+flash_attention.launches = {name: 0 for name in (*KERNELS.values(), PAIR_KERNEL)}
+
+
+# ---------------------------------------------------------------------------
+# the i2v split cross-attention: one launch over two key sets
+# ---------------------------------------------------------------------------
+
+
+def pair_bound(
+    q: torch.Tensor,
+    k_txt: torch.Tensor,
+    k_img: torch.Tensor,
+    scale: float,
+    qk_row_norms: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`softmax_bound` of both contexts at once: (mb [2, B, N] int32, safe
+    [2] int32), text first. qk_row_norms = (qn, kn_txt, kn_img) [B, N] f32
+    upper bounds from qk_prep skip the reductions."""
+    if qk_row_norms is not None:
+        qn, kn_txt, kn_img = qk_row_norms
+    else:
+        qn, kn_txt, kn_img = (t.float().square().sum(-1).amax(dim=1).sqrt()
+                              for t in (q, k_txt, k_img))
+    bound_f = qn * torch.stack((kn_txt, kn_img)) * _qscale(scale)
+    mb = torch.ceil(bound_f).to(torch.int32)
+    safe = (2.0 * bound_f.flatten(1).amax(1) + 2.0 < GUARD).to(torch.int32)
+    return mb, safe
+
+
+def flash_attention_pair_plain(
+    q: torch.Tensor,
+    k_txt: torch.Tensor,
+    v_txt: torch.Tensor,
+    k_img: torch.Tensor,
+    v_img: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    mb: Optional[torch.Tensor] = None,
+    safe: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the pair kernel: two `flash_attention_plain` calls,
+    each with its own bound (mb[c], safe[c]; max-tracked without), each
+    output in q.dtype, added in f32 and rounded once to q.dtype (the sum of
+    the two outputs in their dtype, as JAX `_cross_attn_unfused` takes it)."""
+    outs = [flash_attention_plain(q, k, v, None, softmax_scale,
+                                  None if mb is None else mb[c],
+                                  None if safe is None else safe[c:c + 1])
+            for c, (k, v) in enumerate(((k_txt, v_txt), (k_img, v_img)))]
+    return (outs[0].float() + outs[1].float()).to(q.dtype)
+
+
+def flash_attention_pair(
+    q: torch.Tensor,
+    k_txt: torch.Tensor,
+    v_txt: torch.Tensor,
+    k_img: torch.Tensor,
+    v_img: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    qk_row_norms: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """o = attn(q, k_txt, v_txt) + attn(q, k_img, v_img), each the bounded
+    inference attention of qk-normed q/k (`assume_normalized`), in one
+    launch. q: [B, Lq, N, D]; k/v_txt: [B, Lt, N, D]; k/v_img: [B, Li, N, D].
+    Returns [B, Lq, N, D] in q.dtype. The bounds of both contexts are
+    computed here, on the device (from qk_row_norms = (qn, kn_txt, kn_img)
+    where given); the attention is the registered op
+    `omnivideo::flash_attention_pair` (the kernel `csrc/flash_pair.cu` on
+    CUDA, the plain twin on the CPU), except on the CPU under autograd,
+    where the plain twin runs directly. On CUDA it takes packed bf16
+    operands at head dim 128 and raises on any other, and under grad."""
+    D = q.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else D**-0.5
+    mb, safe = pair_bound(q, k_txt, k_img, scale, qk_row_norms)
+    ops = (q, k_txt, v_txt, k_img, v_img)
+    if q.device.type == "cpu":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+            return flash_attention_pair_plain(*ops, scale, mb, safe)
+    else:
+        _kernels.check_no_grad("flash_attention_pair", *ops)
+        _check_pair_operands(*ops)
+    return torch.ops.omnivideo.flash_attention_pair(*ops, mb, safe, float(scale))
+
+
+def _check_pair_operands(q, k_txt, v_txt, k_img, v_img) -> None:
+    """Raise for operands the pair kernel does not take (another device, head
+    dim, dtype, layout, shapes, or an empty key set)."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_pair: unsupported device {q.device}")
+    B, Lq, N, D = q.shape
+    if D != 128:
+        raise ValueError(f"flash_attention_pair: no kernel for head_dim {D} (it takes 128)")
+    ops = (q, k_txt, v_txt, k_img, v_img)
+    if any(t.dtype != torch.bfloat16 for t in ops):
+        raise ValueError("flash_attention_pair: the kernel takes bf16 q/k/v")
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("flash_attention_pair: the kernel takes packed contiguous [B, L, N, D] "
+                         "operands")
+    for k, v in ((k_txt, v_txt), (k_img, v_img)):
+        if k.shape[1] < 1 or k.shape != (B, k.shape[1], N, D) or v.shape != k.shape:
+            raise ValueError(f"flash_attention_pair: k/v shapes {tuple(k.shape)}, "
+                             f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+
+
+@torch.library.custom_op("omnivideo::flash_attention_pair", mutates_args=(), device_types="cuda")
+def _flash_pair_op(q: torch.Tensor, k_txt: torch.Tensor, v_txt: torch.Tensor,
+                   k_img: torch.Tensor, v_img: torch.Tensor, mb: torch.Tensor,
+                   safe: torch.Tensor, softmax_scale: float) -> torch.Tensor:
+    """The CUDA kernel (csrc/flash_pair.cu), one launch counted per call."""
+    _check_pair_operands(q, k_txt, v_txt, k_img, v_img)
+    B, Lq, N, D = q.shape
+    out = torch.empty_like(q)
+    if Lq == 0:
+        return out
+    mb = mb.to(device=q.device, dtype=torch.int32).contiguous()
+    safe = safe.to(device=q.device, dtype=torch.int32).contiguous()
+    code = _kernels.library().flash_pair_launch(
+        q.data_ptr(), k_txt.data_ptr(), v_txt.data_ptr(), k_img.data_ptr(), v_img.data_ptr(),
+        out.data_ptr(), mb[0].data_ptr(), safe[0:1].data_ptr(), mb[1].data_ptr(),
+        safe[1:2].data_ptr(), B, Lq, k_txt.shape[1], k_img.shape[1], N, D,
+        _qscale(softmax_scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check(code, f"flash_attention_pair ({PAIR_KERNEL})")
+    flash_attention.launches[PAIR_KERNEL] += 1
+    return out
+
+
+@_flash_pair_op.register_kernel("cpu")
+def _(q, k_txt, v_txt, k_img, v_img, mb, safe, softmax_scale):
+    return flash_attention_pair_plain(q, k_txt, v_txt, k_img, v_img, softmax_scale, mb, safe)
+
+
+@_flash_pair_op.register_fake
+def _(q, k_txt, v_txt, k_img, v_img, mb, safe, softmax_scale):
+    return torch.empty_like(q)
 
 
 # ---------------------------------------------------------------------------

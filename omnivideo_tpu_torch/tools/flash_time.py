@@ -2,7 +2,7 @@
 checkout at the main paths' shapes.
 
     PYTHONPATH=<checkout root> python3 omnivideo_tpu_torch/tools/flash_time.py \
-        [--which fwd|bwd|bwd_f32|fwd_lse|ring|ring_f32|gmm|all ...]
+        [--which fwd|bwd|bwd_f32|fwd_lse|ring|ring_f32|pair|gmm|all ...]
 
 `omnivideo_tpu_torch` is imported from PYTHONPATH, not from this file's
 checkout, so one copy of the script times two checkouts (a parent commit and
@@ -34,6 +34,17 @@ shapes (32 heads, every key visible): a 4-card SFT `--sp` run's per-rank
 information, an 8,192-token sequence's shards over 4 cards [1, 2048, 32,
 128]; its bounds
 are three tf32 products of 6·B·N·L²·D (dq) and 8·B·N·L²·D (dk/dv) FLOPs.
+`pair` times the i2v split cross-attention at I2V-14B's q [2, 32760, 40,
+128] over 512 text and 257 image keys (bounded, the bounds computed
+beforehand): on every checkout the two row-1 launches it replaces
+(`flash_fwd_launch` twice, `two_launches_ms`), the two wrapper calls and
+their bf16 sum as the model ran them before the pair (the wrappers reduce q
+and k for their bounds: `two_wrappers_ms`; with the row norms given:
+`two_wrappers_norms_ms`), and, where the checkout has it, the pair kernel
+(`flash_pair_launch`, `pair_ms`) and its wrapper with qk_prep's row norms
+(`flash_attention_pair`, `pair_wrapper_ms`); the bound is 4·B·N·Lq·(Lt +
+Li)·D FLOPs at 989 TFLOP/s against the bytes of q, o and the four K/V
+tensors at 3.35 TB/s.
 `gmm` times the MoE's grouped products (rows 9 and 9b) through the
 `ops.gmm.gmm` / `tgmm` wrappers, whose signature every checkout since they
 were added shares, at Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
@@ -94,6 +105,7 @@ RING_F32_CASES = (  # (case, q rows = keys, my, src, n), token-causal, 32 heads
     ("ring_f32_rank4_own", 512, 1, 1, 4),
     ("ring_f32_rank4_earlier", 512, 2, 1, 4),
 )
+PAIR_CASES = (("i2v_cross_pair", 2, SEQ, 512, 257, 40),)  # (case, B, Lq, Lt, Li, N)
 N, D = 12, 128
 GMM_CASES = (  # (case, op, tokens, dtype, k, n, transpose_rhs)
     ("prefill_gate_up", "gmm", 1481, torch.bfloat16, 2048, 768, False),
@@ -311,6 +323,55 @@ def _routed_sizes(tokens: int, gen) -> torch.Tensor:
     return torch.bincount(flat, minlength=EXPERTS).to(torch.int32)
 
 
+def _pair(args, smi, gen) -> None:
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    qscale = flash_mod._qscale(D**-0.5)
+    fa = flash_mod.flash_attention
+    for name, B, Lq, Lt, Li, n in PAIR_CASES:
+        q, kt, ki = (_normed(B, L, gen, n) for L in (Lq, Lt, Li))
+        vt, vi = (torch.randn(B, L, n, D, generator=gen, device="cuda").to(torch.bfloat16)
+                  for L in (Lt, Li))
+        norms = [t.float().square().sum(-1).amax(dim=1).sqrt() for t in (q, kt, ki)]
+        (mbt, safet), (mbi, safei) = (flash_mod.softmax_bound(q, k, D**-0.5) for k in (kt, ki))
+        ot, oi = torch.empty_like(q), torch.empty_like(q)
+
+        def two():
+            for k, v, o, mb, safe, L in ((kt, vt, ot, mbt, safet, Lt),
+                                         (ki, vi, oi, mbi, safei, Li)):
+                _kernels.check(lib.flash_fwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, mb.data_ptr(),
+                    safe.data_ptr(), B, Lq, L, n, D, 0, qscale, stream), "flash_fwd_launch")
+
+        rec = {"case": name, "q": [B, Lq, n, D], "Lt": Lt, "Li": Li,
+               "bounded": [bool(safet.item()), bool(safei.item())],
+               "two_launches_ms": _time(two, args.reps, args.rounds),
+               "two_wrappers_ms": _time(lambda: fa(q, kt, vt, assume_normalized=True)
+                                        + fa(q, ki, vi, assume_normalized=True),
+                                        args.reps, args.rounds),
+               "two_wrappers_norms_ms": _time(
+                   lambda: fa(q, kt, vt, assume_normalized=True, qk_row_norms=norms[:2])
+                   + fa(q, ki, vi, assume_normalized=True, qk_row_norms=norms[::2]),
+                   args.reps, args.rounds)}
+        if hasattr(lib, "flash_pair_launch"):
+            o = torch.empty_like(q)
+            mb, safe = flash_mod.pair_bound(q, kt, ki, D**-0.5, tuple(norms))
+            ptrs = [t.data_ptr() for t in (q, kt, vt, ki, vi, o, mb[0], safe[0:1], mb[1],
+                                           safe[1:2])]
+            rec["pair_ms"] = _time(lambda: _kernels.check(lib.flash_pair_launch(
+                *ptrs, B, Lq, Lt, Li, n, D, qscale, stream), "flash_pair_launch"),
+                args.reps, args.rounds)
+            rec["pair_wrapper_ms"] = _time(lambda: flash_mod.flash_attention_pair(
+                q, kt, vt, ki, vi, qk_row_norms=tuple(norms)), args.reps, args.rounds)
+        flop = 4 * B * n * Lq * (Lt + Li) * D
+        nbytes = 2 * (2 * B * Lq * n * D + 2 * B * (Lt + Li) * n * D)
+        rec.update(bound_ms=max(flop / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+                   bound_by="operations" if flop / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S
+                   else "bytes", gflop=flop / 1e9, package=flash_mod.__file__, nvidia_smi=smi)
+        print(json.dumps(rec), flush=True)
+        del q, kt, ki, vt, vi, ot, oi
+
+
 def _gmm(args, smi, gen) -> None:
     gmm_mod = importlib.import_module("omnivideo_tpu_torch.ops.gmm")  # the module, not `gmm`
     for name, op, tokens, dtype, k, n, trans in GMM_CASES:
@@ -357,8 +418,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--which", nargs="+",
-                    choices=("fwd", "bwd", "bwd_f32", "fwd_lse", "ring", "ring_f32", "gmm",
-                             "all"),
+                    choices=("fwd", "bwd", "bwd_f32", "fwd_lse", "ring", "ring_f32", "pair",
+                             "gmm", "all"),
                     default=["fwd"])
     ap.add_argument("--cases", nargs="+", choices=[c[0] for c in FWD_CASES],
                     help="only these `fwd` cases (default: all)")
@@ -378,6 +439,8 @@ def main() -> None:
         _ring(args, smi, gen)
     if {"ring_f32", "all"} & set(args.which):
         _ring_f32(args, smi, gen)
+    if {"pair", "all"} & set(args.which):
+        _pair(args, smi, gen)
     if {"gmm", "all"} & set(args.which):
         _gmm(args, smi, gen)
 

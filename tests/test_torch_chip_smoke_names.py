@@ -6,9 +6,9 @@ registers, spills, ptxas's wgmma-serialisation warnings) and from the
 profiler (demangled names: device time by class). The Hopper forward
 mainloop `attn_fwd_kernel` serves five rows, told apart only by its epilogue
 policy's type, so a new policy that the names miss would be filed under
-another row; the f32 ring step (TF32 tensor cores, its own Maps and Step) is
-a kernel of its own, and so are rows 4 and 5 on f32 operands, whose names
-hold the bf16 rows' as a prefix. The names here are
+another row; the i2v cross-attention's pair kernel is a kernel of its own,
+and so are the f32 ring step (TF32 tensor cores, its own Maps and Step) and
+rows 4 and 5 on f32 operands, whose names hold the bf16 rows' as a prefix. The names here are
 ptxas's and the profiler's own spelling of this repository's kernels, on
 synthetic log lines; nothing needs a card.
 The script's stand-in tokenizer and safetensors writer, which stand in for
@@ -34,6 +34,8 @@ MANGLED = {  # row → the entry function as ptxas names it
     "ring_step": "_ZN45_GLOBAL__N__9d0a7f4e_12_ring_step_cu_c53667124fwdh15attn_fwd_kernel"
                  "INS_9RingCarryEEEvNS0_4MapsET_f",
     "flash_causal": FWD + "INS_9CausalOutEEEvNS0_4MapsET_f",
+    "flash_pair": "_ZN46_GLOBAL__N__31923074_13_flash_pair_cu_37d3788817flash_pair_kernel"
+                  "ENS_8PairMapsENS_8PairArgsE",
     "flash_bwd_dq": "_ZN47_GLOBAL__N__73e51205_14_flash_train_cu_c35d950c19flash_bwd_dq_kernel"
                     "E14CUtensorMap_stS0_S0_S0_PKfS2_PfPKiiiif",
     "flash_bwd_dkv": "_ZN47_GLOBAL__N__73e51205_14_flash_train_cu_c35d950c20flash_bwd_dkv_kernel"
@@ -70,6 +72,7 @@ DEMANGLED = {  # row → the kernel as the profiler names it
                  f"{_NS}RingCarry, float)",
     "flash_causal": f"void {_NS}fwdh::attn_fwd_kernel<{_NS}CausalOut>({_NS}fwdh::Maps, "
                     f"{_NS}CausalOut, float)",
+    "flash_pair": f"{_NS}flash_pair_kernel({_NS}PairMaps, {_NS}PairArgs)",
     "flash_bwd_dq": f"{_NS}flash_bwd_dq_kernel(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
                     "CUtensorMap_st, float const*, float const*, float*, int const*, int, int, "
                     "int, float)",

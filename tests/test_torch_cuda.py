@@ -11,7 +11,9 @@ plain magnitude (p is rounded to bf16 before p·v at points that differ with
 the mode; each output is a mean over the keys a row sees, so |o| shrinks
 like sqrt(e/keys): under the causal mask row 0 is a raw v row while row r
 is ~sqrt(e/(r+1)), so the limit is taken per row, never from the global
-maximum, and an error confined to later KV tiles shows). qk_prep outputs
+maximum, and an error confined to later KV tiles shows); the pair kernel
+(the i2v cross-attention over text and image keys, summed) the same against
+its plain twin, and three reruns bit-equal. qk_prep outputs
 ≤ 4 bf16 ulps of each RoPE pair's magnitude and < 0.1% of elements differing
 at all (the f32 rs differs in its last bits with the summation order, which
 can flip the bf16 roundings before the rotation); its row-norm bound 1e-4
@@ -52,6 +54,8 @@ import torch
 
 from omnivideo_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_pair,
+    flash_attention_pair_plain,
     flash_attention_plain,
     flash_attention_train,
     flash_bwd,
@@ -59,6 +63,7 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     flash_delta,
     flash_fwd_lse,
     flash_fwd_lse_plain,
+    pair_bound,
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
@@ -267,6 +272,78 @@ def test_flash_infer_kernel_edge_tilings(cuda, D, scale, B, Lq, Lk, lens):
     for b, n in enumerate(lens or []):
         if n == 0:
             assert (out[b] == 0).all()
+
+
+def _pair_inputs(Lq, Lt, Li, N, seed, device, scales=(1.0, 1.0)):
+    """q, k_txt, v_txt, k_img, v_img in bf16: q and the keys RMS 1 (the keys
+    of context c at RMS scales[c]), normal v."""
+    rng = np.random.default_rng(seed)
+
+    def normed(L, scale=1.0):
+        t = rng.standard_normal((2, L, N, 128)).astype(np.float32)
+        return t / np.sqrt((t**2).mean(-1, keepdims=True)) * scale
+
+    arrs = (normed(Lq), normed(Lt, scales[0]), rng.standard_normal((2, Lt, N, 128)),
+            normed(Li, scales[1]), rng.standard_normal((2, Li, N, 128)))
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device).bfloat16() for a in arrs)
+
+
+PAIR_CASES = [  # (Lq, Lt, Li, N): every tiling of a context's keys the kernel has
+    (1, 1, 1, 2),          # one q row, a narrow tile alone in each context
+    (63, 128, 64, 2),      # one full tile each, the image tile masked past 64
+    (200, 512, 257, 2),    # I2V-14B's key counts: a 1-key narrow tail
+    (200, 513, 65, 40),    # a narrow text tail; the image's one tile masked past 65
+    (8190, 512, 257, 40),  # a quarter of I2V-14B's q rows at its heads
+    (63, 1, 129, 40),      # a full image tile and a 1-key tail
+    (200, 128, 63, 2),
+]
+
+
+@pytest.mark.parametrize("Lq,Lt,Li,N", PAIR_CASES)
+def test_flash_pair_kernel_matches_plain(cuda, Lq, Lt, Li, N):
+    """The i2v split cross-attention in one launch (csrc/flash_pair.cu)
+    against its plain twin (two row-1 plain calls and the bf16 sum): every
+    output row within 4 bf16 ulps of its max; one launch, no row-1 launch."""
+    q, kt, vt, ki, vi = _pair_inputs(Lq, Lt, Li, N, Lq + Lt + Li + N, cuda)
+    mb, safe = pair_bound(q, kt, ki, 128**-0.5)
+    assert safe.tolist() == [1, 1]
+    n0 = dict(flash_attention.launches)
+    out = flash_attention_pair(q, kt, vt, ki, vi)
+    assert flash_attention.launches["flash_pair"] == n0["flash_pair"] + 1
+    assert flash_attention.launches["flash_fwd"] == n0["flash_fwd"]
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _assert_flash_close(out, flash_attention_pair_plain(q, kt, vt, ki, vi, None, mb, safe))
+
+
+@pytest.mark.parametrize("flip", [0, 1])
+def test_flash_pair_kernel_one_guard_flipped(cuda, flip):
+    """One context's keys at RMS 4: its guard fails and it runs max-tracked
+    while the other stays bounded."""
+    scales = (4.0, 1.0) if flip == 0 else (1.0, 4.0)
+    q, kt, vt, ki, vi = _pair_inputs(700, 512, 257, 8, 17 + flip, cuda, scales)
+    mb, safe = pair_bound(q, kt, ki, 128**-0.5)
+    assert safe.tolist() == [int(flip == 1), int(flip == 0)]
+    out = flash_attention_pair(q, kt, vt, ki, vi)
+    _assert_flash_close(out, flash_attention_pair_plain(q, kt, vt, ki, vi, None, mb, safe))
+
+
+def test_flash_pair_kernel_reruns_bit_equal(cuda):
+    """Three reruns give the same bits (a stage or staging race would not)."""
+    q, kt, vt, ki, vi = _pair_inputs(8190, 512, 257, 40, 5, cuda)
+    outs = [flash_attention_pair(q, kt, vt, ki, vi) for _ in range(3)]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_flash_pair_kernel_refuses(cuda):
+    """Raises under grad, on f32 operands and at head dim 64: no fallback."""
+    q, kt, vt, ki, vi = _pair_inputs(64, 16, 16, 2, 1, cuda)
+    with pytest.raises(RuntimeError, match="grad"):
+        flash_attention_pair(q.requires_grad_(), kt, vt, ki, vi)
+    q = q.detach()
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention_pair(q.float(), kt.float(), vt.float(), ki.float(), vi.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_pair(*(t[..., :64].contiguous() for t in (q, kt, vt, ki, vi)))
 
 
 @pytest.mark.parametrize("D", [128, 72])

@@ -7,9 +7,12 @@ img_emb, the split cross-attention with its own image K/V) on the CPU:
   reference-layout state dict (JAX reads it with its converter, the port gets
   JAX's params back through io/jax_bridge.py), f32 outputs within 1e-5 of
   their scale (attention sums in another order);
-- with `qk_impl="kernel"`: the self-attention takes the fused prologue
-  (qk_prep twice a block) but the image cross-attention does not (JAX's
-  `"k_img" not in ca` guard), and the output still matches JAX;
+- with `qk_impl="kernel"`: the self-attention and the split
+  cross-attention take the fused prologue (qk_prep on the self-attention's q
+  and k, then on the cross-attention's q, text keys and image keys: five a
+  block), the cross-attention as one `flash_attention_pair` call a block
+  (where JAX's `"k_img" not in ca` guard takes the unfused chain and two
+  calls), and the output still matches JAX;
 - the JAX-path names of the i2v parameters (`wan_state_dict_to_jax`);
 - the task configs (`I2V_14B` among them) and the size tables, field for
   field against JAX's.
@@ -114,17 +117,22 @@ def _jax_out(cfg, jparams, inputs):
 def test_i2v_dit_matches_jax(qk_impl, monkeypatch):
     cfg, jparams, model = _pair()
     inputs = _inputs(1)
-    calls = []
-    real = port_dit.qk_prep
+    calls, pairs = [], []
+    real, real_pair = port_dit.qk_prep, port_dit.flash_attention_pair
     monkeypatch.setattr(port_dit, "qk_prep", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(port_dit, "flash_attention_pair",
+                        lambda *a, **k: pairs.append(1) or real_pair(*a, **k))
     x, y, t, ctx, clip = (torch.tensor(a) for a in inputs)
     with torch.no_grad():
         out = model(x, t, ctx, seq_len=48, y=y, clip_fea=clip, qk_impl=qk_impl).numpy()
     ref = _jax_out(cfg, jparams, inputs)
     rel = np.abs(out - ref).max() / np.abs(ref).max()
     assert rel < 1e-5, rel
-    # the fused prologue: self-attention's q and k only, never the image cross-attention
-    assert len(calls) == (2 * cfg.num_layers if qk_impl == "kernel" else 0)
+    # the fused prologue: self-attention's q and k, the cross-attention's q,
+    # text and image keys; one pair call a block for the cross-attention
+    kernel = qk_impl == "kernel"
+    assert len(calls) == (5 * cfg.num_layers if kernel else 0)
+    assert len(pairs) == (cfg.num_layers if kernel else 0)
 
 
 def test_i2v_params_round_trip_to_jax_names():
