@@ -457,7 +457,8 @@ from omnivideo_tpu_torch.ops.flash_attention import (
     softmax_bound,
 )
 from omnivideo_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_plain
-from omnivideo_tpu_torch.ops.gmm import gmm, gmm_plain, gmm_schedule, tgmm, tgmm_plain
+from omnivideo_tpu_torch.ops.gmm import (gmm, gmm_plain, gmm_schedule, resident_clusters,
+                                         tgmm, tgmm_plain)
 from omnivideo_tpu_torch.ops.ring_attention import (
     ring_carry,
     ring_finish,
@@ -1455,8 +1456,9 @@ def _gmm_bound(nbytes: float, ops: float, dtype) -> dict:
 def _gmm_case(name: str, lhs, rhs, sizes, transpose=False, reps=20) -> dict:
     """gmm against gmm_plain on the same operands: the rows of the groups
     within each row's limit, the rows past the group sum exactly zero, the
-    same bits on a second call; the schedule the wrapper picks; the kernel
-    timed at its wrapper (and its device time alone), the plain twin,
+    same bits on a second call; the schedule the wrapper picks (a split-k
+    schedule's clusters all held by the card at once); the kernel timed at
+    its wrapper (and its device time alone), the plain twin,
     torch._grouped_mm; the bound from this data (the experts hit, the rows
     routed)."""
     m, k = lhs.shape
@@ -1486,8 +1488,13 @@ def _gmm_case(name: str, lhs, rhs, sizes, transpose=False, reps=20) -> dict:
            **_gmm_bound(nbytes, 2.0 * total * k * n, lhs.dtype), "library_ms": lib_ms}
     if lib_why:
         rec["library_why_none"] = lib_why
+    clustered = sched.kind == "split_k" and sched.splits > 1
+    if clustered:  # the schedule keeps its clusters to one wave: the card holds them all
+        rec["clusters"] = {"resident": resident_clusters(m, sched),
+                           "launched": sched.blocks // sched.splits}
     rec["ok"] = (err <= rec["limit"] and zero_tail and rec["repeat_bitwise"]
-                 and bool(torch.isfinite(out).all()))
+                 and bool(torch.isfinite(out).all())
+                 and (not clustered or rec["clusters"]["launched"] <= rec["clusters"]["resident"]))
     return rec
 
 
@@ -1538,8 +1545,8 @@ def phase_gmm(gen: torch.Generator) -> dict:
     rows 1000x larger and the rows past the sum NaN (a row of another group
     in a group's last step would miss the limit by far); the prefill's and
     the decode's products at vlm_fsdp's split widths (768 / n columns of
-    each bank, n in VLM_SPLITS: the wide kernel's last 256-column tile
-    partial, the split-k kernel over 3 or 6 k steps). Returns
+    each bank, n in VLM_SPLITS: the wide kernel's 192-column tiles, the
+    split-k kernel unsplit over the down's 3 or 6 k steps). Returns
     {"gmm": the prefill gate/up case, "tgmm": the SFT's bank gradient,
     "cases": all}."""
     cfg = QWEN3_VL_30B_A3B.text
@@ -2065,6 +2072,68 @@ def _vlm_fsdp_load(d: Path, nbytes: int, shard, src=None) -> dict:
     return rec
 
 
+VLM_SPLIT_ROUNDINGS = 2.0**-8  # the split MoE's f32 sum of n rank partials vs the world-1
+# f32 combine on the same input, of scale, per partial: each rank's down product rounds its
+# partial sum over 768 / n columns to bf16 once (at most half an ulp, 2^-8 of its magnitude),
+# where the world-1 product rounds the whole sum once, so n + 1 such roundings of a slot's
+# output reach the router-weighted sum (its weights add to 1); the limit is (n + 1) · 2^-8
+
+
+def _split_moe_path(model, ids, patches, grid) -> dict:
+    """Row 9s on one card, on the model's own data: the first MoE layer's
+    input from the feature forward's prefill (a forward hook), then for each
+    n in VLM_SPLITS every rank r of n in turn runs `moe_partial` on its
+    slices of the layer's banks (ExpertShard(r, n), no group: a Qwen3MoE of
+    768 / n columns holding them). The f32 partials, summed in rank order,
+    are held to the world-1 f32 combine (`moe_partial` on the whole banks)
+    within (n + 1) · VLM_SPLIT_ROUNDINGS of scale; the path's gmm launches
+    (counted from zero just before it, read just after) must be 3·n; each
+    rank's call is timed by CUDA events. {n: record}."""
+    mlp = model.language_model.layers[0].mlp
+    seen = []
+    hook = mlp.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0].detach()) if not seen else None)
+    try:
+        with torch.no_grad():
+            extract_features(model, ids, patches, grid, drop_idx=SYSTEM_PREFIX)
+    finally:
+        hook.remove()
+    x = seen[0]
+    out = {}
+    with torch.no_grad():
+        ref = vlm_text.moe_partial(mlp, x)
+        for n in VLM_SPLITS:
+            ranks = []
+            for r in range(n):
+                shard = ExpertShard(r, n)
+                sub = vlm_text.Qwen3MoE(mlp.cfg, mlp.experts_down.dtype, x.device, shard)
+                sub.gate.weight.copy_(mlp.gate.weight)
+                for name, dim in shard_plan(mlp).items():
+                    if dim is not None:
+                        getattr(sub, name).copy_(expert_slice(getattr(mlp, name), dim, shard))
+                ranks.append(sub)
+            _reset_launches()
+            parts = [vlm_text.moe_partial(sub, x) for sub in ranks]
+            torch.cuda.synchronize()
+            launches = _moe_launches()
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            err = float((total - ref).abs().max() / ref.abs().max())
+            limit = (n + 1) * VLM_SPLIT_ROUNDINGS
+            rec = {"cards": n, "x": list(x.shape), "bank_columns": mlp.experts_down.shape[1] // n,
+                   "rel_err_vs_world1": err, "tolerance_rel": limit, "launches": launches,
+                   "rank_ms": [cuda_ms(lambda sub=sub: vlm_text.moe_partial(sub, x), 10)
+                               for sub in ranks]}
+            out[n] = rec
+            if (launches != {"gmm": 3 * n, "tgmm": 0} or err > limit
+                    or not torch.isfinite(total).all() or total.shape != ref.shape):
+                raise AssertionError(f"vlm_fsdp split MoE path: {rec}")
+            del ranks, parts, total
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_vlm_fsdp(model, ids, patches, grid, tmp: Path) -> dict:
     """The sharded engine path on this card: the unsharded run of the vlm
     model (its routing recorded), then an NCCL group of world 1 and the
@@ -2078,6 +2147,7 @@ def phase_vlm_fsdp(model, ids, patches, grid, tmp: Path) -> dict:
     and the unsharded run under "ckpt_dir" and "ref"."""
     t_start = time.perf_counter()
     ref = _vlm_run(model, ids, patches, grid)
+    split = _split_moe_path(model, ids, patches, grid)
     maybe_initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
     try:
         engine = Qwen3VLEngine.from_model(model, VLMConfig(max_new_tokens=VLM_NEW_TOKENS),
@@ -2096,7 +2166,7 @@ def phase_vlm_fsdp(model, ids, patches, grid, tmp: Path) -> dict:
     run.pop("features")
     rec = {"phase": "vlm_fsdp", "config": "QWEN3_VL_30B_A3B",
            "text_layers": model.cfg.text.num_hidden_layers, "world": 1, "backend": "nccl",
-           **run, "all_reduce_ms": ar_ms,
+           **run, "all_reduce_ms": ar_ms, "split_moe": split,
            "ckpt": {"text_layers": VLM_FSDP_CKPT_LAYERS, "layout": "fused gate_up_proj",
                     "write_s": write_s, "read_as": "rank 1 of 4", **load},
            "seconds": time.perf_counter() - t_start}
@@ -6093,6 +6163,8 @@ def _all_phases(dev: dict, tmp: Path) -> int:
             "sft_sp": sp_train["world1"]["sft_sp"]["launches_all_ranks"]["ring_step_f32"]},
         "gmm": {"vlm": vlm["moe_launches"]["gmm"],
                 "vlm_fsdp": vlm["vlm_fsdp"]["moe_launches"]["gmm"],
+                **{f"vlm_fsdp_split{n}": rec["launches"]["gmm"]
+                   for n, rec in vlm["vlm_fsdp"]["split_moe"].items()},
                 "eval_vlm": vlm["eval_vlm"]["moe_launches"]["gmm"],
                 "text_only": text["moe_launches"]["gmm"],
                 "qwen3_sp": text["qwen3_sp"]["moe_launches"]["gmm"],

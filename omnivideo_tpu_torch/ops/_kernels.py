@@ -62,7 +62,8 @@ _SIGNATURES = {
     "adaln_launch": [_c_void_p] * 9 + [_c_int] * 5 + [_c_float, _c_void_p],
     "ring_step_launch": [_c_void_p] * 7 + [_c_int] * 10 + [_c_float, _c_void_p],
     "ring_step_f32_launch": [_c_void_p] * 7 + [_c_int] * 10 + [_c_float, _c_void_p],
-    "gmm_launch": [_c_void_p] * 4 + [_c_int] * 8 + [_c_void_p],
+    "gmm_launch": [_c_void_p] * 4 + [_c_int] * 10 + [_c_void_p],
+    "gmm_max_clusters": [_c_int] * 4 + [_c_void_p],
     "tgmm_launch": [_c_void_p] * 4 + [_c_int] * 6 + [_c_void_p],
 }
 

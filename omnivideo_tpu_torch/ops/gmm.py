@@ -23,10 +23,11 @@ held to f32 (within 1e-5 of each row's max, as the plain twin's own f32
 products in another order). On a CUDA tensor the wrappers make one launch
 of a kernel of `csrc/gmm.cu` (bound and design there), which scans the group
 sizes on the device, so nothing waits on the host; they raise for operands
-the kernels do not take. `gmm_schedule` picks the kernel from the static
-shape alone: bf16 at m <= DECODE_ROWS rows streams the banks with k split
-over a cluster of blocks, bf16 at more rows runs the persistent wgmma
-kernel, f32 the TF32 one. Only a CPU tensor goes to the plain twins
+the kernels do not take. `gmm_schedule` picks the kernel, its column tile
+and its stages from the static shape alone: bf16 at m <= DECODE_ROWS rows
+streams the banks with k split over a cluster of blocks (no cluster where
+one split covers k), bf16 at more rows runs the persistent wgmma kernel,
+f32 the TF32 one. Only a CPU tensor goes to the plain twins
 `gmm_plain` / `tgmm_plain` (per-group `torch.matmul`, which read the group
 sizes on the host). Each wrapper counts its kernel launches (`gmm.launches`,
 `tgmm.launches`). megablox's `group_offset` and `existing_out` serve experts
@@ -39,6 +40,7 @@ needed, and neither is ported.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -47,44 +49,155 @@ import torch
 
 from . import _kernels
 
-MAX_GROUPS = 1024  # every block scans the group sizes in shared memory
+MAX_GROUPS = 1024  # the most group sizes a kernel block reads (and scans in shared memory)
 _VEC = {torch.bfloat16: 8, torch.float32: 4}  # elements of a 16-byte chunk
 DECODE_ROWS = 64  # at most this many rows: every group's rows fit one 64-row tile
-SPLIT_BLOCKS_PER_SM = 3  # the split-k kernel's blocks resident on an SM (72 KiB each)
 MAX_SPLITS = 8  # a cluster's portable size
 _K_STEP = 64  # contraction per pipeline stage
-_SPLIT_TILE_N = 128  # output columns of a split-k block
+_BOX = 64 * 128  # a 64 x 64 bf16 TMA box
+BLOCK_SMEM = 232448  # a block's dynamic shared memory on sm_90 (227 KiB)
+SM_SMEM = 233472  # an SM's shared memory (228 KiB); each resident block also takes 1 KiB
+_SPLIT_RESIDENT = 8  # the split-k blocks an SM holds at most for the stage count
+WIDE_TILES = (256, 192, 128)  # column tiles of the many-row kernel, widest first
+SPLIT_TILES = (128, 64)  # of the few-row kernel
+SPLIT_LOAD_SLACK = 1.15  # split-k options within this of the lightest busiest SM are peers
+CLUSTER_FILL = 0.8  # at most this share of the block slots as clusters; an H100 held 0.89-0.94
+# of them (cudaOccupancyMaxActiveClusters, the split-k kernel's clusters of 2 to 8 blocks)
 
 
 class Schedule(NamedTuple):
     """How one `gmm` call runs: `kind` "split_k" (bf16, m <= DECODE_ROWS),
     "wgmma" (bf16) or "tf32" (f32); `splits` the k splits of the split-k
-    kernel (0 otherwise), each of `steps` k steps of 64; `blocks` its grid
-    (0: the persistent kernels size theirs on the card, at most one an SM)."""
+    kernel (0 otherwise: a cluster of `splits` blocks sums a tile's splits
+    where splits > 1, none where it is 1), each of `steps` k steps of 64;
+    `blocks` its grid (0: the persistent kernels size theirs on the card, at
+    most one an SM); `tile_n` the output columns of a block's tile; `stages`
+    the k steps a block holds in shared memory at once."""
 
     kind: str
     splits: int
     steps: int
     blocks: int
+    tile_n: int
+    stages: int
+
+
+def _wide_smem(tile_n: int, stages: int) -> int:
+    """csrc/gmm.cu `wide::smem_bytes`: the stages (A's 128 rows and tile_n
+    columns of the bank, 64 deep) and their two barriers, both consumers'
+    64 x tile_n outputs staged, the two lists of MAX_GROUPS + 1 ints, 1 KiB
+    of alignment."""
+    stage = 2 * _BOX + tile_n // 64 * _BOX
+    return stages * (stage + 16) + 2 * (tile_n // 64 * _BOX) + 8 * (MAX_GROUPS + 1) + 1024
+
+
+def _split_smem(tile_n: int, stages: int, a_rows: int, splits: int) -> int:
+    """csrc/gmm.cu `narrow_smem`: the stages (an A box of a_rows rows and
+    tile_n columns of the bank, 64 deep) and their two barriers, the f32
+    partial [a_rows, tile_n] where a cluster sums the splits, the group
+    found, 1 KiB of alignment."""
+    stage = 128 * (a_rows + tile_n)
+    return stages * (stage + 16) + (4 * a_rows * tile_n if splits > 1 else 0) + 16 + 1024
+
+
+def _wide_stages(tile_n: int) -> int:
+    """The most stages of the many-row kernel that fit a block."""
+    return max(s for s in range(2, 9) if _wide_smem(tile_n, s) <= BLOCK_SMEM)
+
+
+def _wide_traffic(m: int, k: int, n: int, E: int, tile_n: int) -> float:
+    """Bytes the many-row kernel moves from L2 into shared memory a byte it
+    holds in flight: the rows once a column tile (CT·m·k) and each row
+    slot's bank columns once (slots·k·CT·tile_n, slots ≈ m / 128 +
+    min(E, m) / 2, a group's last slot half full on average), over its
+    stages × stage bytes."""
+    ct = math.ceil(n / tile_n)
+    slots = m / 128 + min(E, m) / 2
+    return (ct * m * k + slots * k * ct * tile_n) / (
+        _wide_stages(tile_n) * (2 * _BOX + tile_n // 64 * _BOX))
+
+
+def _split_resident(tile_n: int, stages: int, a_rows: int, splits: int) -> int:
+    """Split-k blocks an SM holds at once: its shared memory over a block's
+    (each also takes 1 KiB), at most the 3 the kernel's launch bounds keep
+    registers for."""
+    return min(3, SM_SMEM // (_split_smem(tile_n, stages, a_rows, splits) + 1024))
 
 
 @functools.lru_cache(maxsize=256)
 def gmm_schedule(m: int, k: int, n: int, E: int, dtype: torch.dtype, sms: int) -> Schedule:
-    """The kernel and grid of `gmm` at this static shape on a card with
-    `sms` SMs: the few-row kernel takes at most min(E, m) groups × 128-column
-    tiles × splits blocks, the most splits (<= MAX_SPLITS, <= the k steps)
-    that keep them within one wave of SPLIT_BLOCKS_PER_SM blocks an SM; no
-    value read from the card."""
+    """The kernel, tile and grid of `gmm` at this static shape on a card
+    with `sms` SMs, from the shape alone (nothing read from the card):
+
+    - f32: the TF32 kernel (128 x 128 tiles, 3 stages).
+    - bf16, m > DECODE_ROWS: the persistent wgmma kernel. Its column tile is
+      one of WIDE_TILES with the fewest columns past n (at most one 64-column
+      box at the widths the MoE takes), and of those the one that moves the
+      fewest bytes from L2 a byte in flight (`_wide_traffic`: the kernel is
+      bound by how much it keeps in flight, and a narrower tile reads the
+      rows more often but holds more stages), the widest on a tie; its
+      stages as many as fit a block beside the staged outputs.
+    - bf16, m <= DECODE_ROWS (a weight stream): the split-k kernel. Its
+      column tile is 64 where a 128-column tile would leave 64 or more
+      columns past n, else 128; T = min(E, m) groups × ceil(n / tile)
+      tiles. For S splits (<= MAX_SPLITS, <= the k steps KT, none empty:
+      P = ceil(KT / S) steps each, S = ceil(KT / P)) of B = T·S blocks, a
+      block's share of its SM's shared memory is the SM's over the
+      ceil(B / sms) blocks it holds (at most _SPLIT_RESIDENT), and its
+      stages are P where that share takes P, so every load of the block is
+      in flight at once, else as many as it takes, at least 2 (fewer
+      blocks then share the SM). The splits considered fit, and their
+      clusters (S > 1) fit the card in one wave: B <= CLUSTER_FILL · sms ·
+      `_split_resident`, since a cluster's blocks share one GPC and leave
+      slots of it empty. Of these, the peers are those whose busiest SM
+      streams at most SPLIT_LOAD_SLACK times the fewest k steps,
+      ceil(B / sms)·P (with every load in flight, an SM's bytes set its
+      stream time and a block's P steps its chain of products); the chosen
+      one needs no cluster if a peer does not (a cluster's sum costs about
+      a microsecond), then has the fewest steps a block, then the fewest
+      blocks."""
     if dtype == torch.float32:
-        return Schedule("tf32", 0, 0, 0)
+        return Schedule("tf32", 0, 0, 0, 128, 3)
     if m > DECODE_ROWS:
-        return Schedule("wgmma", 0, 0, 0)
+        least = min(-n % t for t in WIDE_TILES)
+        tile = min((t for t in WIDE_TILES if -n % t == least),
+                   key=lambda t: (_wide_traffic(m, k, n, E, t), -t))
+        return Schedule("wgmma", 0, 0, 0, tile, _wide_stages(tile))
+    tile = 64 if 0 < n % 128 <= 64 else 128
     k_steps = math.ceil(k / _K_STEP)
-    tiles = min(E, m) * math.ceil(n / _SPLIT_TILE_N)
-    splits = max(1, min(MAX_SPLITS, k_steps, SPLIT_BLOCKS_PER_SM * sms // tiles))
-    steps = math.ceil(k_steps / splits)
-    splits = math.ceil(k_steps / steps)  # no split without a step
-    return Schedule("split_k", splits, steps, splits * tiles)
+    tiles = min(E, m) * math.ceil(n / tile)
+    a_rows = math.ceil(m / 8) * 8
+    options = []
+    for s in range(1, min(MAX_SPLITS, k_steps) + 1):
+        steps = math.ceil(k_steps / s)
+        splits = math.ceil(k_steps / steps)  # no split without a step
+        blocks = splits * tiles
+        per_sm = math.ceil(blocks / sms)
+        share = min(SM_SMEM // min(per_sm, _SPLIT_RESIDENT) - 1024, BLOCK_SMEM)
+        least = min(2, steps)  # one stage refills only after the next one's products
+        fit = [p for p in range(least, steps + 1)
+               if _split_smem(tile, p, a_rows, splits) <= share] or [least]
+        if _split_smem(tile, fit[-1], a_rows, splits) > BLOCK_SMEM or (
+                splits > 1 and blocks > CLUSTER_FILL * sms * _split_resident(
+                    tile, fit[-1], a_rows, splits)):
+            continue
+        options.append((per_sm * steps, splits > 1, steps, blocks,
+                        Schedule("split_k", splits, steps, blocks, tile, fit[-1])))
+    lightest = min(o[0] for o in options)
+    return min(o[1:] for o in options if o[0] <= SPLIT_LOAD_SLACK * lightest)[-1]
+
+
+def resident_clusters(m: int, sched: Schedule) -> int:
+    """How many clusters of the split-k schedule `sched` at m rows the
+    current CUDA device holds at once (cudaOccupancyMaxActiveClusters): what
+    CLUSTER_FILL assumes, for a check on the card."""
+    if sched.kind != "split_k":
+        raise ValueError(f"resident_clusters: {sched.kind} launches no clusters")
+    most = ctypes.c_int(0)
+    _kernels.check(_kernels.library().gmm_max_clusters(m, sched.tile_n, sched.splits,
+                                                       sched.stages, ctypes.byref(most)),
+                   "gmm_max_clusters")
+    return most.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,8 +289,8 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     sched = gmm_schedule(m, k, n, E, lhs.dtype, sms)
     code = _kernels.library().gmm_launch(
         lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, k, n, E,
-        int(transpose_rhs), int(lhs.dtype == torch.float32), sched.splits, sms,
-        torch.cuda.current_stream(lhs.device).cuda_stream)
+        int(transpose_rhs), int(lhs.dtype == torch.float32), sched.splits, sched.tile_n,
+        sched.stages, sms, torch.cuda.current_stream(lhs.device).cuda_stream)
     _kernels.check(code, "gmm")
     gmm.launches += 1
     return out

@@ -51,14 +51,17 @@ were added shares, at Qwen3-VL-30B-A3B's MoE (128 experts, top-8, 2,048 →
 768 → 2,048) with a seeded skewed routing: the prefill's gate/up and down
 (1,481 tokens, 11,848 rows, bf16), the decode's (8 rows), the SFT's f32
 forward and input gradient (2,048 tokens, 16,384 rows; the bank transposed
-for the gradient), and tgmm in bf16 at the prefill's rows and in f32 at the
-SFT's; each with its bound from the routed data (the experts hit: bytes at
-3.35 TB/s, or the FLOPs at 989 TFLOP/s bf16, or f32 as three tf32 products at
-495 TFLOP/s, with FFMA's 67 TFLOP/s bound beside it), the kernel
-time a call from torch.profiler and the host's enqueue time a call (the
-event time `ms` is the larger of the two), and, for bf16,
+for the gradient), tgmm in bf16 at the prefill's rows and in f32 at the
+SFT's, and the prefill's and the decode's gate/up and down on the banks
+split over 2 and 4 cards (`split2_*`, `split4_*`: 384 and 192 of the 768
+columns, row 9s); each with its bound from the routed data (the experts
+hit: bytes at 3.35 TB/s, or the FLOPs at 989 TFLOP/s bf16, or f32 as three
+tf32 products at 495 TFLOP/s, with FFMA's 67 TFLOP/s bound beside it), the
+kernel time a call from torch.profiler and the host's enqueue time a call
+(the event time `ms` is the larger of the two), for bf16
 `torch._grouped_mm`'s time on the same operands (a yardstick the port never
-calls).
+calls), and the schedule `ops.gmm.gmm_schedule` picks (with its column tile
+and stages where the checkout's schedule has them).
 Each case prints one JSON line with the device time per launch
 (CUDA events) of `rounds` rounds of `reps` launches each, after one untimed
 round, and the bound: the case's matmul FLOPs over the H100's 989 TFLOP/s.
@@ -116,7 +119,11 @@ GMM_CASES = (  # (case, op, tokens, dtype, k, n, transpose_rhs)
     ("sft_input_grad_f32", "gmm", 2048, torch.float32, 768, 2048, True),
     ("tgmm_prefill_bf16", "tgmm", 1481, torch.bfloat16, 2048, 768, False),
     ("tgmm_sft_f32", "tgmm", 2048, torch.float32, 2048, 768, False),
-)
+) + tuple(  # row 9s: rank 0's banks split over 2 and 4 cards (`--vlm_fsdp`), 768 / n columns
+    (f"split{c}_{step}_{proj}", "gmm", tokens, torch.bfloat16,
+     *((2048, 768 // c) if proj == "gate_up" else (768 // c, 2048)), False)
+    for c in (2, 4) for step, tokens in (("prefill", 1481), ("decode", 1))
+    for proj in ("gate_up", "down"))
 EXPERTS, TOP_K = 128, 8
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # FFMA

@@ -72,6 +72,7 @@ from omnivideo_tpu_torch.ops.gmm import (
     gmm,
     gmm_plain,
     gmm_schedule,
+    resident_clusters,
     tgmm,
     tgmm_plain,
 )
@@ -1144,12 +1145,19 @@ def _gmm_ok(out, ref, dtype):
                                          else GMM_F32_TOL)
 
 
+GMM_WIDTHS = [(264, 200)] + [(k, n) for k in (192, 384) for n in (96, 192, 384)]  # (k, n):
+# 264 x 200 neither a multiple of the 64-deep steps nor of any column tile; the others the
+# `--vlm_fsdp` split widths (768 / 8, / 4, / 2) that pick the 192- and 128-column tiles of
+# the many-row kernel and the 64- and 128-column tiles, unsplit k, of the few-row one
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", list(GMM_CASES))
 @pytest.mark.parametrize("transpose_rhs", [False, True])
-def test_gmm_kernel_matches_plain(cuda, dtype, case, transpose_rhs):
+@pytest.mark.parametrize("k,n", GMM_WIDTHS)
+def test_gmm_kernel_matches_plain(cuda, dtype, case, transpose_rhs, k, n):
     m, sizes = GMM_CASES[case]
-    E, k, n = len(sizes), 264, 200  # neither a multiple of the 128-wide tiles
+    E = len(sizes)
     gen = torch.Generator(device=cuda).manual_seed(m)
     lhs = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
     rhs = torch.randn(*((E, n, k) if transpose_rhs else (E, k, n)), generator=gen,
@@ -1375,8 +1383,8 @@ def test_moe_runs_without_a_host_sync(cuda):
 def test_gmm_at_the_split_expert_widths(cuda, shards, m, kind):
     """Row 9 at the widths of Qwen3-VL-30B-A3B's banks split over 2 and 4
     cards (`--vlm_fsdp`): gate/up [128, 2048, 768/n] and down [128, 768/n,
-    2048] (n = 384 or 192: the wide kernel's last 256-column tile partial;
-    k = 384 or 192: 6 or 3 of the split-k kernel's 64-deep steps), at a
+    2048] (n = 384 or 192: the wide kernel's 192-column tiles; k = 384 or
+    192: the split-k kernel's 6 or 3 64-deep steps in one split), at a
     decode step's 8 rows and the prefill's 11,848 (1,481 tokens, top-8),
     the group sizes of a seeded skewed routing."""
     E, D, w = 128, 2048, 768 // shards
@@ -1385,6 +1393,17 @@ def test_gmm_at_the_split_expert_widths(cuda, shards, m, kind):
     sizes = rng.multinomial(m, p).tolist()
     _gmm_matches_plain(cuda, m, sizes, D, w, torch.bfloat16, False, kind, 21 + shards)
     _gmm_matches_plain(cuda, m, sizes, w, D, torch.bfloat16, False, kind, 22 + shards)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 768), (2048, 384), (2048, 192), (2048, 64), (768, 2048)])
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_gmm_split_k_clusters_fit_one_wave(cuda, m, k, n):
+    """The split-k schedule keeps its clusters to what the card holds at once
+    (CLUSTER_FILL's margin against cudaOccupancyMaxActiveClusters)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sched = gmm_schedule(m, k, n, 128, torch.bfloat16, sms)
+    if sched.splits > 1:
+        assert sched.blocks // sched.splits <= resident_clusters(m, sched), sched
 
 
 def test_sharded_moe_launches_row_9_on_the_card(cuda):

@@ -29,16 +29,26 @@ from torch_qwen3vl_tiny import build, scale_err, tiny_config
 from omnivideo_tpu.models.qwen3vl import text_model as jtext
 from omnivideo_tpu_torch.models.qwen3vl import text_model as ptext
 from omnivideo_tpu_torch.ops.gmm import (
+    BLOCK_SMEM,
+    CLUSTER_FILL,
     DECODE_ROWS,
     MAX_SPLITS,
-    SPLIT_BLOCKS_PER_SM,
+    SM_SMEM,
+    SPLIT_LOAD_SLACK,
+    SPLIT_TILES,
+    WIDE_TILES,
     GroupedMatmul,
+    _split_smem,
+    _wide_smem,
+    _wide_traffic,
     gmm,
     gmm_plain,
     gmm_schedule,
+    resident_clusters,
     tgmm,
     tgmm_plain,
 )
+from omnivideo_tpu_torch.parallel.expert_shard import check_split
 
 mb = importlib.import_module("jax.experimental.pallas.ops.tpu.megablox.gmm")
 
@@ -250,32 +260,142 @@ def test_wrappers_check_shapes():
 H100_SMS = 132
 
 
-@pytest.mark.parametrize("m,k,n,E", [(1, 2048, 768, 128), (8, 2048, 768, 128),
-                                     (8, 768, 2048, 128), (64, 2048, 768, 128),
-                                     (8, 264, 200, 10), (3, 72, 40, 4), (8, 128, 64, 1024)])
-def test_gmm_schedule_splits_k_at_few_rows(m, k, n, E):
-    """bf16 at m <= DECODE_ROWS: the split-k kernel, its splits within a
-    cluster's portable size and the k steps, none of them empty, and its
-    blocks within one wave of SPLIT_BLOCKS_PER_SM an SM unless one split
-    alone is more."""
+def _split_option(m, k, n, E, tile, splits):
+    """The split-k schedule at `splits` (made non-empty as gmm_schedule makes
+    them): (k steps the busiest SM streams, a cluster needed, steps a block,
+    blocks, stages), or None where a block takes no two stages (one where P
+    is 1) or the card would not hold its clusters in one wave."""
+    k_steps = -(-k // 64)
+    steps = -(-k_steps // splits)
+    splits = -(-k_steps // steps)
+    blocks = splits * min(E, m) * -(-n // tile)
+    per_sm = -(-blocks // H100_SMS)
+    a_rows = -(-m // 8) * 8
+    share = min(SM_SMEM // min(per_sm, 8) - 1024, BLOCK_SMEM)
+    least = min(2, steps)
+    stages = max((p for p in range(least, steps + 1)
+                  if _split_smem(tile, p, a_rows, splits) <= share), default=least)
+    smem = _split_smem(tile, stages, a_rows, splits)
+    held = min(3, SM_SMEM // (smem + 1024))  # blocks an SM holds
+    if smem > BLOCK_SMEM or (splits > 1 and blocks > CLUSTER_FILL * H100_SMS * held):
+        return None
+    return per_sm * steps, splits > 1, steps, blocks, stages
+
+
+def _check_split_schedule(m, k, n, E):
+    """The split-k schedule's rule (gmm_schedule's docstring): its tile
+    leaves fewer than 64 columns past n; its splits within a cluster's
+    portable size and the k steps, none of them empty; among the split
+    counts that fit and whose clusters the card holds in one wave, its
+    busiest SM within SPLIT_LOAD_SLACK of the lightest, and no such peer
+    needs no cluster where it does, nor has fewer steps a block (or as few
+    in fewer blocks); its stages every step of a block where the block's
+    share of its SM's shared memory holds them, else as many as it holds,
+    at least two."""
     sched = gmm_schedule(m, k, n, E, torch.bfloat16, H100_SMS)
     k_steps = -(-k // 64)
-    tiles = min(E, m) * -(-n // 128)
-    assert sched.kind == "split_k"
+    assert sched.kind == "split_k" and sched.tile_n in SPLIT_TILES
+    assert -n % sched.tile_n < 64
     assert 1 <= sched.splits <= min(MAX_SPLITS, k_steps)
     assert sched.steps * sched.splits >= k_steps > sched.steps * (sched.splits - 1)
+    tiles = min(E, m) * -(-n // sched.tile_n)
     assert sched.blocks == sched.splits * tiles
-    assert sched.blocks <= max(tiles, SPLIT_BLOCKS_PER_SM * H100_SMS)
+    options = [o for s in range(1, min(MAX_SPLITS, k_steps) + 1)
+               if (o := _split_option(m, k, n, E, sched.tile_n, s)) is not None]
+    chosen = _split_option(m, k, n, E, sched.tile_n, sched.splits)
+    lightest = min(o[0] for o in options)
+    assert chosen is not None and chosen[0] <= SPLIT_LOAD_SLACK * lightest
+    assert chosen[4] == sched.stages and min(2, sched.steps) <= sched.stages <= sched.steps
+    for o in options:
+        if o[0] <= SPLIT_LOAD_SLACK * lightest:
+            assert o[1:4] >= chosen[1:4]
+    return sched
+
+
+@pytest.mark.parametrize("m,k,n,E", [(1, 2048, 768, 128), (8, 2048, 768, 128),
+                                     (8, 768, 2048, 128), (64, 2048, 768, 128),
+                                     (64, 768, 2048, 128), (8, 264, 200, 10), (3, 72, 40, 4),
+                                     (8, 128, 64, 1024)])
+def test_gmm_schedule_splits_k_at_few_rows(m, k, n, E):
+    """bf16 at m <= DECODE_ROWS: the split-k kernel under its rule."""
+    _check_split_schedule(m, k, n, E)
 
 
 def test_gmm_schedule_at_the_decode():
     """The Qwen3-VL-30B-A3B decode (8 rows, top-8 of 128 experts) on 132 SMs:
-    gate/up splits its 32 k steps 8 ways, down its 12 three ways; both fill
-    384 of the 396 block slots."""
+    gate/up splits its 32 k steps 6 ways over 288 blocks (clusters of 6,
+    which the card holds at once; 8 ways over 384 blocks would not fit one
+    wave), 4 of each block's 6 steps in flight; down runs its 12 steps
+    unsplit, no cluster, 128 blocks of 12 stages (one an SM)."""
     assert tuple(gmm_schedule(8, 2048, 768, 128, torch.bfloat16, H100_SMS)) == (
-        "split_k", 8, 4, 384)
+        "split_k", 6, 6, 288, 128, 4)
     assert tuple(gmm_schedule(8, 768, 2048, 128, torch.bfloat16, H100_SMS)) == (
-        "split_k", 3, 4, 384)
+        "split_k", 1, 12, 128, 128, 12)
+
+
+def test_gmm_schedule_at_the_prefill():
+    """Qwen3-VL-30B-A3B's prefill (11,848 rows) at 768 columns: gate/up
+    takes 192-column tiles (four stages in flight against the 256-column
+    tile's three), down (n = 2,048) 256-column tiles."""
+    assert tuple(gmm_schedule(11848, 2048, 768, 128, torch.bfloat16, H100_SMS)) == (
+        "wgmma", 0, 0, 0, 192, 4)
+    assert tuple(gmm_schedule(11848, 768, 2048, 128, torch.bfloat16, H100_SMS)) == (
+        "wgmma", 0, 0, 0, 256, 3)
+
+
+def test_resident_clusters_only_for_split_k():
+    """Only the split-k schedule launches clusters; asking for the others'
+    is refused before anything reaches a card."""
+    for m, dtype in ((11848, torch.bfloat16), (8, torch.float32)):
+        with pytest.raises(ValueError, match="no clusters"):
+            resident_clusters(m, gmm_schedule(m, 2048, 768, 128, dtype, H100_SMS))
+
+
+VLM_FSDP_CARDS = (1, 2, 3, 4, 6, 8, 12)  # every n that check_split takes for 768 columns
+
+
+@pytest.mark.parametrize("m", [11848, 8])
+@pytest.mark.parametrize("proj", ["gate_up", "down"])
+@pytest.mark.parametrize("cards", VLM_FSDP_CARDS)
+def test_gmm_schedule_at_the_split_widths(cards, proj, m):
+    """Qwen3-VL-30B-A3B's banks split over `--vlm_fsdp` cards (768 / n
+    columns; gate/up [128, 2048, w], down [128, w, 2048]) at the prefill's
+    11,848 rows and a decode step's 8: the tile computes at most one 64-
+    column box past n (the many-row kernel: of WIDE_TILES with the fewest
+    columns past n, the one with the least L2 traffic a byte in flight,
+    the widest on a tie, as many stages as fit beside the staged outputs);
+    the split-k schedule under its rule."""
+    check_split(768, cards)
+    w = 768 // cards
+    k, n = (2048, w) if proj == "gate_up" else (w, 2048)
+    if m <= DECODE_ROWS:
+        _check_split_schedule(m, k, n, 128)
+        return
+    sched = gmm_schedule(m, k, n, 128, torch.bfloat16, H100_SMS)
+    assert sched.kind == "wgmma" and sched.tile_n in WIDE_TILES
+    assert -n % sched.tile_n <= 64
+    least = [t for t in WIDE_TILES if -n % t == min(-n % u for u in WIDE_TILES)]
+    assert sched.tile_n == min(least, key=lambda t: (_wide_traffic(m, k, n, 128, t), -t))
+    assert _wide_smem(sched.tile_n, sched.stages) <= BLOCK_SMEM
+    assert _wide_smem(sched.tile_n, sched.stages + 1) > BLOCK_SMEM
+
+
+def test_gmm_schedule_at_the_split_widths_picks():
+    """The picks at 2 and 4 cards: the prefill's gate/up at n = 384 and 192
+    takes 192-column tiles (none past n) with 4 stages; down (n = 2048)
+    256-column tiles; the decode's gate/up 8 splits of 4 steps over 192
+    blocks, every step in flight (64-column tiles at n = 192); its down (k =
+    384, 192) one split, no cluster, 128 blocks."""
+    bf = torch.bfloat16
+    assert tuple(gmm_schedule(11848, 2048, 384, 128, bf, H100_SMS)) == (
+        "wgmma", 0, 0, 0, 192, 4)
+    assert tuple(gmm_schedule(11848, 2048, 192, 128, bf, H100_SMS)) == (
+        "wgmma", 0, 0, 0, 192, 4)
+    assert gmm_schedule(11848, 384, 2048, 128, bf, H100_SMS).tile_n == 256
+    assert tuple(gmm_schedule(8, 2048, 384, 128, bf, H100_SMS)) == ("split_k", 8, 4, 192, 128, 4)
+    assert tuple(gmm_schedule(8, 2048, 192, 128, bf, H100_SMS)) == ("split_k", 8, 4, 192, 64, 4)
+    assert tuple(gmm_schedule(8, 384, 2048, 128, bf, H100_SMS)) == ("split_k", 1, 6, 128, 128, 6)
+    assert tuple(gmm_schedule(8, 192, 2048, 128, bf, H100_SMS)) == ("split_k", 1, 3, 128, 128, 3)
 
 
 @pytest.mark.parametrize("m", [DECODE_ROWS + 1, 11848])
